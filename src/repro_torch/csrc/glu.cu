@@ -1,0 +1,279 @@
+// Fused GLU with a PWL epilogue: out = pwl(x @ Wg) * (x @ Wu).
+//
+// Replaces repro/kernels/fused/glu.py:_glu_kernel (the GeGLU gate GEMM of every
+// dense layer, with gelu_tanh as a non-uniform PWL table in its epilogue).
+//
+// x is (M, K), Wg and Wu are (K, N) row-major as the JAX package stores them,
+// out is (M, N); all in T (bf16 or f32), accumulation in f32.
+//
+// What bounds it: at the serving shapes (M = 4 decode, M = 32 prefill,
+// K = 768, N = 3072) the two weight matrices are 9.4 MB of bf16 per call and
+// the products are ~0.3 GFLOP, far below the tensor-core line, so the call is
+// bound by reading the weights once (~2.8 us at 3.35 TB/s).  What the design
+// does about it:
+//   * every weight element is read once per M tile, as 16-byte cp.async
+//     copies into a ring of STAGES shared-memory tiles, so several K tiles are
+//     in flight while one is multiplied;
+//   * small M (decode, short prefill) takes narrow 4 x 16 (M <= 4) or 8 x 16
+//     output tiles: 192 blocks for N = 3072, enough to keep every SM
+//     streaming weights.  Each K tile is split over 4 groups of threads
+//     (8 warps per block, so the FMA chains of one SM hide each other's
+//     latency) and the 4 partial sums meet in shared memory before the
+//     epilogue, in a fixed order;
+//   * large M takes 64 x 64 tiles with a 4 x 4 register tile per thread;
+//   * the gate and up accumulators of an output element live in the same
+//     thread, so the PWL decode and the product happen in registers before
+//     the one store;
+//   * ragged M, N and K edges are masked (zero-filled) in the kernel; nothing
+//     is padded or copied.
+// The products are plain f32 FMAs (no tensor cores yet).
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "pwl_decode.cuh"
+
+namespace {
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store(float v, float* dst) { *dst = v; }
+__device__ __forceinline__ void store(float v, __nv_bfloat16* dst) {
+  *dst = __float2bfloat16_rn(v);
+}
+template <typename T>
+__device__ __forceinline__ T zero();
+template <>
+__device__ __forceinline__ float zero<float>() { return 0.0f; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() { return __float2bfloat16_rn(0.0f); }
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// V = 16 / sizeof(T) elements of a row-major rows x cols matrix at
+// (row, col .. col+V) into shared memory, zero outside the matrix.  vec: cols
+// is a multiple of V and the base is 16-byte aligned, so a vector is either
+// wholly inside (one cp.async) or wholly outside (a zero-filling cp.async).
+template <typename T>
+__device__ __forceinline__ void load_vec(T* dst, const T* __restrict__ base, int row, int col,
+                                         int rows, int cols, bool vec) {
+  constexpr int V = 16 / sizeof(T);
+  if (vec) {
+    const bool in = row < rows && col < cols;
+    cp_async16(dst, in ? base + (size_t)row * cols + col : base, in ? 16 : 0);
+  } else {
+#pragma unroll
+    for (int i = 0; i < V; ++i)
+      dst[i] = (row < rows && col + i < cols) ? base[(size_t)row * cols + col + i] : zero<T>();
+  }
+}
+
+template <typename T, int BM_, int BN_, int BK_, int TM_, int TN_, int STAGES_, int KS_>
+struct Cfg {
+  static constexpr int BM = BM_, BN = BN_, BK = BK_, TM = TM_, TN = TN_, STAGES = STAGES_;
+  static constexpr int KS = KS_;                     // thread groups splitting a K tile
+  static constexpr int V = 16 / sizeof(T);
+  static constexpr int TX = BN / TN;                 // threads across N
+  static constexpr int GROUP = (BM / TM) * TX;       // threads of one K group
+  static constexpr int THREADS = KS * GROUP;
+  static constexpr int KCHUNK = BK / KS;             // depth each group multiplies
+  static constexpr int XS = BK + V;                  // padded x row, 16-byte multiple
+  static constexpr int X_ELEMS = BM * XS;
+  static constexpr int W_ELEMS = BK * BN;
+  static constexpr int STAGE_ELEMS = X_ELEMS + 2 * W_ELEMS;
+  static constexpr size_t SMEM = (size_t)STAGES * STAGE_ELEMS * sizeof(T);
+  static_assert(BK % KS == 0, "K groups must split a tile evenly");
+  static_assert(KS == 1 || 2 * KS * BM * BN * sizeof(float) <= SMEM,
+                "the partial sums must fit in the ring");
+};
+
+template <typename T, class C>
+__global__ void __launch_bounds__(C::THREADS)
+glu_pwl_kernel(const T* __restrict__ x, const T* __restrict__ wg, const T* __restrict__ wu,
+               const float* __restrict__ bp, const float* __restrict__ dmq, int n_bp,
+               T* __restrict__ out, int M, int N, int K, bool vec_x, bool vec_w) {
+  constexpr int BM = C::BM, BN = C::BN, BK = C::BK, TM = C::TM, TN = C::TN;
+  constexpr int V = C::V, TX = C::TX, XS = C::XS, STAGES = C::STAGES, KS = C::KS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const ring = reinterpret_cast<T*>(smem_raw);
+  __shared__ float s_bp[PWL_MAX_BP];
+  __shared__ float s_dmq[2 * (PWL_MAX_BP + 1)];
+
+  const int tid = threadIdx.x;
+  const int kg = tid / C::GROUP;  // K group
+  const int tx = (tid % C::GROUP) % TX;
+  const int ty = (tid % C::GROUP) / TX;
+  const int m0 = blockIdx.y * BM;
+  const int n0 = blockIdx.x * BN;
+  const int nk = (K + BK - 1) / BK;
+
+  pwl_load_table(s_bp, s_dmq, bp, dmq, n_bp);
+
+  auto load_stage = [&](int stage, int k0) {
+    T* xs = ring + stage * C::STAGE_ELEMS;
+    T* gs = xs + C::X_ELEMS;
+    T* us = gs + C::W_ELEMS;
+    for (int e = tid; e < BM * (BK / V); e += C::THREADS) {
+      const int r = e / (BK / V), c = (e % (BK / V)) * V;
+      load_vec<T>(xs + r * XS + c, x, m0 + r, k0 + c, M, K, vec_x);
+    }
+    for (int e = tid; e < BK * (BN / V); e += C::THREADS) {
+      const int r = e / (BN / V), c = (e % (BN / V)) * V;
+      load_vec<T>(gs + r * BN + c, wg, k0 + r, n0 + c, K, N, vec_w);
+      load_vec<T>(us + r * BN + c, wu, k0 + r, n0 + c, K, N, vec_w);
+    }
+  };
+
+  float accg[TM][TN], accu[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) accg[i][j] = accu[i][j] = 0.0f;
+
+  // prologue: STAGES - 1 tiles in flight
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) load_stage(s, s * BK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();  // tile kt has landed
+    __syncthreads();              // ... for every thread; tile kt-1 is consumed
+    const int pf = kt + STAGES - 1;
+    if (pf < nk) load_stage(pf % STAGES, pf * BK);  // refill the slot of tile kt-1
+    cp_async_commit();
+
+    const T* xs = ring + (kt % STAGES) * C::STAGE_ELEMS;
+    const T* gs = xs + C::X_ELEMS;
+    const T* us = gs + C::W_ELEMS;
+#pragma unroll 8
+    for (int kk = kg * C::KCHUNK; kk < (kg + 1) * C::KCHUNK; ++kk) {
+      float a[TM], b[TN], u[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = to_f32(xs[(ty * TM + i) * XS + kk]);
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        b[j] = to_f32(gs[kk * BN + tx + j * TX]);
+        u[j] = to_f32(us[kk * BN + tx + j * TX]);
+      }
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          accg[i][j] = fmaf(a[i], b[j], accg[i][j]);
+          accu[i][j] = fmaf(a[i], u[j], accu[i][j]);
+        }
+    }
+  }
+  cp_async_wait<0>();
+
+  if constexpr (KS > 1) {
+    // the K groups' partial sums meet in the (now idle) ring; each output is
+    // summed in group order 0..KS-1, then decoded and stored by one thread
+    __syncthreads();
+    float* red_g = reinterpret_cast<float*>(smem_raw);
+    float* red_u = red_g + KS * BM * BN;
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int o = kg * BM * BN + (ty * TM + i) * BN + tx + j * TX;
+        red_g[o] = accg[i][j];
+        red_u[o] = accu[i][j];
+      }
+    __syncthreads();
+    for (int o = tid; o < BM * BN; o += C::THREADS) {
+      const int gm = m0 + o / BN, gn = n0 + o % BN;
+      if (gm >= M || gn >= N) continue;
+      float g = 0.0f, u = 0.0f;
+#pragma unroll
+      for (int q = 0; q < KS; ++q) {
+        g += red_g[q * BM * BN + o];
+        u += red_u[q * BM * BN + o];
+      }
+      store(pwl_value_and_slope(g, s_bp, s_dmq, n_bp).x * u, out + (size_t)gm * N + gn);
+    }
+    return;
+  }
+
+  // epilogue: PWL decode on the gate accumulator, times the up accumulator,
+  // one store in T
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int gm = m0 + ty * TM + i;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int gn = n0 + tx + j * TX;
+      if (gn >= N) continue;
+      const float g = pwl_value_and_slope(accg[i][j], s_bp, s_dmq, n_bp).x;
+      store(g * accu[i][j], out + (size_t)gm * N + gn);
+    }
+  }
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+template <typename T, class C>
+int launch(const void* x, const void* wg, const void* wu, const void* bp, const void* dmq,
+           int n_bp, void* out, int M, int N, int K, cudaStream_t stream) {
+  constexpr int V = C::V;
+  const bool vec_x = K % V == 0 && aligned16(x);
+  const bool vec_w = N % V == 0 && aligned16(wg) && aligned16(wu);
+  if ((M + C::BM - 1) / C::BM > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = glu_pwl_kernel<T, C>;
+  if (C::SMEM > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::SMEM));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  dim3 grid((N + C::BN - 1) / C::BN, (M + C::BM - 1) / C::BM);
+  kern<<<grid, C::THREADS, C::SMEM, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(wg), static_cast<const T*>(wu),
+      static_cast<const float*>(bp), static_cast<const float*>(dmq), n_bp,
+      static_cast<T*>(out), M, N, K, vec_x, vec_w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// M <= 4 (a decode step): 4 x 16 output tiles, 4 K groups of 64 threads,
+// 4-deep ring of 64-deep K tiles
+template <typename T>
+using Tiny = Cfg<T, 4, 16, 64, 1, 1, 4, 4>;
+// M <= 64: 8 x 16 output tiles, otherwise as Tiny
+template <typename T>
+using Small = Cfg<T, 8, 16, 64, 2, 1, 4, 4>;
+// large M: 64 x 64 output tiles, 256 threads with 4 x 4 register tiles
+template <typename T>
+using Large = Cfg<T, 64, 64, 32, 4, 4, 3, 1>;
+constexpr int TINY_M = 4, SMALL_M = 64;
+
+template <typename T>
+int dispatch(const void* x, const void* wg, const void* wu, const void* bp, const void* dmq,
+             int n_bp, void* out, int M, int N, int K, cudaStream_t s) {
+  if (M <= TINY_M) return launch<T, Tiny<T>>(x, wg, wu, bp, dmq, n_bp, out, M, N, K, s);
+  if (M <= SMALL_M) return launch<T, Small<T>>(x, wg, wu, bp, dmq, n_bp, out, M, N, K, s);
+  return launch<T, Large<T>>(x, wg, wu, bp, dmq, n_bp, out, M, N, K, s);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch.
+extern "C" int glu_pwl_forward(const void* x, const void* wg, const void* wu, const void* bp,
+                               const void* dmq, int n_bp, void* out, int M, int N, int K,
+                               int dtype, void* stream) {
+  if (n_bp < 1 || n_bp > PWL_MAX_BP || M <= 0 || N <= 0 || K <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch<float>(x, wg, wu, bp, dmq, n_bp, out, M, N, K, s);
+  if (dtype == 1) return dispatch<__nv_bfloat16>(x, wg, wu, bp, dmq, n_bp, out, M, N, K, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

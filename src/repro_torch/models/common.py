@@ -1,0 +1,135 @@
+"""Model config + parameter definitions (torch).
+
+A model is described by a tree (dicts and lists) of ``ParamDef`` leaves with
+the JAX package's shapes and initial distributions.  :func:`init_params`
+materializes it from an explicit ``torch.Generator`` on an explicit device.
+
+Parameters are held the way the model uses them: matrices in ``cfg.dtype``
+(the JAX package keeps f32 masters and casts every matrix to ``cfg.dtype``
+at each use, which gives the same values), norm scales in f32 (the JAX
+package reads them in f32).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                       # dense | moe | ssm | hybrid | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: Optional[int] = None
+    activation: str = "silu"
+    mlp_type: str = "swiglu"          # swiglu | geglu | mlp
+    norm_type: str = "rmsnorm"
+    qkv_bias: bool = False
+    act_impl: str = "exact"           # exact | jnp | kernel | fused (sfu.IMPLS)
+    act_breakpoints: int = 32
+    act_site_specs: tuple = ()        # ((site_key, ApproxSpec), ...) pins
+    pwl_softmax: bool = False         # PWL-exp softmax (paper Sec. V-B)
+    act_table_dtype: str = "f32"
+    act_plan: Any = None              # explicit sfu.ActivationPlan
+    sliding_window: Optional[int] = None
+    global_every: Optional[int] = None
+    rope_theta: float = 10000.0
+    n_experts: int = 0
+    attn_every: Optional[int] = None
+    moe_every: Optional[int] = None
+    is_encoder_decoder: bool = False
+    dtype: torch.dtype = torch.bfloat16
+    tie_embeddings: bool = False
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab padded to a multiple of 256; pad logits are masked."""
+        m = 256
+        return -(-self.vocab_size // m) * m
+
+    @property
+    def layer_kinds(self) -> list[tuple[str, str]]:
+        """Per-layer (mixer, ffn) kinds."""
+        kinds = []
+        for i in range(self.n_layers):
+            if self.attn_every:
+                mixer = "attn" if i % self.attn_every == self.attn_every // 2 else "ssm"
+            elif self.family == "ssm":
+                mixer = "ssm"
+            elif self.global_every:
+                mixer = "attn_global" if (i + 1) % self.global_every == 0 else "attn_local"
+            elif self.sliding_window:
+                mixer = "attn_local"
+            else:
+                mixer = "attn"
+            if self.moe_every:
+                ffn = "moe" if i % self.moe_every == 1 else "dense"
+            elif self.n_experts > 0:
+                ffn = "moe"
+            else:
+                ffn = "dense"
+            kinds.append((mixer, ffn))
+        return kinds
+
+    @property
+    def period(self) -> int:
+        """Smallest repeating period of layer kinds (the stacking unit)."""
+        kinds = self.layer_kinds
+        for p in range(1, len(kinds) + 1):
+            if all(kinds[i] == kinds[i % p] for i in range(len(kinds))):
+                if len(kinds) % p == 0:
+                    return p
+        return len(kinds)
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: tuple[int, ...]
+    init: str = "normal"      # normal | zeros | ones | small_normal
+    matrix: bool = True       # held in cfg.dtype (else f32)
+
+    def materialize(self, gen: torch.Generator, device, dtype) -> torch.Tensor:
+        dt = dtype if self.matrix else torch.float32
+        if self.init == "zeros":
+            return torch.zeros(self.shape, dtype=dt, device=device)
+        if self.init == "ones":
+            return torch.ones(self.shape, dtype=dt, device=device)
+        # the JAX package's fan-in is the second-to-last dim (first dim of a
+        # vector), with a stacked layer axis in front
+        fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[0]
+        scale = 0.02 if self.init == "small_normal" else 1.0 / math.sqrt(fan_in)
+        w = torch.randn(self.shape, generator=gen, device=device, dtype=torch.float32)
+        return (w * scale).to(dt)
+
+
+def _map_defs(fn, defs):
+    if isinstance(defs, ParamDef):
+        return fn(defs)
+    if isinstance(defs, dict):
+        return {k: _map_defs(fn, v) for k, v in defs.items()}
+    return [_map_defs(fn, v) for v in defs]
+
+
+def init_params(defs, seed: int, device, dtype) -> Any:
+    """Materialize a ParamDef tree from a seeded generator on ``device``.
+
+    The distributions are the JAX package's (normal with 1/sqrt(fan_in),
+    0.02 for ``small_normal``, zeros/ones); the numbers differ, since a torch
+    generator is not a JAX key.  Leaves draw in tree order from one
+    generator."""
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return _map_defs(lambda d: d.materialize(gen, dev, dtype), defs)

@@ -1,0 +1,203 @@
+"""Decoder LM over a periodic layer pattern (torch), dense attention stacks.
+
+Counterpart of ``repro/models/transformer.py``.  Parameters keep the JAX
+package's tree: ``{"embed", "final_norm", "layers", "unembed"}`` where
+``layers`` is a list (one entry per period slot) of per-layer dicts stacked
+``(n_periods, ...)``.  The JAX layer ``scan`` is a Python loop over layers
+here; caches are the same stacked trees and are written in place.
+
+API (functions over a params tree):
+  model_defs(cfg)                                   -> ParamDef tree
+  forward(cfg, params, tokens)                      -> logits
+  make_cache / prefill / decode_step                 (dense cache)
+  make_paged_cache / prefill_paged / decode_step_paged   (paged serving)
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import sfu
+
+from . import layers as L
+from .common import ModelConfig, ParamDef
+
+# ---------------------------------------------------------------------------
+# parameter definitions
+
+
+def _stack(defs: dict, n: int) -> dict:
+    return {k: (ParamDef((n,) + v.shape, v.init, v.matrix) if isinstance(v, ParamDef)
+                else _stack(v, n))
+            for k, v in defs.items()}
+
+
+def block_defs(cfg: ModelConfig, mixer: str, ffn: str) -> dict:
+    if mixer != "attn" or ffn != "dense":
+        raise NotImplementedError(
+            f"layer kind ({mixer}, {ffn}) is not ported yet (dense attention only)")
+    if cfg.qkv_bias or cfg.norm_type != "rmsnorm" or cfg.mlp_type not in ("swiglu", "geglu"):
+        raise NotImplementedError(f"config {cfg.name!r} needs layers not ported yet")
+    D, H, Hkv, dh, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.resolved_head_dim, cfg.d_ff)
+    norm = {"scale": ParamDef((D,), init="zeros", matrix=False)}
+    return {
+        "ln1": dict(norm),
+        "ln2": dict(norm),
+        "mixer": {
+            "wq": ParamDef((D, H, dh)),
+            "wk": ParamDef((D, Hkv, dh)),
+            "wv": ParamDef((D, Hkv, dh)),
+            "wo": ParamDef((H, dh, D)),
+        },
+        "ffn": {
+            "w_gate": ParamDef((D, F)),
+            "w_up": ParamDef((D, F)),
+            "w_down": ParamDef((F, D)),
+        },
+    }
+
+
+def model_defs(cfg: ModelConfig) -> dict:
+    kinds = cfg.layer_kinds
+    period = cfg.period
+    n_periods = cfg.n_layers // period
+    defs = {
+        "embed": ParamDef((cfg.padded_vocab, cfg.d_model), init="small_normal"),
+        "final_norm": {"scale": ParamDef((cfg.d_model,), init="zeros", matrix=False)},
+        "layers": [_stack(block_defs(cfg, *kinds[j]), n_periods) for j in range(period)],
+    }
+    if not cfg.tie_embeddings:
+        defs["unembed"] = ParamDef((cfg.d_model, cfg.padded_vocab))
+    return defs
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked (n_periods, ...) tree (views, no copies)."""
+    if torch.is_tensor(tree):
+        return tree[i]
+    return {k: _layer(v, i) for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# blocks / embeddings
+
+
+def block_apply(cfg: ModelConfig, p, h, cache=None, pos=None, plan=None, paged=None):
+    """Pre-norm residual block.  Returns (h, cache)."""
+    plan = plan if plan is not None else sfu.plan_for(cfg)
+    hn = L.apply_norm(cfg, p["ln1"], h)
+    y, cache = L.attention_layer(cfg, p["mixer"], hn, cache=cache, cache_pos=pos,
+                                 plan=plan, paged=paged)
+    h = h + y
+    hn2 = L.apply_norm(cfg, p["ln2"], h)
+    return h + L.mlp(cfg, p["ffn"], hn2, plan=plan), cache
+
+
+def embed_tokens(cfg: ModelConfig, params, tokens):
+    """(B, S) int tokens -> (B, S, D) in cfg.dtype (an index gather; the JAX
+    package's one-hot contraction for short inputs gives the same values)."""
+    return params["embed"][tokens.long()].to(cfg.dtype)
+
+
+def unembed(cfg: ModelConfig, params, h):
+    if cfg.tie_embeddings:
+        logits = torch.einsum("bsd,vd->bsv", h, params["embed"])
+    else:
+        logits = h @ params["unembed"]
+    logits = logits.to(torch.float32)
+    if cfg.padded_vocab != cfg.vocab_size:  # mask pad ids out of the softmax
+        pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
+        logits = logits - pad.to(torch.float32) * 1e9
+    return logits
+
+
+def _run_layers(cfg: ModelConfig, params, h, cache=None, pos=None, paged=None):
+    kinds = cfg.layer_kinds
+    period = cfg.period
+    plan = sfu.plan_for(cfg)
+    for i in range(cfg.n_layers // period):
+        for j in range(period):
+            c = _layer(cache[j], i) if cache is not None else None
+            h, _ = block_apply(cfg, _layer(params["layers"][j], i), h, cache=c,
+                               pos=pos, plan=plan, paged=paged)
+    return h
+
+
+def forward(cfg: ModelConfig, params, tokens):
+    """Teacher-forcing forward -> (B, S, padded_vocab) f32 logits."""
+    h = embed_tokens(cfg, params, tokens)
+    h = _run_layers(cfg, params, h)
+    return unembed(cfg, params, L.apply_norm(cfg, params["final_norm"], h))
+
+
+# ---------------------------------------------------------------------------
+# dense cache
+
+
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, device):
+    """Dense KV cache: per period slot {k, v} of (n_periods, B, T, Hkv, dh)."""
+    n_periods = cfg.n_layers // cfg.period
+    shape = (n_periods, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+            for _ in range(cfg.period)]
+
+
+def prefill(cfg: ModelConfig, params, tokens, cache):
+    """Prompt through the model, filling ``cache`` in place.  Returns the
+    last-position logits (B, 1, V)."""
+    h = embed_tokens(cfg, params, tokens)
+    h = _run_layers(cfg, params, h, cache=cache, pos=0)
+    return unembed(cfg, params, L.apply_norm(cfg, params["final_norm"], h[:, -1:]))
+
+
+def decode_step(cfg: ModelConfig, params, tokens, cache, pos: int):
+    """One-token decode at absolute position ``pos``.  tokens: (B, 1)."""
+    h = embed_tokens(cfg, params, tokens)
+    h = _run_layers(cfg, params, h, cache=cache, pos=pos)
+    return unembed(cfg, params, L.apply_norm(cfg, params["final_norm"], h))
+
+
+# ---------------------------------------------------------------------------
+# paged serving
+
+
+def make_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, device):
+    """Per-layer paged KV pools: per period slot {k_pages, v_pages} of
+    (n_periods, Hkv, num_pages, page_size, dh), shared across requests
+    through a page table.  Global-attention stacks only."""
+    from repro_torch.serving.resilience import UnsupportedCacheError
+
+    for mixer, _ in cfg.layer_kinds:
+        if mixer != "attn":
+            raise UnsupportedCacheError(
+                f"paged serving supports global-attention mixers only, got "
+                f"{mixer!r} in layer_kinds")
+    if num_pages < 2:
+        raise ValueError("num_pages must be >= 2 (page 0 is the sentinel)")
+    n_periods = cfg.n_layers // cfg.period
+    shape = (n_periods, cfg.n_kv_heads, num_pages, page_size, cfg.resolved_head_dim)
+    return [{"k_pages": torch.zeros(shape, dtype=cfg.dtype, device=device),
+             "v_pages": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+            for _ in range(cfg.period)]
+
+
+def prefill_paged(cfg: ModelConfig, params, tokens, cache, page_table, lengths):
+    """Prompt prefill into a paged cache (written in place).  tokens: (B, S)
+    with S a multiple of the page size; rows past ``lengths`` are pads.
+    Returns the logits at position lengths-1, (B, 1, V)."""
+    h = embed_tokens(cfg, params, tokens)
+    h = _run_layers(cfg, params, h, cache=cache, pos=0,
+                    paged={"page_table": page_table})
+    logits = unembed(cfg, params, L.apply_norm(cfg, params["final_norm"], h))
+    idx = torch.clamp(lengths.long() - 1, 0, logits.shape[1] - 1)
+    return logits[torch.arange(logits.shape[0], device=logits.device), idx][:, None]
+
+
+def decode_step_paged(cfg: ModelConfig, params, tokens, cache, page_table, kv_len):
+    """One-token decode over the paged cache.  tokens: (B, 1); kv_len: (B,)
+    per-request depths (the new token's position).  Returns (B, 1, V)."""
+    h = embed_tokens(cfg, params, tokens)
+    h = _run_layers(cfg, params, h, cache=cache, pos=kv_len,
+                    paged={"page_table": page_table, "kv_len": kv_len})
+    return unembed(cfg, params, L.apply_norm(cfg, params["final_norm"], h))

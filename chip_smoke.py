@@ -100,15 +100,20 @@ def build_phase():
 
 
 def glu_phase(torch):
-    """fused_glu kernel vs its plain version at K=768, N=3072, M in
-    {4, 32, 512}, bf16 (1e-2) and f32 with TF32 off (1e-4)."""
+    """The fused_glu wrapper on CUDA tensors (its kernel) vs its plain
+    version at K=768, N=3072, M in {4, 32, 512}, bf16 (1e-2) and f32 with
+    TF32 off (1e-4)."""
     from repro_torch import sfu
-    from repro_torch.kernels.fused import glu as G
+    from repro_torch.kernels.fused import fused_glu
+    from repro_torch.kernels.fused.epilogue import plan_and_operands
+    from repro_torch.kernels.fused.glu import fused_glu_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     table = sfu.get_store().get(fn="gelu_tanh", n_breakpoints=32)
+    plan, tables = plan_and_operands(table)
+    tables = tuple(t.to(dev) for t in tables)
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {}
     # a ragged shape first: masking of every edge (M, N and K not multiples)
@@ -116,9 +121,8 @@ def glu_phase(torch):
         x = torch.randn(37, 65, generator=gen, device=dev).to(dtype)
         wg = (torch.randn(65, 130, generator=gen, device=dev) * 0.2).to(dtype)
         wu = (torch.randn(65, 130, generator=gen, device=dev) * 0.2).to(dtype)
-        plan, tables = G._operands(table, None, dev)
-        got = G._launch(x, wg, wu, plan, tables)
-        want = G.fused_glu_plain(x, wg, wu, plan, tables)
+        got = fused_glu(x, wg, wu, table=table)
+        want = fused_glu_plain(x, wg, wu, plan, tables)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         tol = 1e-4 if dtype == torch.float32 else 1e-2
@@ -134,19 +138,20 @@ def glu_phase(torch):
         wus = [(torch.randn(K_DIM, N_DIM, generator=gen, device=dev) * scale).to(dtype)
                for _ in range(n_copies)]
         wcat = [torch.cat([a, b], dim=1) for a, b in zip(wgs, wus)]
-        plan, tables = G._operands(table, None, dev)
         for M in (4, 32, 512):
             x = torch.randn(M, K_DIM, generator=gen, device=dev).to(dtype)
-            got = G._launch(x, wgs[0], wus[0], plan, tables)
-            want = G.fused_glu_plain(x, wgs[0], wus[0], plan, tables)
+            n0 = fused_glu.launches
+            got = fused_glu(x, wgs[0], wus[0], table=table)
+            check(fused_glu.launches == n0 + 1, f"fused_glu M={M} {dtype}: kernel not launched")
+            want = fused_glu_plain(x, wgs[0], wus[0], plan, tables)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             check(bool(torch.isfinite(got).all()), f"fused_glu M={M} {dtype}: non-finite")
             check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
                   f"fused_glu M={M} {dtype}: max err {err} > {tol}")
-            k_ms = time_ms(torch, lambda i: G._launch(x, wgs[i % n_copies], wus[i % n_copies],
-                                                      plan, tables))
-            p_ms = time_ms(torch, lambda i: G.fused_glu_plain(
+            k_ms = time_ms(torch, lambda i: fused_glu(x, wgs[i % n_copies], wus[i % n_copies],
+                                                      table=table))
+            p_ms = time_ms(torch, lambda i: fused_glu_plain(
                 x, wgs[i % n_copies], wus[i % n_copies], plan, tables))
             l_ms = time_ms(torch, lambda i: torch.matmul(x, wcat[i % n_copies]))
             esize = x.element_size()

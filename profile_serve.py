@@ -1,9 +1,10 @@
-"""Where a serving session's time goes, on the GPU.
+#!/usr/bin/env python3
+"""Where a serving session of the torch port's time goes, on the GPU.
 
-    python -m repro_torch.launch.profile [serve arguments]
+    python3 profile_serve.py [serve arguments]
 
-Runs a warm-up session of :mod:`repro_torch.launch.serve` (the same
-arguments), the same session again for its wall time, then once more under
+A helper beside ``chip_smoke.py``, not part of the package.  Runs a warm-up
+session of :mod:`repro_torch.launch.serve` (the same arguments), the same session again for its wall time, then once more under
 ``torch.profiler`` with CPU and CUDA activity, and prints:
 
 * the kernels' summed device time against the session's wall time without
@@ -17,12 +18,15 @@ It needs a CUDA GPU.
 """
 from __future__ import annotations
 
+import pathlib
 import sys
 import time
 
 import torch
 
-from . import serve
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+
+from repro_torch.launch import serve  # noqa: E402
 
 TOP = 15  # rows per table
 
@@ -44,7 +48,7 @@ def _device_us(evt) -> float:
 def main(argv=None) -> int:
     args = serve.build_parser().parse_args(argv)
     if args.mode != "paged" or args.device != "cuda":
-        raise SystemExit("repro_torch.launch.profile profiles the paged session on cuda")
+        raise SystemExit("profile_serve.py profiles the paged session on cuda")
     serve.run(args)  # warm-up: kernel builds, cuBLAS handles, allocator
     plain_wall = serve.run(args)["seconds"]  # the same session, no profiler
     torch.cuda.synchronize()

@@ -12,8 +12,11 @@
 //   granularity and is not carried over.
 //
 // Inactive slots and pad positions carry page 0, the sentinel: several threads
-// may race on it, and it is never read as valid.  A page id outside [0, P) is
-// skipped rather than written out of bounds.
+// may race on it, and it is never read as valid.  A target outside the pools
+// (a page id outside [0, P), or an append past the table's last column) is
+// skipped rather than written out of bounds; a kernel cannot raise, so the
+// host refuses such a table before the launch (serving/kv_cache.py
+// check_targets, called by the engine on its host mirrors every step).
 //
 // What bounds them: a 32-token prefill moves ~98 KB per layer, a decode step
 // ~12 KB per layer, so both are bound by launch latency, not by bytes.  The
@@ -62,9 +65,9 @@ append_kernel(const E* __restrict__ kn, const E* __restrict__ vn, E* __restrict_
     const int h = r % Hkv;
     const int b = r / Hkv;
     const int len = kv_len[b];
-    const int col = len / ps;
-    const int page = (len >= 0 && col < pt_cols) ? page_table[(size_t)b * pt_cols + col] : 0;
-    if (len < 0 || page < 0 || page >= P) continue;
+    if (len < 0 || len / ps >= pt_cols) continue;
+    const int page = page_table[(size_t)b * pt_cols + len / ps];
+    if (page < 0 || page >= P) continue;
     const size_t dst = (((size_t)h * P + page) * ps + len % ps) * dh + d;
     kp[dst] = kn[idx];
     vp[dst] = vn[idx];

@@ -5,7 +5,8 @@ dense decoder runs.  Every nonlinearity resolves through the compiled
 ``sfu.ActivationPlan``; an ``mlp`` site planned ``impl="fused"`` runs the
 fused GLU kernel (``kernels/fused/glu.py``).  Attention uses exact ``exp``
 unless the plan has an ``attn.softmax:exp`` site, which is then evaluated
-elementwise (the fused PWL-exp attention kernels are not ported yet).
+elementwise; planned ``impl="fused"`` it raises off the CPU (the fused
+PWL-exp attention kernels are not ported yet).
 
 Masking follows the JAX package: masked scores are filled with ``-1e30``
 before the row max, masked probabilities are zeroed, and the row sum is
@@ -71,16 +72,23 @@ def _softmax_safe_exp(raw: Callable) -> Callable:
     return pwl_exp
 
 
-def resolve_exp(cfg: ModelConfig, plan=None) -> Callable:
-    """Elementwise exp for attention softmax: exact, or the plan's PWL exp
-    (a fused-planned softmax site runs elementwise and warns once: the fused
-    PWL-exp attention kernels are not ported yet)."""
+def resolve_exp(cfg: ModelConfig, plan=None, device=None) -> Callable:
+    """Elementwise exp for attention softmax: exact, or the plan's PWL exp.
+
+    A softmax site planned ``impl="fused"`` needs the fused PWL-exp attention
+    kernels, which are not ported yet: on the CPU it runs elementwise (their
+    plain version) and warns once; on any other device it raises."""
     plan = plan if plan is not None else sfu.plan_for(cfg)
     key = sfu.site_key(sfu.SITE_SOFTMAX, "exp")
     spec = plan.get(key)
     if spec is None or spec.is_exact:
         return torch.exp
     if spec.impl == "fused":
+        if device is not None and torch.device(device).type != "cpu":
+            raise NotImplementedError(
+                f"site '{key}' is planned impl='fused', but the fused PWL-exp attention "
+                f"kernels are not ported to {torch.device(device).type} yet (see ROADMAP); "
+                "plan the site impl='jnp' or 'exact', or run on the CPU")
         sfu.warn_fused_fallback(key, "the fused PWL-exp attention kernels are not ported yet")
     return _softmax_safe_exp(sfu.resolve_spec(spec))
 
@@ -200,7 +208,7 @@ def attention_layer(cfg: ModelConfig, params, x, *, cache=None, cache_pos=None,
     ``page_table`` (and ``kv_len`` when decoding)."""
     B, S, D = x.shape
     plan = plan if plan is not None else sfu.plan_for(cfg)
-    exp_fn = resolve_exp(cfg, plan)
+    exp_fn = resolve_exp(cfg, plan, x.device)
 
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"])

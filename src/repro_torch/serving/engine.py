@@ -22,6 +22,8 @@ overdue work; a step that raises a retryable error is retried with bounded
 backoff, and a step that keeps failing finishes the live work as
 ``"preempted_unrecoverable"``.  The page writes are in place, so a retried
 step writes the same rows again (the same token's K/V at the same slot).
+Before each step the host mirrors go through ``kv_cache.check_targets``, so
+a write outside the pools raises here rather than being skipped on the card.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .kv_cache import check_targets
 from .resilience import (
     RETRYABLE_EXCEPTIONS,
     PagePoolExhausted,
@@ -72,6 +75,7 @@ class PagedServingEngine:
         if num_pages is None:
             # worst case: every slot at max_context, plus the sentinel
             num_pages = max_slots * self.max_cols + 1
+        self.num_pages = num_pages
         self.cache = model.make_paged_cache(num_pages, page_size)
         self.sched = ContinuousBatchingScheduler(
             max_slots, page_size, num_pages, policy=policy,
@@ -135,6 +139,7 @@ class PagedServingEngine:
         self.kv_len[slot] = n
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :n] = toks_list
+        check_targets(row[None, :npg], self.num_pages, self.page_size)
         args = (self._t(toks), self.cache, self._t(row[None, :npg]),
                 self._t(np.asarray([n], np.int32)))
         logits = self._device_call(self.model.prefill_paged, args, "prefill")
@@ -191,6 +196,7 @@ class PagedServingEngine:
             return []
         width = max(len(self.sched.slot(i).pages) for i in active)
         n_cols = min(_next_pow2(width), self.max_cols)
+        check_targets(self.page_table[:, :n_cols], self.num_pages, self.page_size, self.kv_len)
         args = (self._t(self._cur[:, None]), self.cache,
                 self._t(self.page_table[:, :n_cols]), self._t(self.kv_len))
         try:

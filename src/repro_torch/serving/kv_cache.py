@@ -24,12 +24,20 @@ H100 (a 32-token prefill moves ~98 KB per layer, a decode step ~12 KB per
 layer), so each is one launch for K and V together that reads the page index
 on the device.  A CPU tensor takes the plain version (index assignment); a
 CUDA tensor launches the kernel or raises.
+
+A write target outside the pools (a page id outside ``[0, P)``, or an
+append past the table's last column) is refused by :func:`check_targets`
+on host arrays: the CPU wrappers check their tensors, and the engine checks
+its host mirrors before every step, so a bad table raises on either device.
+The kernels read the table on the device and cannot raise; they skip such a
+write rather than write out of bounds.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 
+import numpy as np
 import torch
 
 from .resilience import PagePoolExhausted
@@ -73,6 +81,21 @@ class PageAllocator:
             if p == SENTINEL_PAGE:
                 raise ValueError("attempt to free the sentinel page")
             self._free.append(p)
+
+
+def check_targets(page_table, num_pages: int, page_size: int, kv_len=None) -> None:
+    """Raise ValueError unless every page id of ``page_table`` (B, n_cols)
+    lies in ``[0, num_pages)`` and, given ``kv_len`` (B,), every append
+    target ``kv_len // page_size`` is a column of the table.  Takes host
+    arrays (numpy or CPU tensors)."""
+    pt = np.asarray(page_table)
+    if pt.size and (pt.min() < 0 or pt.max() >= num_pages):
+        raise ValueError(f"page table holds page ids outside [0, {num_pages})")
+    if kv_len is not None:
+        lens, limit = np.asarray(kv_len), pt.shape[1] * page_size
+        if lens.size and (lens.min() < 0 or lens.max() >= limit):
+            raise ValueError(f"kv_len outside [0, {limit}): the append target lies "
+                             "past the page table")
 
 
 def _check_pools(k_pages, v_pages, k_new, v_new, page_table):
@@ -130,6 +153,7 @@ def write_prompt_pages_(k_pages, v_pages, k_new, v_new, page_table) -> None:
     if page_table.shape[1] < S // ps:
         raise ValueError("page table too narrow for this prompt")
     if k_pages.device.type == "cpu":
+        check_targets(page_table[:, :S // ps], P, ps)
         write_prompt_pages_plain(k_pages, v_pages, k_new, v_new, page_table)
         return
     if k_pages.device.type != "cuda":
@@ -176,6 +200,7 @@ def append_kv_(k_pages, v_pages, k_new, v_new, page_table, kv_len) -> None:
     if k_new.shape[1] != 1 or kv_len.shape != (B,):
         raise ValueError("append_kv_ takes one token per request and (B,) kv_len")
     if k_pages.device.type == "cpu":
+        check_targets(page_table, P, ps, kv_len)
         append_kv_plain(k_pages, v_pages, k_new, v_new, page_table, kv_len)
         return
     if k_pages.device.type != "cuda":

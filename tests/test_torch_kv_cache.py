@@ -147,3 +147,31 @@ def test_writes_refuse_other_devices():
                        torch.empty((1, 1, HKV, DH), device="meta"),
                        torch.empty((1, 1), dtype=torch.int32, device="meta"),
                        torch.empty((1,), dtype=torch.int32, device="meta"))
+
+
+@pytest.mark.parametrize("case", ["past_the_table", "page_out_of_pool", "negative_len"])
+def test_append_outside_the_pools_raises(case):
+    ps, P = 4, 6
+    table = torch.tensor([[3, 1], [2, 0]], dtype=torch.int32)
+    kv_len = torch.tensor([5, 0], dtype=torch.int32)
+    if case == "past_the_table":
+        kv_len[0] = 2 * ps  # column 2 of a 2-column table
+    elif case == "page_out_of_pool":
+        table[1, 1] = P
+    else:
+        kv_len[1] = -1
+    k = torch.zeros((HKV, P, ps, DH))
+    v = torch.zeros_like(k)
+    kn = torch.randn(2, 1, HKV, DH)
+    with pytest.raises(ValueError, match="outside"):
+        tkv.append_kv_(k, v, kn, kn, table, kv_len)
+    assert not k.any() and not v.any()
+
+
+def test_prompt_write_to_a_page_outside_the_pool_raises():
+    ps, P = 4, 6
+    k = torch.zeros((HKV, P, ps, DH))
+    kn = torch.randn(1, 2 * ps, HKV, DH)
+    with pytest.raises(ValueError, match="outside"):
+        tkv.write_prompt_pages_(k, k.clone(), kn, kn, torch.tensor([[3, -2]], dtype=torch.int32))
+    assert not k.any()

@@ -16,6 +16,7 @@ import repro  # noqa: F401
 from repro.configs import get_reduced_config
 from repro.models import Model as JModel
 from repro.models import layers as jlayers
+from repro_torch import sfu
 from repro_torch.configs import get_reduced_config as t_get_reduced_config
 from repro_torch.launch.serve import generate
 from repro_torch.models import Model, layers, params_from_numpy
@@ -99,6 +100,27 @@ def test_flash_attention_masks_match_jax(causal):
                                  kv_valid_len=torch.from_numpy(valid), q_chunk=4)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     assert not got[2].any()  # a row with no valid key gives 0
+
+
+def test_fused_softmax_plan_runs_elementwise_on_the_cpu_only():
+    """The fused PWL-exp attention kernels are not ported: a plan with the
+    softmax site fused runs their plain version on the CPU (and warns) and
+    raises on any other device instead of giving way to it there."""
+    cfg = t_get_reduced_config("repro-100m", act_impl="fused", pwl_softmax=True,
+                               dtype=torch.float32)
+    D, H, Hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    dh = D // H
+    g = torch.Generator().manual_seed(0)
+    shapes = {"wq": (D, H, dh), "wk": (D, Hkv, dh), "wv": (D, Hkv, dh), "wo": (H, dh, D)}
+    params = {k: 0.1 * torch.randn(s, generator=g) for k, s in shapes.items()}
+    x = torch.randn(1, 5, D, generator=g)
+    sfu.reset_fused_fallback_warnings()
+    with pytest.warns(UserWarning, match="attn.softmax:exp"):
+        y, _ = layers.attention_layer(cfg, params, x)
+    assert torch.isfinite(y).all()
+    meta = {k: w.to("meta") for k, w in params.items()}
+    with pytest.raises(NotImplementedError, match="not ported to meta"):
+        layers.attention_layer(cfg, meta, x.to("meta"))
 
 
 def _dense_greedy(model, params, prompt, n_new):
@@ -192,3 +214,20 @@ def test_decode_step_failing_past_its_retries_ends_the_work(pair):
     assert {r.finish_reason for r in res} == {"preempted_unrecoverable"}
     kinds = [i["kind"] for i in eng.health_summary()["incidents"]]
     assert "step_failed" in kinds and eng.sched.allocator.num_free == eng.sched.allocator.num_pages - 1
+
+
+def test_engine_refuses_an_append_past_the_page_table(pair):
+    """The kernels cannot raise on a bad target, so the engine checks its host
+    mirrors before every step."""
+    _, _, tmodel, tparams = pair
+    eng = PagedServingEngine(tmodel, tparams, max_slots=1, page_size=16, max_context=32)
+    grow = eng._grow_with_preemption
+
+    def corrupt(active):
+        live = grow(active)
+        eng.kv_len[live] = eng.max_cols * eng.page_size
+        return live
+
+    eng._grow_with_preemption = corrupt
+    with pytest.raises(ValueError, match="past the page table"):
+        eng.run([GenRequest("a", [3, 4, 5], 4)])

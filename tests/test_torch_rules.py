@@ -1,13 +1,15 @@
 """Rules of the torch port.
 
-* No module under ``src/repro_torch/`` and not ``chip_smoke.py`` imports
-  ``jax`` or the JAX package ``repro`` (an AST scan of every import).
+* No module under ``src/repro_torch/``, and neither ``chip_smoke.py`` nor
+  ``profile_serve.py``, imports ``jax`` or the JAX package ``repro`` (an AST
+  scan of every import).
 * ``repro_torch.launch.serve`` runs on ``cuda`` by default and raises on a
   host without a GPU; it never moves to the CPU by itself.  With
   ``--device cpu`` it serves the reduced config and returns 0.
 * Each kernel wrapper carries a plain-int launch counter.
 """
 import ast
+import importlib.util
 import pathlib
 
 import pytest
@@ -20,9 +22,9 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 def _port_files():
     files = sorted(PORT.rglob("*.py"))
-    smoke = ROOT / "chip_smoke.py"
-    if smoke.exists():
-        files.append(smoke)
+    for script in ("chip_smoke.py", "profile_serve.py"):
+        if (ROOT / script).exists():
+            files.append(ROOT / script)
     return files
 
 
@@ -98,7 +100,8 @@ def test_kernel_wrappers_carry_launch_counters():
 
 
 def test_profile_refuses_the_cpu():
-    from repro_torch.launch import profile
-
+    spec = importlib.util.spec_from_file_location("profile_serve", ROOT / "profile_serve.py")
+    profile = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(profile)
     with pytest.raises(SystemExit, match="on cuda"):
         profile.main(["--device", "cpu", "--reduced"])

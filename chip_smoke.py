@@ -3,16 +3,20 @@
 
     python3 chip_smoke.py
 
-1. builds every CUDA kernel of the serving path from ``src/repro_torch/csrc``
+1. builds every CUDA kernel of the serving paths from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, all started together);
 2. holds each kernel against its plain PyTorch version on the card at the
-   shapes the serving path gives it, and times kernel, plain version and a
+   shapes the serving paths give it, and times kernel, plain version and a
    PyTorch yardstick call the port never makes;
 3. serves full-width repro-100m through ``repro_torch.launch.serve`` on
-   ``cuda`` (the defaults, then a larger session) and checks from the launch
-   counters that every GLU, prompt write and append went through the kernels;
-4. checks the port against its plain path on a small f32 input (logits, and
-   paged against dense greedy tokens).
+   ``cuda``: under the default plan (the defaults, then a larger session),
+   and under a dumped plan with the ``attn.softmax:exp`` site fused (the
+   defaults, a 4096-token prompt bucket, and the dense loop), and checks from
+   the launch counters, reset before and read after each session, that every
+   GLU, page write, softmax, paged decode and flash forward of that session
+   went through its kernel;
+4. checks the port against its plain path on a small f32 input under both
+   plans (logits, and paged against dense greedy tokens).
 
 Every failed check exits non-zero.  The last two lines of standard output
 are the kernels' JSON line and ``{"ok": true, "device": {...}}``; the card's
@@ -26,6 +30,7 @@ import math
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -36,6 +41,8 @@ PEAK_BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 PEAK_F32_FLOP_PER_S = 67e12    # H100 SXM f32 outside the tensor cores
 K_DIM, N_DIM = 768, 3072       # repro-100m d_model, d_ff
 HKV, DH, PS = 12, 64, 16       # repro-100m KV heads, head dim; serve page size
+N_LAYERS = 12                  # repro-100m layers
+EXP_BP = 32                    # breakpoints of the fused-softmax plan's exp table
 
 
 class SmokeFailure(Exception):
@@ -267,71 +274,374 @@ def kv_phase(torch):
     return out
 
 
+def _exp_table(torch):
+    from repro_torch import sfu
+    from repro_torch.kernels.fused.epilogue import plan_and_operands
+
+    table = sfu.get_store().get(fn="exp", n_breakpoints=EXP_BP)
+    plan, tables = plan_and_operands(table)
+    return table, plan, tuple(t.cuda() for t in tables)
+
+
+def _compare(torch, got, want, tol, what) -> float:
+    err = (got.float() - want.float()).abs().max().item()
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+          f"{what}: max err {err} > {tol}")
+    return err
+
+
+def _compare_probs(torch, got, want, live, tol, what) -> float:
+    """Softmax rows on the scale their values have: got * N against
+    want * N at ``tol`` (N the row width, so an entry of a uniform row is 1
+    and a probability of ~1/N is held to ~tol relative); every entry outside
+    ``live`` ((R, N) bool) exactly 0, and every row with a live entry summing
+    to 1 at ``tol`` (summed in f64).  Returns the unscaled max abs error."""
+    N = got.shape[-1]
+    g, w = got.float().reshape(-1, N), want.float().reshape(-1, N)
+    _compare(torch, g * N, w * N, tol, f"{what} (scaled by N={N})")
+    check(not bool(g[~live].any()), f"{what}: a masked entry is nonzero")
+    live_rows = live.any(dim=-1)
+    sums = g.double().sum(dim=-1)[live_rows]
+    dev = (sums - 1.0).abs().max().item() if sums.numel() else 0.0
+    check(dev <= tol, f"{what}: a live row sums to 1 +- {dev} > {tol}")
+    return (g - w).abs().max().item()
+
+
+def _bound(nbytes: float, mma_flops: float) -> dict:
+    """The least time for the work: bytes over HBM rate against the products'
+    FLOPs over the bf16 tensor-core rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = mma_flops / PEAK_BF16_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _decode_ms(n_scores: float) -> float:
+    """CUDA-core time of the linear delta decode alone, ~3 f32 operations per
+    breakpoint per score: the work a later decode design has to beat."""
+    return n_scores * 3 * EXP_BP / PEAK_F32_FLOP_PER_S * 1e3
+
+
+def softmax_phase(torch):
+    """fused_pwl_softmax on CUDA tensors (its kernel) vs its plain version,
+    each row held on the scale of its values (``_compare_probs``): f32 scores
+    at 1e-5; bf16 scores, whose bf16 output checks the output cast, at 1e-2
+    against the plain version's f32 result on the same scores."""
+    from repro_torch.kernels.fused import fused_pwl_softmax
+    from repro_torch.kernels.fused.softmax import fused_pwl_softmax_plain, static_mask
+
+    dev = torch.device("cuda")
+    table, plan, tables = _exp_table(torch)
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def prefix_mask(lens, width):
+        return (torch.arange(width, device=dev)[None, :]
+                < torch.tensor(lens, device=dev)[:, None])
+
+    cases = [  # (name, score shape, kwargs, timed)
+        ("prefill B=1 12x32 x 32 causal", (1, 1, HKV, 32, 32), {"causal": True}, True),
+        ("prefill B=1 12x2048 x 2048 causal", (1, 1, HKV, 2048, 2048), {"causal": True}, True),
+        ("dense decode 48 x 48 mask", (4, HKV, 1, 48),
+         {"mask": prefix_mask([48, 33, 1, 0], 48)[:, None, None, :]}, False),
+        ("ragged 12x300 x 1500 window 128", (1, 1, HKV, 300, 1500), {"window": 128}, False),
+        ("ragged 12x33 x 777 causal window 100", (1, 1, HKV, 33, 777),
+         {"causal": True, "window": 100}, False),
+        ("48 x 32768 mask", (4, HKV, 1, 32768),
+         {"mask": prefix_mask([32768, 20000, 5, 0], 32768)[:, None, None, :]}, True),
+    ]
+    rows = {}
+    for name, shape, kw, timed in cases:
+        x = torch.randn(shape, generator=gen, device=dev) * 3.0
+        N = shape[-1]
+        x2 = x.reshape(-1, N)
+        if "mask" in kw:
+            mask2 = torch.broadcast_to(kw["mask"], shape).reshape(-1, N).to(torch.float32)
+        else:
+            mask2 = static_mask(x2.shape[0], N, shape[-2], kw.get("causal", False),
+                                kw.get("window"), device=dev)
+        n0 = fused_pwl_softmax.launches
+        got = fused_pwl_softmax(x, table=table, **kw)
+        check(fused_pwl_softmax.launches == n0 + 1, f"softmax {name}: kernel not launched")
+        want = fused_pwl_softmax_plain(x2, mask2, plan, tables).reshape(shape)
+        torch.cuda.synchronize()
+        live = mask2 > 0
+        err = _compare_probs(torch, got, want, live, 1e-5, f"softmax {name} f32")
+        xb = x.to(torch.bfloat16)
+        got_b = fused_pwl_softmax(xb, table=table, **kw)
+        check(got_b.dtype == torch.bfloat16, f"softmax {name}: bf16 scores gave {got_b.dtype}")
+        want_b = fused_pwl_softmax_plain(xb.reshape(-1, N), mask2, plan, tables)
+        err_b = _compare_probs(torch, got_b, want_b, live, 1e-2, f"softmax {name} bf16")
+        line = f"[smoke] fused_pwl_softmax {name}: max_abs_err f32 {err:.3g}, bf16 {err_b:.3g}"
+        if timed:
+            k_ms = time_ms(torch, lambda i: fused_pwl_softmax(x, table=table, **kw))
+            p_ms = time_ms(torch, lambda i: fused_pwl_softmax_plain(x2, mask2, plan, tables),
+                           reps=5, iters=4)
+            l_ms = time_ms(torch, lambda i: torch.softmax(x, dim=-1))
+            n = x.numel()
+            nbytes = n * 4 * (3 if "mask" in kw else 2)
+            rows[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "max_abs_err": err,
+                          **_bound(nbytes, 0.0), "decode_ms": _decode_ms(n)}
+            line += (f", kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, torch.softmax "
+                     f"{l_ms * 1e3:.2f} us, bound {rows[name]['bound_ms'] * 1e3:.2f} us "
+                     f"(bytes), CUDA-core decode {rows[name]['decode_ms'] * 1e3:.2f} us")
+        print(line)
+    return rows
+
+
+def decode_phase(torch):
+    """paged_flash_decode on CUDA tensors (split + merge kernels) vs its plain
+    version on fragmented page tables: bf16 q and pools (bf16 output) at
+    1e-2, f32 at 1e-5."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.fused import paged_flash_decode
+    from repro_torch.kernels.fused.decoding import paged_flash_decode_plain
+    from repro_torch.serving import kv_cache as KV
+
+    dev = torch.device("cuda")
+    table, plan, tables = _exp_table(torch)
+    gen = torch.Generator(device=dev).manual_seed(4)
+
+    def make(kv_len, n_cols, hkv, G, P, dtype):
+        rows = _fragmented_table(len(kv_len), n_cols, P)
+        tab = torch.zeros((len(kv_len), n_cols), dtype=torch.int32)
+        for b, r in enumerate(rows):
+            tab[b, :len(r)] = torch.tensor(r)
+        q = torch.randn(len(kv_len), 1, hkv * G, DH, generator=gen, device=dev).to(dtype)
+        kp = torch.randn(hkv, P, PS, DH, generator=gen, device=dev).to(dtype)
+        vp = torch.randn(hkv, P, PS, DH, generator=gen, device=dev).to(dtype)
+        lens = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+        return q, kp, vp, tab.to(dev), lens
+
+    cases = [  # (name, kv_len, n_cols, Hkv, G, pages, pages_per_split, timed)
+        ("B=4 kv_len {19,32,15,0}", [19, 32, 15, 0], 4, HKV, 1, 17, None, True),
+        ("B=4 one request at 4104 keys (3 splits)", [4104, 0, 37, 2050], 258, HKV, 1, 1033,
+         None, True),
+        ("G=2 Hkv=6 kv_len {19,32,15,0} 2 pages a split", [19, 32, 15, 0], 4, 6, 2, 17, 2,
+         False),
+    ]
+    rows = {}
+    for name, kv_len, n_cols, hkv, G, P, pps, timed in cases:
+        errs = {}
+        for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+            q, kp, vp, tab, lens = make(kv_len, n_cols, hkv, G, P, dtype)
+            n0 = paged_flash_decode.launches
+            got = paged_flash_decode(q, kp, vp, tab, lens, table=table, pages_per_split=pps)
+            check(paged_flash_decode.launches == n0 + 1, f"decode {name}: kernel not launched")
+            eff = min(pps or 2048 // PS, n_cols)
+            want = paged_flash_decode_plain(q, kp, vp, tab, lens, plan, tables, eff)
+            torch.cuda.synchronize()
+            errs[dtype] = _compare(torch, got, want, tol, f"decode {name} {dtype}")
+            empty = [b for b, n in enumerate(kv_len) if n == 0]
+            check(not bool(got[empty].any()), f"decode {name}: kv_len 0 is not exact zeros")
+        line = (f"[smoke] paged_flash_decode {name}: max_abs_err bf16 "
+                f"{errs[torch.bfloat16]:.3g}, f32 {errs[torch.float32]:.3g}")
+        if timed:
+            q, kp, vp, tab, lens = make(kv_len, n_cols, hkv, G, P, torch.bfloat16)
+            eff = min(pps or 2048 // PS, n_cols)
+            k_ms = time_ms(torch, lambda i: paged_flash_decode(q, kp, vp, tab, lens, table=table))
+            p_ms = time_ms(torch, lambda i: paged_flash_decode_plain(
+                q, kp, vp, tab, lens, plan, tables, eff), reps=3, iters=3)
+            # yardstick: SDPA over the K/V gathered into logical order (the
+            # gather is not timed)
+            kd = KV.gather_pages(kp, tab).permute(0, 2, 1, 3).contiguous()
+            vd = KV.gather_pages(vp, tab).permute(0, 2, 1, 3).contiguous()
+            valid = (torch.arange(kd.shape[2], device=dev)[None, :] < lens[:, None])
+            qh = q.permute(0, 2, 1, 3).contiguous()
+            l_ms = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+                qh, kd, vd, attn_mask=valid[:, None, None, :]))
+            n_keys = int(lens.sum())
+            live_pages = sum(-(-n // PS) for n in kv_len)
+            nbytes = (2 * live_pages * PS * DH * hkv * 2 + 2 * q.numel() * 2
+                      + tab.numel() * 4 + lens.numel() * 4)
+            rows[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                          "max_abs_err": errs[torch.bfloat16],
+                          **_bound(nbytes, 4.0 * n_keys * hkv * G * DH),
+                          "decode_ms": _decode_ms(n_keys * hkv * G)}
+            line += (f", kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, SDPA "
+                     f"{l_ms * 1e3:.2f} us, bound {rows[name]['bound_ms'] * 1e3:.3f} us "
+                     f"({rows[name]['bound_by']})")
+        print(line)
+    return rows
+
+
+def flash_phase(torch):
+    """fused_flash_attention on CUDA tensors (its kernel) vs its plain version
+    (the same 512-key chain): bf16 at 1e-2, f32 at 1e-5."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.fused import fused_flash_attention
+    from repro_torch.kernels.fused.attention import fused_flash_attention_plain
+
+    dev = torch.device("cuda")
+    table, plan, tables = _exp_table(torch)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cases = [  # (name, B, S, T, H, Hkv, dtype, kwargs, timed)
+        ("S=T=4096 causal H=12", 1, 4096, 4096, 12, HKV, torch.bfloat16, {"causal": True}, True),
+        ("S=T=4096 causal H=12", 1, 4096, 4096, 12, HKV, torch.float32, {"causal": True}, False),
+        ("S=T=3000 causal H=4", 1, 3000, 3000, 4, 4, torch.float32, {"causal": True}, False),
+        ("S=T=3000 causal window 512 H=4", 1, 3000, 3000, 4, 4, torch.float32,
+         {"causal": True, "window": 512}, False),
+        ("decode rows over T=40000 kv_valid_len {39999, 12345}", 2, 1, 40000, 12, HKV,
+         torch.float32, {"causal": False, "kv_valid_len": [39999, 12345]}, False),
+        ("G=2 S=T=1000 causal H=12 Hkv=6", 1, 1000, 1000, 12, 6, torch.float32,
+         {"causal": True}, False),
+    ]
+    rows = {}
+    for name, B, S, T, H, hkv, dtype, kw, timed in cases:
+        tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
+        q = torch.randn(B, S, H, DH, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, T, hkv, DH, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, T, hkv, DH, generator=gen, device=dev).to(dtype)
+        kw = dict(kw)
+        if "kv_valid_len" in kw:
+            kw["kv_valid_len"] = torch.tensor(kw["kv_valid_len"], device=dev)
+        n0 = fused_flash_attention.launches
+        got = fused_flash_attention(q, k, v, table=table, **kw)
+        check(fused_flash_attention.launches == n0 + 1, f"flash {name}: kernel not launched")
+        want = fused_flash_attention_plain(
+            q, k, v, plan, tables, causal=kw.get("causal", True), window=kw.get("window"),
+            q_offset=0, kv_valid_len=kw.get("kv_valid_len"))
+        torch.cuda.synchronize()
+        err = _compare(torch, got, want, tol, f"flash {name} {dtype}")
+        line = f"[smoke] fused_flash_attention {name} {dtype}: max_abs_err {err:.3g} (tol {tol})"
+        if timed:
+            k_ms = time_ms(torch, lambda i: fused_flash_attention(q, k, v, table=table, **kw),
+                           reps=5, iters=4)
+            p_ms = time_ms(torch, lambda i: fused_flash_attention_plain(
+                q, k, v, plan, tables, causal=True, window=None, q_offset=0,
+                kv_valid_len=None), reps=2, iters=2)
+            qh, kh, vh = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
+            l_ms = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True))
+            pairs = B * H * S * (S + 1) / 2
+            nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+            rows[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "max_abs_err": err,
+                          **_bound(nbytes, 4.0 * pairs * DH), "decode_ms": _decode_ms(pairs)}
+            line += (f", kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, SDPA "
+                     f"{l_ms * 1e3:.1f} us, bound {rows[name]['bound_ms'] * 1e3:.1f} us "
+                     f"({rows[name]['bound_by']}), CUDA-core decode "
+                     f"{rows[name]['decode_ms'] * 1e3:.1f} us")
+        print(line)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # main path
 
 
-def reset_counters():
-    from repro_torch.kernels.fused import fused_glu
+def _wrappers() -> dict:
+    from repro_torch.kernels import fused
     from repro_torch.serving.kv_cache import append_kv_, write_prompt_pages_
 
-    for fn in (fused_glu, write_prompt_pages_, append_kv_):
+    return {"fused_glu": fused.fused_glu, "write_prompt_pages_": write_prompt_pages_,
+            "append_kv_": append_kv_, "fused_pwl_softmax": fused.fused_pwl_softmax,
+            "paged_flash_decode": fused.paged_flash_decode,
+            "fused_flash_attention": fused.fused_flash_attention}
+
+
+def reset_counters():
+    for fn in _wrappers().values():
         fn.launches = 0
 
 
 def read_counters() -> dict:
-    from repro_torch.kernels.fused import fused_glu
-    from repro_torch.serving.kv_cache import append_kv_, write_prompt_pages_
-
-    return {"fused_glu": fused_glu.launches,
-            "write_prompt_pages_": write_prompt_pages_.launches,
-            "append_kv_": append_kv_.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
-def serve_phase(torch, argv: list[str]) -> dict:
+def serve_phase(torch, argv: list[str], attention) -> dict:
     """One full-width session through the serve entry point; returns the
-    launch counts of exactly that session."""
+    launch counts of exactly that session.  ``attention(steps)`` gives the
+    expected softmax / paged-decode / flash launches from the session's
+    ``{"prefills", "decode_steps"}`` (the dense loop: one prefill and
+    ``max_new`` decode steps)."""
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
     args = serve.build_parser().parse_args(argv)
     check(args.device == "cuda", "serve must default to cuda")
+    cfg = get_config(args.arch)
+    check(cfg.d_model == 768 and cfg.n_layers == N_LAYERS, "not full-width repro-100m")
     reset_counters()
     summary = serve.run(args)
     torch.cuda.synchronize()
     counts = read_counters()
-    eng = summary["engine"]
-    n_layers = eng.model.cfg.n_layers
-    check(eng.model.cfg.d_model == 768 and n_layers == 12, "not full-width repro-100m")
     check(len(summary["results"]) == args.batch, "a request is missing")
-    for r in summary["results"]:
-        check(len(r.tokens) == args.max_new and r.finish_reason == "length",
-              f"{r.request_id}: {len(r.tokens)} tokens ({r.finish_reason})")
-    check(eng.health_summary()["nonfinite_logits"] == 0, "non-finite logits")
-    pf, ds = summary["prefills"], summary["decode_steps"]
-    check(counts["fused_glu"] == n_layers * (pf + ds),
-          f"fused_glu launches {counts['fused_glu']} != {n_layers} x ({pf} + {ds})")
-    check(counts["write_prompt_pages_"] == n_layers * pf,
-          f"write_prompt_pages_ launches {counts['write_prompt_pages_']} != {n_layers} x {pf}")
-    check(counts["append_kv_"] == n_layers * ds,
-          f"append_kv_ launches {counts['append_kv_']} != {n_layers} x {ds}")
+    L = N_LAYERS
+    if args.mode == "dense":
+        for row in summary["results"]:
+            check(len(row) == args.max_new, f"dense row of {len(row)} tokens")
+        pf, ds = 1, args.max_new
+        check(counts["write_prompt_pages_"] == 0 and counts["append_kv_"] == 0,
+              "the dense loop wrote pages")
+    else:
+        eng = summary["engine"]
+        for r in summary["results"]:
+            check(len(r.tokens) == args.max_new and r.finish_reason == "length",
+                  f"{r.request_id}: {len(r.tokens)} tokens ({r.finish_reason})")
+        check(eng.health_summary()["nonfinite_logits"] == 0, "non-finite logits")
+        pf, ds = summary["prefills"], summary["decode_steps"]
+        check(counts["write_prompt_pages_"] == L * pf,
+              f"write_prompt_pages_ launches {counts['write_prompt_pages_']} != {L} x {pf}")
+        check(counts["append_kv_"] == L * ds,
+              f"append_kv_ launches {counts['append_kv_']} != {L} x {ds}")
+    check(counts["fused_glu"] == L * (pf + ds),
+          f"fused_glu launches {counts['fused_glu']} != {L} x ({pf} + {ds})")
+    for name, want in attention({"prefills": pf, "decode_steps": ds}).items():
+        check(counts[name] == want, f"{' '.join(argv)}: {name} launches {counts[name]} != {want}")
     print(f"[smoke] serve {' '.join(argv) or '(defaults)'}: {summary['tokens']} tokens, "
           f"{summary['tok_per_s']:.1f} tok/s, {pf} prefills, {ds} decode steps, "
           f"launches {counts}")
     return counts
 
 
+def no_attention_kernels(steps) -> dict:
+    """The default plan leaves the softmax exact: no fused attention kernel."""
+    return {"fused_pwl_softmax": 0, "paged_flash_decode": 0, "fused_flash_attention": 0}
+
+
+def short_prompt_attention(steps) -> dict:
+    """A 32-token prefill takes the dense row softmax; decode the split-KV
+    kernel (the dense loop's decode the row softmax with a mask)."""
+    pf, ds = steps["prefills"], steps["decode_steps"]
+    return {"fused_pwl_softmax": N_LAYERS * pf, "paged_flash_decode": N_LAYERS * ds,
+            "fused_flash_attention": 0}
+
+
+def long_prompt_attention(steps) -> dict:
+    """A 4096-token prefill is past the dense cap (12 x 4096^2 > 2^27 scores)
+    and takes the flash kernel."""
+    pf, ds = steps["prefills"], steps["decode_steps"]
+    return {"fused_pwl_softmax": 0, "paged_flash_decode": N_LAYERS * ds,
+            "fused_flash_attention": N_LAYERS * pf}
+
+
+def dense_loop_attention(steps) -> dict:
+    pf, ds = steps["prefills"], steps["decode_steps"]
+    return {"fused_pwl_softmax": N_LAYERS * (pf + ds), "paged_flash_decode": 0,
+            "fused_flash_attention": 0}
+
+
+def dump_softmax_plan(path: pathlib.Path) -> str:
+    """The plan a user would write for the fused PWL-exp softmax."""
+    from repro_torch import sfu
+    from repro_torch.configs import get_config
+
+    plan = sfu.compile_plan(get_config("repro-100m", act_impl="fused", pwl_softmax=True))
+    check(plan.spec("attn.softmax:exp").impl == "fused", "the softmax site is not fused")
+    return str(sfu.dump_plan(plan, path))
+
+
 def reference_phase(torch):
     """The port on the card against its plain path on the CPU, reduced
-    repro-100m in f32 (TF32 off): logits at 1e-4, and paged greedy tokens
+    repro-100m in f32 (TF32 off), under the default plan and under the plan
+    with the softmax site fused: logits at 1e-4, and paged greedy tokens
     equal to the dense loop's on the card."""
     from repro_torch.configs import get_reduced_config
     from repro_torch.launch.serve import generate
     from repro_torch.models import Model
     from repro_torch.serving import GenRequest, PagedServingEngine
-
-    cfg = get_reduced_config("repro-100m", act_impl="fused", dtype=torch.float32)
-    cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
-    params = cpu.init(seed=0)
 
     def to_dev(t):
         if torch.is_tensor(t):
@@ -340,20 +650,27 @@ def reference_phase(torch):
             return {k: to_dev(v) for k, v in t.items()}
         return [to_dev(v) for v in t]
 
-    gparams = to_dev(params)
-    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=torch.Generator().manual_seed(2))
-    want = cpu.forward(params, toks)
-    got = gpu.forward(gparams, toks.cuda()).cpu()
-    err = (got - want).abs().max().item()
-    check(torch.allclose(got, want, atol=1e-4, rtol=1e-4), f"reduced logits err {err}")
-    reqs = [GenRequest(f"r{i}", toks[i, : 9 + 13 * i].tolist(), 6) for i in range(2)]
-    eng = PagedServingEngine(gpu, gparams, max_slots=2, page_size=16, max_context=64)
-    paged = {r.request_id: r.tokens for r in eng.run(reqs)}
-    dense = {r.request_id: generate(gpu, gparams, torch.tensor([r.prompt], device="cuda"),
-                                    r.max_new_tokens)[0].tolist() for r in reqs}
-    check(paged == dense, f"paged {paged} != dense {dense}")
-    print(f"[smoke] reduced f32: cuda vs cpu logits max_abs_err {err:.3g}; paged == dense "
-          "greedy tokens on cuda")
+    for pwl_softmax in (False, True):
+        cfg = get_reduced_config("repro-100m", act_impl="fused", pwl_softmax=pwl_softmax,
+                                 dtype=torch.float32)
+        cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
+        params = cpu.init(seed=0)
+        gparams = to_dev(params)
+        toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                             generator=torch.Generator().manual_seed(2))
+        want = cpu.forward(params, toks)
+        got = gpu.forward(gparams, toks.cuda()).cpu()
+        err = (got - want).abs().max().item()
+        what = "fused-softmax plan" if pwl_softmax else "default plan"
+        check(torch.allclose(got, want, atol=1e-4, rtol=1e-4), f"reduced {what} logits err {err}")
+        reqs = [GenRequest(f"r{i}", toks[i, : 9 + 13 * i].tolist(), 6) for i in range(2)]
+        eng = PagedServingEngine(gpu, gparams, max_slots=2, page_size=16, max_context=64)
+        paged = {r.request_id: r.tokens for r in eng.run(reqs)}
+        dense = {r.request_id: generate(gpu, gparams, torch.tensor([r.prompt], device="cuda"),
+                                        r.max_new_tokens)[0].tolist() for r in reqs}
+        check(paged == dense, f"{what}: paged {paged} != dense {dense}")
+        print(f"[smoke] reduced f32, {what}: cuda vs cpu logits max_abs_err {err:.3g}; "
+              "paged == dense greedy tokens on cuda")
 
 
 def main() -> int:
@@ -375,33 +692,61 @@ def main() -> int:
         build_s = build_phase()
         glu = glu_phase(torch)
         kv = kv_phase(torch)
-        main_counts = serve_phase(torch, [])
-        serve_phase(torch, ["--batch", "8", "--prompt-len", "256", "--max-new", "32"])
+        sm = softmax_phase(torch)
+        dec = decode_phase(torch)
+        fl = flash_phase(torch)
+        main_counts = serve_phase(torch, [], no_attention_kernels)
+        serve_phase(torch, ["--batch", "8", "--prompt-len", "256", "--max-new", "32"],
+                    no_attention_kernels)
+        with tempfile.TemporaryDirectory() as tmp:
+            plan = dump_softmax_plan(pathlib.Path(tmp) / "fused_softmax_plan.json")
+            short = serve_phase(torch, ["--plan", plan], short_prompt_attention)
+            long = serve_phase(torch, ["--plan", plan, "--batch", "2", "--prompt-len", "4096",
+                                       "--max-new", "8"], long_prompt_attention)
+            serve_phase(torch, ["--plan", plan, "--mode", "dense"], dense_loop_attention)
         reference_phase(torch)
+        # the launches of each kernel on the path that runs it
+        path_counts = {name: main_counts[name]
+                       for name in ("fused_glu", "write_prompt_pages_", "append_kv_")}
+        path_counts["fused_pwl_softmax"] = short["fused_pwl_softmax"]
+        path_counts["paged_flash_decode"] = short["paged_flash_decode"]
+        path_counts["fused_flash_attention"] = long["fused_flash_attention"]
+        for name, n in path_counts.items():
+            check(n > 0, f"{name} never launched on its serving path")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    for name, n in main_counts.items():
-        if n == 0:
-            print(f"chip_smoke: FAILED: {name} never launched on the main path",
-                  file=sys.stderr)
-            return 1
 
     g = glu[(4, torch.bfloat16)]
     kernels = [
         {"name": "fused_glu", "route": "cuda", "source": "src/repro_torch/csrc/glu.cu",
          "replaces": "src/repro/kernels/fused/glu.py:30",
          "shape": f"M=4 K={K_DIM} N={N_DIM} bf16 (decode step)",
-         "launches": main_counts["fused_glu"], **g},
+         "launches": path_counts["fused_glu"], **g},
         {"name": "write_prompt_pages_", "route": "cuda",
          "source": "src/repro_torch/csrc/kv_cache.cu",
          "replaces": "src/repro/serving/kv_cache.py:129",
          "shape": f"B=1 S=32 Hkv={HKV} dh={DH} bf16",
-         "launches": main_counts["write_prompt_pages_"], **kv["write_prompt_pages_"]},
+         "launches": path_counts["write_prompt_pages_"], **kv["write_prompt_pages_"]},
         {"name": "append_kv_", "route": "cuda", "source": "src/repro_torch/csrc/kv_cache.cu",
          "replaces": "src/repro/serving/kv_cache.py:212",
          "shape": f"B=4 Hkv={HKV} dh={DH} bf16",
-         "launches": main_counts["append_kv_"], **kv["append_kv_"]},
+         "launches": path_counts["append_kv_"], **kv["append_kv_"]},
+        {"name": "fused_pwl_softmax", "route": "cuda",
+         "source": "src/repro_torch/csrc/softmax.cu",
+         "replaces": "src/repro/kernels/fused/softmax.py:69",
+         "shape": "12x32 rows x 32 causal f32 (prefill, B=1)",
+         "launches": path_counts["fused_pwl_softmax"], **sm["prefill B=1 12x32 x 32 causal"]},
+        {"name": "paged_flash_decode", "route": "cuda",
+         "source": "src/repro_torch/csrc/decoding.cu",
+         "replaces": "src/repro/kernels/fused/decoding.py:72",
+         "shape": f"B=4 Hkv={HKV} dh={DH} ps={PS} bf16 pools, kv_len 19/32/15/0",
+         "launches": path_counts["paged_flash_decode"], **dec["B=4 kv_len {19,32,15,0}"]},
+        {"name": "fused_flash_attention", "route": "cuda",
+         "source": "src/repro_torch/csrc/attention.cu",
+         "replaces": "src/repro/kernels/fused/attention.py:100",
+         "shape": f"S=T=4096 causal H={HKV} dh={DH} bf16 (prefill, B=1)",
+         "launches": path_counts["fused_flash_attention"], **fl["S=T=4096 causal H=12"]},
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")

@@ -10,9 +10,11 @@ session of :mod:`repro_torch.launch.serve` (the same arguments), the same sessio
 * the kernels' summed device time against the session's wall time without
   the profiler (the same work), so the device's busy share is visible;
 * the top operators by host (self CPU) time and by device time;
-* the three kernels of the serving path by name (``glu_pwl_kernel``,
-  ``prompt_write_kernel``, ``append_kernel``) with their call counts and
-  mean device time.
+* the port's own kernels by name (``glu_pwl_kernel``,
+  ``prompt_write_kernel``, ``append_kernel``, and under a plan with the
+  softmax site fused ``softmax_kernel``, ``split_kernel`` + ``merge_kernel``
+  of the paged decode, ``flash_kernel``) with their call counts and mean
+  device time.
 
 It needs a CUDA GPU.
 """
@@ -81,7 +83,8 @@ def main(argv=None) -> int:
         print(f"[profile]   {e.key[:60]} | {e.count} | {d / 1e3:.3f} | "
               f"{d / max(e.count, 1):.2f}")
     print("[profile] serving-path kernels: name | calls | mean device us")
-    for frag in ("glu_pwl_kernel", "prompt_write_kernel", "append_kernel"):
+    for frag in ("glu_pwl_kernel", "prompt_write_kernel", "append_kernel", "softmax_kernel",
+                 "split_kernel", "merge_kernel", "flash_kernel"):
         hits = [e for e in kernels if frag in e.key]
         n = sum(e.count for e in hits)
         d = sum(_device_us(e) for e in hits)

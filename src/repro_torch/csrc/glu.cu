@@ -35,12 +35,6 @@
 
 namespace {
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store(float v, float* dst) { *dst = v; }
-__device__ __forceinline__ void store(float v, __nv_bfloat16* dst) {
-  *dst = __float2bfloat16_rn(v);
-}
 template <typename T>
 __device__ __forceinline__ T zero();
 template <>

@@ -14,9 +14,24 @@
 //
 // The table is at most 64 + 65 * 2 floats: a block loads it into shared
 // memory once, and every thread reads it from there (a broadcast read).
+//
+// Also here: the element conversions every kernel shares, and the exp of the
+// softmax chains with the JAX package's masking constants.
 #pragma once
 
+#include <cuda_bf16.h>
+
 #define PWL_MAX_BP 64
+
+constexpr float NEG_FILL = -1e30f;     // masked-score fill
+constexpr float SHIFT_CLAMP = -1e4f;   // lower clamp on the shifted scores
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store(float v, float* dst) { *dst = v; }
+__device__ __forceinline__ void store(float v, __nv_bfloat16* dst) {
+  *dst = __float2bfloat16_rn(v);
+}
 
 __device__ __forceinline__ void pwl_load_table(float* s_bp, float* s_dmq,
                                                const float* __restrict__ bp,
@@ -36,4 +51,10 @@ __device__ __forceinline__ float2 pwl_value_and_slope(float x, const float* s_bp
     q = fmaf(c, s_dmq[2 * i + 3], q);
   }
   return make_float2(fmaf(m, x, q), m);
+}
+
+// The exp of the softmax chains: the decode of x clamped at -1e4, clamped at 0.
+__device__ __forceinline__ float pwl_exp(float x, const float* s_bp, const float* s_dmq,
+                                         int n_bp) {
+  return fmaxf(pwl_value_and_slope(fmaxf(x, SHIFT_CLAMP), s_bp, s_dmq, n_bp).x, 0.0f);
 }

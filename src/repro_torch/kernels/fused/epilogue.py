@@ -137,3 +137,43 @@ def plan_and_operands(table: PWLTable | None, act: str | None = None):
     if act is not None:
         return exact_plan(act), ()
     return IDENTITY, ()
+
+
+# (table, plan, operands) per (table, device), kept with the table they came
+# from: packing and the host-to-device copy happen once per table and device
+_PACKED: dict[tuple[int, str], tuple] = {}
+
+
+def device_operands(table: PWLTable | None, act: str | None, device):
+    """:func:`plan_and_operands` with the operands on ``device``, packed and
+    copied once per (table, device), so a kernel call does neither."""
+    if table is None:
+        return plan_and_operands(None, act)
+    if act is not None:
+        raise ValueError("pass either table= (PWL epilogue) or act= (exact), not both")
+    key = (id(table), str(device))
+    hit = _PACKED.get(key)
+    if hit is None or hit[0] is not table:
+        plan, tables = plan_and_operands(table)
+        hit = (table, plan, tuple(t.to(device).contiguous() for t in tables))
+        _PACKED[key] = hit
+    return hit[1], hit[2]
+
+
+def check_kernel_operands(what: str, plan: EpiloguePlan, tables, *tensors) -> None:
+    """Refuse what the CUDA kernels do not take, before any launch: an
+    epilogue other than a PWL table in the f32 delta layout (f32 or int8
+    storage; native bf16/f16 operands and the exact ``act=`` epilogue wait
+    for ROADMAP slice 5), and inputs that require grad (the kernels are
+    forward only; the backward kernels come with training)."""
+    if plan.kind != "pwl":
+        raise NotImplementedError(
+            f"the CUDA {what} kernel takes a PWL table epilogue, not {plan.kind!r}")
+    if tables[1].dtype != torch.float32:
+        raise NotImplementedError(
+            f"native {plan.table_dtype} table operands are not supported by the "
+            f"CUDA {what} kernel yet (f32 delta layout only; see ROADMAP)")
+    if any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"the CUDA {what} kernel is forward only: an input requires grad "
+            "(the backward kernels are not ported yet; see ROADMAP)")

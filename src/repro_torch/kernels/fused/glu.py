@@ -25,17 +25,13 @@ import torch
 
 from repro_torch.core.pwl import PWLTable
 
-from .epilogue import EpiloguePlan, plan_and_operands
+from .epilogue import EpiloguePlan, check_kernel_operands, device_operands
 
 _SIGNATURES = {
     "glu_pwl_forward": [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
     + [ctypes.c_int] * 4 + [ctypes.c_void_p],
 }
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-# (plan, packed operands) per (table, device), kept with the table they
-# came from: packing and the host-to-device copy happen once per table
-_PACKED: dict[tuple[int, str], tuple] = {}
 
 
 def fused_glu_plain(x, w_gate, w_up, plan: EpiloguePlan, tables):
@@ -46,30 +42,10 @@ def fused_glu_plain(x, w_gate, w_up, plan: EpiloguePlan, tables):
     return (plan.apply(zg, *tables) * zu).to(x.dtype)
 
 
-def _operands(table: PWLTable | None, act: str | None, device):
-    if table is None:
-        return plan_and_operands(None, act)
-    if act is not None:
-        raise ValueError("pass either table= (PWL epilogue) or act= (exact), not both")
-    key = (id(table), str(device))
-    hit = _PACKED.get(key)
-    if hit is None or hit[0] is not table:
-        plan, tables = plan_and_operands(table)
-        hit = (table, plan, tuple(t.to(device).contiguous() for t in tables))
-        _PACKED[key] = hit
-    return hit[1], hit[2]
-
-
 def _launch(x2, w_gate, w_up, plan, tables):
     from repro_torch.kernels import _build
 
-    if plan.kind != "pwl":
-        raise NotImplementedError(
-            f"the CUDA GLU kernel takes a PWL table epilogue, not {plan.kind!r}")
-    if tables[1].dtype != torch.float32:
-        raise NotImplementedError(
-            f"native {plan.table_dtype} table operands are not supported by the "
-            "CUDA kernel yet (f32 delta layout only; see ROADMAP)")
+    check_kernel_operands("GLU", plan, tables, x2, w_gate, w_up)
     if x2.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"fused_glu kernel takes float32 or bfloat16, got {x2.dtype}")
     dev = x2.device
@@ -105,7 +81,7 @@ def fused_glu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, *,
     table -> PWL epilogue, act -> exact epilogue, neither -> plain bilinear
     GLU.  On a CUDA tensor the PWL epilogue with an f32 or int8 table runs
     the hand-written kernel; anything else there raises."""
-    plan, tables = _operands(table, act, x.device)
+    plan, tables = device_operands(table, act, x.device)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     if x.device.type == "cpu":

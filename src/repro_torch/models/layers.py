@@ -4,9 +4,10 @@ The dense subset of ``repro/models/layers.py`` that the serving path of a
 dense decoder runs.  Every nonlinearity resolves through the compiled
 ``sfu.ActivationPlan``; an ``mlp`` site planned ``impl="fused"`` runs the
 fused GLU kernel (``kernels/fused/glu.py``).  Attention uses exact ``exp``
-unless the plan has an ``attn.softmax:exp`` site, which is then evaluated
-elementwise; planned ``impl="fused"`` it raises off the CPU (the fused
-PWL-exp attention kernels are not ported yet).
+unless the plan has an ``attn.softmax:exp`` site: planned ``impl="fused"``
+its softmax runs in the fused PWL-exp kernels (the row softmax, the
+split-KV paged decode, or the flash forward, chosen by shape as the JAX
+package chooses), otherwise the PWL exp is evaluated elementwise.
 
 Masking follows the JAX package: masked scores are filled with ``-1e30``
 before the row max, masked probabilities are zeroed, and the row sum is
@@ -72,73 +73,177 @@ def _softmax_safe_exp(raw: Callable) -> Callable:
     return pwl_exp
 
 
-def resolve_exp(cfg: ModelConfig, plan=None, device=None) -> Callable:
-    """Elementwise exp for attention softmax: exact, or the plan's PWL exp.
-
-    A softmax site planned ``impl="fused"`` needs the fused PWL-exp attention
-    kernels, which are not ported yet: on the CPU it runs elementwise (their
-    plain version) and warns once; on any other device it raises."""
+def resolve_exp(cfg: ModelConfig, plan=None) -> Callable:
+    """Elementwise exp for the unfused attention softmax: exact, or the
+    plan's PWL exp.  A site planned ``impl="fused"`` takes the fused
+    kernels instead (:func:`_softmax_fused_table`)."""
     plan = plan if plan is not None else sfu.plan_for(cfg)
+    spec = plan.get(sfu.site_key(sfu.SITE_SOFTMAX, "exp"))
+    if spec is not None and not spec.is_exact:
+        return _softmax_safe_exp(sfu.resolve_spec(spec))
+    return torch.exp
+
+
+# Crossover between the two fused executors, kept from the JAX package: it
+# picks which chain of PWL corrections is computed (one dense softmax per row,
+# or the flash kernel's 512-key blocks), so it is part of the function, not
+# only of its speed.  The dense path holds B*H*S*T f32 scores, a row at most
+# 32768 wide.
+DENSE_FUSED_SOFTMAX_MAX_SCORES = 1 << 27
+DENSE_FUSED_SOFTMAX_MAX_WIDTH = 32768
+
+
+def _softmax_fused_table(plan):
+    """The exp table of the fused PWL-exp softmax kernels, or None when the
+    ``attn.softmax:exp`` site is absent or not planned ``impl="fused"``."""
     key = sfu.site_key(sfu.SITE_SOFTMAX, "exp")
     spec = plan.get(key)
-    if spec is None or spec.is_exact:
-        return torch.exp
-    if spec.impl == "fused":
-        if device is not None and torch.device(device).type != "cpu":
-            raise NotImplementedError(
-                f"site '{key}' is planned impl='fused', but the fused PWL-exp attention "
-                f"kernels are not ported to {torch.device(device).type} yet (see ROADMAP); "
-                "plan the site impl='jnp' or 'exact', or run on the CPU")
-        sfu.warn_fused_fallback(key, "the fused PWL-exp attention kernels are not ported yet")
-    return _softmax_safe_exp(sfu.resolve_spec(spec))
+    if spec is None or spec.impl != "fused":
+        return None
+    return plan.fused_table(key)
+
+
+def _dense_softmax_preferred(n_scores: int, width: int, window, kv_len: int) -> bool:
+    """True when the dense fused-softmax kernel runs these shapes: the score
+    tensor fits the dense cap, a row fits the kernel's width, and any
+    sliding window covers at least half the KV."""
+    if window is not None and kv_len > 2 * window:
+        return False
+    return (n_scores <= DENSE_FUSED_SOFTMAX_MAX_SCORES
+            and width <= DENSE_FUSED_SOFTMAX_MAX_WIDTH)
 
 
 # ---------------------------------------------------------------------------
 # attention
 
 
+def _chunk_attn_block(q, k, v, mask, exp_fn, m_prev, l_prev, acc_prev, scale):
+    """One online-softmax update, all f32.  q: (B, G, Hkv, Sq, dh);
+    k/v: (B, Hkv, Skv, dh); mask broadcastable to (B, G, Hkv, Sq, Skv)."""
+    s = torch.einsum("bghqd,bhkd->bghqk", q, k) * scale
+    s = torch.where(mask, s, -1e30)
+    m_new = torch.maximum(m_prev, s.amax(dim=-1))
+    p = torch.where(mask, exp_fn(s - m_new[..., None]), 0.0)
+    corr = exp_fn(m_prev - m_new)
+    l_new = l_prev * corr + p.sum(dim=-1)
+    acc_new = acc_prev * corr[..., None] + torch.einsum("bghqk,bhkd->bghqd", p, v)
+    return m_new, l_new, acc_new
+
+
 def flash_attention(q, k, v, *, causal: bool = True, exp_fn: Callable = torch.exp,
-                    q_chunk: int = 256, kv_valid_len=None):
-    """Masked softmax attention in f32, one q chunk at a time.
+                    q_chunk: int = 256, kv_chunk: int = 2048, kv_valid_len=None):
+    """Chunked online-softmax attention in f32, the JAX package's chunking.
 
     q: (B, S, H, dh); k/v: (B, T, Hkv, dh); ``kv_valid_len``: None or (B,)
-    valid key prefix per row.  GQA folds heads as (Hkv major, G minor).
-    Returns (B, S, H, dh) in q's dtype."""
+    valid key prefix per row.  Causal self-attention with S == T takes one
+    block per q chunk over its causal prefix (q chunks sized so there are at
+    most 16); everything else walks ``kv_chunk``-key blocks with ``exp_fn``
+    applied to the running-max correction at each block boundary, which
+    changes the numbers under a PWL exp.  GQA folds heads as (Hkv major, G
+    minor).  Returns (B, S, H, dh) in q's dtype."""
     B, S, H, dh = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
     scale = 1.0 / math.sqrt(dh)
     dev = q.device
+    self_causal = causal and S == T and kv_valid_len is None
+    if self_causal:
+        q_chunk = max(q_chunk, -(-S // 16))
+    q_chunk = min(q_chunk, S)
+    kv_chunk = min(kv_chunk, T)
+    n_q = -(-S // q_chunk)
+    unroll = self_causal and n_q <= 16 and S % q_chunk == 0
     kf = k.to(torch.float32).permute(0, 2, 1, 3)  # (B, Hkv, T, dh)
     vf = v.to(torch.float32).permute(0, 2, 1, 3)
-    kpos = torch.arange(T, device=dev)
     outs = []
     for s0 in range(0, S, q_chunk):
         qc = q[:, s0:s0 + q_chunk].to(torch.float32)
         Sc = qc.shape[1]
         qc = qc.reshape(B, Sc, Hkv, G, dh).permute(0, 3, 2, 1, 4)  # (B, G, Hkv, Sc, dh)
-        s = torch.einsum("bghqd,bhkd->bghqk", qc, kf) * scale
         qpos = s0 + torch.arange(Sc, device=dev)
-        mask = torch.ones((Sc, T), dtype=torch.bool, device=dev)
-        if causal:
-            mask = kpos[None, :] <= qpos[:, None]
-        if kv_valid_len is not None:
-            mask = mask[None] & (kpos[None, None, :] < kv_valid_len[:, None, None])
-            mask = mask[:, None, None]
-        else:
-            mask = mask[None, None, None]
-        s = torch.where(mask, s, torch.full_like(s, -1e30))
-        m = s.amax(dim=-1, keepdim=True)
-        p = torch.where(mask, exp_fn(s - m), torch.zeros_like(s))
-        l = p.sum(dim=-1, keepdim=True)
-        o = torch.einsum("bghqk,bhkd->bghqd", p, vf) / torch.clamp(l, min=1e-30)
+        # the causal unroll: one block over the chunk's causal prefix
+        blocks = [(0, s0 + q_chunk)] if unroll else [
+            (j0, min(j0 + kv_chunk, T)) for j0 in range(0, T, kv_chunk)]
+        m = torch.full((B, G, Hkv, Sc), -1e30, device=dev)
+        l = torch.zeros((B, G, Hkv, Sc), device=dev)
+        acc = torch.zeros((B, G, Hkv, Sc, dh), device=dev)
+        for j0, j1 in blocks:
+            kpos = torch.arange(j0, j1, device=dev)
+            mask = torch.ones((Sc, j1 - j0), dtype=torch.bool, device=dev)
+            if causal:
+                mask = kpos[None, :] <= qpos[:, None]
+            if kv_valid_len is not None:
+                mask = mask[None] & (kpos[None, None, :] < kv_valid_len[:, None, None])
+                mask = mask[:, None, None]
+            else:
+                mask = mask[None, None, None]
+            m, l, acc = _chunk_attn_block(qc, kf[:, :, j0:j1], vf[:, :, j0:j1], mask,
+                                          exp_fn, m, l, acc, scale)
+        o = acc / torch.clamp(l[..., None], min=1e-30)
         outs.append(o.permute(0, 3, 2, 1, 4).reshape(B, Sc, H, dh))
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
-def decode_attention(q, k_cache, v_cache, valid, exp_fn: Callable = torch.exp):
+def dense_pwl_attention(q, k, v, *, table, causal: bool = True):
+    """Dense attention with the fused PWL-exp softmax kernel (Sec. V-B).
+
+    q: (B, S, H, dh); k/v: (B, T, Hkv, dh).  The scores and the product with
+    V are ``torch.einsum`` (the JAX package leaves them to XLA); the softmax
+    runs as one kernel over the score rows, with the causal mask made inside
+    it from positions."""
+    B, S, H, dh = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(dh)
+    qf = q.to(torch.float32).reshape(B, S, Hkv, G, dh).permute(0, 3, 2, 1, 4)
+    kf = k.to(torch.float32).permute(0, 2, 1, 3)  # (B, Hkv, T, dh)
+    vf = v.to(torch.float32).permute(0, 2, 1, 3)
+    s = torch.einsum("bghqd,bhkd->bghqk", qf, kf) * scale
+    p = fused.fused_pwl_softmax(s, table=table, causal=causal)
+    out = torch.einsum("bghqk,bhkd->bghqd", p, vf)
+    return out.permute(0, 3, 2, 1, 4).reshape(B, S, H, dh).to(q.dtype)
+
+
+def _attn_softmax_dispatch(q, k, v, *, causal: bool, exp_fn: Callable, table):
+    """Attention for prefill.  With a fused softmax ``table`` it always runs
+    fused: the dense PWL-exp softmax kernel while the scores fit its caps,
+    the fused flash kernel past them.  Otherwise :func:`flash_attention` with
+    the (possibly PWL) elementwise ``exp_fn``."""
+    if table is None:
+        return flash_attention(q, k, v, causal=causal, exp_fn=exp_fn)
+    B, S, H = q.shape[:3]
+    T = k.shape[1]
+    if _dense_softmax_preferred(B * H * S * T, T, None, T):
+        return dense_pwl_attention(q, k, v, table=table, causal=causal)
+    return fused.fused_flash_attention(q, k, v, table=table, causal=causal)
+
+
+def _decode_attention_fused(q, k_cache, v_cache, valid, table):
+    """Fused decode over a dense cache: the dense PWL-exp softmax kernel
+    with ``valid`` as its mask while a cache row fits its width, the fused
+    flash kernel with the valid prefix length for wider caches."""
+    B, _, H, dh = q.shape
+    T, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = H // Hkv
+    if T > DENSE_FUSED_SOFTMAX_MAX_WIDTH:
+        return fused.fused_flash_attention(q, k_cache, v_cache, table=table, causal=False,
+                                           kv_valid_len=valid.sum(dim=-1))
+    scale = 1.0 / math.sqrt(dh)
+    qf = q.to(torch.float32).reshape(B, Hkv, G, dh)
+    s = torch.einsum("bhgd,bthd->bhgt", qf, k_cache.to(torch.float32)) * scale
+    p = fused.fused_pwl_softmax(s, table=table, mask=valid[:, None, None, :])
+    out = torch.einsum("bhgt,bthd->bhgd", p, v_cache.to(torch.float32))
+    return out.reshape(B, 1, H, dh).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, valid, exp_fn: Callable = torch.exp,
+                     softmax_table=None):
     """Single-position attention over a cache.  q: (B, 1, H, dh);
-    k/v_cache: (B, T, Hkv, dh); valid: (B, T) bool."""
+    k/v_cache: (B, T, Hkv, dh); valid: (B, T) bool, a prefix per row.  With
+    ``softmax_table`` (the softmax site planned fused) the softmax runs in
+    the fused kernels; otherwise elementwise with ``exp_fn``."""
+    if softmax_table is not None:
+        return _decode_attention_fused(q, k_cache, v_cache, valid, softmax_table)
     B, _, H, dh = q.shape
     Hkv = k_cache.shape[2]
     G = H // Hkv
@@ -156,10 +261,15 @@ def decode_attention(q, k_cache, v_cache, valid, exp_fn: Callable = torch.exp):
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, kv_len,
-                           exp_fn: Callable = torch.exp):
-    """Single-position attention over a paged cache: gather the table's pages
-    into logical order, then :func:`decode_attention` over the ``kv_len``
-    prefix.  q: (B, 1, H, dh); pools (Hkv, P, ps, dh); kv_len: (B,)."""
+                           exp_fn: Callable = torch.exp, softmax_table=None):
+    """Single-position attention over a paged cache.  q: (B, 1, H, dh);
+    pools (Hkv, P, ps, dh); kv_len: (B,).  With ``softmax_table`` the
+    split-KV kernel reads K/V through the page table; otherwise the table's
+    pages are gathered into logical order and :func:`decode_attention` runs
+    over the ``kv_len`` prefix."""
+    if softmax_table is not None:
+        return fused.paged_flash_decode(q, k_pages, v_pages, page_table, kv_len,
+                                        table=softmax_table)
     k_dense = _pg.gather_pages(k_pages, page_table)
     v_dense = _pg.gather_pages(v_pages, page_table)
     T = k_dense.shape[1]
@@ -208,7 +318,8 @@ def attention_layer(cfg: ModelConfig, params, x, *, cache=None, cache_pos=None,
     ``page_table`` (and ``kv_len`` when decoding)."""
     B, S, D = x.shape
     plan = plan if plan is not None else sfu.plan_for(cfg)
-    exp_fn = resolve_exp(cfg, plan, x.device)
+    exp_fn = resolve_exp(cfg, plan)
+    softmax_table = _softmax_fused_table(plan)
 
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
@@ -231,11 +342,13 @@ def attention_layer(cfg: ModelConfig, params, x, *, cache=None, cache_pos=None,
             kv_len = paged["kv_len"]
             _pg.append_kv_(cache["k_pages"], cache["v_pages"], k, v, page_table, kv_len)
             y = paged_decode_attention(q, cache["k_pages"], cache["v_pages"],
-                                       page_table, kv_len + 1, exp_fn)
+                                       page_table, kv_len + 1, exp_fn,
+                                       softmax_table=softmax_table)
         else:
             # prefill: write the prompt's pages, attend causally in flight
             _pg.write_prompt_pages_(cache["k_pages"], cache["v_pages"], k, v, page_table)
-            y = flash_attention(q, k, v, causal=True, exp_fn=exp_fn)
+            y = _attn_softmax_dispatch(q, k, v, causal=True, exp_fn=exp_fn,
+                                       table=softmax_table)
     elif cache is not None:
         T = cache["k"].shape[1]
         pos0 = int(off)
@@ -243,11 +356,14 @@ def attention_layer(cfg: ModelConfig, params, x, *, cache=None, cache_pos=None,
         cache["v"][:, pos0:pos0 + S] = v.to(cache["v"].dtype)
         if S == 1:
             valid = (torch.arange(T, device=x.device)[None, :] <= pos0).expand(B, T)
-            y = decode_attention(q, cache["k"], cache["v"], valid, exp_fn)
+            y = decode_attention(q, cache["k"], cache["v"], valid, exp_fn,
+                                 softmax_table=softmax_table)
         else:
-            y = flash_attention(q, k, v, causal=True, exp_fn=exp_fn)
+            y = _attn_softmax_dispatch(q, k, v, causal=True, exp_fn=exp_fn,
+                                       table=softmax_table)
     else:
-        y = flash_attention(q, k, v, causal=True, exp_fn=exp_fn)
+        y = _attn_softmax_dispatch(q, k, v, causal=True, exp_fn=exp_fn,
+                                       table=softmax_table)
 
     out = torch.einsum("bshk,hkd->bsd", y, params["wo"])
     return out, cache

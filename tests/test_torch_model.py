@@ -103,24 +103,84 @@ def test_flash_attention_masks_match_jax(causal):
 
 
 def test_fused_softmax_plan_runs_elementwise_on_the_cpu_only():
-    """The fused PWL-exp attention kernels are not ported: a plan with the
-    softmax site fused runs their plain version on the CPU (and warns) and
-    raises on any other device instead of giving way to it there."""
-    cfg = t_get_reduced_config("repro-100m", act_impl="fused", pwl_softmax=True,
-                               dtype=torch.float32)
-    D, H, Hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    """Under a plan with ``attn.softmax:exp`` fused, ``attention_layer`` takes
+    the fused PWL-exp softmax paths (the row-softmax kernel's plain version
+    for prefill and dense decode, the split-KV kernel's for paged decode) and
+    gives the JAX layer's outputs at 1e-4: prefill, a dense-cache decode step
+    and a paged decode step over a fragmented table."""
+    jcfg = get_reduced_config("repro-100m", act_impl="fused", pwl_softmax=True,
+                              dtype=jnp.float32)
+    tcfg = t_get_reduced_config("repro-100m", act_impl="fused", pwl_softmax=True,
+                                dtype=torch.float32)
+    assert layers._softmax_fused_table(sfu.plan_for(tcfg)) is not None
+    D, H, Hkv = tcfg.d_model, tcfg.n_heads, tcfg.n_kv_heads
     dh = D // H
-    g = torch.Generator().manual_seed(0)
+    rng = np.random.default_rng(0)
     shapes = {"wq": (D, H, dh), "wk": (D, Hkv, dh), "wv": (D, Hkv, dh), "wo": (H, dh, D)}
-    params = {k: 0.1 * torch.randn(s, generator=g) for k, s in shapes.items()}
-    x = torch.randn(1, 5, D, generator=g)
-    sfu.reset_fused_fallback_warnings()
-    with pytest.warns(UserWarning, match="attn.softmax:exp"):
-        y, _ = layers.attention_layer(cfg, params, x)
-    assert torch.isfinite(y).all()
-    meta = {k: w.to("meta") for k, w in params.items()}
-    with pytest.raises(NotImplementedError, match="not ported to meta"):
-        layers.attention_layer(cfg, meta, x.to("meta"))
+    params = {k: (0.2 * rng.standard_normal(s)).astype(np.float32) for k, s in shapes.items()}
+    jp = {k: jnp.asarray(w) for k, w in params.items()}
+    tp = {k: torch.from_numpy(w) for k, w in params.items()}
+    B, S, ps, P = 2, 16, 8, 9
+    x = rng.standard_normal((B, S, D)).astype(np.float32)
+    x1 = rng.standard_normal((B, 1, D)).astype(np.float32)
+
+    # prefill (no cache)
+    want, _ = jlayers.attention_layer(jcfg, jp, jnp.asarray(x))
+    got, _ = layers.attention_layer(tcfg, tp, torch.from_numpy(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+    # dense cache: prefill 16 positions of a 24-long cache, then one decode step
+    zeros = np.zeros((B, 24, Hkv, dh), np.float32)
+    jc = {"k": jnp.asarray(zeros), "v": jnp.asarray(zeros)}
+    tc = {"k": torch.from_numpy(zeros.copy()), "v": torch.from_numpy(zeros.copy())}
+    _, jc = jlayers.attention_layer(jcfg, jp, jnp.asarray(x), cache=jc, cache_pos=0)
+    layers.attention_layer(tcfg, tp, torch.from_numpy(x), cache=tc, cache_pos=0)
+    want, _ = jlayers.attention_layer(jcfg, jp, jnp.asarray(x1), cache=jc, cache_pos=S)
+    got, _ = layers.attention_layer(tcfg, tp, torch.from_numpy(x1), cache=tc, cache_pos=S)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+    # paged cache: LIFO reuse gives each row reversed, interleaved pages
+    alloc = PageAllocator(P)
+    alloc.free(alloc.alloc(6)[::-1])
+    rows = [alloc.alloc(3), alloc.alloc(3)]
+    table = np.asarray(rows, np.int32)
+    pools = np.zeros((Hkv, P, ps, dh), np.float32)
+    jc = {"k_pages": jnp.asarray(pools), "v_pages": jnp.asarray(pools)}
+    tc = {"k_pages": torch.from_numpy(pools.copy()), "v_pages": torch.from_numpy(pools.copy())}
+    pg = {"page_table": table[:, :2]}
+    _, jc = jlayers.attention_layer(jcfg, jp, jnp.asarray(x), cache=jc,
+                                    paged={k: jnp.asarray(v) for k, v in pg.items()})
+    layers.attention_layer(tcfg, tp, torch.from_numpy(x), cache=tc,
+                           paged={k: torch.from_numpy(v) for k, v in pg.items()})
+    kv_len = np.asarray([S, 11], np.int32)  # the second request ends mid-page
+    pg = {"page_table": table, "kv_len": kv_len}
+    want, _ = jlayers.attention_layer(jcfg, jp, jnp.asarray(x1), cache=jc, cache_pos=jnp.asarray(kv_len),
+                                      paged={k: jnp.asarray(v) for k, v in pg.items()})
+    got, _ = layers.attention_layer(tcfg, tp, torch.from_numpy(x1), cache=tc,
+                                    cache_pos=torch.from_numpy(kv_len),
+                                    paged={k: torch.from_numpy(v) for k, v in pg.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_flash_attention_two_kv_chunks_match_jax():
+    """Past the causal unroll (S = 2064 does not split into <= 16 equal q
+    chunks) attention walks 2048-key chunks and applies the PWL exp to the
+    running-max correction at the chunk boundary, as the JAX package does.
+    The last 16 keys are scaled up so that the rows reaching them find a new
+    max in the second chunk.  Tolerance 1e-5 (the JAX suite's for its flash
+    paths)."""
+    jcfg = get_reduced_config("repro-100m", act_impl="jnp", pwl_softmax=True,
+                              dtype=jnp.float32)
+    tcfg = t_get_reduced_config("repro-100m", act_impl="jnp", pwl_softmax=True,
+                                dtype=torch.float32)
+    rng = np.random.default_rng(6)
+    q, k, v = (rng.standard_normal((1, 2064, 2, 16)).astype(np.float32) for _ in range(3))
+    k[:, 2048:] *= 3.0
+    want = jlayers.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+                                   exp_fn=jlayers.resolve_exp(jcfg))
+    got = layers.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                                 causal=True, exp_fn=layers.resolve_exp(tcfg))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
 
 
 def _dense_greedy(model, params, prompt, n_new):

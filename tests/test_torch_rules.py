@@ -7,6 +7,9 @@
   host without a GPU; it never moves to the CPU by itself.  With
   ``--device cpu`` it serves the reduced config and returns 0.
 * Each kernel wrapper carries a plain-int launch counter.
+* What only the CUDA kernels refuse (a native bf16 table, an input that
+  requires grad) raises on a non-CPU tensor before any launch; the plain
+  version is never run there.
 """
 import ast
 import importlib.util
@@ -92,11 +95,55 @@ def test_plan_round_trip_through_serve(tmp_path):
 
 
 def test_kernel_wrappers_carry_launch_counters():
-    from repro_torch.kernels.fused import fused_glu
+    from repro_torch.kernels.fused import (
+        fused_flash_attention,
+        fused_glu,
+        fused_pwl_softmax,
+        paged_flash_decode,
+    )
     from repro_torch.serving.kv_cache import append_kv_, write_prompt_pages_
 
-    for fn in (fused_glu, write_prompt_pages_, append_kv_):
+    for fn in (fused_glu, write_prompt_pages_, append_kv_, fused_pwl_softmax,
+               paged_flash_decode, fused_flash_attention):
         assert isinstance(fn.launches, int)
+
+
+def _attention_calls(table, grad=False):
+    from repro_torch.kernels import fused
+
+    def t(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device="meta").requires_grad_(grad)
+
+    pt = torch.zeros((2, 1), dtype=torch.int32, device="meta")
+    kv_len = torch.ones((2,), dtype=torch.int32, device="meta")
+    return {
+        "softmax": lambda: fused.fused_pwl_softmax(t(2, 4, 8), table=table, causal=True),
+        "decode": lambda: fused.paged_flash_decode(t(2, 1, 4, 16), t(2, 3, 4, 16),
+                                                   t(2, 3, 4, 16), pt, kv_len, table=table),
+        "flash": lambda: fused.fused_flash_attention(t(1, 8, 4, 16), t(1, 8, 2, 16),
+                                                     t(1, 8, 2, 16), table=table),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["softmax", "decode", "flash"])
+def test_cuda_only_refusals_raise_off_the_cpu(kernel, monkeypatch):
+    from repro_torch import sfu
+    from repro_torch.kernels import fused
+
+    def no_plain(*a, **kw):
+        raise AssertionError("a wrapper ran its plain version on a non-CPU tensor")
+
+    monkeypatch.setattr(fused.softmax, "fused_pwl_softmax_plain", no_plain)
+    monkeypatch.setattr(fused.decoding, "paged_flash_decode_plain", no_plain)
+    monkeypatch.setattr(fused.attention, "fused_flash_attention_plain", no_plain)
+    native = sfu.get_store().get(fn="exp", n_breakpoints=32, dtype="bf16")
+    with pytest.raises(NotImplementedError, match="native bf16"):
+        _attention_calls(native)[kernel]()
+    f32 = sfu.get_store().get(fn="exp", n_breakpoints=32)
+    with pytest.raises(NotImplementedError, match="requires grad"):
+        _attention_calls(f32, grad=True)[kernel]()
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        _attention_calls(f32)[kernel]()
 
 
 def test_profile_refuses_the_cpu():

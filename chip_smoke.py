@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-1. builds every CUDA kernel of the serving paths from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, all started together);
+1. builds every CUDA kernel of the serving and training paths from
+   ``src/repro_torch/csrc`` (one ``nvcc`` per source, all started together);
 2. holds each kernel against its plain PyTorch version on the card at the
-   shapes the serving paths give it, and times kernel, plain version and a
-   PyTorch yardstick call the port never makes;
+   shapes the serving and training paths give it (the backward kernels of
+   the GLU and the row softmax included), and times kernel, plain version
+   and a PyTorch yardstick call the port never makes;
 3. serves full-width repro-100m through ``repro_torch.launch.serve`` on
    ``cuda``: under the default plan (the defaults, then a larger session),
    and under a dumped plan with the ``attn.softmax:exp`` site fused (the
@@ -15,7 +16,17 @@
    the launch counters, reset before and read after each session, that every
    GLU, page write, softmax, paged decode and flash forward of that session
    went through its kernel;
-4. checks the port against its plain path on a small f32 input under both
+4. trains full-width repro-100m through ``repro_torch.launch.train`` under
+   the dumped plan (20 steps with checkpoints, then a resume), and checks
+   that the loss fell (the launcher's rc, and a held-out batch's loss at the
+   step-20 checkpoint) and that every GLU and row softmax, forward and
+   backward, went through its kernel (24 forwards and 12 backwards of each
+   per step under remat);
+5. checks the gradients: a full-width batch under the backward kernels
+   against plain recomputation on the card (with remat off against on in
+   f32, and a rounding yardstick in bf16), and reduced f32 on the card
+   against the CPU;
+6. checks the port against its plain path on a small f32 input under both
    plans (logits, and paged against dense greedy tokens).
 
 Every failed check exits non-zero.  The last two lines of standard output
@@ -25,6 +36,7 @@ repository around this file; imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import pathlib
@@ -43,6 +55,9 @@ K_DIM, N_DIM = 768, 3072       # repro-100m d_model, d_ff
 HKV, DH, PS = 12, 64, 16       # repro-100m KV heads, head dim; serve page size
 N_LAYERS = 12                  # repro-100m layers
 EXP_BP = 32                    # breakpoints of the fused-softmax plan's exp table
+TRAIN_BATCH, TRAIN_SEQ = 8, 512  # the train launcher's defaults
+TRAIN_TOKENS = TRAIN_BATCH * TRAIN_SEQ
+TRAIN_SOFTMAX = f"train {TRAIN_BATCH}x{HKV}x{TRAIN_SEQ} rows x {TRAIN_SEQ} causal"
 
 
 class SmokeFailure(Exception):
@@ -145,7 +160,7 @@ def glu_phase(torch):
         wus = [(torch.randn(K_DIM, N_DIM, generator=gen, device=dev) * scale).to(dtype)
                for _ in range(n_copies)]
         wcat = [torch.cat([a, b], dim=1) for a, b in zip(wgs, wus)]
-        for M in (4, 32, 512):
+        for M in (4, 32, 512, TRAIN_TOKENS):
             x = torch.randn(M, K_DIM, generator=gen, device=dev).to(dtype)
             n0 = fused_glu.launches
             got = fused_glu(x, wgs[0], wus[0], table=table)
@@ -176,6 +191,154 @@ def glu_phase(torch):
                   f"plain {p_ms * 1e3:.2f} us, torch.matmul(x, [Wg|Wu]) "
                   f"{l_ms * 1e3:.2f} us, bound {rows[(M, dtype)]['bound_ms'] * 1e3:.2f} us "
                   f"({rows[(M, dtype)]['bound_by']})")
+    return rows
+
+
+def _compare_scaled(torch, got, want, tol, what) -> float:
+    """``got`` against ``want`` on the scale of ``want``: max |got - want| at
+    most ``tol`` times max |want|.  Returns the max abs error."""
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    check(err <= tol * scale, f"{what}: max err {err} > {tol} x scale {scale}")
+    return err
+
+
+def glu_bwd_phase(torch):
+    """The GLU backward kernel (through ``fused_glu_bwd``, the backward's
+    wrapper) vs ``fused_glu_bwd_plain``: ragged M=37 K=65 N=130 and the
+    training shape M=4096 K=768 N=3072 (8 x 512 tokens of repro-100m), dzg
+    and dzu each held on its own scale, f32 (TF32 off) at 1e-4 and bf16
+    operands at 1e-2."""
+    from repro_torch import sfu
+    from repro_torch.kernels.fused import fused_glu
+    from repro_torch.kernels.fused.epilogue import plan_and_operands
+    from repro_torch.kernels.fused.glu import fused_glu_bwd, fused_glu_bwd_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    table = sfu.get_store().get(fn="gelu_tanh", n_breakpoints=32)
+    plan, tables = plan_and_operands(table)
+    tables = tuple(t.to(dev) for t in tables)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    rows = {}
+    for M, K, N in ((37, 65, 130), (TRAIN_TOKENS, K_DIM, N_DIM)):
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+            x = torch.randn(M, K, generator=gen, device=dev).to(dtype)
+            wg = (torch.randn(K, N, generator=gen, device=dev) / math.sqrt(K)).to(dtype)
+            wu = (torch.randn(K, N, generator=gen, device=dev) / math.sqrt(K)).to(dtype)
+            g = torch.randn(M, N, generator=gen, device=dev).to(dtype)
+            n0 = fused_glu.bwd_launches
+            dzg, dzu = fused_glu_bwd(x, wg, wu, g, plan, tables)
+            check(fused_glu.bwd_launches == n0 + 1, f"GLU bwd {M}x{K}x{N}: kernel not launched")
+            wdzg, wdzu = fused_glu_bwd_plain(x, wg, wu, g, plan, tables)
+            torch.cuda.synchronize()
+            what = f"GLU bwd M={M} K={K} N={N} {dtype}"
+            err = max(_compare_scaled(torch, dzg, wdzg, tol, f"{what} dzg"),
+                      _compare_scaled(torch, dzu, wdzu, tol, f"{what} dzu"))
+            line = f"[smoke] fused_glu backward M={M} K={K} N={N} {dtype}: max_abs_err {err:.3g}"
+            if M == TRAIN_TOKENS and dtype == torch.bfloat16:
+                wcat = torch.cat([wg, wu], dim=1)
+                k_ms = time_ms(torch, lambda i: fused_glu_bwd(x, wg, wu, g, plan, tables),
+                               reps=5, iters=4)
+                p_ms = time_ms(torch, lambda i: fused_glu_bwd_plain(x, wg, wu, g, plan, tables),
+                               reps=3, iters=3)
+                l_ms = time_ms(torch, lambda i: torch.matmul(x, wcat), reps=5, iters=4)
+                esize = x.element_size()
+                nbytes = (M * K + 2 * K * N + M * N) * esize + 2 * M * N * 4
+                rows[(M, dtype)] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                                    "max_abs_err": err, **_bound(nbytes, 4.0 * M * K * N)}
+                line += (f", kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, "
+                         f"torch.matmul(x, [Wg|Wu]) {l_ms * 1e3:.1f} us, bound "
+                         f"{rows[(M, dtype)]['bound_ms'] * 1e3:.1f} us "
+                         f"({rows[(M, dtype)]['bound_by']})")
+            print(line)
+    return rows
+
+
+def _compare_rows(torch, got, want, live, tol, what) -> float:
+    """Gradient rows on their own scale: in each row max |got - want| at most
+    ``tol`` times that row's max |want|, and every entry outside ``live``
+    exactly 0.  Returns the max abs error."""
+    N = got.shape[-1]
+    g, w = got.float().reshape(-1, N), want.float().reshape(-1, N)
+    check(bool(torch.isfinite(g).all()), f"{what}: non-finite output")
+    err = (g - w).abs().amax(dim=-1)
+    scale = w.abs().amax(dim=-1)
+    bad = int((err > tol * scale).sum())
+    check(bad == 0, f"{what}: {bad} rows off by more than {tol} of their scale "
+          f"(worst ratio {(err / scale.clamp(min=1e-30)).max().item():.3g})")
+    check(not bool(g[~live].any()), f"{what}: a masked entry has a nonzero gradient")
+    return err.max().item()
+
+
+def softmax_bwd_phase(torch):
+    """The row-softmax backward kernel (through ``fused_pwl_softmax`` under
+    autograd) vs ``fused_pwl_softmax_bwd_plain``, f32, each row at 1e-5 of
+    its scale: the training rows (8 x 12 heads x 512 queries, 512 keys,
+    causal), a {0, 1} mask over rows of 2048 (a block per row), and rows
+    whose max is tied three ways."""
+    from repro_torch.kernels.fused import fused_pwl_softmax
+    from repro_torch.kernels.fused.softmax import (
+        fused_pwl_softmax_bwd,
+        fused_pwl_softmax_bwd_plain,
+        static_mask,
+    )
+
+    dev = torch.device("cuda")
+    table, plan, tables = _exp_table(torch)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    train = TRAIN_SOFTMAX
+    cases = [  # (name, score shape, kwargs)
+        (train, (B, 1, HKV, S, S), {"causal": True}),
+        ("96 rows x 2048 mask", (8, HKV, 2048), {"mask": True}),
+        ("512 rows x 512 three-way argmax ties", (512, 512), {"ties": True}),
+    ]
+    rows = {}
+    for name, shape, kw in cases:
+        x = torch.randn(shape, generator=gen, device=dev) * 3.0
+        N = shape[-1]
+        fkw = {}
+        if kw.get("ties"):
+            x[..., :3] = x.amax(dim=-1, keepdim=True) + 1.0
+        if kw.get("mask"):
+            fkw["mask"] = torch.rand(shape, generator=gen, device=dev) > 0.3
+            fkw["mask"][..., 0] = True  # no row is wholly masked
+            mask2 = fkw["mask"].reshape(-1, N).to(torch.float32)
+        elif kw.get("causal"):
+            fkw["causal"] = True
+            mask2 = static_mask(x.numel() // N, N, S, True, None, device=dev)
+        else:
+            mask2 = None
+        g = torch.randn(shape, generator=gen, device=dev)
+        xr = x.clone().requires_grad_(True)
+        n0 = fused_pwl_softmax.bwd_launches
+        (got,) = torch.autograd.grad(fused_pwl_softmax(xr, table=table, **fkw), xr, g)
+        check(fused_pwl_softmax.bwd_launches == n0 + 1, f"softmax bwd {name}: not launched")
+        x2, g2 = x.reshape(-1, N), g.reshape(-1, N)
+        want = fused_pwl_softmax_bwd_plain(x2, mask2, g2, plan, tables)
+        torch.cuda.synchronize()
+        live = torch.ones_like(x2, dtype=torch.bool) if mask2 is None else mask2 > 0
+        err = _compare_rows(torch, got, want, live, 1e-5, f"softmax bwd {name}")
+        line = f"[smoke] fused_pwl_softmax backward {name}: max_abs_err {err:.3g} (row tol 1e-5)"
+        if name == train:
+            def library(i):
+                return torch.autograd.grad(torch.softmax(xr, dim=-1), xr, g)
+
+            k_ms = time_ms(torch, lambda i: fused_pwl_softmax_bwd(
+                x2, None, g2, plan, tables, S, True), reps=5, iters=4)
+            p_ms = time_ms(torch, lambda i: fused_pwl_softmax_bwd_plain(
+                x2, mask2, g2, plan, tables), reps=2, iters=2)
+            l_ms = time_ms(torch, library, reps=5, iters=4)
+            n = x.numel()
+            nbytes = _softmax_bytes(n, int(live.sum()), n_live_inputs=2, explicit_mask=False)
+            rows[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "max_abs_err": err,
+                          **_bound(nbytes, 0.0), "decode_ms": _decode_ms(n)}
+            line += (f", kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, autograd of "
+                     f"torch.softmax {l_ms * 1e3:.1f} us, bound {rows[name]['bound_ms'] * 1e3:.1f}"
+                     f" us (bytes), CUDA-core decode {rows[name]['decode_ms'] * 1e3:.1f} us")
+        print(line)
     return rows
 
 
@@ -317,6 +480,14 @@ def _bound(nbytes: float, mma_flops: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def _softmax_bytes(n: int, n_live: int, n_live_inputs: int, explicit_mask: bool) -> float:
+    """The bytes a row softmax, forward or backward, must move: each f32
+    input (x; x and g for the backward) read where the mask keeps a score
+    (a masked score's output is 0 whatever it holds), the f32 output written
+    in full, and an explicit f32 mask read in full."""
+    return 4.0 * (n_live_inputs * n_live + n + (n if explicit_mask else 0))
+
+
 def _decode_ms(n_scores: float) -> float:
     """CUDA-core time of the linear delta decode alone, ~3 f32 operations per
     breakpoint per score: the work a later decode design has to beat."""
@@ -349,6 +520,7 @@ def softmax_phase(torch):
          {"causal": True, "window": 100}, False),
         ("48 x 32768 mask", (4, HKV, 1, 32768),
          {"mask": prefix_mask([32768, 20000, 5, 0], 32768)[:, None, None, :]}, True),
+        (TRAIN_SOFTMAX, (TRAIN_BATCH, 1, HKV, TRAIN_SEQ, TRAIN_SEQ), {"causal": True}, True),
     ]
     rows = {}
     for name, shape, kw, timed in cases:
@@ -379,7 +551,8 @@ def softmax_phase(torch):
                            reps=5, iters=4)
             l_ms = time_ms(torch, lambda i: torch.softmax(x, dim=-1))
             n = x.numel()
-            nbytes = n * 4 * (3 if "mask" in kw else 2)
+            nbytes = _softmax_bytes(n, int(live.sum()), n_live_inputs=1,
+                                    explicit_mask="mask" in kw)
             rows[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "max_abs_err": err,
                           **_bound(nbytes, 0.0), "decode_ms": _decode_ms(n)}
             line += (f", kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, torch.softmax "
@@ -531,23 +704,29 @@ def flash_phase(torch):
 # main path
 
 
-def _wrappers() -> dict:
+def _counters() -> dict:
+    """Each kernel's launch counter: (wrapper, attribute).  The backward
+    kernels count on their forward's wrapper."""
     from repro_torch.kernels import fused
     from repro_torch.serving.kv_cache import append_kv_, write_prompt_pages_
 
-    return {"fused_glu": fused.fused_glu, "write_prompt_pages_": write_prompt_pages_,
-            "append_kv_": append_kv_, "fused_pwl_softmax": fused.fused_pwl_softmax,
-            "paged_flash_decode": fused.paged_flash_decode,
-            "fused_flash_attention": fused.fused_flash_attention}
+    return {"fused_glu": (fused.fused_glu, "launches"),
+            "write_prompt_pages_": (write_prompt_pages_, "launches"),
+            "append_kv_": (append_kv_, "launches"),
+            "fused_pwl_softmax": (fused.fused_pwl_softmax, "launches"),
+            "paged_flash_decode": (fused.paged_flash_decode, "launches"),
+            "fused_flash_attention": (fused.fused_flash_attention, "launches"),
+            "fused_glu_bwd": (fused.fused_glu, "bwd_launches"),
+            "fused_pwl_softmax_bwd": (fused.fused_pwl_softmax, "bwd_launches")}
 
 
 def reset_counters():
-    for fn in _wrappers().values():
-        fn.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counters() -> dict:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
 
 
 def serve_phase(torch, argv: list[str], attention) -> dict:
@@ -590,6 +769,8 @@ def serve_phase(torch, argv: list[str], attention) -> dict:
           f"fused_glu launches {counts['fused_glu']} != {L} x ({pf} + {ds})")
     for name, want in attention({"prefills": pf, "decode_steps": ds}).items():
         check(counts[name] == want, f"{' '.join(argv)}: {name} launches {counts[name]} != {want}")
+    check(counts["fused_glu_bwd"] == 0 and counts["fused_pwl_softmax_bwd"] == 0,
+          "serving launched a backward kernel")
     print(f"[smoke] serve {' '.join(argv) or '(defaults)'}: {summary['tokens']} tokens, "
           f"{summary['tok_per_s']:.1f} tok/s, {pf} prefills, {ds} decode steps, "
           f"launches {counts}")
@@ -633,6 +814,15 @@ def dump_softmax_plan(path: pathlib.Path) -> str:
     return str(sfu.dump_plan(plan, path))
 
 
+def _to_cuda(torch, tree):
+    """A tree of tensors (dicts and lists) copied to the card."""
+    if torch.is_tensor(tree):
+        return tree.cuda()
+    if isinstance(tree, dict):
+        return {k: _to_cuda(torch, v) for k, v in tree.items()}
+    return [_to_cuda(torch, v) for v in tree]
+
+
 def reference_phase(torch):
     """The port on the card against its plain path on the CPU, reduced
     repro-100m in f32 (TF32 off), under the default plan and under the plan
@@ -643,19 +833,12 @@ def reference_phase(torch):
     from repro_torch.models import Model
     from repro_torch.serving import GenRequest, PagedServingEngine
 
-    def to_dev(t):
-        if torch.is_tensor(t):
-            return t.cuda()
-        if isinstance(t, dict):
-            return {k: to_dev(v) for k, v in t.items()}
-        return [to_dev(v) for v in t]
-
     for pwl_softmax in (False, True):
         cfg = get_reduced_config("repro-100m", act_impl="fused", pwl_softmax=pwl_softmax,
                                  dtype=torch.float32)
         cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
         params = cpu.init(seed=0)
-        gparams = to_dev(params)
+        gparams = _to_cuda(torch, params)
         toks = torch.randint(0, cfg.vocab_size, (2, 40),
                              generator=torch.Generator().manual_seed(2))
         want = cpu.forward(params, toks)
@@ -673,6 +856,256 @@ def reference_phase(torch):
               "paged == dense greedy tokens on cuda")
 
 
+HELD_OUT_STEP = 10_000  # the data stream's batch that the held-out loss reads
+HELD_OUT_MIN_DROP = 0.01  # a quarter of the fall the first runs' step losses showed
+
+
+def _held_out_losses(torch, args, ckpt_dir: str, step: int):
+    """The loss of one fixed batch that no run trains on (the stream's
+    ``HELD_OUT_STEP``), under the weights at init and under the checkpoint
+    of ``step``, and the evaluation's own rounding noise: the init loss of
+    the whole batch against the mean over its two halves (other GEMM
+    shapes, the same function)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+    from repro_torch.launch import train
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+
+    cfg = train.resolve_config(args)
+    model = Model(cfg, device="cuda")
+    init = adamw.init_state(model.init(seed=0, master=True))
+    trained, meta = CheckpointManager(ckpt_dir).restore(step=step, like=init, device="cuda")
+    check(int(meta["step"]) == step, f"checkpoint {step} holds step {meta['step']}")
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                                      global_batch=args.batch))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch_at(HELD_OUT_STEP).items()}
+    half = args.batch // 2
+    with torch.no_grad():
+        def loss(params, rows=slice(None)):
+            return float(model.loss(params, {k: v[rows] for k, v in batch.items()})[0])
+
+        at_init = loss(init["params"])
+        halves = 0.5 * (loss(init["params"], slice(0, half)) +
+                        loss(init["params"], slice(half, None)))
+        after = loss(trained["params"])
+    return at_init, after, abs(at_init - halves)
+
+
+def train_phase(torch, plan: str, ckpt_dir: str) -> dict:
+    """Full-width repro-100m through the train entry point on ``cuda`` under
+    the fused-softmax plan, at the launcher's defaults (batch 8 x seq 512,
+    remat on): 20 steps with a checkpoint every 10, then a resume for 2 more
+    from the checkpoint it left.  Checks the exit code (0: the loss fell),
+    finite losses, and the launch counts of each run: under remat every layer
+    runs its forward twice a step and its backward once, so 24 GLU and 24
+    row-softmax forwards and 12 of each backward per step, and no other
+    kernel.  The step losses come from different batches, whose own spread
+    is about the fall over 20 steps, so the run is also held on one fixed
+    batch it never trains on: the checkpoint of step 20 must lower that
+    batch's loss below the init's by at least ``HELD_OUT_MIN_DROP`` and by
+    at least 100 times the evaluation's rounding noise.  Returns the counts,
+    the median step time and tokens/s of the 20-step run."""
+    import statistics
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+
+    def parse(steps):
+        args = train.build_parser().parse_args(
+            ["--arch", "repro-100m", "--steps", str(steps), "--plan", plan,
+             "--ckpt-dir", ckpt_dir, "--ckpt-every", "10", "--log-every", "5"])
+        check(args.device == "cuda" and (args.batch, args.seq) == (TRAIN_BATCH, TRAIN_SEQ),
+              "train must default to cuda at batch 8 x seq 512")
+        return args
+
+    def run(steps):
+        reset_counters()
+        out = train.run(parse(steps))
+        torch.cuda.synchronize()
+        return out, read_counters()
+
+    cfg = get_config("repro-100m")
+    check(cfg.d_model == 768 and cfg.n_layers == N_LAYERS and cfg.remat,
+          "not full-width repro-100m with remat")
+    out, counts = run(20)
+    check(out["rc"] == 0, f"train rc {out['rc']}: losses {out['losses']}")
+    check(len(out["losses"]) == 20 and all(math.isfinite(x) for x in out["losses"]),
+          f"train losses {out['losses']}")
+    _check_train_counts(counts, 20, "train 20 steps")
+    med = statistics.median(out["step_seconds"])
+    tok_s = out["tokens_per_step"] / med
+    print(f"[smoke] train repro-100m --plan <fused softmax> 20 steps: loss "
+          f"{out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}, median step "
+          f"{med * 1e3:.1f} ms ({tok_s:.0f} tokens/s), first step "
+          f"{out['step_seconds'][0] * 1e3:.1f} ms, launches {counts}")
+    at_init, after, noise = _held_out_losses(torch, parse(20), ckpt_dir, 20)
+    drop = at_init - after
+    check(math.isfinite(drop) and drop >= max(HELD_OUT_MIN_DROP, 100 * noise),
+          f"held-out loss {at_init:.6f} -> {after:.6f} (drop {drop:.3g}, noise {noise:.3g})")
+    print(f"[smoke] train held-out batch {HELD_OUT_STEP}: loss at init {at_init:.6f}, after 20 "
+          f"steps {after:.6f}, drop {drop:.4f} (gate {HELD_OUT_MIN_DROP}; evaluation noise "
+          f"{noise:.3g})")
+    res, rcounts = run(22)
+    check(len(res["losses"]) == 2 and all(math.isfinite(x) for x in res["losses"]),
+          f"resume: losses {res['losses']}")
+    _check_train_counts(rcounts, 2, "train resume 2 steps")
+    print(f"[smoke] train resume from step 20: 2 steps, losses {res['losses']}")
+    return {"counts": counts, "step_ms": med * 1e3, "tokens_per_s": tok_s}
+
+
+def _check_train_counts(counts: dict, steps: int, what: str) -> None:
+    want = {"fused_glu": 2 * N_LAYERS * steps, "fused_pwl_softmax": 2 * N_LAYERS * steps,
+            "fused_glu_bwd": N_LAYERS * steps, "fused_pwl_softmax_bwd": N_LAYERS * steps}
+    for name, n in counts.items():
+        check(n == want.get(name, 0), f"{what}: {name} launches {n} != {want.get(name, 0)}")
+
+
+def _norm(torch, tensors) -> float:
+    return math.sqrt(sum(float(t.double().square().sum()) for t in tensors))
+
+
+def _loss_and_grads(torch, model, masters, batch):
+    from repro_torch import tree
+
+    leaves = [p.detach().requires_grad_(True) for p in tree.leaves(masters)]
+    loss, _ = model.loss(tree.unflatten(masters, leaves), batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), grads
+
+
+def _worst_leaf(torch, got, want) -> float:
+    """The largest elementwise difference of a leaf over that leaf's max."""
+    return max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+               for a, b in zip(got, want))
+
+
+@contextlib.contextmanager
+def _glu_dx_in_one_gemm(torch):
+    """The GLU's plain VJP with dx taken as one GEMM, [dzg | dzu] times
+    [Wg | Wu]^T, where the port sums two: the same function in another f32
+    summation order, so some bf16 roundings of dx flip.  The gradients it
+    gives against the port's plain VJP are the yardstick of what one flipped
+    rounding does to the model's gradients."""
+    from repro_torch.kernels.fused import glu
+
+    def backward(ctx, g):
+        x, wg, wu = ctx.saved_tensors
+        dzg, dzu = glu.fused_glu_bwd_plain(x, wg, wu, g, ctx.plan, ctx.tables)
+        xf = x.to(torch.float32)
+        w = torch.cat([wg, wu], dim=1).to(torch.float32)
+        dx = (torch.cat([dzg, dzu], dim=1) @ w.T).to(x.dtype)
+        return dx, (xf.T @ dzg).to(wg.dtype), (xf.T @ dzu).to(wu.dtype), None, None, None
+
+    orig = glu._GLUOp.__dict__["backward"]
+    glu._GLUOp.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        glu._GLUOp.backward = orig
+
+
+def grad_phase(torch, plan: str):
+    """The gradients of the training path.  One full-width batch (8 x 512,
+    f32 masters, remat) under ``impl_bwd="fused"`` (the backward kernels)
+    against ``"recompute"`` (plain recomputation) on the card, the loss
+    bitwise equal (the forwards are the same kernels):
+
+    * f32 compute (TF32 off): every gradient leaf at 1e-4 of its max (sums
+      in another order; measured ~3e-6 on an H100), and the fused gradients
+      with remat off at 1e-6 of each leaf's max against remat on (the
+      recomputed forward is the same kernels on the same inputs);
+    * bf16 compute, the training path's: a second fused backward bitwise the
+      first (no atomics); every leaf at cosine >= 0.999 with its recompute;
+      and the worst leaf's gap at most 4 times a yardstick measured on the
+      same batch, recompute against recompute with the GLU's dx summed in
+      another order (``_glu_dx_in_one_gemm``).  Both pairs differ only in f32
+      roundings inside the GLU's backward that flip some bf16 roundings of
+      dx; the backward of a PWL model at this init amplifies such flips to
+      percents of a leaf's max (the JAX package's own gradients move as much
+      under a rounding-sized nudge of the weights:
+      ``tests/test_torch_train_parity.py``).
+
+    Then reduced repro-100m in f32 on the card against the CPU, loss and
+    every leaf at 1e-4 of its max, as reference_phase holds the logits."""
+    import dataclasses
+
+    from repro_torch import sfu
+    from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+    from repro_torch.kernels.fused import use_impl_bwd
+    from repro_torch.models import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data = SyntheticLMData(DataConfig(vocab_size=get_config("repro-100m").vocab_size,
+                                      seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch_at(0).items()}
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = get_config("repro-100m", act_plan=sfu.load_plan(plan), dtype=dtype)
+        check(cfg.remat, "the full-width gradients must be taken under remat")
+        model = Model(cfg, device="cuda")
+        masters = model.init(seed=0, master=True)
+        runs = {}
+        for mode in ("fused", "recompute"):
+            with use_impl_bwd(mode):
+                runs[mode] = _loss_and_grads(torch, model, masters, batch)
+        torch.cuda.synchronize()
+        (lf, gf), (lr, gr) = runs["fused"], runs["recompute"]
+        what = f"full-width {dtype}"
+        check(float(lf) == float(lr), f"{what} loss fused {float(lf)} != recompute {float(lr)}")
+        check(all(bool(torch.isfinite(a).all()) for a in gf), f"{what}: non-finite gradient")
+        worst = _worst_leaf(torch, gf, gr)
+        cos = [torch.nn.functional.cosine_similarity(
+            a.flatten().double(), b.flatten().double(), dim=0).item() for a, b in zip(gf, gr)]
+        line = (f"[smoke] grads {what} batch {TRAIN_BATCH}x{TRAIN_SEQ} (remat), impl_bwd fused "
+                f"vs recompute: loss {float(lf):.6f} equal, worst leaf {worst:.3g} of its max, "
+                f"lowest cosine {min(cos):.8f}, global norm {_norm(torch, gf):.4g}")
+        if dtype == torch.float32:
+            check(worst <= 1e-4, f"{what}: a gradient leaf off by {worst:.3g} of its max")
+            with use_impl_bwd("fused"):
+                _, g_flat = _loss_and_grads(
+                    torch, Model(dataclasses.replace(cfg, remat=False), device="cuda"),
+                    masters, batch)
+            remat_gap = _worst_leaf(torch, g_flat, gf)
+            check(remat_gap <= 1e-6, f"{what}: remat off differs by {remat_gap:.3g} of a leaf")
+            line += f"; remat off vs on: worst leaf {remat_gap:.3g}"
+            del g_flat
+        else:
+            with use_impl_bwd("fused"):
+                _, again = _loss_and_grads(torch, model, masters, batch)
+            check(all(torch.equal(a, b) for a, b in zip(gf, again)),
+                  f"{what}: two fused backwards differ")
+            del again
+            check(min(cos) >= 0.999, f"{what}: a gradient leaf at cosine {min(cos):.6f}")
+            with use_impl_bwd("recompute"), _glu_dx_in_one_gemm(torch):
+                _, g_order = _loss_and_grads(torch, model, masters, batch)
+            yardstick = _worst_leaf(torch, g_order, gr)
+            check(worst <= 4 * yardstick,
+                  f"{what}: fused vs recompute {worst:.3g} > 4 x the reordered-dx yardstick "
+                  f"{yardstick:.3g}")
+            line += (f"; yardstick, recompute vs recompute with dx in one GEMM: worst leaf "
+                     f"{yardstick:.3g}")
+            del g_order
+        print(line)
+        del runs, gf, gr
+
+    rcfg = get_reduced_config("repro-100m", act_plan=sfu.load_plan(plan), dtype=torch.float32)
+    cpu, gpu = Model(rcfg, device="cpu"), Model(rcfg, device="cuda")
+    rmasters = cpu.init(seed=0, master=True)
+    rdata = SyntheticLMData(DataConfig(vocab_size=rcfg.vocab_size, seq_len=64, global_batch=2))
+    rbatch = {k: torch.from_numpy(v) for k, v in rdata.batch_at(0).items()}
+    lc, gc = _loss_and_grads(torch, cpu, rmasters, rbatch)
+    lg, gg = _loss_and_grads(torch, gpu, _to_cuda(torch, rmasters),
+                             {k: v.cuda() for k, v in rbatch.items()})
+    check(abs(float(lg) - float(lc)) <= 1e-4 * abs(float(lc)),
+          f"reduced f32 loss cuda {float(lg)} vs cpu {float(lc)}")
+    worst = max(_compare_scaled(torch, a.cpu(), b, 1e-4, f"reduced f32 grad leaf {i}") /
+                max(b.abs().max().item(), 1e-30) for i, (a, b) in enumerate(zip(gg, gc)))
+    print(f"[smoke] grads reduced f32, cuda vs cpu: loss {float(lg):.6f} vs {float(lc):.6f}, "
+          f"worst leaf error {worst:.3g} of its max")
+
+
 def main() -> int:
     try:
         import torch
@@ -688,6 +1121,9 @@ def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
     print(f"[smoke] card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    def mark(phase: str) -> None:
+        print(f"[smoke] -- {phase} done at {time.perf_counter() - t_start:.1f}s")
+
     try:
         build_s = build_phase()
         glu = glu_phase(torch)
@@ -695,6 +1131,10 @@ def main() -> int:
         sm = softmax_phase(torch)
         dec = decode_phase(torch)
         fl = flash_phase(torch)
+        mark("forward kernel phases")
+        glu_bwd = glu_bwd_phase(torch)
+        sm_bwd = softmax_bwd_phase(torch)
+        mark("backward kernel phases")
         main_counts = serve_phase(torch, [], no_attention_kernels)
         serve_phase(torch, ["--batch", "8", "--prompt-len", "256", "--max-new", "32"],
                     no_attention_kernels)
@@ -704,6 +1144,11 @@ def main() -> int:
             long = serve_phase(torch, ["--plan", plan, "--batch", "2", "--prompt-len", "4096",
                                        "--max-new", "8"], long_prompt_attention)
             serve_phase(torch, ["--plan", plan, "--mode", "dense"], dense_loop_attention)
+            mark("serve phases")
+            trained = train_phase(torch, plan, str(pathlib.Path(tmp) / "ckpt"))
+            mark("train phase")
+            grad_phase(torch, plan)
+            mark("grad phase")
         reference_phase(torch)
         # the launches of each kernel on the path that runs it
         path_counts = {name: main_counts[name]
@@ -711,8 +1156,10 @@ def main() -> int:
         path_counts["fused_pwl_softmax"] = short["fused_pwl_softmax"]
         path_counts["paged_flash_decode"] = short["paged_flash_decode"]
         path_counts["fused_flash_attention"] = long["fused_flash_attention"]
+        path_counts["fused_glu_bwd"] = trained["counts"]["fused_glu_bwd"]
+        path_counts["fused_pwl_softmax_bwd"] = trained["counts"]["fused_pwl_softmax_bwd"]
         for name, n in path_counts.items():
-            check(n > 0, f"{name} never launched on its serving path")
+            check(n > 0, f"{name} never launched on its serving or training path")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -747,9 +1194,20 @@ def main() -> int:
          "replaces": "src/repro/kernels/fused/attention.py:100",
          "shape": f"S=T=4096 causal H={HKV} dh={DH} bf16 (prefill, B=1)",
          "launches": path_counts["fused_flash_attention"], **fl["S=T=4096 causal H=12"]},
+        {"name": "fused_glu_bwd", "route": "cuda", "source": "src/repro_torch/csrc/glu.cu",
+         "replaces": "src/repro/kernels/fused/glu.py:97",
+         "shape": f"M={TRAIN_TOKENS} K={K_DIM} N={N_DIM} bf16 (train step, batch 8 x 512)",
+         "launches": path_counts["fused_glu_bwd"], **glu_bwd[(TRAIN_TOKENS, torch.bfloat16)]},
+        {"name": "fused_pwl_softmax_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/softmax.cu",
+         "replaces": "src/repro/kernels/fused/softmax.py:213",
+         "shape": f"{TRAIN_SOFTMAX} f32 (train step)",
+         "launches": path_counts["fused_pwl_softmax_bwd"], **sm_bwd[TRAIN_SOFTMAX]},
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+    print(f"[smoke] train step {trained['step_ms']:.1f} ms median, "
+          f"{trained['tokens_per_s']:.0f} tokens/s")
     print(f"[smoke] total {time.perf_counter() - t_start:.1f}s (build {build_s:.1f}s)")
     print(card_line())
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))

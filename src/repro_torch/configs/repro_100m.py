@@ -22,5 +22,5 @@ CONFIG = ModelConfig(
 def reduced():
     return dataclasses.replace(
         CONFIG, n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, d_ff=128,
-        vocab_size=512,
+        vocab_size=512, remat=False,
     )

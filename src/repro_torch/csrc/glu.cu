@@ -1,7 +1,13 @@
-// Fused GLU with a PWL epilogue: out = pwl(x @ Wg) * (x @ Wu).
+// Fused GLU with a PWL epilogue: out = pwl(x @ Wg) * (x @ Wu), and its
+// backward.
 //
 // Replaces repro/kernels/fused/glu.py:_glu_kernel (the GeGLU gate GEMM of every
-// dense layer, with gelu_tanh as a non-uniform PWL table in its epilogue).
+// dense layer, with gelu_tanh as a non-uniform PWL table in its epilogue) and
+// repro/kernels/fused/glu.py:_glu_bwd_kernel.  The backward is the same kernel
+// with another epilogue: it recomputes both accumulators exactly as the
+// forward does, decodes value and slope of the gate accumulator at once, and
+// writes dzg = g * zu * m(zg) and dzu = g * pwl(zg) in f32 (g read in T and
+// widened per element), so the pre-activation never goes to device memory.
 //
 // x is (M, K), Wg and Wu are (K, N) row-major as the JAX package stores them,
 // out is (M, N); all in T (bf16 or f32), accumulation in f32.
@@ -26,7 +32,10 @@
 //     the one store;
 //   * ragged M, N and K edges are masked (zero-filled) in the kernel; nothing
 //     is padded or copied.
-// The products are plain f32 FMAs (no tensor cores yet).
+// The products are plain f32 FMAs (no tensor cores yet).  At the training
+// shape (M = 4096, K = 768, N = 3072) that makes both passes bound by
+// operations: 38.7 GFLOP is 577 us at the 67 TFLOP/s of f32 CUDA cores,
+// against 39 us on bf16 tensor cores and ~42 us for the backward's 142 MB.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,11 +99,43 @@ struct Cfg {
                 "the partial sums must fit in the ring");
 };
 
-template <typename T, class C>
+// The two epilogues on one output element (gm, gn) with its gate and up
+// accumulators, each a template argument of the kernel (two instantiations
+// with their own symbol names, no branch in the store loop): the forward's
+// pwl(zg) * zu in T, and the backward's (g * zu * m(zg), g * pwl(zg)) in f32.
+template <typename T>
+struct ForwardEpi {
+  T* out;
+  int N;
+  __device__ __forceinline__ void operator()(int gm, int gn, float zg, float zu,
+                                             const float* s_bp, const float* s_dmq,
+                                             int n_bp) const {
+    store(pwl_value_and_slope(zg, s_bp, s_dmq, n_bp).x * zu, out + (size_t)gm * N + gn);
+  }
+};
+
+template <typename T>
+struct BackwardEpi {
+  const T* g;
+  float* dzg;
+  float* dzu;
+  int N;
+  __device__ __forceinline__ void operator()(int gm, int gn, float zg, float zu,
+                                             const float* s_bp, const float* s_dmq,
+                                             int n_bp) const {
+    const size_t o = (size_t)gm * N + gn;
+    const float2 vs = pwl_value_and_slope(zg, s_bp, s_dmq, n_bp);
+    const float gf = to_f32(g[o]);
+    dzg[o] = gf * zu * vs.y;
+    dzu[o] = gf * vs.x;
+  }
+};
+
+template <typename T, class C, class Epi>
 __global__ void __launch_bounds__(C::THREADS)
 glu_pwl_kernel(const T* __restrict__ x, const T* __restrict__ wg, const T* __restrict__ wu,
                const float* __restrict__ bp, const float* __restrict__ dmq, int n_bp,
-               T* __restrict__ out, int M, int N, int K, bool vec_x, bool vec_w) {
+               Epi epi, int M, int N, int K, bool vec_x, bool vec_w) {
   constexpr int BM = C::BM, BN = C::BN, BK = C::BK, TM = C::TM, TN = C::TN;
   constexpr int V = C::V, TX = C::TX, XS = C::XS, STAGES = C::STAGES, KS = C::KS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -194,13 +235,13 @@ glu_pwl_kernel(const T* __restrict__ x, const T* __restrict__ wg, const T* __res
         g += red_g[q * BM * BN + o];
         u += red_u[q * BM * BN + o];
       }
-      store(pwl_value_and_slope(g, s_bp, s_dmq, n_bp).x * u, out + (size_t)gm * N + gn);
+      epi(gm, gn, g, u, s_bp, s_dmq, n_bp);
     }
     return;
   }
 
-  // epilogue: PWL decode on the gate accumulator, times the up accumulator,
-  // one store in T
+  // epilogue: PWL decode on the gate accumulator, then the forward's product
+  // with the up accumulator (one store in T) or the backward's two gradients
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int gm = m0 + ty * TM + i;
@@ -209,22 +250,21 @@ glu_pwl_kernel(const T* __restrict__ x, const T* __restrict__ wg, const T* __res
     for (int j = 0; j < TN; ++j) {
       const int gn = n0 + tx + j * TX;
       if (gn >= N) continue;
-      const float g = pwl_value_and_slope(accg[i][j], s_bp, s_dmq, n_bp).x;
-      store(g * accu[i][j], out + (size_t)gm * N + gn);
+      epi(gm, gn, accg[i][j], accu[i][j], s_bp, s_dmq, n_bp);
     }
   }
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
-template <typename T, class C>
+template <typename T, class C, class Epi>
 int launch(const void* x, const void* wg, const void* wu, const void* bp, const void* dmq,
-           int n_bp, void* out, int M, int N, int K, cudaStream_t stream) {
+           int n_bp, Epi epi, int M, int N, int K, cudaStream_t stream) {
   constexpr int V = C::V;
   const bool vec_x = K % V == 0 && aligned16(x);
   const bool vec_w = N % V == 0 && aligned16(wg) && aligned16(wu);
   if ((M + C::BM - 1) / C::BM > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = glu_pwl_kernel<T, C>;
+  auto kern = glu_pwl_kernel<T, C, Epi>;
   if (C::SMEM > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::SMEM));
@@ -233,8 +273,8 @@ int launch(const void* x, const void* wg, const void* wu, const void* bp, const 
   dim3 grid((N + C::BN - 1) / C::BN, (M + C::BM - 1) / C::BM);
   kern<<<grid, C::THREADS, C::SMEM, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wg), static_cast<const T*>(wu),
-      static_cast<const float*>(bp), static_cast<const float*>(dmq), n_bp,
-      static_cast<T*>(out), M, N, K, vec_x, vec_w);
+      static_cast<const float*>(bp), static_cast<const float*>(dmq), n_bp, epi, M, N, K,
+      vec_x, vec_w);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -250,12 +290,28 @@ template <typename T>
 using Large = Cfg<T, 64, 64, 32, 4, 4, 3, 1>;
 constexpr int TINY_M = 4, SMALL_M = 64;
 
-template <typename T>
+template <typename T, class Epi>
 int dispatch(const void* x, const void* wg, const void* wu, const void* bp, const void* dmq,
-             int n_bp, void* out, int M, int N, int K, cudaStream_t s) {
-  if (M <= TINY_M) return launch<T, Tiny<T>>(x, wg, wu, bp, dmq, n_bp, out, M, N, K, s);
-  if (M <= SMALL_M) return launch<T, Small<T>>(x, wg, wu, bp, dmq, n_bp, out, M, N, K, s);
-  return launch<T, Large<T>>(x, wg, wu, bp, dmq, n_bp, out, M, N, K, s);
+             int n_bp, Epi epi, int M, int N, int K, cudaStream_t s) {
+  if (M <= TINY_M) return launch<T, Tiny<T>>(x, wg, wu, bp, dmq, n_bp, epi, M, N, K, s);
+  if (M <= SMALL_M) return launch<T, Small<T>>(x, wg, wu, bp, dmq, n_bp, epi, M, N, K, s);
+  return launch<T, Large<T>>(x, wg, wu, bp, dmq, n_bp, epi, M, N, K, s);
+}
+
+template <typename T>
+int forward(const void* x, const void* wg, const void* wu, const void* bp, const void* dmq,
+            int n_bp, void* out, int M, int N, int K, cudaStream_t s) {
+  return dispatch<T>(x, wg, wu, bp, dmq, n_bp, ForwardEpi<T>{static_cast<T*>(out), N}, M, N,
+                     K, s);
+}
+
+template <typename T>
+int backward(const void* x, const void* wg, const void* wu, const void* g, const void* bp,
+             const void* dmq, int n_bp, void* dzg, void* dzu, int M, int N, int K,
+             cudaStream_t s) {
+  const BackwardEpi<T> epi{static_cast<const T*>(g), static_cast<float*>(dzg),
+                           static_cast<float*>(dzu), N};
+  return dispatch<T>(x, wg, wu, bp, dmq, n_bp, epi, M, N, K, s);
 }
 
 }  // namespace
@@ -267,7 +323,21 @@ extern "C" int glu_pwl_forward(const void* x, const void* wg, const void* wu, co
   if (n_bp < 1 || n_bp > PWL_MAX_BP || M <= 0 || N <= 0 || K <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(x, wg, wu, bp, dmq, n_bp, out, M, N, K, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(x, wg, wu, bp, dmq, n_bp, out, M, N, K, s);
+  if (dtype == 0) return forward<float>(x, wg, wu, bp, dmq, n_bp, out, M, N, K, s);
+  if (dtype == 1) return forward<__nv_bfloat16>(x, wg, wu, bp, dmq, n_bp, out, M, N, K, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// x (M, K), wg/wu (K, N) and g (M, N) in dtype (0 = float32, 1 = bfloat16);
+// dzg, dzu (M, N) float32.  Returns the cudaError_t of the launch.
+extern "C" int glu_pwl_backward(const void* x, const void* wg, const void* wu, const void* g,
+                                const void* bp, const void* dmq, int n_bp, void* dzg,
+                                void* dzu, int M, int N, int K, int dtype, void* stream) {
+  if (n_bp < 1 || n_bp > PWL_MAX_BP || M <= 0 || N <= 0 || K <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return backward<float>(x, wg, wu, g, bp, dmq, n_bp, dzg, dzu, M, N, K, s);
+  if (dtype == 1)
+    return backward<__nv_bfloat16>(x, wg, wu, g, bp, dmq, n_bp, dzg, dzu, M, N, K, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

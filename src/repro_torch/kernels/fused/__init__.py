@@ -1,7 +1,8 @@
 """Kernels with the PWL activation inside: producer epilogues (the fused
-GLU) and the PWL-exp softmax of attention (row softmax, split-KV paged
-decode, flash forward)."""
+GLU, forward and backward) and the PWL-exp softmax of attention (row
+softmax forward and backward, split-KV paged decode, flash forward)."""
 from .attention import fused_flash_attention, fused_flash_attention_plain
+from .backward import IMPL_BWD_MODES, current_impl_bwd, resolve_impl_bwd, use_impl_bwd
 from .decoding import merge_split_partials, paged_flash_decode, paged_flash_decode_plain
 from .epilogue import (
     IDENTITY,
@@ -12,18 +13,29 @@ from .epilogue import (
     pwl_value_and_slope,
     table_dtype_name,
 )
-from .glu import fused_glu, fused_glu_plain
-from .softmax import fused_pwl_softmax, fused_pwl_softmax_plain
+from .glu import fused_glu, fused_glu_bwd, fused_glu_bwd_plain, fused_glu_plain
+from .softmax import (
+    fused_pwl_softmax,
+    fused_pwl_softmax_bwd,
+    fused_pwl_softmax_bwd_plain,
+    fused_pwl_softmax_plain,
+)
 
 __all__ = [
     "IDENTITY",
+    "IMPL_BWD_MODES",
     "EpiloguePlan",
+    "current_impl_bwd",
     "exact_plan",
     "fused_flash_attention",
     "fused_flash_attention_plain",
     "fused_glu",
+    "fused_glu_bwd",
+    "fused_glu_bwd_plain",
     "fused_glu_plain",
     "fused_pwl_softmax",
+    "fused_pwl_softmax_bwd",
+    "fused_pwl_softmax_bwd_plain",
     "fused_pwl_softmax_plain",
     "merge_split_partials",
     "pack_table",
@@ -31,5 +43,7 @@ __all__ = [
     "paged_flash_decode_plain",
     "plan_and_operands",
     "pwl_value_and_slope",
+    "resolve_impl_bwd",
     "table_dtype_name",
+    "use_impl_bwd",
 ]

@@ -117,6 +117,25 @@ class EpiloguePlan:
             return fn(x.to(torch.float32))
         raise ValueError(f"unknown epilogue kind '{self.kind}'")
 
+    def apply_value_and_slope(self, x, *tables):
+        """``(act(x), act'(x))`` in f32, the epilogue of the backward: for a
+        PWL table the decoded per-segment slope (the left segment owns a
+        breakpoint), for an exact epilogue the derivative by autograd."""
+        xf = x.to(torch.float32)
+        if self.kind == "identity":
+            return xf, torch.ones_like(xf)
+        if self.kind == "pwl":
+            bp, dmq = tables
+            return pwl_value_and_slope(xf, bp, dmq, self.n_bp)
+        if self.kind.startswith("exact:"):
+            fn = F.get(self.kind.split(":", 1)[1]).fn
+            with torch.enable_grad():
+                xg = xf.detach().requires_grad_(True)
+                a = fn(xg)
+                (slope,) = torch.autograd.grad(a, xg, torch.ones_like(a))
+            return a.detach(), slope
+        raise ValueError(f"unknown epilogue kind '{self.kind}'")
+
 
 IDENTITY = EpiloguePlan("identity")
 
@@ -160,12 +179,13 @@ def device_operands(table: PWLTable | None, act: str | None, device):
     return hit[1], hit[2]
 
 
-def check_kernel_operands(what: str, plan: EpiloguePlan, tables, *tensors) -> None:
+def check_kernel_operands(what: str, plan: EpiloguePlan, tables, *forward_only) -> None:
     """Refuse what the CUDA kernels do not take, before any launch: an
     epilogue other than a PWL table in the f32 delta layout (f32 or int8
     storage; native bf16/f16 operands and the exact ``act=`` epilogue wait
-    for ROADMAP slice 5), and inputs that require grad (the kernels are
-    forward only; the backward kernels come with training)."""
+    for ROADMAP slice 5), and, for a kernel with no backward yet (the flash
+    forward and the paged decode, whose backwards are ROADMAP slice 3b), an
+    input in ``forward_only`` that requires grad."""
     if plan.kind != "pwl":
         raise NotImplementedError(
             f"the CUDA {what} kernel takes a PWL table epilogue, not {plan.kind!r}")
@@ -173,7 +193,7 @@ def check_kernel_operands(what: str, plan: EpiloguePlan, tables, *tensors) -> No
         raise NotImplementedError(
             f"native {plan.table_dtype} table operands are not supported by the "
             f"CUDA {what} kernel yet (f32 delta layout only; see ROADMAP)")
-    if any(t.requires_grad for t in tensors):
+    if any(t.requires_grad for t in forward_only):
         raise NotImplementedError(
             f"the CUDA {what} kernel is forward only: an input requires grad "
-            "(the backward kernels are not ported yet; see ROADMAP)")
+            "(its backward kernels are ROADMAP slice 3b)")

@@ -4,10 +4,14 @@ A model is described by a tree (dicts and lists) of ``ParamDef`` leaves with
 the JAX package's shapes and initial distributions.  :func:`init_params`
 materializes it from an explicit ``torch.Generator`` on an explicit device.
 
-Parameters are held the way the model uses them: matrices in ``cfg.dtype``
-(the JAX package keeps f32 masters and casts every matrix to ``cfg.dtype``
-at each use, which gives the same values), norm scales in f32 (the JAX
-package reads them in f32).
+Serving holds parameters the way the model uses them: matrices in
+``cfg.dtype`` (the JAX package keeps f32 masters and casts every matrix to
+``cfg.dtype`` at each use, which gives the same values), norm scales in f32
+(the JAX package reads them in f32).  Training holds f32 masters
+(``init_params(..., master=True)``), as the JAX package does, and
+:func:`compute_params` casts them to the serving layout with a
+differentiable ``.to()`` once per step, so each gradient lands on its f32
+master and AdamW updates in f32.
 """
 from __future__ import annotations
 
@@ -34,6 +38,10 @@ class ModelConfig:
     norm_type: str = "rmsnorm"
     qkv_bias: bool = False
     act_impl: str = "exact"           # exact | jnp | kernel | fused (sfu.IMPLS)
+    # backward of the fused sites: "fused" (the backward kernels) |
+    # "recompute" (plain recomputation, the oracle); None = the ambient
+    # kernels.fused.use_impl_bwd default
+    act_impl_bwd: Optional[str] = None
     act_breakpoints: int = 32
     act_site_specs: tuple = ()        # ((site_key, ApproxSpec), ...) pins
     pwl_softmax: bool = False         # PWL-exp softmax (paper Sec. V-B)
@@ -47,6 +55,7 @@ class ModelConfig:
     moe_every: Optional[int] = None
     is_encoder_decoder: bool = False
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True                # recompute each layer in the backward
     tie_embeddings: bool = False
 
     @property
@@ -101,6 +110,7 @@ class ParamDef:
     matrix: bool = True       # held in cfg.dtype (else f32)
 
     def materialize(self, gen: torch.Generator, device, dtype) -> torch.Tensor:
+        """The parameter in ``dtype`` if it is a matrix, else in f32."""
         dt = dtype if self.matrix else torch.float32
         if self.init == "zeros":
             return torch.zeros(self.shape, dtype=dt, device=device)
@@ -122,14 +132,27 @@ def _map_defs(fn, defs):
     return [_map_defs(fn, v) for v in defs]
 
 
-def init_params(defs, seed: int, device, dtype) -> Any:
+def init_params(defs, seed: int, device, dtype, master: bool = False) -> Any:
     """Materialize a ParamDef tree from a seeded generator on ``device``.
 
     The distributions are the JAX package's (normal with 1/sqrt(fan_in),
     0.02 for ``small_normal``, zeros/ones); the numbers differ, since a torch
     generator is not a JAX key.  Leaves draw in tree order from one
-    generator."""
+    generator.  ``master=True`` holds every leaf in f32 (training masters);
+    the values are the ones :func:`compute_params` casts back."""
     dev = torch.device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return _map_defs(lambda d: d.materialize(gen, dev, dtype), defs)
+    dt = torch.float32 if master else dtype
+    return _map_defs(lambda d: d.materialize(gen, dev, dt), defs)
+
+
+def compute_params(defs, params, dtype) -> Any:
+    """The tree the model computes with: every matrix of ``params`` cast to
+    ``dtype`` by a differentiable ``.to()`` (a no-op on a tree already
+    held so), every other leaf as it is."""
+    if isinstance(defs, ParamDef):
+        return params.to(dtype) if defs.matrix else params
+    if isinstance(defs, dict):
+        return {k: compute_params(v, params[k], dtype) for k, v in defs.items()}
+    return [compute_params(d, p, dtype) for d, p in zip(defs, params)]

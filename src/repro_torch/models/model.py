@@ -2,7 +2,9 @@
 
     model = Model(cfg, device="cuda")
     params = model.init(seed=0)                     # random weights on device
+    masters = model.init(seed=0, master=True)       # f32 training masters
     logits = model.forward(params, tokens)
+    loss, metrics = model.loss(masters, {"tokens": ..., "targets": ...})
     logits = model.prefill_paged(params, tokens, cache, page_table, lengths)
     logits = model.decode_step_paged(params, tokens, cache, page_table, kv_len)
 
@@ -27,11 +29,17 @@ class Model:
             raise NotImplementedError("encoder-decoder models are not ported yet")
         return transformer.model_defs(self.cfg)
 
-    def init(self, seed: int = 0):
-        return init_params(self.param_defs(), seed, self.device, self.cfg.dtype)
+    def init(self, seed: int = 0, master: bool = False):
+        """Random weights: the serving tree, or with ``master=True`` the f32
+        training masters (the same values before the cast)."""
+        return init_params(self.param_defs(), seed, self.device, self.cfg.dtype,
+                           master=master)
 
     def forward(self, params, tokens):
         return transformer.forward(self.cfg, params, tokens)
+
+    def loss(self, params, batch):
+        return transformer.loss_fn(self.cfg, params, batch)
 
     def make_cache(self, batch: int, max_len: int):
         return transformer.make_cache(self.cfg, batch, max_len, self.device)

@@ -4,22 +4,27 @@ Counterpart of ``repro/models/transformer.py``.  Parameters keep the JAX
 package's tree: ``{"embed", "final_norm", "layers", "unembed"}`` where
 ``layers`` is a list (one entry per period slot) of per-layer dicts stacked
 ``(n_periods, ...)``.  The JAX layer ``scan`` is a Python loop over layers
-here; caches are the same stacked trees and are written in place.
+here; caches are the same stacked trees and are written in place.  Under
+``cfg.remat`` a training forward recomputes each period in the backward
+(``torch.utils.checkpoint``, the counterpart of JAX's ``jax.checkpoint``
+with ``nothing_saveable``).
 
 API (functions over a params tree):
   model_defs(cfg)                                   -> ParamDef tree
   forward(cfg, params, tokens)                      -> logits
+  loss_fn(cfg, params, batch)                       -> (loss, metrics)
   make_cache / prefill / decode_step                 (dense cache)
   make_paged_cache / prefill_paged / decode_step_paged   (paged serving)
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import sfu
 
 from . import layers as L
-from .common import ModelConfig, ParamDef
+from .common import ModelConfig, ParamDef, compute_params
 
 # ---------------------------------------------------------------------------
 # parameter definitions
@@ -78,6 +83,17 @@ def _layer(tree, i: int):
     return {k: _layer(v, i) for k, v in tree.items()}
 
 
+def _unbind(tree, n: int) -> list:
+    """The ``n`` layers of a stacked parameter tree, each leaf split once by
+    ``torch.unbind`` (views; its backward stacks the layers' gradients in
+    one copy, where indexing each layer would add a zero-padded full-size
+    gradient per layer)."""
+    if torch.is_tensor(tree):
+        return list(torch.unbind(tree, 0))
+    split = {k: _unbind(v, n) for k, v in tree.items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # blocks / embeddings
 
@@ -111,23 +127,61 @@ def unembed(cfg: ModelConfig, params, h):
     return logits
 
 
-def _run_layers(cfg: ModelConfig, params, h, cache=None, pos=None, paged=None):
-    kinds = cfg.layer_kinds
+def _run_layers(cfg: ModelConfig, params, h, cache=None, pos=None, paged=None,
+                remat: bool = False):
+    """The layer stack.  ``remat`` (a training forward) recomputes each
+    period in the backward instead of keeping its activations."""
     period = cfg.period
+    n_periods = cfg.n_layers // period
     plan = sfu.plan_for(cfg)
-    for i in range(cfg.n_layers // period):
-        for j in range(period):
-            c = _layer(cache[j], i) if cache is not None else None
-            h, _ = block_apply(cfg, _layer(params["layers"][j], i), h, cache=c,
-                               pos=pos, plan=plan, paged=paged)
+    stacks = [_unbind(params["layers"][j], n_periods) for j in range(period)]
+    for i in range(n_periods):
+        def period_fn(h, i=i):
+            for j in range(period):
+                c = _layer(cache[j], i) if cache is not None else None
+                h, _ = block_apply(cfg, stacks[j][i], h, cache=c, pos=pos, plan=plan,
+                                   paged=paged)
+            return h
+
+        h = checkpoint(period_fn, h, use_reentrant=False) if remat else period_fn(h)
     return h
 
 
 def forward(cfg: ModelConfig, params, tokens):
-    """Teacher-forcing forward -> (B, S, padded_vocab) f32 logits."""
+    """Teacher-forcing forward -> (B, S, padded_vocab) f32 logits.
+
+    ``params`` may be the serving tree or the f32 training masters: every
+    matrix is cast to ``cfg.dtype`` first (differentiably).  Under
+    ``cfg.remat`` with grad enabled, each period is recomputed in the
+    backward."""
+    params = compute_params(model_defs(cfg), params, cfg.dtype)
     h = embed_tokens(cfg, params, tokens)
-    h = _run_layers(cfg, params, h)
+    h = _run_layers(cfg, params, h, remat=cfg.remat and torch.is_grad_enabled())
     return unembed(cfg, params, L.apply_norm(cfg, params["final_norm"], h))
+
+
+def sharded_cross_entropy(logits, targets, mask=None):
+    """Mean next-token cross entropy, the JAX package's formula: a
+    stop-gradient row max, a logsumexp, and the target logit picked by a
+    compare-and-sum over the vocab (no gather)."""
+    lf = logits.to(torch.float32)
+    m = lf.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
+    vocab = torch.arange(lf.shape[-1], device=lf.device, dtype=targets.dtype)
+    tgt = torch.where(vocab == targets[..., None], lf, 0.0).sum(dim=-1)
+    ll = tgt - lse
+    if mask is None:
+        mask = torch.ones_like(ll)
+    return -(ll * mask).sum() / torch.clamp(mask.sum(), min=1)
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """Next-token cross entropy.  batch: ``tokens``, ``targets`` (B, S) int,
+    optional ``mask``.  Returns ``(loss, {"nll", "aux"})``; a dense model
+    has no auxiliary loss, so ``aux`` is 0 and the loss is the nll."""
+    logits = forward(cfg, params, batch["tokens"])
+    nll = sharded_cross_entropy(logits, batch["targets"].long(), batch.get("mask"))
+    return nll, {"nll": nll, "aux": torch.zeros((), device=nll.device)}
 
 
 # ---------------------------------------------------------------------------

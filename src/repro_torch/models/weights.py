@@ -1,11 +1,13 @@
-"""Convert the JAX package's parameter tree into the port's parameters.
+"""Convert the JAX package's parameter and optimizer trees into the port's.
 
 ``params_from_numpy(tree, cfg, device)`` takes the structure the JAX
 ``model_defs`` gives, with numpy leaves (for example
 ``jax.tree_util.tree_map(np.asarray, params)``): dicts keyed as in the port,
-per-layer leaves stacked ``(n_periods, ...)``.  Matrices go to ``cfg.dtype``
-and norm scales stay f32, as :mod:`.common` holds them, so both packages
-compute the same thing from the same weights.
+per-layer leaves stacked ``(n_periods, ...)``.  For serving, matrices go to
+``cfg.dtype`` and norm scales stay f32, as :mod:`.common` holds them, so
+both packages compute the same thing from the same weights; with
+``master=True`` every leaf stays f32, the training masters the JAX package
+holds.  ``train_state_from_numpy`` converts a whole JAX AdamW state.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from .common import ModelConfig, ParamDef
 from .transformer import model_defs
 
 
-def params_from_numpy(tree, cfg: ModelConfig, device) -> dict:
+def params_from_numpy(tree, cfg: ModelConfig, device, master: bool = False) -> dict:
     dev = torch.device(device)
 
     def conv(defs, node, path):
@@ -25,7 +27,8 @@ def params_from_numpy(tree, cfg: ModelConfig, device) -> dict:
             if tuple(a.shape) != defs.shape:
                 raise ValueError(f"{path}: shape {a.shape} != expected {defs.shape}")
             t = torch.from_numpy(np.array(a, dtype=np.float32))
-            return t.to(device=dev, dtype=cfg.dtype if defs.matrix else torch.float32)
+            dt = cfg.dtype if defs.matrix and not master else torch.float32
+            return t.to(device=dev, dtype=dt)
         if isinstance(defs, dict):
             extra = set(node) - set(defs)
             if extra:
@@ -36,3 +39,16 @@ def params_from_numpy(tree, cfg: ModelConfig, device) -> dict:
         return [conv(d, n, f"{path}[{i}]") for i, (d, n) in enumerate(zip(defs, node))]
 
     return conv(model_defs(cfg), tree, "params")
+
+
+def train_state_from_numpy(state, cfg: ModelConfig, device) -> dict:
+    """A JAX AdamW state (``{"params", "mu", "nu", "step"}`` with numpy
+    leaves) as the port's :mod:`repro_torch.optim.adamw` state: f32 masters
+    and moments on ``device``, the step an int64 scalar tensor there."""
+    return {
+        "params": params_from_numpy(state["params"], cfg, device, master=True),
+        "mu": params_from_numpy(state["mu"], cfg, device, master=True),
+        "nu": params_from_numpy(state["nu"], cfg, device, master=True),
+        "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int64,
+                             device=torch.device(device)),
+    }

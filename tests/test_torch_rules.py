@@ -1,15 +1,17 @@
 """Rules of the torch port.
 
-* No module under ``src/repro_torch/``, and neither ``chip_smoke.py`` nor
-  ``profile_serve.py``, imports ``jax`` or the JAX package ``repro`` (an AST
-  scan of every import).
+* No module under ``src/repro_torch/``, and none of ``chip_smoke.py``,
+  ``profile_serve.py`` and ``profile_train.py``, imports ``jax`` or the JAX
+  package ``repro`` (an AST scan of every import).
 * ``repro_torch.launch.serve`` runs on ``cuda`` by default and raises on a
   host without a GPU; it never moves to the CPU by itself.  With
   ``--device cpu`` it serves the reduced config and returns 0.
-* Each kernel wrapper carries a plain-int launch counter.
-* What only the CUDA kernels refuse (a native bf16 table, an input that
-  requires grad) raises on a non-CPU tensor before any launch; the plain
-  version is never run there.
+* Each kernel wrapper carries a plain-int launch counter, and a second one
+  for its backward kernel where it has one (the GLU, the row softmax).
+* What only the CUDA kernels refuse (a native bf16 table; for the kernels
+  with no backward yet, the paged decode and the flash forward, an input
+  that requires grad) raises on a non-CPU tensor before any launch; the
+  plain version is never run there.
 """
 import ast
 import importlib.util
@@ -25,7 +27,7 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 def _port_files():
     files = sorted(PORT.rglob("*.py"))
-    for script in ("chip_smoke.py", "profile_serve.py"):
+    for script in ("chip_smoke.py", "profile_serve.py", "profile_train.py"):
         if (ROOT / script).exists():
             files.append(ROOT / script)
     return files
@@ -47,6 +49,8 @@ def _imported_roots(path: pathlib.Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = _port_files()
     assert len(files) > 20
+    scanned = {p.relative_to(PORT).parts[0] for p in files if PORT in p.parents}
+    assert {"optim", "data", "checkpoint", "distributed", "launch"} <= scanned
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
            for p in files for mod, line in _imported_roots(p) if mod in FORBIDDEN]
     assert not bad, bad
@@ -106,6 +110,8 @@ def test_kernel_wrappers_carry_launch_counters():
     for fn in (fused_glu, write_prompt_pages_, append_kv_, fused_pwl_softmax,
                paged_flash_decode, fused_flash_attention):
         assert isinstance(fn.launches, int)
+    for fn in (fused_glu, fused_pwl_softmax):
+        assert isinstance(fn.bwd_launches, int)
 
 
 def _attention_calls(table, grad=False):
@@ -140,15 +146,28 @@ def test_cuda_only_refusals_raise_off_the_cpu(kernel, monkeypatch):
     with pytest.raises(NotImplementedError, match="native bf16"):
         _attention_calls(native)[kernel]()
     f32 = sfu.get_store().get(fn="exp", n_breakpoints=32)
-    with pytest.raises(NotImplementedError, match="requires grad"):
-        _attention_calls(f32, grad=True)[kernel]()
+    if kernel == "softmax":  # it has a backward kernel: grad is no refusal
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            _attention_calls(f32, grad=True)[kernel]()
+    else:
+        with pytest.raises(NotImplementedError, match="requires grad.*slice 3b"):
+            _attention_calls(f32, grad=True)[kernel]()
     with pytest.raises(ValueError, match="cpu or cuda"):
         _attention_calls(f32)[kernel]()
 
 
+def _load_script(name):
+    spec = importlib.util.spec_from_file_location(name, ROOT / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def test_profile_refuses_the_cpu():
-    spec = importlib.util.spec_from_file_location("profile_serve", ROOT / "profile_serve.py")
-    profile = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(profile)
     with pytest.raises(SystemExit, match="on cuda"):
-        profile.main(["--device", "cpu", "--reduced"])
+        _load_script("profile_serve").main(["--device", "cpu", "--reduced"])
+
+
+def test_train_profile_refuses_the_cpu():
+    with pytest.raises(SystemExit, match="on cuda"):
+        _load_script("profile_train").main(["--device", "cpu", "--reduced"])

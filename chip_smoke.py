@@ -7,8 +7,8 @@
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, all started together);
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes the serving and training paths give it (the backward kernels of
-   the GLU and the row softmax included), and times kernel, plain version
-   and a PyTorch yardstick call the port never makes;
+   the GLU, the row softmax and the flash attention included), and times
+   kernel, plain version and a PyTorch yardstick call the port never makes;
 3. serves full-width repro-100m through ``repro_torch.launch.serve`` on
    ``cuda``: under the default plan (the defaults, then a larger session),
    and under a dumped plan with the ``attn.softmax:exp`` site fused (the
@@ -21,11 +21,13 @@
    that the loss fell (the launcher's rc, and a held-out batch's loss at the
    step-20 checkpoint) and that every GLU and row softmax, forward and
    backward, went through its kernel (24 forwards and 12 backwards of each
-   per step under remat);
-5. checks the gradients: a full-width batch under the backward kernels
-   against plain recomputation on the card (with remat off against on in
-   f32, and a rounding yardstick in bf16), and reduced f32 on the card
-   against the CPU;
+   per step under remat); then 20 steps at batch 1 x 4096, past the dense
+   cap, with the same checks on the GLU and the flash attention (24 flash
+   forwards and 12 flash backward calls per step, no row softmax);
+5. checks the gradients: a full-width batch of 8 x 512 and one of 1 x 4096
+   under the backward kernels against plain recomputation on the card (with
+   remat off against on in f32, and a rounding yardstick in bf16), and
+   reduced f32 on the card against the CPU;
 6. checks the port against its plain path on a small f32 input under both
    plans (logits, and paged against dense greedy tokens).
 
@@ -58,6 +60,7 @@ EXP_BP = 32                    # breakpoints of the fused-softmax plan's exp tab
 TRAIN_BATCH, TRAIN_SEQ = 8, 512  # the train launcher's defaults
 TRAIN_TOKENS = TRAIN_BATCH * TRAIN_SEQ
 TRAIN_SOFTMAX = f"train {TRAIN_BATCH}x{HKV}x{TRAIN_SEQ} rows x {TRAIN_SEQ} causal"
+LONG_BATCH, LONG_SEQ = 1, 4096   # long-context training: 12 x 4096^2 scores, 1.5 x the dense cap
 
 
 class SmokeFailure(Exception):
@@ -673,7 +676,7 @@ def flash_phase(torch):
         n0 = fused_flash_attention.launches
         got = fused_flash_attention(q, k, v, table=table, **kw)
         check(fused_flash_attention.launches == n0 + 1, f"flash {name}: kernel not launched")
-        want = fused_flash_attention_plain(
+        want, _ = fused_flash_attention_plain(
             q, k, v, plan, tables, causal=kw.get("causal", True), window=kw.get("window"),
             q_offset=0, kv_valid_len=kw.get("kv_valid_len"))
         torch.cuda.synchronize()
@@ -700,6 +703,122 @@ def flash_phase(torch):
     return rows
 
 
+def _igrid(torch, gen, shape, dtype, span=8, step=0.125):
+    """Integer-grid values on the card, exact in bf16: every score and every
+    dout . v of dh = 64 such values is an exact f32 sum in any order, so the
+    forward kernel's row max is bitwise the plain version's and ties are
+    real ties."""
+    ints = torch.randint(-span, span + 1, shape, generator=gen, device="cuda")
+    return (ints.to(torch.float32) * step).to(dtype)
+
+
+def flash_bwd_phase(torch):
+    """The flash backward kernels (through ``fused_flash_attention_bwd``, the
+    backward's wrapper) vs ``fused_flash_attention_bwd_plain`` on the card,
+    with m from the forward kernel: the cases of ``flash_phase``, a batch
+    row with ``kv_valid_len`` 0 and a causal ``q_offset``; dq, dk and dv each
+    held on its own scale, f32 at 1e-4 (sums over up to 4096 keys or queries
+    in another order), bf16 at 1e-2.  Integer-grid inputs (``_igrid``), so
+    the kernel's m must equal the plain chain's bitwise; the forward's
+    output with m written must be bitwise its output without.  At
+    B = 1, S = T = 4096, H = 12 causal bf16 (the long-context train step's
+    shape) one backward must raise the peak of allocated memory by less
+    than 1/8 of the dense f32 score tensor, and the kernels, the plain
+    version and the autograd of ``scaled_dot_product_attention`` (forward
+    included) are timed."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.fused import fused_flash_attention
+    from repro_torch.kernels.fused import attention as A
+
+    dev = torch.device("cuda")
+    table, plan, tables = _exp_table(torch)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    cases = [  # (name, B, S, T, H, Hkv, dtype, kwargs, timed)
+        ("S=T=4096 causal H=12", 1, 4096, 4096, 12, HKV, torch.bfloat16, {"causal": True}, True),
+        ("S=T=4096 causal H=12", 1, 4096, 4096, 12, HKV, torch.float32, {"causal": True}, False),
+        ("S=T=3000 causal H=4", 1, 3000, 3000, 4, 4, torch.float32, {"causal": True}, False),
+        ("S=T=3000 causal window 512 H=4", 1, 3000, 3000, 4, 4, torch.float32,
+         {"causal": True, "window": 512}, False),
+        ("decode rows over T=40000 kv_valid_len {39999, 12345}", 2, 1, 40000, 12, HKV,
+         torch.float32, {"causal": False, "kv_valid_len": [39999, 12345]}, False),
+        ("G=2 S=T=1000 causal H=12 Hkv=6", 1, 1000, 1000, 12, 6, torch.float32,
+         {"causal": True}, False),
+        ("G=2 S=300 T=700 kv_valid_len {0, 513} H=4 Hkv=2", 2, 300, 700, 4, 2, torch.float32,
+         {"causal": False, "kv_valid_len": [0, 513]}, False),
+        ("G=2 S=300 T=700 kv_valid_len {0, 513} H=4 Hkv=2", 2, 300, 700, 4, 2, torch.bfloat16,
+         {"causal": False, "kv_valid_len": [0, 513]}, False),
+        ("S=300 T=700 causal q_offset 400 H=4", 1, 300, 700, 4, 4, torch.float32,
+         {"causal": True, "q_offset": 400}, False),
+    ]
+    rows = {}
+    for name, B, S, T, H, hkv, dtype, kw, timed in cases:
+        tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+        q = _igrid(torch, gen, (B, S, H, DH), dtype)
+        k = _igrid(torch, gen, (B, T, hkv, DH), dtype)
+        v = _igrid(torch, gen, (B, T, hkv, DH), dtype)
+        dout = _igrid(torch, gen, (B, S, H, DH), dtype)
+        kw = {"window": None, "q_offset": 0, "kv_valid_len": None, **kw}
+        if kw["kv_valid_len"] is not None:
+            kw["kv_valid_len"] = torch.tensor(kw["kv_valid_len"], device=dev)
+        args = (kw["causal"], kw["window"], kw["q_offset"], kw["kv_valid_len"])
+        what = f"flash bwd {name} {dtype}"
+        out_m, m = A._launch(q, k, v, plan, tables, *args, True)
+        out = fused_flash_attention(q, k, v, table=table, **kw)
+        _, m_plain = A.fused_flash_attention_plain(q, k, v, plan, tables, **kw)
+        check(torch.equal(out, out_m), f"{what}: the forward's output changes with m written")
+        check(torch.equal(m, m_plain), f"{what}: the kernel's row max is not the plain one's")
+        n0 = fused_flash_attention.bwd_launches
+        got = A.fused_flash_attention_bwd(q, k, v, dout, m, plan, tables, **kw)
+        check(fused_flash_attention.bwd_launches == n0 + 1, f"{what}: kernels not launched")
+        want = A.fused_flash_attention_bwd_plain(q, k, v, dout, m, plan, tables, **kw)
+        torch.cuda.synchronize()
+        errs = [_compare_scaled(torch, g, w, tol, f"{what} d{x}")
+                for x, g, w in zip("qkv", got, want)]
+        if kw["kv_valid_len"] is not None:
+            empty = [b for b, n in enumerate(kw["kv_valid_len"].tolist()) if n == 0]
+            check(not any(bool(g[empty].any()) for g in got),
+                  f"{what}: a batch row with no valid key has a nonzero gradient")
+        line = (f"[smoke] fused_flash_attention backward {name} {dtype}: max_abs_err dq "
+                f"{errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g} (tol {tol} of each max)")
+        if timed:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            grads = A.fused_flash_attention_bwd(q, k, v, dout, m, plan, tables, **kw)
+            torch.cuda.synchronize()
+            rise = torch.cuda.max_memory_allocated() - base
+            del grads
+            dense = 4 * B * H * S * T
+            check(rise < dense / 8, f"{what}: a backward raised peak memory by {rise} bytes, "
+                  f"not below 1/8 of the {dense}-byte dense score tensor")
+            k_ms = time_ms(torch, lambda i: A.fused_flash_attention_bwd(
+                q, k, v, dout, m, plan, tables, **kw), reps=3, iters=3)
+            p_ms = time_ms(torch, lambda i: A.fused_flash_attention_bwd_plain(
+                q, k, v, dout, m, plan, tables, **kw), reps=1, iters=2)
+            qh, kh, vh = (t.permute(0, 2, 1, 3).contiguous().requires_grad_(True)
+                          for t in (q, k, v))
+            doh = dout.permute(0, 2, 1, 3).contiguous()
+
+            def library(i):
+                return torch.autograd.grad(
+                    F.scaled_dot_product_attention(qh, kh, vh, is_causal=True), (qh, kh, vh),
+                    doh)
+
+            l_ms = time_ms(torch, library, reps=5, iters=4)
+            pairs = B * H * S * (S + 1) / 2
+            nbytes = 7 * q.numel() * q.element_size() + m.numel() * 4
+            rows[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                          "max_abs_err": max(errs), "peak_rise_bytes": rise,
+                          **_bound(nbytes, 10.0 * pairs * DH)}
+            line += (f", kernels {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, autograd of "
+                     f"SDPA (fwd+bwd) {l_ms * 1e3:.1f} us, bound "
+                     f"{rows[name]['bound_ms'] * 1e3:.1f} us ({rows[name]['bound_by']}), peak "
+                     f"memory rise {rise / 1e6:.1f} MB (dense scores {dense / 1e6:.0f} MB)")
+        print(line)
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # main path
 
@@ -717,7 +836,8 @@ def _counters() -> dict:
             "paged_flash_decode": (fused.paged_flash_decode, "launches"),
             "fused_flash_attention": (fused.fused_flash_attention, "launches"),
             "fused_glu_bwd": (fused.fused_glu, "bwd_launches"),
-            "fused_pwl_softmax_bwd": (fused.fused_pwl_softmax, "bwd_launches")}
+            "fused_pwl_softmax_bwd": (fused.fused_pwl_softmax, "bwd_launches"),
+            "fused_flash_attention_bwd": (fused.fused_flash_attention, "bwd_launches")}
 
 
 def reset_counters():
@@ -769,8 +889,8 @@ def serve_phase(torch, argv: list[str], attention) -> dict:
           f"fused_glu launches {counts['fused_glu']} != {L} x ({pf} + {ds})")
     for name, want in attention({"prefills": pf, "decode_steps": ds}).items():
         check(counts[name] == want, f"{' '.join(argv)}: {name} launches {counts[name]} != {want}")
-    check(counts["fused_glu_bwd"] == 0 and counts["fused_pwl_softmax_bwd"] == 0,
-          "serving launched a backward kernel")
+    check(counts["fused_glu_bwd"] == counts["fused_pwl_softmax_bwd"]
+          == counts["fused_flash_attention_bwd"] == 0, "serving launched a backward kernel")
     print(f"[smoke] serve {' '.join(argv) or '(defaults)'}: {summary['tokens']} tokens, "
           f"{summary['tok_per_s']:.1f} tok/s, {pf} prefills, {ds} decode steps, "
           f"launches {counts}")
@@ -864,7 +984,8 @@ def _held_out_losses(torch, args, ckpt_dir: str, step: int):
     """The loss of one fixed batch that no run trains on (the stream's
     ``HELD_OUT_STEP``), under the weights at init and under the checkpoint
     of ``step``, and the evaluation's own rounding noise: the init loss of
-    the whole batch against the mean over its two halves (other GEMM
+    the whole batch against the mean over its two halves, or, for a batch
+    of one, against the loss of that batch stacked twice (other GEMM
     shapes, the same function)."""
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.data.pipeline import DataConfig, SyntheticLMData
@@ -882,14 +1003,18 @@ def _held_out_losses(torch, args, ckpt_dir: str, step: int):
     batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch_at(HELD_OUT_STEP).items()}
     half = args.batch // 2
     with torch.no_grad():
-        def loss(params, rows=slice(None)):
-            return float(model.loss(params, {k: v[rows] for k, v in batch.items()})[0])
+        def loss(params, rows=slice(None), copies=1):
+            return float(model.loss(params, {k: torch.cat([v[rows]] * copies)
+                                             for k, v in batch.items()})[0])
 
         at_init = loss(init["params"])
-        halves = 0.5 * (loss(init["params"], slice(0, half)) +
-                        loss(init["params"], slice(half, None)))
+        if half:
+            other = 0.5 * (loss(init["params"], slice(0, half)) +
+                           loss(init["params"], slice(half, None)))
+        else:
+            other = loss(init["params"], copies=2)
         after = loss(trained["params"])
-    return at_init, after, abs(at_init - halves)
+    return at_init, after, abs(at_init - other)
 
 
 def train_phase(torch, plan: str, ckpt_dir: str) -> dict:
@@ -954,6 +1079,53 @@ def train_phase(torch, plan: str, ckpt_dir: str) -> dict:
     return {"counts": counts, "step_ms": med * 1e3, "tokens_per_s": tok_s}
 
 
+def long_train_phase(torch, plan: str, ckpt_dir: str) -> dict:
+    """Full-width repro-100m through the train entry point on ``cuda`` under
+    the fused-softmax plan at batch 1 x 4096, past the dense cap: 20 steps,
+    remat on, every attention on the flash kernels forward and backward.
+    Checks the exit code (0: the loss fell), finite losses, the launch
+    counts (per step 24 flash forwards and 12 flash backward calls, 24 GLU
+    forwards and 12 GLU backwards, no row softmax), and the held-out gate of
+    ``train_phase`` on a 1 x 4096 batch.  Returns the counts, the median
+    step time and tokens/s."""
+    import statistics
+
+    from repro_torch.launch import train
+
+    args = train.build_parser().parse_args(
+        ["--arch", "repro-100m", "--steps", "20", "--plan", plan, "--batch", str(LONG_BATCH),
+         "--seq", str(LONG_SEQ), "--ckpt-dir", ckpt_dir, "--ckpt-every", "100",
+         "--log-every", "5"])
+    check(args.device == "cuda", "train must default to cuda")
+    reset_counters()
+    out = train.run(args)
+    torch.cuda.synchronize()
+    counts = read_counters()
+    check(out["rc"] == 0, f"long train rc {out['rc']}: losses {out['losses']}")
+    check(len(out["losses"]) == 20 and all(math.isfinite(x) for x in out["losses"]),
+          f"long train losses {out['losses']}")
+    want = {"fused_glu": 2 * N_LAYERS * 20, "fused_glu_bwd": N_LAYERS * 20,
+            "fused_flash_attention": 2 * N_LAYERS * 20,
+            "fused_flash_attention_bwd": N_LAYERS * 20}
+    for name, n in counts.items():
+        check(n == want.get(name, 0),
+              f"long train 20 steps: {name} launches {n} != {want.get(name, 0)}")
+    med = statistics.median(out["step_seconds"])
+    tok_s = out["tokens_per_step"] / med
+    print(f"[smoke] train repro-100m --plan <fused softmax> --batch {LONG_BATCH} --seq "
+          f"{LONG_SEQ} 20 steps: loss {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}, "
+          f"median step {med * 1e3:.1f} ms ({tok_s:.0f} tokens/s), first step "
+          f"{out['step_seconds'][0] * 1e3:.1f} ms, launches {counts}")
+    at_init, after, noise = _held_out_losses(torch, args, ckpt_dir, 20)
+    drop = at_init - after
+    check(math.isfinite(drop) and drop >= max(HELD_OUT_MIN_DROP, 100 * noise),
+          f"long held-out loss {at_init:.6f} -> {after:.6f} (drop {drop:.3g}, noise {noise:.3g})")
+    print(f"[smoke] long train held-out batch {HELD_OUT_STEP} (1 x {LONG_SEQ}): loss at init "
+          f"{at_init:.6f}, after 20 steps {after:.6f}, drop {drop:.4f} (gate "
+          f"{HELD_OUT_MIN_DROP}; evaluation noise {noise:.3g})")
+    return {"counts": counts, "step_ms": med * 1e3, "tokens_per_s": tok_s}
+
+
 def _check_train_counts(counts: dict, steps: int, what: str) -> None:
     want = {"fused_glu": 2 * N_LAYERS * steps, "fused_pwl_softmax": 2 * N_LAYERS * steps,
             "fused_glu_bwd": N_LAYERS * steps, "fused_pwl_softmax_bwd": N_LAYERS * steps}
@@ -1005,64 +1177,36 @@ def _glu_dx_in_one_gemm(torch):
         glu._GLUOp.backward = orig
 
 
-def grad_phase(torch, plan: str):
-    """The gradients of the training path.  One full-width batch (8 x 512,
-    f32 masters, remat) under ``impl_bwd="fused"`` (the backward kernels)
-    against ``"recompute"`` (plain recomputation) on the card, the loss
-    bitwise equal (the forwards are the same kernels):
-
-    * f32 compute (TF32 off): every gradient leaf at 1e-4 of its max (sums
-      in another order; measured ~3e-6 on an H100), and the fused gradients
-      with remat off at 1e-6 of each leaf's max against remat on (the
-      recomputed forward is the same kernels on the same inputs);
-    * bf16 compute, the training path's: a second fused backward bitwise the
-      first (no atomics); every leaf at cosine >= 0.999 with its recompute;
-      and the worst leaf's gap at most 4 times a yardstick measured on the
-      same batch, recompute against recompute with the GLU's dx summed in
-      another order (``_glu_dx_in_one_gemm``).  Both pairs differ only in f32
-      roundings inside the GLU's backward that flip some bf16 roundings of
-      dx; the backward of a PWL model at this init amplifies such flips to
-      percents of a leaf's max (the JAX package's own gradients move as much
-      under a rounding-sized nudge of the weights:
-      ``tests/test_torch_train_parity.py``).
-
-    Then reduced repro-100m in f32 on the card against the CPU, loss and
-    every leaf at 1e-4 of its max, as reference_phase holds the logits."""
+def _fused_vs_recompute(torch, cfg, batch, what: str, remat_off_check: bool) -> str:
+    """One model's gradients under ``impl_bwd="fused"`` against
+    ``"recompute"`` on ``batch``, as :func:`grad_phase` holds them; returns
+    the line to print."""
     import dataclasses
 
-    from repro_torch import sfu
-    from repro_torch.configs import get_config, get_reduced_config
-    from repro_torch.data.pipeline import DataConfig, SyntheticLMData
     from repro_torch.kernels.fused import use_impl_bwd
     from repro_torch.models import Model
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    data = SyntheticLMData(DataConfig(vocab_size=get_config("repro-100m").vocab_size,
-                                      seq_len=TRAIN_SEQ,
-                                      global_batch=TRAIN_BATCH))
-    batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch_at(0).items()}
-    for dtype in (torch.float32, torch.bfloat16):
-        cfg = get_config("repro-100m", act_plan=sfu.load_plan(plan), dtype=dtype)
-        check(cfg.remat, "the full-width gradients must be taken under remat")
-        model = Model(cfg, device="cuda")
-        masters = model.init(seed=0, master=True)
-        runs = {}
-        for mode in ("fused", "recompute"):
-            with use_impl_bwd(mode):
-                runs[mode] = _loss_and_grads(torch, model, masters, batch)
-        torch.cuda.synchronize()
-        (lf, gf), (lr, gr) = runs["fused"], runs["recompute"]
-        what = f"full-width {dtype}"
-        check(float(lf) == float(lr), f"{what} loss fused {float(lf)} != recompute {float(lr)}")
-        check(all(bool(torch.isfinite(a).all()) for a in gf), f"{what}: non-finite gradient")
-        worst = _worst_leaf(torch, gf, gr)
-        cos = [torch.nn.functional.cosine_similarity(
-            a.flatten().double(), b.flatten().double(), dim=0).item() for a, b in zip(gf, gr)]
-        line = (f"[smoke] grads {what} batch {TRAIN_BATCH}x{TRAIN_SEQ} (remat), impl_bwd fused "
-                f"vs recompute: loss {float(lf):.6f} equal, worst leaf {worst:.3g} of its max, "
-                f"lowest cosine {min(cos):.8f}, global norm {_norm(torch, gf):.4g}")
-        if dtype == torch.float32:
-            check(worst <= 1e-4, f"{what}: a gradient leaf off by {worst:.3g} of its max")
+    dtype = cfg.dtype
+    check(cfg.remat, "the full-width gradients must be taken under remat")
+    model = Model(cfg, device="cuda")
+    masters = model.init(seed=0, master=True)
+    runs = {}
+    for mode in ("fused", "recompute"):
+        with use_impl_bwd(mode):
+            runs[mode] = _loss_and_grads(torch, model, masters, batch)
+    torch.cuda.synchronize()
+    (lf, gf), (lr, gr) = runs["fused"], runs["recompute"]
+    check(float(lf) == float(lr), f"{what} loss fused {float(lf)} != recompute {float(lr)}")
+    check(all(bool(torch.isfinite(a).all()) for a in gf), f"{what}: non-finite gradient")
+    worst = _worst_leaf(torch, gf, gr)
+    cos = [torch.nn.functional.cosine_similarity(
+        a.flatten().double(), b.flatten().double(), dim=0).item() for a, b in zip(gf, gr)]
+    line = (f"[smoke] grads {what} (remat), impl_bwd fused vs recompute: loss {float(lf):.6f} "
+            f"equal, worst leaf {worst:.3g} of its max, lowest cosine {min(cos):.8f}, global "
+            f"norm {_norm(torch, gf):.4g}")
+    if dtype == torch.float32:
+        check(worst <= 1e-4, f"{what}: a gradient leaf off by {worst:.3g} of its max")
+        if remat_off_check:
             with use_impl_bwd("fused"):
                 _, g_flat = _loss_and_grads(
                     torch, Model(dataclasses.replace(cfg, remat=False), device="cuda"),
@@ -1070,25 +1214,66 @@ def grad_phase(torch, plan: str):
             remat_gap = _worst_leaf(torch, g_flat, gf)
             check(remat_gap <= 1e-6, f"{what}: remat off differs by {remat_gap:.3g} of a leaf")
             line += f"; remat off vs on: worst leaf {remat_gap:.3g}"
-            del g_flat
-        else:
-            with use_impl_bwd("fused"):
-                _, again = _loss_and_grads(torch, model, masters, batch)
-            check(all(torch.equal(a, b) for a, b in zip(gf, again)),
-                  f"{what}: two fused backwards differ")
-            del again
-            check(min(cos) >= 0.999, f"{what}: a gradient leaf at cosine {min(cos):.6f}")
-            with use_impl_bwd("recompute"), _glu_dx_in_one_gemm(torch):
-                _, g_order = _loss_and_grads(torch, model, masters, batch)
-            yardstick = _worst_leaf(torch, g_order, gr)
-            check(worst <= 4 * yardstick,
-                  f"{what}: fused vs recompute {worst:.3g} > 4 x the reordered-dx yardstick "
-                  f"{yardstick:.3g}")
-            line += (f"; yardstick, recompute vs recompute with dx in one GEMM: worst leaf "
-                     f"{yardstick:.3g}")
-            del g_order
-        print(line)
-        del runs, gf, gr
+    else:
+        with use_impl_bwd("fused"):
+            _, again = _loss_and_grads(torch, model, masters, batch)
+        check(all(torch.equal(a, b) for a, b in zip(gf, again)),
+              f"{what}: two fused backwards differ")
+        del again
+        check(min(cos) >= 0.999, f"{what}: a gradient leaf at cosine {min(cos):.6f}")
+        with use_impl_bwd("recompute"), _glu_dx_in_one_gemm(torch):
+            _, g_order = _loss_and_grads(torch, model, masters, batch)
+        yardstick = _worst_leaf(torch, g_order, gr)
+        check(worst <= 4 * yardstick,
+              f"{what}: fused vs recompute {worst:.3g} > 4 x the reordered-dx yardstick "
+              f"{yardstick:.3g}")
+        line += (f"; yardstick, recompute vs recompute with dx in one GEMM: worst leaf "
+                 f"{yardstick:.3g}")
+    return line
+
+
+def grad_phase(torch, plan: str):
+    """The gradients of the training path, each full-width batch under
+    ``impl_bwd="fused"`` (the backward kernels) against ``"recompute"``
+    (plain recomputation) on the card, f32 masters, remat on, the loss
+    bitwise equal (the forwards are the same kernels).  Two batches: 8 x 512
+    (the row softmax's backward) and 1 x 4096 (the flash backward, whose
+    recompute is autograd through the dense oracle,
+    ``flash_reference_attention``):
+
+    * f32 compute (TF32 off): every gradient leaf at 1e-4 of its max (sums
+      in another order; measured ~3e-6 on an H100), and at 8 x 512 the fused
+      gradients with remat off at 1e-6 of each leaf's max against remat on
+      (the recomputed forward is the same kernels on the same inputs);
+    * bf16 compute, the training path's: a second fused backward bitwise the
+      first (no atomics); every leaf at cosine >= 0.999 with its recompute;
+      and the worst leaf's gap at most 4 times a yardstick measured on the
+      same batch, recompute against recompute with the GLU's dx summed in
+      another order (``_glu_dx_in_one_gemm``).  Both pairs differ only in f32
+      roundings inside the backward that flip some bf16 roundings; the
+      backward of a PWL model at this init amplifies such flips to percents
+      of a leaf's max (the JAX package's own gradients move as much under a
+      rounding-sized nudge of the weights:
+      ``tests/test_torch_train_parity.py``).
+
+    Then reduced repro-100m in f32 on the card against the CPU, loss and
+    every leaf at 1e-4 of its max, as reference_phase holds the logits."""
+    from repro_torch import sfu
+    from repro_torch.configs import get_config, get_reduced_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+    from repro_torch.models import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    vocab = get_config("repro-100m").vocab_size
+    for batch_size, seq in ((TRAIN_BATCH, TRAIN_SEQ), (LONG_BATCH, LONG_SEQ)):
+        data = SyntheticLMData(DataConfig(vocab_size=vocab, seq_len=seq,
+                                          global_batch=batch_size))
+        batch = {k: torch.from_numpy(v).cuda() for k, v in data.batch_at(0).items()}
+        for dtype in (torch.float32, torch.bfloat16):
+            cfg = get_config("repro-100m", act_plan=sfu.load_plan(plan), dtype=dtype)
+            what = f"full-width {dtype} batch {batch_size}x{seq}"
+            print(_fused_vs_recompute(torch, cfg, batch, what,
+                                      remat_off_check=seq == TRAIN_SEQ))
 
     rcfg = get_reduced_config("repro-100m", act_plan=sfu.load_plan(plan), dtype=torch.float32)
     cpu, gpu = Model(rcfg, device="cpu"), Model(rcfg, device="cuda")
@@ -1134,6 +1319,7 @@ def main() -> int:
         mark("forward kernel phases")
         glu_bwd = glu_bwd_phase(torch)
         sm_bwd = softmax_bwd_phase(torch)
+        fl_bwd = flash_bwd_phase(torch)
         mark("backward kernel phases")
         main_counts = serve_phase(torch, [], no_attention_kernels)
         serve_phase(torch, ["--batch", "8", "--prompt-len", "256", "--max-new", "32"],
@@ -1147,6 +1333,8 @@ def main() -> int:
             mark("serve phases")
             trained = train_phase(torch, plan, str(pathlib.Path(tmp) / "ckpt"))
             mark("train phase")
+            long_trained = long_train_phase(torch, plan, str(pathlib.Path(tmp) / "ckpt_long"))
+            mark("long-context train phase")
             grad_phase(torch, plan)
             mark("grad phase")
         reference_phase(torch)
@@ -1158,6 +1346,8 @@ def main() -> int:
         path_counts["fused_flash_attention"] = long["fused_flash_attention"]
         path_counts["fused_glu_bwd"] = trained["counts"]["fused_glu_bwd"]
         path_counts["fused_pwl_softmax_bwd"] = trained["counts"]["fused_pwl_softmax_bwd"]
+        path_counts["fused_flash_attention_bwd"] = \
+            long_trained["counts"]["fused_flash_attention_bwd"]
         for name, n in path_counts.items():
             check(n > 0, f"{name} never launched on its serving or training path")
     except SmokeFailure as e:
@@ -1203,11 +1393,18 @@ def main() -> int:
          "replaces": "src/repro/kernels/fused/softmax.py:213",
          "shape": f"{TRAIN_SOFTMAX} f32 (train step)",
          "launches": path_counts["fused_pwl_softmax_bwd"], **sm_bwd[TRAIN_SOFTMAX]},
+        {"name": "fused_flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/csrc/attention_bwd.cu",
+         "replaces": "src/repro/kernels/fused/attention.py:334/396/445/498",
+         "shape": f"S=T={LONG_SEQ} causal H={HKV} dh={DH} bf16 (train step, batch 1 x {LONG_SEQ})",
+         "launches": path_counts["fused_flash_attention_bwd"],
+         **fl_bwd[f"S=T={LONG_SEQ} causal H=12"]},
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     print(f"[smoke] train step {trained['step_ms']:.1f} ms median, "
-          f"{trained['tokens_per_s']:.0f} tokens/s")
+          f"{trained['tokens_per_s']:.0f} tokens/s; long-context ({LONG_BATCH} x {LONG_SEQ}) "
+          f"{long_trained['step_ms']:.1f} ms median, {long_trained['tokens_per_s']:.0f} tokens/s")
     print(f"[smoke] total {time.perf_counter() - t_start:.1f}s (build {build_s:.1f}s)")
     print(card_line())
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))

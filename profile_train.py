@@ -6,10 +6,11 @@
 A helper beside ``chip_smoke.py``, not part of the package.  Builds the
 train step :mod:`repro_torch.launch.train` would build from the same
 arguments (full-width repro-100m at batch 8 x 512 by default; pass the
-fused-softmax plan with ``--plan``), runs 3 warm-up steps, 10 steps timed
-with the host clock (each ended by reading the loss, which waits for the
-device), then 3 steps under ``torch.profiler`` with CPU and CUDA activity,
-and prints:
+fused-softmax plan with ``--plan``, and ``--batch 1 --seq 4096`` for a
+long-context step through the flash kernels), runs 3 warm-up steps, 10
+steps timed with the host clock (each ended by reading the loss, which
+waits for the device), then 3 steps under ``torch.profiler`` with CPU and
+CUDA activity, and prints:
 
 * the median step time and tokens/s without the profiler;
 * the kernels' summed device time per profiled step against that step
@@ -17,8 +18,10 @@ and prints:
 * the top kernels by device time, and the port's own kernels (the GLU's
   forward and backward, ``glu_pwl_kernel`` instantiated with
   ``ForwardEpi`` or ``BackwardEpi``; ``softmax_kernel`` and
-  ``softmax_bwd_kernel``) with calls per step, mean device time and their
-  share of the step.
+  ``softmax_bwd_kernel``; the flash forward ``flash_kernel`` and its
+  backward ``flash_bwd_stats_kernel``, ``flash_bwd_dq_kernel`` and
+  ``flash_bwd_dkv_kernel``) with calls per step, mean device time and
+  their share of the step.
 
 It needs a CUDA GPU.
 """
@@ -46,6 +49,10 @@ PORT_KERNELS = (  # (label, the kernel function's name, a fragment of its templa
     ("glu_pwl_kernel backward", "glu_pwl_kernel", "BackwardEpi"),
     ("softmax_kernel", "softmax_kernel", ""),
     ("softmax_bwd_kernel", "softmax_bwd_kernel", ""),
+    ("flash_kernel", "flash_kernel", ""),
+    ("flash_bwd_stats_kernel", "flash_bwd_stats_kernel", ""),
+    ("flash_bwd_dq_kernel", "flash_bwd_dq_kernel", ""),
+    ("flash_bwd_dkv_kernel", "flash_bwd_dkv_kernel", ""),
 )
 WARM, TIMED, PROFILED = 3, 10, 3
 
@@ -75,7 +82,6 @@ def main(argv=None) -> int:
         raise SystemExit("profile_train.py profiles the train step on cuda")
     device = train.resolve_device(args.device)
     cfg = train.resolve_config(args)
-    train.check_dense_softmax(cfg, args.batch, args.seq)
     step_fn = build_train_step(cfg, device, opt_cfg=adamw.AdamWConfig(lr=args.lr))
     state = adamw.init_state(Model(cfg, device=device).init(seed=0, master=True))
     data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,

@@ -15,7 +15,9 @@
 //   corr  = max(pwl(max(m - m_new, -1e4)), 0)
 //   l     = l * corr + sum(p);   acc = acc * corr + p . v
 //
-// and finally out = acc / max(l, 1e-30).  pwl(0) is not 1, so where the chain
+// and finally out = acc / max(l, 1e-30); with m_out it also writes each row's
+// final m, (B, H, S) f32, the residual of the backward (csrc/attention_bwd.cu).
+// pwl(0) is not 1, so where the chain
 // steps fall is part of the function: the block width and the per-block max
 // are the JAX kernel's.  keep is (key < T), causal (key <= q_offset + row),
 // window (q_offset + row - key < window) and (key as f32 < kv_valid_len[b]).
@@ -59,7 +61,8 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              const float* __restrict__ valid_len, const float* __restrict__ bp,
-             const float* __restrict__ dmq, int n_bp, T* __restrict__ out, int S, int Tk, int H,
+             const float* __restrict__ dmq, int n_bp, T* __restrict__ out,
+             float* __restrict__ m_out, int S, int Tk, int H,
              int Hkv, int dh, int bkv, float scale, int causal, int has_window, int window,
              int q_offset) {
   extern __shared__ __align__(16) float smem[];
@@ -214,6 +217,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 
   if (l4 == 0) s_l[r] = l_run;
+  if (m_out != nullptr && l4 == 0 && q0 + r < S) m_out[(size_t)bh * S + q0 + r] = m_run;
   __syncthreads();
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -231,7 +235,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const float* valid_len,
-           const float* bp, const float* dmq, int n_bp, void* out, int B, int S, int Tk, int H,
+           const float* bp, const float* dmq, int n_bp, void* out, float* m_out, int B, int S,
+           int Tk, int H,
            int Hkv, int dh, int causal, int has_window, int window, int q_offset,
            cudaStream_t stream) {
   const size_t smem = smem_bytes(dh);
@@ -249,20 +254,23 @@ int launch(const void* q, const void* k, const void* v, const float* valid_len,
   dim3 grid(B * H, (S + BQ - 1) / BQ);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), valid_len,
-      bp, dmq, n_bp, static_cast<T*>(out), S, Tk, H, Hkv, dh, bkv, scale, causal, has_window,
-      window, q_offset);
+      bp, dmq, n_bp, static_cast<T*>(out), m_out, S, Tk, H, Hkv, dh, bkv, scale, causal,
+      has_window, window, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q, out: (B, S, H, dh); k, v: (B, T, Hkv, dh); all contiguous, in dtype
-// (0 = float32, 1 = bfloat16).  valid_len: (B,) f32 or null.  dh must be a
+// (0 = float32, 1 = bfloat16).  valid_len: (B,) f32 or null.  m_out: (B, H, S)
+// f32 for each row's final running max, or null (then nothing else
+// changes: the output is the same either way).  dh must be a
 // multiple of 16, at most 128; H a multiple of Hkv.  Returns the cudaError_t
 // of the launch.
 extern "C" int flash_pwl_forward(const void* q, const void* k, const void* v,
                                  const void* valid_len, const void* bp, const void* dmq,
-                                 int n_bp, void* out, int B, int S, int T, int H, int Hkv,
+                                 int n_bp, void* out, void* m_out, int B, int S, int T,
+                                 int H, int Hkv,
                                  int dh, int causal, int has_window, int window, int q_offset,
                                  int dtype, void* stream) {
   if (n_bp < 1 || n_bp > PWL_MAX_BP || B < 0 || S < 0 || T < 1 || Hkv < 1 || H % Hkv != 0 ||
@@ -273,11 +281,12 @@ extern "C" int flash_pwl_forward(const void* q, const void* k, const void* v,
   const float* vl = static_cast<const float*>(valid_len);
   const float* bpf = static_cast<const float*>(bp);
   const float* dmqf = static_cast<const float*>(dmq);
+  float* mf = static_cast<float*>(m_out);
   if (dtype == 0)
-    return launch<float>(q, k, v, vl, bpf, dmqf, n_bp, out, B, S, T, H, Hkv, dh, causal,
+    return launch<float>(q, k, v, vl, bpf, dmqf, n_bp, out, mf, B, S, T, H, Hkv, dh, causal,
                          has_window, window, q_offset, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, vl, bpf, dmqf, n_bp, out, B, S, T, H, Hkv, dh,
+    return launch<__nv_bfloat16>(q, k, v, vl, bpf, dmqf, n_bp, out, mf, B, S, T, H, Hkv, dh,
                                  causal, has_window, window, q_offset, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

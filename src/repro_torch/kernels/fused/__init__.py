@@ -1,7 +1,14 @@
 """Kernels with the PWL activation inside: producer epilogues (the fused
 GLU, forward and backward) and the PWL-exp softmax of attention (row
-softmax forward and backward, split-KV paged decode, flash forward)."""
-from .attention import fused_flash_attention, fused_flash_attention_plain
+softmax forward and backward, split-KV paged decode, flash forward and
+backward)."""
+from .attention import (
+    flash_reference_attention,
+    fused_flash_attention,
+    fused_flash_attention_bwd,
+    fused_flash_attention_bwd_plain,
+    fused_flash_attention_plain,
+)
 from .backward import IMPL_BWD_MODES, current_impl_bwd, resolve_impl_bwd, use_impl_bwd
 from .decoding import merge_split_partials, paged_flash_decode, paged_flash_decode_plain
 from .epilogue import (
@@ -27,7 +34,10 @@ __all__ = [
     "EpiloguePlan",
     "current_impl_bwd",
     "exact_plan",
+    "flash_reference_attention",
     "fused_flash_attention",
+    "fused_flash_attention_bwd",
+    "fused_flash_attention_bwd_plain",
     "fused_flash_attention_plain",
     "fused_glu",
     "fused_glu_bwd",

@@ -1,15 +1,16 @@
 """Backward-implementation selector for the fused kernels.
 
-The fused ops that train (the GLU and the row softmax) carry two
-interchangeable backwards, as in the JAX package:
+The fused ops that train (the GLU, the row softmax and the flash
+attention) carry two interchangeable backwards, as in the JAX package:
 
 * ``"fused"`` (the default) — the backward kernel: the pre-activation is
   recomputed inside it and the PWL per-segment slope (the activation's exact
   local derivative) is decoded there, so ``dL/dz = g * m_seg(z)`` never goes
   through device memory;
-* ``"recompute"`` — plain PyTorch recomputation of the forward, then its
-  derivative.  The oracle the backward kernels are held against, and the
-  escape hatch if one misbehaves.
+* ``"recompute"`` — plain PyTorch recomputation of the forward (for the
+  flash attention, of its dense oracle), then its derivative.  The oracle
+  the backward kernels are held against, and the escape hatch if one
+  misbehaves.
 
 The forward runs its kernel under both.  Selection is per call
 (``impl_bwd=`` on each op) with a process-wide default that

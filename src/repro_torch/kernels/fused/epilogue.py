@@ -183,9 +183,10 @@ def check_kernel_operands(what: str, plan: EpiloguePlan, tables, *forward_only) 
     """Refuse what the CUDA kernels do not take, before any launch: an
     epilogue other than a PWL table in the f32 delta layout (f32 or int8
     storage; native bf16/f16 operands and the exact ``act=`` epilogue wait
-    for ROADMAP slice 5), and, for a kernel with no backward yet (the flash
-    forward and the paged decode, whose backwards are ROADMAP slice 3b), an
-    input in ``forward_only`` that requires grad."""
+    for ROADMAP slice 5), and, for a kernel with no backward (the paged
+    decode, which serves only; the flash attention has had its backward
+    kernels since ROADMAP slice 3b), an input in ``forward_only`` that
+    requires grad."""
     if plan.kind != "pwl":
         raise NotImplementedError(
             f"the CUDA {what} kernel takes a PWL table epilogue, not {plan.kind!r}")
@@ -196,4 +197,5 @@ def check_kernel_operands(what: str, plan: EpiloguePlan, tables, *forward_only) 
     if any(t.requires_grad for t in forward_only):
         raise NotImplementedError(
             f"the CUDA {what} kernel is forward only: an input requires grad "
-            "(its backward kernels are ROADMAP slice 3b)")
+            "(it serves only; training attention takes the row softmax, or the flash "
+            "kernels, which have a backward since ROADMAP slice 3b)")

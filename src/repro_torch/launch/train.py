@@ -3,6 +3,7 @@ preemption handling and straggler monitoring, on one device.
 
     python -m repro_torch.launch.train --arch repro-100m --steps 200 \\
         --batch 8 --seq 512 --ckpt-dir /tmp/ckpt --plan plan.json     # on cuda
+    python -m repro_torch.launch.train --plan plan.json --batch 1 --seq 4096
     python -m repro_torch.launch.train --reduced --device cpu --steps 4
 
 The flags are the JAX launcher's (``repro/launch/train.py``), plus
@@ -10,9 +11,11 @@ The flags are the JAX launcher's (``repro/launch/train.py``), plus
 the plain PyTorch versions of the kernels.  The default plan is the
 config's own (exact activations, no kernels); ``--plan`` loads a plan JSON,
 under which the sites planned ``impl="fused"`` run the hand-written kernels
-forward and backward.  Weights are the f32 masters of a ``torch.Generator``
-seeded 0; batches come from the seeded synthetic stream of
-:mod:`repro_torch.data.pipeline`.
+forward and backward (with the softmax site fused, attention takes the row
+softmax kernels while B*H*S*S fits the dense cap, and the flash kernels past
+it, as at ``--batch 1 --seq 4096``).  Weights are the f32 masters of a
+``torch.Generator`` seeded 0; batches come from the seeded synthetic stream
+of :mod:`repro_torch.data.pipeline`.
 
 Exit code: 0 when the last loss is below the first, 2 otherwise, 17 after
 a checkpoint-and-exit for a persistent straggler.
@@ -35,7 +38,6 @@ from repro_torch.distributed.monitor import StepMonitor
 from repro_torch.launch.serve import resolve_device
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models import Model
-from repro_torch.models.layers import _dense_softmax_preferred, _softmax_fused_table
 from repro_torch.optim import adamw
 
 
@@ -66,21 +68,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--act-impl", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--act-breakpoints", default=None, help=argparse.SUPPRESS)
     return ap
-
-
-def check_dense_softmax(cfg, batch: int, seq: int) -> None:
-    """Under a plan with the softmax site fused, training attention must
-    take the dense row softmax, whose backward kernel exists: past the dense
-    cap the model takes the flash forward, whose backward kernels are ROADMAP
-    slice 3b.  Raises NotImplementedError before the first step."""
-    if _softmax_fused_table(sfu.plan_for(cfg)) is None:
-        return
-    if not _dense_softmax_preferred(batch * cfg.n_heads * seq * seq, seq, None, seq):
-        raise NotImplementedError(
-            f"--batch {batch} --seq {seq} gives {batch * cfg.n_heads * seq * seq} attention "
-            "scores, past the dense fused-softmax cap: training would take the flash "
-            "attention kernel, whose backward is not ported yet (ROADMAP slice 3b); "
-            "use a smaller batch or sequence")
 
 
 def resolve_config(args: argparse.Namespace):
@@ -123,7 +110,6 @@ def run(args: argparse.Namespace) -> dict:
           flush=True)
     if args.dump_plan:
         print(f"[train] plan -> {sfu.dump_plan(plan, args.dump_plan)}", flush=True)
-    check_dense_softmax(cfg, args.batch, args.seq)
     print(f"[train] {cfg.name} on {device}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"batch {args.batch} x seq {args.seq}, remat {cfg.remat}", flush=True)
     opt_cfg = adamw.AdamWConfig(lr=args.lr, total_steps=args.steps,

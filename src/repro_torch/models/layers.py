@@ -6,7 +6,7 @@ dense decoder runs.  Every nonlinearity resolves through the compiled
 fused GLU kernel (``kernels/fused/glu.py``).  Attention uses exact ``exp``
 unless the plan has an ``attn.softmax:exp`` site: planned ``impl="fused"``
 its softmax runs in the fused PWL-exp kernels (the row softmax, the
-split-KV paged decode, or the flash forward, chosen by shape as the JAX
+split-KV paged decode, or the flash attention, chosen by shape as the JAX
 package chooses), otherwise the PWL exp is evaluated elementwise.
 
 Masking follows the JAX package: masked scores are filled with ``-1e30``
@@ -88,7 +88,8 @@ def resolve_exp(cfg: ModelConfig, plan=None) -> Callable:
 # picks which chain of PWL corrections is computed (one dense softmax per row,
 # or the flash kernel's 512-key blocks), so it is part of the function, not
 # only of its speed.  The dense path holds B*H*S*T f32 scores, a row at most
-# 32768 wide.
+# 32768 wide; past the cap, training takes the flash kernels forward and
+# backward (the backward is the dense oracle's gradient, as in JAX).
 DENSE_FUSED_SOFTMAX_MAX_SCORES = 1 << 27
 DENSE_FUSED_SOFTMAX_MAX_WIDTH = 32768
 
@@ -205,10 +206,11 @@ def dense_pwl_attention(q, k, v, *, table, causal: bool = True):
 
 
 def _attn_softmax_dispatch(q, k, v, *, causal: bool, exp_fn: Callable, table):
-    """Attention for prefill.  With a fused softmax ``table`` it always runs
-    fused: the dense PWL-exp softmax kernel while the scores fit its caps,
-    the fused flash kernel past them.  Otherwise :func:`flash_attention` with
-    the (possibly PWL) elementwise ``exp_fn``."""
+    """Attention for prefill and training.  With a fused softmax ``table`` it
+    always runs fused: the dense PWL-exp softmax kernel while the scores fit
+    its caps, the fused flash kernel past them (long-context prefill and
+    training; both take gradients, each the JAX package's).  Otherwise
+    :func:`flash_attention` with the (possibly PWL) elementwise ``exp_fn``."""
     if table is None:
         return flash_attention(q, k, v, causal=causal, exp_fn=exp_fn)
     B, S, H = q.shape[:3]

@@ -146,7 +146,7 @@ def test_cuda_only_refusals_raise_off_the_cpu(kernel, monkeypatch):
     with pytest.raises(NotImplementedError, match="native bf16"):
         _attention_calls(native)[kernel]()
     f32 = sfu.get_store().get(fn="exp", n_breakpoints=32)
-    if kernel == "softmax":  # it has a backward kernel: grad is no refusal
+    if kernel in ("softmax", "flash"):  # they have backward kernels: grad is no refusal
         with pytest.raises(ValueError, match="cpu or cuda"):
             _attention_calls(f32, grad=True)[kernel]()
     else:

@@ -206,18 +206,34 @@ def _softmax_plan(tmp_path):
     return str(sfu.dump_plan(sfu.compile_plan(cfg), tmp_path / "softmax_plan.json"))
 
 
-def test_flash_path_is_refused_under_a_fused_softmax_plan(tmp_path):
-    plan = _softmax_plan(tmp_path)
-    # 8 x 12 x 2048^2 scores are past the dense cap: the flash forward has
-    # no backward yet
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        train.train(["--plan", plan, "--seq", "2048", "--device", "cpu"])
-    from repro_torch.configs import get_config
-    from repro_torch import sfu
+def test_training_past_the_dense_cap_takes_the_flash_kernels(tmp_path, monkeypatch):
+    """With the dense cap at 0 every attention of the reduced model is past
+    it: the launcher trains (the loss falls, rc 0) through the flash op's
+    forward and the plain version of its backward kernels, once each per
+    layer and step (the reduced config has no remat)."""
+    from repro_torch.kernels.fused import attention as tattn
+    from repro_torch.models import layers
 
-    cfg = get_config("repro-100m", act_plan=sfu.load_plan(plan))
-    train.check_dense_softmax(cfg, 8, 512)  # the launcher's defaults are dense
-    train.check_dense_softmax(get_config("repro-100m"), 8, 4096)  # no fused softmax
+    plan = _softmax_plan(tmp_path)
+    monkeypatch.setattr(layers, "DENSE_FUSED_SOFTMAX_MAX_SCORES", 0)
+    calls = {"forward": 0, "backward": 0}
+
+    def counted(name, fn):
+        def wrapper(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    monkeypatch.setattr(tattn, "fused_flash_attention_plain",
+                        counted("forward", tattn.fused_flash_attention_plain))
+    monkeypatch.setattr(tattn, "fused_flash_attention_bwd",
+                        counted("backward", tattn.fused_flash_attention_bwd))
+    steps = 8
+    out = train.run(_args(tmp_path / "ck", steps, "--plan", plan, "--lr", "3e-3"))
+    assert out["rc"] == 0 and len(out["losses"]) == steps
+    assert all(np.isfinite(out["losses"]))
+    n_layers = get_reduced_config("repro-100m").n_layers
+    assert calls == {"forward": n_layers * steps, "backward": n_layers * steps}
 
 
 def test_model_parallel_and_removed_flags_are_refused():

@@ -7,15 +7,24 @@
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, all started together);
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes the serving and training paths give it (the backward kernels of
-   the GLU, the row softmax and the flash attention included), and times
-   kernel, plain version and a PyTorch yardstick call the port never makes;
+   the GLU, the MoE GLU, the row softmax and the flash attention included;
+   the MoE GLU at olmoe-1b-7b's experts and the bucket capacities of its
+   calls; the dense GLU, and the MoE GLU at one expert, bitwise the outputs
+   recorded from the dense-only kernel; the page writes and the paged decode
+   also at olmoe's 16 KV heads of dim 128), and times kernel, plain version
+   and a PyTorch yardstick call the port never makes;
 3. serves full-width repro-100m through ``repro_torch.launch.serve`` on
    ``cuda``: under the default plan (the defaults, then a larger session),
    and under a dumped plan with the ``attn.softmax:exp`` site fused (the
    defaults, a 4096-token prompt bucket, and the dense loop), and checks from
    the launch counters, reset before and read after each session, that every
    GLU, page write, softmax, paged decode and flash forward of that session
-   went through its kernel;
+   went through its kernel; then serves full-width olmoe-1b-7b (16 MoE
+   layers, 64 experts top 8, seed-0 weights) three times: the defaults and
+   ``--batch 8 --prompt-len 256 --max-new 32`` under the default plan, and
+   the defaults under a dumped plan with the softmax site fused, checking
+   that every layer of every model call ran the MoE GLU kernel and no dense
+   GLU;
 4. trains full-width repro-100m through ``repro_torch.launch.train`` under
    the dumped plan (20 steps with checkpoints, then a resume), and checks
    that the loss fell (the launcher's rc, and a held-out batch's loss at the
@@ -23,13 +32,18 @@
    backward, went through its kernel (24 forwards and 12 backwards of each
    per step under remat); then 20 steps at batch 1 x 4096, past the dense
    cap, with the same checks on the GLU and the flash attention (24 flash
-   forwards and 12 flash backward calls per step, no row softmax);
-5. checks the gradients: a full-width batch of 8 x 512 and one of 1 x 4096
+   forwards and 12 flash backward calls per step, no row softmax); and
+   trains reduced olmoe-1b-7b 20 steps under its fused plan (2 MoE GLU
+   forwards and 2 backwards a step);
+5. checks the gradients: one full-width olmoe-1b-7b MoE layer on 8 x 512
+   tokens under the MoE GLU's backward kernel against plain recomputation; a full-width batch of 8 x 512 and one of 1 x 4096
    under the backward kernels against plain recomputation on the card (with
    remat off against on in f32, and a rounding yardstick in bf16), and
    reduced f32 on the card against the CPU;
-6. checks the port against its plain path on a small f32 input under both
-   plans (logits, and paged against dense greedy tokens).
+6. checks the port on the card against its plain path on the CPU in f32:
+   reduced olmoe-1b-7b (logits, loss, nll, aux, every gradient, paged
+   prefill and decode logits) and reduced repro-100m under both plans
+   (logits, and paged against dense greedy tokens).
 
 Every failed check exits non-zero.  The last two lines of standard output
 are the kernels' JSON line and ``{"ok": true, "device": {...}}``; the card's
@@ -61,6 +75,12 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 512  # the train launcher's defaults
 TRAIN_TOKENS = TRAIN_BATCH * TRAIN_SEQ
 TRAIN_SOFTMAX = f"train {TRAIN_BATCH}x{HKV}x{TRAIN_SEQ} rows x {TRAIN_SEQ} causal"
 LONG_BATCH, LONG_SEQ = 1, 4096   # long-context training: 12 x 4096^2 scores, 1.5 x the dense cap
+MOE_E, MOE_K, MOE_N = 64, 2048, 1024  # olmoe-1b-7b experts, d_model, expert d_ff
+MOE_LAYERS, MOE_HKV, MOE_DH = 16, 16, 128  # olmoe-1b-7b layers, KV heads, head dim
+# bucket capacity max(1, int(1.25 T 8 / 64)) of olmoe's calls over T tokens
+MOE_CAPACITIES = {1: "decode, 4 slots", 5: "prefill of 32", 40: "prefill of 256",
+                  640: "train 8 x 512"}
+MOE_TRAIN_C = 640
 
 
 class SmokeFailure(Exception):
@@ -259,6 +279,214 @@ def glu_bwd_phase(torch):
     return rows
 
 
+def _silu_table(torch):
+    from repro_torch import sfu
+    from repro_torch.kernels.fused.epilogue import plan_and_operands
+
+    table = sfu.get_store().get(fn="silu", n_breakpoints=32)  # the moe.expert site's
+    plan, tables = plan_and_operands(table)
+    return table, plan, tuple(t.cuda() for t in tables)
+
+
+def _moe_bytes(E, C, K, N, esize, f32_outputs=0) -> float:
+    """x, both weights and g or the output once each; ``f32_outputs`` more
+    (E, C, N) f32 tensors written (the backward's dzg and dzu)."""
+    return (E * C * K + 2 * E * K * N + E * C * N) * esize + f32_outputs * E * C * N * 4
+
+
+# sha256 of the dense GLU's output bytes at glu_digests' inputs, keyed
+# "M dtype", as the dense-only GLU kernel of commit 94d8fb7 (before the expert
+# axis went in) computed them on an H100 80GB HBM3 (700 W)
+GLU_DIGESTS = {
+    "4 bfloat16": "86f443aed05d36103de67183554a231d5b3116689e239c90d2598ea669f90880",
+    "4 float32": "902a6b8c678f99214f4eeaa85a941bba6e252277505b81da7c01b085990443d5",
+    "32 bfloat16": "5fab5bc84c93ca8fc3e0423ac76becfb6908a9a6ed7aff9a1e1c16f28587ded7",
+    "32 float32": "bed1cd64c059e7917e5d0c667b26db8845e383891dfa03a202c4cc91e0bcf25b",
+    "4096 bfloat16": "962e4e576280958eb1238bba6c5b5eb6b0635066fd808f5388a6f8857387c0f3",
+    "4096 float32": "90dbfc5b640997328650a7749240b77bd47a14874d448bff962be163e520737f",
+}
+
+
+def glu_digests(torch, fn=None) -> dict:
+    """sha256 of the GLU's output bytes on fixed inputs from numpy's
+    generator: repro-100m's GLU (K=768, N=3072, the 32-breakpoint gelu_tanh
+    table) at M = 4, 32 and 4096 (a decode step, a prefill, a train step:
+    each M takes its own tile config), bf16 and f32.  ``fn(x, wg, wu,
+    table)`` computes it, ``fused_glu`` by default."""
+    import hashlib
+
+    import numpy as np
+
+    from repro_torch import sfu
+    from repro_torch.kernels.fused import fused_glu
+
+    fn = fn or (lambda x, wg, wu, table: fused_glu(x, wg, wu, table=table))
+    table = sfu.get_store().get(fn="gelu_tanh", n_breakpoints=32)
+    rng = np.random.default_rng(5)
+    w = [torch.from_numpy(rng.standard_normal((K_DIM, N_DIM), dtype=np.float32)
+                          / math.sqrt(K_DIM)).cuda() for _ in range(2)]
+    out = {}
+    for M in (4, 32, TRAIN_TOKENS):
+        x = torch.from_numpy(rng.standard_normal((M, K_DIM), dtype=np.float32)).cuda()
+        for dtype in (torch.bfloat16, torch.float32):
+            y = fn(x.to(dtype), w[0].to(dtype), w[1].to(dtype), table)
+            raw = y.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+            out[f"{M} {str(dtype).split('.')[-1]}"] = hashlib.sha256(raw).hexdigest()
+    return out
+
+
+def moe_phase(torch):
+    """fused_moe_glu on CUDA tensors (its kernel) vs its plain version: a
+    ragged E=3 C=37 K=65 N=130, then olmoe-1b-7b's experts (E=64, K=2048,
+    N=1024) at the bucket capacities of its calls (C = 1 at a 4-slot decode
+    step, 5 and 40 for 32- and 256-token prefills, 640 for 8 x 512 training
+    tokens), bf16 at 1e-2 and f32 (TF32 off) at 1e-4 of the output's max.
+    The dense GLU, and the MoE GLU at E = 1, give bitwise the outputs the
+    dense-only kernel gave before the expert axis went in (``GLU_DIGESTS``);
+    at E = 64 experts 0, 31 and 63 give bitwise their own E = 1 launch.
+    Each bf16 shape is timed beside its bound, the plain version and
+    ``torch.bmm(x, [Wg|Wu])``."""
+    from repro_torch.kernels.fused import fused_glu, fused_moe_glu
+    from repro_torch.kernels.fused.glu import fused_glu_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    table, plan, tables = _silu_table(torch)
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    dense = glu_digests(torch)
+    one = glu_digests(torch, lambda x, wg, wu, t: fused_moe_glu(x[None], wg[None], wu[None],
+                                                                table=t)[0])
+    for key, want in GLU_DIGESTS.items():
+        check(dense[key] == want, f"fused_glu M={key}: output is not bitwise what it was")
+        check(one[key] == want, f"fused_moe_glu E=1 M={key}: not bitwise the dense GLU's")
+    check(sorted(dense) == sorted(GLU_DIGESTS), f"GLU digests of {sorted(dense)}")
+    print(f"[smoke] fused_glu and fused_moe_glu E=1 at M in (4, 32, {TRAIN_TOKENS}) bf16/f32: "
+          "bitwise the dense-only kernel's recorded outputs")
+
+    def weights(E, K, N, dtype):
+        return tuple((torch.randn(E, K, N, generator=gen, device=dev) / math.sqrt(K)).to(dtype)
+                     for _ in range(2))
+
+    def run(x, wg, wu, tol, what):
+        n0 = fused_moe_glu.launches
+        got = fused_moe_glu(x, wg, wu, table=table)
+        check(fused_moe_glu.launches == n0 + 1, f"{what}: kernel not launched")
+        want = fused_glu_plain(x, wg, wu, plan, tables)
+        torch.cuda.synchronize()
+        check(got.dtype == x.dtype and got.shape == want.shape, f"{what}: {got.shape} {got.dtype}")
+        return got, _compare_scaled(torch, got, want, tol, what)
+
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+        x = torch.randn(3, 37, 65, generator=gen, device=dev).to(dtype)
+        what = f"fused_moe_glu ragged E=3 C=37 K=65 N=130 {dtype}"
+        _, err = run(x, *weights(3, 65, 130, dtype), tol, what)
+        print(f"[smoke] {what}: max_abs_err {err:.3g} (tol {tol} of the max)")
+
+    rows = {}
+    E, K, N = MOE_E, MOE_K, MOE_N
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+        wg, wu = weights(E, K, N, dtype)
+        wcat = torch.cat([wg, wu], dim=2) if dtype == torch.bfloat16 else None
+        for C, call in MOE_CAPACITIES.items():
+            x = torch.randn(E, C, K, generator=gen, device=dev).to(dtype)
+            what = f"fused_moe_glu E={E} C={C} ({call}) K={K} N={N} {dtype}"
+            got, err = run(x, wg, wu, tol, what)
+            if C == 40:
+                for e in (0, 31, E - 1):
+                    alone = fused_moe_glu(x[e:e + 1], wg[e:e + 1], wu[e:e + 1], table=table)
+                    check(torch.equal(got[e], alone[0]),
+                          f"{what}: expert {e} is not bitwise its own E=1 launch")
+            line = f"[smoke] {what}: max_abs_err {err:.3g} (tol {tol} of the max)"
+            if wcat is not None:
+                reps = 3 if C >= MOE_TRAIN_C else 10
+                k_ms = time_ms(torch, lambda i: fused_moe_glu(x, wg, wu, table=table),
+                               reps=reps, iters=3)
+                p_ms = time_ms(torch, lambda i: fused_glu_plain(x, wg, wu, plan, tables),
+                               reps=2, iters=2)
+                l_ms = time_ms(torch, lambda i: torch.bmm(x, wcat), reps=reps, iters=3)
+                rows[C] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "max_abs_err": err,
+                           **_bound(_moe_bytes(E, C, K, N, 2), 4.0 * E * C * K * N)}
+                line += (f", kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, "
+                         f"torch.bmm(x, [Wg|Wu]) {l_ms * 1e3:.1f} us, bound "
+                         f"{rows[C]['bound_ms'] * 1e3:.1f} us ({rows[C]['bound_by']})")
+            print(line)
+        del wg, wu, wcat
+    return rows
+
+
+def moe_bwd_phase(torch):
+    """The MoE GLU's backward kernel (through ``fused_glu_bwd`` counted on
+    ``fused_moe_glu``) vs ``fused_glu_bwd_plain``: ragged E=3 C=37 K=65 N=130 and olmoe's
+    experts at the training capacity C = 640, dzg and dzu each on its own
+    scale, f32 (TF32 off) at 1e-4 and bf16 at 1e-2.  The f32 inputs lie on
+    an integer grid (``_igrid``), so every product is an exact f32 sum in
+    any order: a pre-activation within a rounding of a breakpoint would
+    otherwise take the neighbouring segment's slope in one of the two
+    orders (a jump of up to 0.087 in silu's table), which no tolerance
+    separates from a fault.  The bf16 inputs are normal, where such a jump
+    stays inside 1e-2 of the max.  At C = 640 in bf16 the kernel is timed
+    beside its bound, the plain version and ``torch.autograd.grad`` of
+    ``torch.bmm(x, [Wg|Wu])``, forward included."""
+    from repro_torch.kernels.fused import fused_moe_glu
+    from repro_torch.kernels.fused.glu import fused_glu_bwd, fused_glu_bwd_plain
+
+    def fused_moe_glu_bwd(*operands):
+        return fused_glu_bwd(*operands, counter=fused_moe_glu)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    _, plan, tables = _silu_table(torch)
+    gen = torch.Generator(device=dev).manual_seed(10)
+
+    def inputs(E, C, K, N, dtype):
+        if dtype == torch.float32:
+            return (_igrid(torch, gen, (E, C, K), dtype),
+                    _igrid(torch, gen, (E, K, N), dtype, span=2, step=2.0 ** -7),
+                    _igrid(torch, gen, (E, K, N), dtype, span=2, step=2.0 ** -7),
+                    _igrid(torch, gen, (E, C, N), dtype))
+        s = 1.0 / math.sqrt(K)
+        return (torch.randn(E, C, K, generator=gen, device=dev).to(dtype),
+                (torch.randn(E, K, N, generator=gen, device=dev) * s).to(dtype),
+                (torch.randn(E, K, N, generator=gen, device=dev) * s).to(dtype),
+                torch.randn(E, C, N, generator=gen, device=dev).to(dtype))
+
+    rows = {}
+    for E, C, K, N in ((3, 37, 65, 130), (MOE_E, MOE_TRAIN_C, MOE_K, MOE_N)):
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
+            x, wg, wu, g = inputs(E, C, K, N, dtype)
+            what = f"fused_moe_glu backward E={E} C={C} K={K} N={N} {dtype}"
+            n0 = fused_moe_glu.bwd_launches
+            dzg, dzu = fused_moe_glu_bwd(x, wg, wu, g, plan, tables)
+            check(fused_moe_glu.bwd_launches == n0 + 1, f"{what}: kernel not launched")
+            wdzg, wdzu = fused_glu_bwd_plain(x, wg, wu, g, plan, tables)
+            torch.cuda.synchronize()
+            err = max(_compare_scaled(torch, dzg, wdzg, tol, f"{what} dzg"),
+                      _compare_scaled(torch, dzu, wdzu, tol, f"{what} dzu"))
+            line = f"[smoke] {what}: max_abs_err {err:.3g} (tol {tol} of each max)"
+            if C == MOE_TRAIN_C and dtype == torch.bfloat16:
+                xr = x.clone().requires_grad_(True)
+                wcat = torch.cat([wg, wu], dim=2).requires_grad_(True)
+                gcat = torch.cat([g, g], dim=2)
+
+                def library(i):
+                    return torch.autograd.grad(torch.bmm(xr, wcat), (xr, wcat), gcat)
+
+                k_ms = time_ms(torch, lambda i: fused_moe_glu_bwd(x, wg, wu, g, plan, tables),
+                               reps=3, iters=3)
+                p_ms = time_ms(torch, lambda i: fused_glu_bwd_plain(
+                    x, wg, wu, g, plan, tables), reps=2, iters=2)
+                l_ms = time_ms(torch, library, reps=3, iters=3)
+                rows[C] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "max_abs_err": err,
+                           **_bound(_moe_bytes(E, C, K, N, 2, f32_outputs=2),
+                                    4.0 * E * C * K * N)}
+                line += (f", kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, autograd of "
+                         f"torch.bmm(x, [Wg|Wu]) (fwd+bwd) {l_ms * 1e3:.1f} us, bound "
+                         f"{rows[C]['bound_ms'] * 1e3:.1f} us ({rows[C]['bound_by']})")
+            print(line)
+    return rows
+
+
 def _compare_rows(torch, got, want, live, tol, what) -> float:
     """Gradient rows on their own scale: in each row max |got - want| at most
     ``tol`` times that row's max |want|, and every entry outside ``live``
@@ -364,7 +592,15 @@ def _fragmented_table(n_rows, n_cols, num_pages):
 
 def kv_phase(torch):
     """Both page-write kernels vs their plain versions, bitwise outside the
-    sentinel page, at the serve shapes (bf16 pools of one layer)."""
+    sentinel page, at the serve shapes (bf16 pools of one layer):
+    repro-100m's 12 KV heads of dim 64 and olmoe-1b-7b's 16 of dim 128.
+    Returns repro-100m's rows."""
+    out = _kv_case(torch, HKV, DH)
+    _kv_case(torch, MOE_HKV, MOE_DH)
+    return out
+
+
+def _kv_case(torch, hkv: int, dh: int) -> dict:
     from repro_torch.serving import kv_cache as KV
 
     dev = torch.device("cuda")
@@ -379,28 +615,30 @@ def kv_phase(torch):
     rows = _fragmented_table(3, 2, P)
     table = torch.tensor([rows[0]], dtype=torch.int32, device=dev)
     S = 32
-    kn = torch.randn(1, S, HKV, DH, generator=gen, device=dev).to(dt)
-    vn = torch.randn(1, S, HKV, DH, generator=gen, device=dev).to(dt)
-    base_k = torch.randn(HKV, P, PS, DH, generator=gen, device=dev).to(dt)
-    base_v = torch.randn(HKV, P, PS, DH, generator=gen, device=dev).to(dt)
+    kn = torch.randn(1, S, hkv, dh, generator=gen, device=dev).to(dt)
+    vn = torch.randn(1, S, hkv, dh, generator=gen, device=dev).to(dt)
+    base_k = torch.randn(hkv, P, PS, dh, generator=gen, device=dev).to(dt)
+    base_v = torch.randn(hkv, P, PS, dh, generator=gen, device=dev).to(dt)
     ka, va, kb, vb = base_k.clone(), base_v.clone(), base_k.clone(), base_v.clone()
+    n0 = KV.write_prompt_pages_.launches
     KV.write_prompt_pages_(ka, va, kn, vn, table)
+    check(KV.write_prompt_pages_.launches == n0 + 1, f"write_prompt_pages_ dh={dh}: not launched")
     KV.write_prompt_pages_plain(kb, vb, kn, vn, table)
     torch.cuda.synchronize()
     check(torch.equal(ka[:, 1:], kb[:, 1:]) and torch.equal(va[:, 1:], vb[:, 1:]),
-          "write_prompt_pages_ kernel differs from its plain version")
-    check(not torch.equal(ka, base_k), "write_prompt_pages_ wrote nothing")
+          f"write_prompt_pages_ Hkv={hkv} dh={dh}: kernel differs from its plain version")
+    check(not torch.equal(ka, base_k), f"write_prompt_pages_ Hkv={hkv} dh={dh} wrote nothing")
     flat = (table[0].long()[:, None] * PS + torch.arange(PS, device=dev)).reshape(-1)
     kn_h = kn[0].permute(1, 0, 2).contiguous()  # (Hkv, S, dh)
     k_ms = time_ms(torch, lambda i: KV.write_prompt_pages_(ka, va, kn, vn, table))
     p_ms = time_ms(torch, lambda i: KV.write_prompt_pages_plain(kb, vb, kn, vn, table))
-    l_ms = time_ms(torch, lambda i: (ka.view(HKV, P * PS, DH).index_copy_(1, flat, kn_h),
-                                     va.view(HKV, P * PS, DH).index_copy_(1, flat, kn_h)))
-    nbytes = 2 * 2 * S * HKV * DH * esize + table.numel() * 4
+    l_ms = time_ms(torch, lambda i: (ka.view(hkv, P * PS, dh).index_copy_(1, flat, kn_h),
+                                     va.view(hkv, P * PS, dh).index_copy_(1, flat, kn_h)))
+    nbytes = 2 * 2 * S * hkv * dh * esize + table.numel() * 4
     out["write_prompt_pages_"] = {
         "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "max_abs_err": 0.0,
         "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes"}
-    print(f"[smoke] write_prompt_pages_ B=1 S={S} Hkv={HKV} dh={DH} bf16: bitwise ok, "
+    print(f"[smoke] write_prompt_pages_ B=1 S={S} Hkv={hkv} dh={dh} bf16: bitwise ok, "
           f"kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, index_copy_ "
           f"{l_ms * 1e3:.2f} us, bound {out['write_prompt_pages_']['bound_ms'] * 1e3:.3f} us")
 
@@ -412,29 +650,32 @@ def kv_phase(torch):
         tab[b, :len(r)] = torch.tensor(r)
     tab = tab.to(dev)
     kv_len = torch.tensor([PS + 3, 2 * PS, PS - 1, 0], dtype=torch.int32, device=dev)
-    kn = torch.randn(4, 1, HKV, DH, generator=gen, device=dev).to(dt)
-    vn = torch.randn(4, 1, HKV, DH, generator=gen, device=dev).to(dt)
+    kn = torch.randn(4, 1, hkv, dh, generator=gen, device=dev).to(dt)
+    vn = torch.randn(4, 1, hkv, dh, generator=gen, device=dev).to(dt)
     ka, va, kb, vb = base_k.clone(), base_v.clone(), base_k.clone(), base_v.clone()
+    n0 = KV.append_kv_.launches
     KV.append_kv_(ka, va, kn, vn, tab, kv_len)
+    check(KV.append_kv_.launches == n0 + 1, f"append_kv_ dh={dh}: not launched")
     KV.append_kv_plain(kb, vb, kn, vn, tab, kv_len)
     torch.cuda.synchronize()
     check(torch.equal(ka[:, 1:], kb[:, 1:]) and torch.equal(va[:, 1:], vb[:, 1:]),
-          "append_kv_ kernel differs from its plain version")
+          f"append_kv_ Hkv={hkv} dh={dh}: kernel differs from its plain version")
     changed = (ka != base_k).any(dim=3).any(dim=0)[1:]
-    check(int(changed.sum()) == 3, f"append_kv_ changed {int(changed.sum())} rows, want 3")
+    check(int(changed.sum()) == 3,
+          f"append_kv_ Hkv={hkv} dh={dh} changed {int(changed.sum())} rows, want 3")
     lens = kv_len.long()
     pidx = torch.gather(tab.long(), 1, (lens // PS)[:, None])[:, 0]
     flat = pidx * PS + lens % PS
     kn_h = kn[:, 0].permute(1, 0, 2).contiguous()  # (Hkv, B, dh)
     k_ms = time_ms(torch, lambda i: KV.append_kv_(ka, va, kn, vn, tab, kv_len))
     p_ms = time_ms(torch, lambda i: KV.append_kv_plain(kb, vb, kn, vn, tab, kv_len))
-    l_ms = time_ms(torch, lambda i: (ka.view(HKV, P * PS, DH).index_copy_(1, flat, kn_h),
-                                     va.view(HKV, P * PS, DH).index_copy_(1, flat, kn_h)))
-    nbytes = 2 * 2 * 4 * HKV * DH * esize + 4 * 4 + 4 * 4
+    l_ms = time_ms(torch, lambda i: (ka.view(hkv, P * PS, dh).index_copy_(1, flat, kn_h),
+                                     va.view(hkv, P * PS, dh).index_copy_(1, flat, kn_h)))
+    nbytes = 2 * 2 * 4 * hkv * dh * esize + 4 * 4 + 4 * 4
     out["append_kv_"] = {
         "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "max_abs_err": 0.0,
         "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes"}
-    print(f"[smoke] append_kv_ B=4 Hkv={HKV} dh={DH} bf16: bitwise ok, kernel "
+    print(f"[smoke] append_kv_ B=4 Hkv={hkv} dh={dh} bf16: bitwise ok, kernel "
           f"{k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, index_copy_ "
           f"{l_ms * 1e3:.2f} us, bound {out['append_kv_']['bound_ms'] * 1e3:.4f} us")
     return out
@@ -568,7 +809,8 @@ def softmax_phase(torch):
 def decode_phase(torch):
     """paged_flash_decode on CUDA tensors (split + merge kernels) vs its plain
     version on fragmented page tables: bf16 q and pools (bf16 output) at
-    1e-2, f32 at 1e-5."""
+    1e-2, f32 at 1e-5; repro-100m's head dim 64, and olmoe-1b-7b's decode
+    step under the fused-softmax plan (16 KV heads of dim 128, G = 1)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.fused import paged_flash_decode
@@ -579,29 +821,31 @@ def decode_phase(torch):
     table, plan, tables = _exp_table(torch)
     gen = torch.Generator(device=dev).manual_seed(4)
 
-    def make(kv_len, n_cols, hkv, G, P, dtype):
+    def make(kv_len, n_cols, hkv, G, P, dtype, dh):
         rows = _fragmented_table(len(kv_len), n_cols, P)
         tab = torch.zeros((len(kv_len), n_cols), dtype=torch.int32)
         for b, r in enumerate(rows):
             tab[b, :len(r)] = torch.tensor(r)
-        q = torch.randn(len(kv_len), 1, hkv * G, DH, generator=gen, device=dev).to(dtype)
-        kp = torch.randn(hkv, P, PS, DH, generator=gen, device=dev).to(dtype)
-        vp = torch.randn(hkv, P, PS, DH, generator=gen, device=dev).to(dtype)
+        q = torch.randn(len(kv_len), 1, hkv * G, dh, generator=gen, device=dev).to(dtype)
+        kp = torch.randn(hkv, P, PS, dh, generator=gen, device=dev).to(dtype)
+        vp = torch.randn(hkv, P, PS, dh, generator=gen, device=dev).to(dtype)
         lens = torch.tensor(kv_len, dtype=torch.int32, device=dev)
         return q, kp, vp, tab.to(dev), lens
 
-    cases = [  # (name, kv_len, n_cols, Hkv, G, pages, pages_per_split, timed)
-        ("B=4 kv_len {19,32,15,0}", [19, 32, 15, 0], 4, HKV, 1, 17, None, True),
+    cases = [  # (name, kv_len, n_cols, Hkv, G, pages, pages_per_split, dh, timed)
+        ("B=4 kv_len {19,32,15,0}", [19, 32, 15, 0], 4, HKV, 1, 17, None, DH, True),
         ("B=4 one request at 4104 keys (3 splits)", [4104, 0, 37, 2050], 258, HKV, 1, 1033,
-         None, True),
+         None, DH, True),
         ("G=2 Hkv=6 kv_len {19,32,15,0} 2 pages a split", [19, 32, 15, 0], 4, 6, 2, 17, 2,
-         False),
+         DH, False),
+        ("dh=128 Hkv=16 B=4 kv_len {19,32,15,0}", [19, 32, 15, 0], 4, MOE_HKV, 1, 17, None,
+         MOE_DH, True),
     ]
     rows = {}
-    for name, kv_len, n_cols, hkv, G, P, pps, timed in cases:
+    for name, kv_len, n_cols, hkv, G, P, pps, dh, timed in cases:
         errs = {}
         for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
-            q, kp, vp, tab, lens = make(kv_len, n_cols, hkv, G, P, dtype)
+            q, kp, vp, tab, lens = make(kv_len, n_cols, hkv, G, P, dtype, dh)
             n0 = paged_flash_decode.launches
             got = paged_flash_decode(q, kp, vp, tab, lens, table=table, pages_per_split=pps)
             check(paged_flash_decode.launches == n0 + 1, f"decode {name}: kernel not launched")
@@ -614,7 +858,7 @@ def decode_phase(torch):
         line = (f"[smoke] paged_flash_decode {name}: max_abs_err bf16 "
                 f"{errs[torch.bfloat16]:.3g}, f32 {errs[torch.float32]:.3g}")
         if timed:
-            q, kp, vp, tab, lens = make(kv_len, n_cols, hkv, G, P, torch.bfloat16)
+            q, kp, vp, tab, lens = make(kv_len, n_cols, hkv, G, P, torch.bfloat16, dh)
             eff = min(pps or 2048 // PS, n_cols)
             k_ms = time_ms(torch, lambda i: paged_flash_decode(q, kp, vp, tab, lens, table=table))
             p_ms = time_ms(torch, lambda i: paged_flash_decode_plain(
@@ -629,11 +873,11 @@ def decode_phase(torch):
                 qh, kd, vd, attn_mask=valid[:, None, None, :]))
             n_keys = int(lens.sum())
             live_pages = sum(-(-n // PS) for n in kv_len)
-            nbytes = (2 * live_pages * PS * DH * hkv * 2 + 2 * q.numel() * 2
+            nbytes = (2 * live_pages * PS * dh * hkv * 2 + 2 * q.numel() * 2
                       + tab.numel() * 4 + lens.numel() * 4)
             rows[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                           "max_abs_err": errs[torch.bfloat16],
-                          **_bound(nbytes, 4.0 * n_keys * hkv * G * DH),
+                          **_bound(nbytes, 4.0 * n_keys * hkv * G * dh),
                           "decode_ms": _decode_ms(n_keys * hkv * G)}
             line += (f", kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, SDPA "
                      f"{l_ms * 1e3:.2f} us, bound {rows[name]['bound_ms'] * 1e3:.3f} us "
@@ -811,9 +1055,22 @@ def flash_bwd_phase(torch):
             rows[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                           "max_abs_err": max(errs), "peak_rise_bytes": rise,
                           **_bound(nbytes, 10.0 * pairs * DH)}
+            # each kernel's own bound, from the products its pass needs over
+            # the causal pairs (stats: q.k, dout.v and u.v; dq: q.k, dout.v
+            # and ds.k; dkv: q.k, dout.v, u.dout and ds.q) and the bytes it
+            # moves (each of q, k, v, dout read once, m and the (4, B, H, S)
+            # f32 row stats, its outputs written once; here H = Hkv)
+            qb, rb = q.numel() * q.element_size(), m.numel() * 4 * 5
+            passes = {"stats": _bound(4 * qb + rb, 6.0 * pairs * DH),
+                      "dq": _bound(5 * qb + rb, 6.0 * pairs * DH),
+                      "dkv": _bound(6 * qb + rb, 8.0 * pairs * DH)}
+            rows[name]["pass_bounds"] = passes
             line += (f", kernels {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, autograd of "
                      f"SDPA (fwd+bwd) {l_ms * 1e3:.1f} us, bound "
-                     f"{rows[name]['bound_ms'] * 1e3:.1f} us ({rows[name]['bound_by']}), peak "
+                     f"{rows[name]['bound_ms'] * 1e3:.1f} us ({rows[name]['bound_by']}), bound "
+                     "of each kernel " + ", ".join(
+                         f"{k} {v['bound_ms'] * 1e3:.1f} us ({v['bound_by']})"
+                         for k, v in passes.items()) + f", peak "
                      f"memory rise {rise / 1e6:.1f} MB (dense scores {dense / 1e6:.0f} MB)")
         print(line)
     return rows
@@ -830,12 +1087,14 @@ def _counters() -> dict:
     from repro_torch.serving.kv_cache import append_kv_, write_prompt_pages_
 
     return {"fused_glu": (fused.fused_glu, "launches"),
+            "fused_moe_glu": (fused.fused_moe_glu, "launches"),
             "write_prompt_pages_": (write_prompt_pages_, "launches"),
             "append_kv_": (append_kv_, "launches"),
             "fused_pwl_softmax": (fused.fused_pwl_softmax, "launches"),
             "paged_flash_decode": (fused.paged_flash_decode, "launches"),
             "fused_flash_attention": (fused.fused_flash_attention, "launches"),
             "fused_glu_bwd": (fused.fused_glu, "bwd_launches"),
+            "fused_moe_glu_bwd": (fused.fused_moe_glu, "bwd_launches"),
             "fused_pwl_softmax_bwd": (fused.fused_pwl_softmax, "bwd_launches"),
             "fused_flash_attention_bwd": (fused.fused_flash_attention, "bwd_launches")}
 
@@ -849,25 +1108,37 @@ def read_counters() -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
 
 
+FULL_WIDTH = {  # arch: (d_model, layers, experts) of its published config
+    "repro-100m": (768, N_LAYERS, 0),
+    "olmoe-1b-7b": (MOE_K, MOE_LAYERS, MOE_E),
+}
+
+
 def serve_phase(torch, argv: list[str], attention) -> dict:
     """One full-width session through the serve entry point; returns the
     launch counts of exactly that session.  ``attention(steps)`` gives the
     expected softmax / paged-decode / flash launches from the session's
-    ``{"prefills", "decode_steps"}`` (the dense loop: one prefill and
-    ``max_new`` decode steps)."""
+    ``{"prefills", "decode_steps", "layers"}`` (the dense loop: one prefill
+    and ``max_new`` decode steps).  Every layer of every model call runs its
+    FFN's kernel: the GLU for repro-100m, the MoE GLU (and no GLU) for an
+    MoE arch.  Prints tok/s, the mean time of a model call and the session's
+    peak of allocated device memory (weights included), as serve measures
+    it."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
 
     args = serve.build_parser().parse_args(argv)
     check(args.device == "cuda", "serve must default to cuda")
     cfg = get_config(args.arch)
-    check(cfg.d_model == 768 and cfg.n_layers == N_LAYERS, "not full-width repro-100m")
+    check((cfg.d_model, cfg.n_layers, cfg.n_experts) == FULL_WIDTH[args.arch],
+          f"not full-width {args.arch}")
     reset_counters()
     summary = serve.run(args)
     torch.cuda.synchronize()
     counts = read_counters()
+    peak = summary["peak_bytes"]
     check(len(summary["results"]) == args.batch, "a request is missing")
-    L = N_LAYERS
+    L = cfg.n_layers
     if args.mode == "dense":
         for row in summary["results"]:
             check(len(row) == args.max_new, f"dense row of {len(row)} tokens")
@@ -885,15 +1156,18 @@ def serve_phase(torch, argv: list[str], attention) -> dict:
               f"write_prompt_pages_ launches {counts['write_prompt_pages_']} != {L} x {pf}")
         check(counts["append_kv_"] == L * ds,
               f"append_kv_ launches {counts['append_kv_']} != {L} x {ds}")
-    check(counts["fused_glu"] == L * (pf + ds),
-          f"fused_glu launches {counts['fused_glu']} != {L} x ({pf} + {ds})")
-    for name, want in attention({"prefills": pf, "decode_steps": ds}).items():
+    ffn, other = ("fused_moe_glu", "fused_glu") if cfg.n_experts else ("fused_glu",
+                                                                        "fused_moe_glu")
+    check(counts[ffn] == L * (pf + ds), f"{ffn} launches {counts[ffn]} != {L} x ({pf} + {ds})")
+    check(counts[other] == 0, f"{args.arch} launched {other} {counts[other]} times")
+    for name, want in attention({"prefills": pf, "decode_steps": ds, "layers": L}).items():
         check(counts[name] == want, f"{' '.join(argv)}: {name} launches {counts[name]} != {want}")
-    check(counts["fused_glu_bwd"] == counts["fused_pwl_softmax_bwd"]
+    check(counts["fused_glu_bwd"] == counts["fused_moe_glu_bwd"] == counts["fused_pwl_softmax_bwd"]
           == counts["fused_flash_attention_bwd"] == 0, "serving launched a backward kernel")
     print(f"[smoke] serve {' '.join(argv) or '(defaults)'}: {summary['tokens']} tokens, "
           f"{summary['tok_per_s']:.1f} tok/s, {pf} prefills, {ds} decode steps, "
-          f"launches {counts}")
+          f"{summary['seconds'] * 1e3 / (pf + ds):.2f} ms per model call, peak allocated "
+          f"{peak / 1e9:.2f} GB, launches {counts}")
     return counts
 
 
@@ -905,32 +1179,34 @@ def no_attention_kernels(steps) -> dict:
 def short_prompt_attention(steps) -> dict:
     """A 32-token prefill takes the dense row softmax; decode the split-KV
     kernel (the dense loop's decode the row softmax with a mask)."""
-    pf, ds = steps["prefills"], steps["decode_steps"]
-    return {"fused_pwl_softmax": N_LAYERS * pf, "paged_flash_decode": N_LAYERS * ds,
+    pf, ds, L = steps["prefills"], steps["decode_steps"], steps["layers"]
+    return {"fused_pwl_softmax": L * pf, "paged_flash_decode": L * ds,
             "fused_flash_attention": 0}
 
 
 def long_prompt_attention(steps) -> dict:
     """A 4096-token prefill is past the dense cap (12 x 4096^2 > 2^27 scores)
     and takes the flash kernel."""
-    pf, ds = steps["prefills"], steps["decode_steps"]
-    return {"fused_pwl_softmax": 0, "paged_flash_decode": N_LAYERS * ds,
-            "fused_flash_attention": N_LAYERS * pf}
+    pf, ds, L = steps["prefills"], steps["decode_steps"], steps["layers"]
+    return {"fused_pwl_softmax": 0, "paged_flash_decode": L * ds,
+            "fused_flash_attention": L * pf}
 
 
 def dense_loop_attention(steps) -> dict:
-    pf, ds = steps["prefills"], steps["decode_steps"]
-    return {"fused_pwl_softmax": N_LAYERS * (pf + ds), "paged_flash_decode": 0,
+    pf, ds, L = steps["prefills"], steps["decode_steps"], steps["layers"]
+    return {"fused_pwl_softmax": L * (pf + ds), "paged_flash_decode": 0,
             "fused_flash_attention": 0}
 
 
-def dump_softmax_plan(path: pathlib.Path) -> str:
-    """The plan a user would write for the fused PWL-exp softmax."""
+def dump_plan(path: pathlib.Path, arch: str = "repro-100m", pwl_softmax: bool = True) -> str:
+    """The plan a user would write: every site of ``arch`` fused, with the
+    PWL-exp softmax or without."""
     from repro_torch import sfu
     from repro_torch.configs import get_config
 
-    plan = sfu.compile_plan(get_config("repro-100m", act_impl="fused", pwl_softmax=True))
-    check(plan.spec("attn.softmax:exp").impl == "fused", "the softmax site is not fused")
+    plan = sfu.compile_plan(get_config(arch, act_impl="fused", pwl_softmax=pwl_softmax))
+    check(all(spec.impl == "fused" for _, spec in plan.items()), f"{arch}: a site is not fused")
+    check(("attn.softmax:exp" in plan) == pwl_softmax, f"{arch}: the softmax site")
     return str(sfu.dump_plan(plan, path))
 
 
@@ -1167,7 +1443,8 @@ def _glu_dx_in_one_gemm(torch):
         xf = x.to(torch.float32)
         w = torch.cat([wg, wu], dim=1).to(torch.float32)
         dx = (torch.cat([dzg, dzu], dim=1) @ w.T).to(x.dtype)
-        return dx, (xf.T @ dzg).to(wg.dtype), (xf.T @ dzu).to(wu.dtype), None, None, None
+        return (dx, (xf.T @ dzg).to(wg.dtype), (xf.T @ dzu).to(wu.dtype), None, None, None,
+                None)
 
     orig = glu._GLUOp.__dict__["backward"]
     glu._GLUOp.backward = staticmethod(backward)
@@ -1291,6 +1568,183 @@ def grad_phase(torch, plan: str):
           f"worst leaf error {worst:.3g} of its max")
 
 
+def moe_train_phase(torch, plan: str) -> dict:
+    """Reduced olmoe-1b-7b (2 MoE layers, d_model 64, 8 experts top 2)
+    through the train entry point on ``cuda`` under the fused plan, at the
+    launcher's defaults (batch 8 x 512; remat off, as the reduced config
+    has it): 20 steps, rc 0 (the loss fell), finite losses and load-balancing
+    losses, and per step one MoE GLU forward and one backward a layer, no
+    other kernel.  Full-width MoE training needs more than one card holds
+    (f32 masters, gradients and two moments of 6.92 B parameters)."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.launch import train
+
+    args = train.build_parser().parse_args(
+        ["--arch", "olmoe-1b-7b", "--reduced", "--steps", "20", "--plan", plan,
+         "--log-every", "5"])
+    check(args.device == "cuda", "train must default to cuda")
+    cfg = get_reduced_config("olmoe-1b-7b")
+    check(cfg.n_experts == 8 and not cfg.remat, "not reduced olmoe-1b-7b without remat")
+    reset_counters()
+    out = train.run(args)
+    torch.cuda.synchronize()
+    counts = read_counters()
+    check(out["rc"] == 0, f"olmoe train rc {out['rc']}: losses {out['losses']}")
+    check(len(out["losses"]) == 20 and all(math.isfinite(x) for x in out["losses"]),
+          f"olmoe train losses {out['losses']}")
+    want = {"fused_moe_glu": cfg.n_layers * 20, "fused_moe_glu_bwd": cfg.n_layers * 20}
+    for name, n in counts.items():
+        check(n == want.get(name, 0),
+              f"olmoe train 20 steps: {name} launches {n} != {want.get(name, 0)}")
+    print(f"[smoke] train olmoe-1b-7b --reduced --plan <fused> 20 steps: loss "
+          f"{out['losses'][0]:.4f} -> {out['losses'][-1]:.4f}, launches {counts}")
+    return counts
+
+
+def moe_grad_phase(torch):
+    """One full-width olmoe-1b-7b MoE layer (64 experts top 8, d_model 2048,
+    expert d_ff 1024) on 8 x 512 tokens (capacity 640) under its fused
+    plan: the gradients of x, the f32 router and the f32 expert masters (cast
+    to the compute dtype as the train step casts them) of
+    ``sum(cos(y)) + aux``, with ``impl_bwd="fused"`` (the backward kernel)
+    against ``"recompute"`` (plain recomputation) on the card, the loss
+    bitwise equal (the same forward kernel).  f32 (TF32 off) on integer-grid
+    x and expert weights (exact products, so both backwards decode the same
+    segment; see ``moe_bwd_phase``) at 1e-4 of each leaf's max; bf16 on the
+    init's normal weights at cosine >= 0.999 for every leaf."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.fused import fused_moe_glu, use_impl_bwd
+    from repro_torch.models import moe
+    from repro_torch.models.common import compute_params, init_params
+    from repro_torch.models.transformer import moe_defs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    names = ("router", "w_gate", "w_up", "w_down")
+    T = TRAIN_BATCH * TRAIN_SEQ
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = get_config("olmoe-1b-7b", act_impl="fused", dtype=dtype)
+        check(moe.capacity(cfg, T) == MOE_TRAIN_C, "capacity at 8 x 512 tokens is not 640")
+        defs = moe_defs(cfg)
+        masters = init_params(defs, 0, dev, dtype, master=True)
+        shape = (TRAIN_BATCH, TRAIN_SEQ, cfg.d_model)
+        if dtype == torch.float32:
+            for k in ("w_gate", "w_up"):
+                masters[k] = _igrid(torch, gen, masters[k].shape, dtype, span=2, step=2.0 ** -7)
+            x0 = _igrid(torch, gen, shape, dtype)
+        else:
+            x0 = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        runs = {}
+        for mode in ("fused", "recompute"):
+            leaves = {k: masters[k].detach().clone().requires_grad_(True) for k in names}
+            x = x0.clone().requires_grad_(True)
+            n0, b0 = fused_moe_glu.launches, fused_moe_glu.bwd_launches
+            with use_impl_bwd(mode):
+                y, aux = moe.moe_layer(cfg, compute_params(defs, leaves, dtype), x)
+                loss = torch.cos(y.float()).sum() + aux
+                grads = torch.autograd.grad(loss, [x] + [leaves[k] for k in names])
+            torch.cuda.synchronize()
+            check(fused_moe_glu.launches == n0 + 1, f"MoE layer {mode}: forward kernel launches")
+            check(fused_moe_glu.bwd_launches == b0 + (mode == "fused"),
+                  f"MoE layer {mode}: backward kernel launches")
+            runs[mode] = (float(loss.detach()), float(aux.detach()), grads)
+        (lf, af, gf), (lr, _, gr) = runs["fused"], runs["recompute"]
+        what = f"full-width olmoe MoE layer {dtype} 8x{TRAIN_SEQ}"
+        check(lf == lr, f"{what}: loss fused {lf} != recompute {lr}")
+        check(all(bool(torch.isfinite(a).all()) for a in gf), f"{what}: non-finite gradient")
+        worst = _worst_leaf(torch, gf, gr)
+        cos = [torch.nn.functional.cosine_similarity(
+            a.flatten().double(), b.flatten().double(), dim=0).item() for a, b in zip(gf, gr)]
+        if dtype == torch.float32:
+            check(worst <= 1e-4, f"{what}: a gradient leaf off by {worst:.3g} of its max")
+        else:
+            check(min(cos) >= 0.999, f"{what}: a gradient leaf at cosine {min(cos):.6f}")
+        print(f"[smoke] grads {what}, impl_bwd fused vs recompute: loss {lf:.4f} equal "
+              f"(aux {af:.4f}), worst leaf {worst:.3g} of its max, lowest cosine "
+              f"{min(cos):.8f} (leaves x, {', '.join(names)})")
+        del masters, runs, gf, gr
+
+
+def moe_reference_phase(torch, plan: str):
+    """Reduced olmoe-1b-7b (2 MoE layers, d_model 64, 8 experts top 2) in f32
+    (TF32 off) under its fused plan on the card against the same calls on
+    the CPU, so the routing (f32 logits, the stable top-k), the dispatch into
+    capacity buckets, the combine and the aux loss run on CUDA against an
+    independent path: logits of ``forward`` on 2 x 64 tokens (capacity 40),
+    the loss, its nll and aux, and every gradient leaf of ``Model.loss`` at
+    1e-4 (each leaf on the scale of its max); then the logits of one paged
+    prefill (a 20-token prompt in a 32-token bucket) and of three paged
+    decode steps fed the CPU's greedy tokens, at 1e-4.  Each MoE layer of
+    each call ran its kernel on the card."""
+    from repro_torch import sfu, tree
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMData
+    from repro_torch.kernels.fused import fused_moe_glu
+    from repro_torch.models import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced_config("olmoe-1b-7b", act_plan=sfu.load_plan(plan), dtype=torch.float32)
+    check(cfg.n_experts == 8 and cfg.n_active_experts == 2, "not reduced olmoe-1b-7b")
+    L = cfg.n_layers
+    cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
+    data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=2))
+    batch = {k: torch.from_numpy(v) for k, v in data.batch_at(0).items()}
+    gbatch = {k: v.cuda() for k, v in batch.items()}
+
+    params = cpu.init(seed=0)
+    check(params["layers"][0]["ffn"]["router"].dtype == torch.float32, "router is not f32")
+    gparams = _to_cuda(torch, params)
+    n0 = fused_moe_glu.launches
+    got = gpu.forward(gparams, gbatch["tokens"]).cpu()
+    check(fused_moe_glu.launches == n0 + L, "olmoe forward: an MoE layer skipped its kernel")
+    want = cpu.forward(params, batch["tokens"])
+    logit_err = _compare_scaled(torch, got, want, 1e-4, "reduced olmoe logits cuda vs cpu")
+
+    def loss_and_grads(model, masters, b):
+        leaves = [p.detach().requires_grad_(True) for p in tree.leaves(masters)]
+        loss, metrics = model.loss(tree.unflatten(masters, leaves), b)
+        return loss.detach(), {k: float(v.detach()) for k, v in metrics.items()}, \
+            torch.autograd.grad(loss, leaves)
+
+    masters = cpu.init(seed=0, master=True)
+    n0, b0 = fused_moe_glu.launches, fused_moe_glu.bwd_launches
+    lg, mg, gg = loss_and_grads(gpu, _to_cuda(torch, masters), gbatch)
+    check(fused_moe_glu.launches == n0 + L and fused_moe_glu.bwd_launches == b0 + L,
+          "olmoe loss: an MoE layer skipped its forward or backward kernel")
+    lc, mc, gc = loss_and_grads(cpu, masters, batch)
+    for name, a, b in (("loss", float(lg), float(lc)), ("nll", mg["nll"], mc["nll"]),
+                       ("aux", mg["aux"], mc["aux"])):
+        check(math.isfinite(a) and abs(a - b) <= 1e-4 * abs(b),
+              f"reduced olmoe {name} cuda {a} vs cpu {b}")
+    check(mc["aux"] > 1.0, f"reduced olmoe aux {mc['aux']}: not one per layer at least")
+    worst = max(_compare_scaled(torch, a.cpu(), b, 1e-4, f"reduced olmoe grad leaf {i}") /
+                max(b.abs().max().item(), 1e-30) for i, (a, b) in enumerate(zip(gg, gc)))
+
+    ps, P, n = 16, 9, 20
+    table = torch.tensor([[3, 5, 0]], dtype=torch.int32)
+    toks = torch.zeros((1, 32), dtype=torch.int32)
+    toks[0, :n] = batch["tokens"][0, :n]
+    lens = torch.tensor([n], dtype=torch.int32)
+    ccache, gcache = cpu.make_paged_cache(P, ps), gpu.make_paged_cache(P, ps)
+    n0 = fused_moe_glu.launches
+    want = cpu.prefill_paged(params, toks, ccache, table[:, :2], lens)
+    got = gpu.prefill_paged(gparams, toks.cuda(), gcache, table[:, :2].cuda(), lens.cuda())
+    paged_err = _compare_scaled(torch, got.cpu(), want, 1e-4, "reduced olmoe paged prefill")
+    for step in range(3):
+        cur = want[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+        kv = lens + step
+        want = cpu.decode_step_paged(params, cur, ccache, table, kv)
+        got = gpu.decode_step_paged(gparams, cur.cuda(), gcache, table.cuda(), kv.cuda())
+        paged_err = max(paged_err, _compare_scaled(torch, got.cpu(), want, 1e-4,
+                                                   f"reduced olmoe paged decode step {step}"))
+    check(fused_moe_glu.launches == n0 + 4 * L, "olmoe paged calls: an MoE layer skipped its kernel")
+    print(f"[smoke] reduced olmoe f32, cuda vs cpu: logits max_abs_err {logit_err:.3g}; loss "
+          f"{float(lg):.6f} vs {float(lc):.6f}, aux {mg['aux']:.6f} vs {mc['aux']:.6f}, worst "
+          f"grad leaf {worst:.3g} of its max; paged prefill + 3 decode steps max_abs_err "
+          f"{paged_err:.3g}")
+
+
 def main() -> int:
     try:
         import torch
@@ -1312,12 +1766,14 @@ def main() -> int:
     try:
         build_s = build_phase()
         glu = glu_phase(torch)
+        moe = moe_phase(torch)
         kv = kv_phase(torch)
         sm = softmax_phase(torch)
         dec = decode_phase(torch)
         fl = flash_phase(torch)
         mark("forward kernel phases")
         glu_bwd = glu_bwd_phase(torch)
+        moe_bwd = moe_bwd_phase(torch)
         sm_bwd = softmax_bwd_phase(torch)
         fl_bwd = flash_bwd_phase(torch)
         mark("backward kernel phases")
@@ -1325,22 +1781,38 @@ def main() -> int:
         serve_phase(torch, ["--batch", "8", "--prompt-len", "256", "--max-new", "32"],
                     no_attention_kernels)
         with tempfile.TemporaryDirectory() as tmp:
-            plan = dump_softmax_plan(pathlib.Path(tmp) / "fused_softmax_plan.json")
+            plan = dump_plan(pathlib.Path(tmp) / "fused_softmax_plan.json")
             short = serve_phase(torch, ["--plan", plan], short_prompt_attention)
             long = serve_phase(torch, ["--plan", plan, "--batch", "2", "--prompt-len", "4096",
                                        "--max-new", "8"], long_prompt_attention)
             serve_phase(torch, ["--plan", plan, "--mode", "dense"], dense_loop_attention)
-            mark("serve phases")
+            mark("repro-100m serve phases")
+            olmoe = ["--arch", "olmoe-1b-7b"]
+            moe_counts = serve_phase(torch, olmoe, no_attention_kernels)
+            serve_phase(torch, olmoe + ["--batch", "8", "--prompt-len", "256", "--max-new", "32"],
+                        no_attention_kernels)
+            moe_softmax_plan = dump_plan(pathlib.Path(tmp) / "olmoe_fused_softmax_plan.json",
+                                         "olmoe-1b-7b")
+            serve_phase(torch, olmoe + ["--plan", moe_softmax_plan], short_prompt_attention)
+            mark("olmoe-1b-7b serve phases")
             trained = train_phase(torch, plan, str(pathlib.Path(tmp) / "ckpt"))
             mark("train phase")
             long_trained = long_train_phase(torch, plan, str(pathlib.Path(tmp) / "ckpt_long"))
             mark("long-context train phase")
             grad_phase(torch, plan)
             mark("grad phase")
+            moe_plan = dump_plan(pathlib.Path(tmp) / "olmoe_fused_plan.json", "olmoe-1b-7b",
+                                 pwl_softmax=False)
+            moe_trained = moe_train_phase(torch, moe_plan)
+            moe_grad_phase(torch)
+            moe_reference_phase(torch, moe_plan)
+            mark("MoE train and grad phases")
         reference_phase(torch)
         # the launches of each kernel on the path that runs it
         path_counts = {name: main_counts[name]
                        for name in ("fused_glu", "write_prompt_pages_", "append_kv_")}
+        path_counts["fused_moe_glu"] = moe_counts["fused_moe_glu"]
+        path_counts["fused_moe_glu_bwd"] = moe_trained["fused_moe_glu_bwd"]
         path_counts["fused_pwl_softmax"] = short["fused_pwl_softmax"]
         path_counts["paged_flash_decode"] = short["paged_flash_decode"]
         path_counts["fused_flash_attention"] = long["fused_flash_attention"]
@@ -1360,6 +1832,10 @@ def main() -> int:
          "replaces": "src/repro/kernels/fused/glu.py:30",
          "shape": f"M=4 K={K_DIM} N={N_DIM} bf16 (decode step)",
          "launches": path_counts["fused_glu"], **g},
+        {"name": "fused_moe_glu", "route": "cuda", "source": "src/repro_torch/csrc/glu.cu",
+         "replaces": "src/repro/kernels/fused/moe.py:41",
+         "shape": f"E={MOE_E} C=1 K={MOE_K} N={MOE_N} bf16 (olmoe-1b-7b decode step)",
+         "launches": path_counts["fused_moe_glu"], **moe[1]},
         {"name": "write_prompt_pages_", "route": "cuda",
          "source": "src/repro_torch/csrc/kv_cache.cu",
          "replaces": "src/repro/serving/kv_cache.py:129",
@@ -1388,6 +1864,11 @@ def main() -> int:
          "replaces": "src/repro/kernels/fused/glu.py:97",
          "shape": f"M={TRAIN_TOKENS} K={K_DIM} N={N_DIM} bf16 (train step, batch 8 x 512)",
          "launches": path_counts["fused_glu_bwd"], **glu_bwd[(TRAIN_TOKENS, torch.bfloat16)]},
+        {"name": "fused_moe_glu_bwd", "route": "cuda", "source": "src/repro_torch/csrc/glu.cu",
+         "replaces": "src/repro/kernels/fused/moe.py:107",
+         "shape": f"E={MOE_E} C={MOE_TRAIN_C} K={MOE_K} N={MOE_N} bf16 (olmoe-1b-7b, 8 x 512 "
+                  "tokens); launches from reduced olmoe training",
+         "launches": path_counts["fused_moe_glu_bwd"], **moe_bwd[MOE_TRAIN_C]},
         {"name": "fused_pwl_softmax_bwd", "route": "cuda",
          "source": "src/repro_torch/csrc/softmax.cu",
          "replaces": "src/repro/kernels/fused/softmax.py:213",

@@ -4,17 +4,21 @@
     python3 profile_serve.py [serve arguments]
 
 A helper beside ``chip_smoke.py``, not part of the package.  Runs a warm-up
-session of :mod:`repro_torch.launch.serve` (the same arguments), the same session again for its wall time, then once more under
-``torch.profiler`` with CPU and CUDA activity, and prints:
+session of :mod:`repro_torch.launch.serve` (the same arguments, e.g.
+``--arch olmoe-1b-7b``), the same session again for its wall time, then
+once more with ``torch.profiler`` (CPU and CUDA activity) recording the
+engine's session alone, not the weights' random init before it, and prints:
 
 * the kernels' summed device time against the session's wall time without
   the profiler (the same work), so the device's busy share is visible;
+* the kernel launches of the session (``cudaLaunchKernel*`` and
+  ``cuLaunchKernel*`` calls) per model call;
 * the top operators by host (self CPU) time and by device time;
-* the port's own kernels by name (``glu_pwl_kernel``,
-  ``prompt_write_kernel``, ``append_kernel``, and under a plan with the
-  softmax site fused ``softmax_kernel``, ``split_kernel`` + ``merge_kernel``
-  of the paged decode, ``flash_kernel``) with their call counts and mean
-  device time.
+* the port's own kernels by name (``glu_pwl_kernel``, the dense GLU's and
+  the MoE experts' alike, ``prompt_write_kernel``, ``append_kernel``, and
+  under a plan with the softmax site fused ``softmax_kernel``,
+  ``split_kernel`` + ``merge_kernel`` of the paged decode, ``flash_kernel``)
+  with their call counts and mean device time.
 
 It needs a CUDA GPU.
 """
@@ -55,10 +59,9 @@ def main(argv=None) -> int:
     plain_wall = serve.run(args)["seconds"]  # the same session, no profiler
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    prof = torch.profiler.profile(activities=acts)
     t0 = time.perf_counter()
-    with torch.profiler.profile(activities=acts) as prof:
-        summary = serve.run(args)
-        torch.cuda.synchronize()
+    summary = serve.run(args, session=lambda: prof)  # the profiler on for the session only
     wall = time.perf_counter() - t0
     calls = summary["prefills"] + summary["decode_steps"]
     events = prof.key_averages()
@@ -67,9 +70,14 @@ def main(argv=None) -> int:
     print(f"[profile] {calls} model calls; kernels busy {device_total / 1e3:.1f} ms; wall "
           f"{plain_wall * 1e3:.1f} ms without the profiler ({plain_wall * 1e3 / calls:.2f} "
           f"ms per call, device busy {100 * device_total / 1e6 / plain_wall:.1f}%), "
-          f"{summary['seconds'] * 1e3:.1f} ms under it ({wall * 1e3:.1f} ms with its "
-          "post-processing)")
+          f"{summary['seconds'] * 1e3:.1f} ms under it ({wall * 1e3:.1f} ms with the weights' "
+          "init and the profiler's post-processing)")
     ops = [e for e in events if not _is_kernel(e)]
+    launches = {e.key: e.count for e in ops
+                if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel"))}
+    n_launch = sum(launches.values())
+    print(f"[profile] launches {launches}: {n_launch} in all, {n_launch / calls:.0f} per model "
+          "call")
     by_cpu = sorted(ops, key=lambda e: e.self_cpu_time_total, reverse=True)[:TOP]
     print("[profile] top host operators by self CPU time: name | calls | self CPU ms | "
           "device ms of its kernels")

@@ -6,7 +6,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-ARCH_IDS = ["repro-100m"]
+ARCH_IDS = ["repro-100m", "olmoe-1b-7b"]
 
 
 def _module(arch_id: str):

@@ -1,16 +1,23 @@
 // Fused GLU with a PWL epilogue: out = pwl(x @ Wg) * (x @ Wu), and its
-// backward.
+// backward, for one weight pair (the dense GLU) or one per expert (the MoE).
 //
 // Replaces repro/kernels/fused/glu.py:_glu_kernel (the GeGLU gate GEMM of every
-// dense layer, with gelu_tanh as a non-uniform PWL table in its epilogue) and
-// repro/kernels/fused/glu.py:_glu_bwd_kernel.  The backward is the same kernel
+// dense layer, with gelu_tanh as a non-uniform PWL table in its epilogue),
+// repro/kernels/fused/glu.py:_glu_bwd_kernel, and their per-expert forms
+// repro/kernels/fused/moe.py:_moe_glu_kernel and _moe_bwd_kernel (the SwiGLU
+// experts of an MoE layer, silu as the table).  The backward is the same kernel
 // with another epilogue: it recomputes both accumulators exactly as the
 // forward does, decodes value and slope of the gate accumulator at once, and
 // writes dzg = g * zu * m(zg) and dzu = g * pwl(zg) in f32 (g read in T and
 // widened per element), so the pre-activation never goes to device memory.
 //
-// x is (M, K), Wg and Wu are (K, N) row-major as the JAX package stores them,
-// out is (M, N); all in T (bf16 or f32), accumulation in f32.
+// x is (E, M, K), Wg and Wu are (E, K, N) row-major as the JAX package stores
+// them, out is (E, M, N); all in T (bf16 or f32), accumulation in f32.  The
+// expert is blockIdx.z: each slice of the grid is the dense kernel on its
+// expert's x bucket and weights, so E = 1 is the dense GLU, launch for launch.
+// For the MoE, M is the bucket capacity C (1 at a 4-slot decode step of
+// olmoe-1b-7b, 5 for a 32-token prefill, 640 for 8 x 512 training tokens) and
+// every bucket is computed, empty or not, as the JAX kernel computes it.
 //
 // What bounds it: at the serving shapes (M = 4 decode, M = 32 prefill,
 // K = 768, N = 3072) the two weight matrices are 9.4 MB of bf16 per call and
@@ -36,6 +43,11 @@
 // shape (M = 4096, K = 768, N = 3072) that makes both passes bound by
 // operations: 38.7 GFLOP is 577 us at the 67 TFLOP/s of f32 CUDA cores,
 // against 39 us on bf16 tensor cores and ~42 us for the backward's 142 MB.
+// The MoE experts of olmoe-1b-7b (E = 64, K = 2048, N = 1024) hold 537 MB of
+// bf16 gate and up weights, read once per call: ~160 us at C <= 40, where
+// each expert's bucket is one or a few M tiles; at C = 640 the 344 GFLOP of
+// the two products bound it (~350 us on tensor cores, 5.1 ms at the f32
+// CUDA-core peak).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -99,10 +111,11 @@ struct Cfg {
                 "the partial sums must fit in the ring");
 };
 
-// The two epilogues on one output element (gm, gn) with its gate and up
-// accumulators, each a template argument of the kernel (two instantiations
-// with their own symbol names, no branch in the store loop): the forward's
-// pwl(zg) * zu in T, and the backward's (g * zu * m(zg), g * pwl(zg)) in f32.
+// The two epilogues on one output element (gm, gn), gm counting the rows of
+// all experts (e * M + m), with its gate and up accumulators, each a template
+// argument of the kernel (two instantiations with their own symbol names, no
+// branch in the store loop): the forward's pwl(zg) * zu in T, and the
+// backward's (g * zu * m(zg), g * pwl(zg)) in f32.
 template <typename T>
 struct ForwardEpi {
   T* out;
@@ -142,6 +155,13 @@ glu_pwl_kernel(const T* __restrict__ x, const T* __restrict__ wg, const T* __res
   T* const ring = reinterpret_cast<T*>(smem_raw);
   __shared__ float s_bp[PWL_MAX_BP];
   __shared__ float s_dmq[2 * (PWL_MAX_BP + 1)];
+
+  // this block's expert: its x bucket and weights, its rows of the output
+  const size_t e = blockIdx.z;
+  x += e * M * K;
+  wg += e * K * N;
+  wu += e * K * N;
+  const int row0 = static_cast<int>(e) * M;
 
   const int tid = threadIdx.x;
   const int kg = tid / C::GROUP;  // K group
@@ -235,7 +255,7 @@ glu_pwl_kernel(const T* __restrict__ x, const T* __restrict__ wg, const T* __res
         g += red_g[q * BM * BN + o];
         u += red_u[q * BM * BN + o];
       }
-      epi(gm, gn, g, u, s_bp, s_dmq, n_bp);
+      epi(row0 + gm, gn, g, u, s_bp, s_dmq, n_bp);
     }
     return;
   }
@@ -250,7 +270,7 @@ glu_pwl_kernel(const T* __restrict__ x, const T* __restrict__ wg, const T* __res
     for (int j = 0; j < TN; ++j) {
       const int gn = n0 + tx + j * TX;
       if (gn >= N) continue;
-      epi(gm, gn, accg[i][j], accu[i][j], s_bp, s_dmq, n_bp);
+      epi(row0 + gm, gn, accg[i][j], accu[i][j], s_bp, s_dmq, n_bp);
     }
   }
 }
@@ -259,18 +279,19 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 
 template <typename T, class C, class Epi>
 int launch(const void* x, const void* wg, const void* wu, const void* bp, const void* dmq,
-           int n_bp, Epi epi, int M, int N, int K, cudaStream_t stream) {
+           int n_bp, Epi epi, int E, int M, int N, int K, cudaStream_t stream) {
   constexpr int V = C::V;
   const bool vec_x = K % V == 0 && aligned16(x);
   const bool vec_w = N % V == 0 && aligned16(wg) && aligned16(wu);
-  if ((M + C::BM - 1) / C::BM > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if ((M + C::BM - 1) / C::BM > 65535 || E > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto kern = glu_pwl_kernel<T, C, Epi>;
   if (C::SMEM > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(C::SMEM));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  dim3 grid((N + C::BN - 1) / C::BN, (M + C::BM - 1) / C::BM);
+  dim3 grid((N + C::BN - 1) / C::BN, (M + C::BM - 1) / C::BM, E);
   kern<<<grid, C::THREADS, C::SMEM, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wg), static_cast<const T*>(wu),
       static_cast<const float*>(bp), static_cast<const float*>(dmq), n_bp, epi, M, N, K,
@@ -278,7 +299,7 @@ int launch(const void* x, const void* wg, const void* wu, const void* bp, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-// M <= 4 (a decode step): 4 x 16 output tiles, 4 K groups of 64 threads,
+// M <= 4 (a decode step; an MoE bucket at decode holds one row): 4 x 16 output tiles, 4 K groups of 64 threads,
 // 4-deep ring of 64-deep K tiles
 template <typename T>
 using Tiny = Cfg<T, 4, 16, 64, 1, 1, 4, 4>;
@@ -292,52 +313,56 @@ constexpr int TINY_M = 4, SMALL_M = 64;
 
 template <typename T, class Epi>
 int dispatch(const void* x, const void* wg, const void* wu, const void* bp, const void* dmq,
-             int n_bp, Epi epi, int M, int N, int K, cudaStream_t s) {
-  if (M <= TINY_M) return launch<T, Tiny<T>>(x, wg, wu, bp, dmq, n_bp, epi, M, N, K, s);
-  if (M <= SMALL_M) return launch<T, Small<T>>(x, wg, wu, bp, dmq, n_bp, epi, M, N, K, s);
-  return launch<T, Large<T>>(x, wg, wu, bp, dmq, n_bp, epi, M, N, K, s);
+             int n_bp, Epi epi, int E, int M, int N, int K, cudaStream_t s) {
+  if (M <= TINY_M) return launch<T, Tiny<T>>(x, wg, wu, bp, dmq, n_bp, epi, E, M, N, K, s);
+  if (M <= SMALL_M) return launch<T, Small<T>>(x, wg, wu, bp, dmq, n_bp, epi, E, M, N, K, s);
+  return launch<T, Large<T>>(x, wg, wu, bp, dmq, n_bp, epi, E, M, N, K, s);
 }
 
 template <typename T>
 int forward(const void* x, const void* wg, const void* wu, const void* bp, const void* dmq,
-            int n_bp, void* out, int M, int N, int K, cudaStream_t s) {
-  return dispatch<T>(x, wg, wu, bp, dmq, n_bp, ForwardEpi<T>{static_cast<T*>(out), N}, M, N,
-                     K, s);
+            int n_bp, void* out, int E, int M, int N, int K, cudaStream_t s) {
+  return dispatch<T>(x, wg, wu, bp, dmq, n_bp, ForwardEpi<T>{static_cast<T*>(out), N}, E, M,
+                     N, K, s);
 }
 
 template <typename T>
 int backward(const void* x, const void* wg, const void* wu, const void* g, const void* bp,
-             const void* dmq, int n_bp, void* dzg, void* dzu, int M, int N, int K,
+             const void* dmq, int n_bp, void* dzg, void* dzu, int E, int M, int N, int K,
              cudaStream_t s) {
   const BackwardEpi<T> epi{static_cast<const T*>(g), static_cast<float*>(dzg),
                            static_cast<float*>(dzu), N};
-  return dispatch<T>(x, wg, wu, bp, dmq, n_bp, epi, M, N, K, s);
+  return dispatch<T>(x, wg, wu, bp, dmq, n_bp, epi, E, M, N, K, s);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch.
+// x (E, M, K), wg/wu (E, K, N), out (E, M, N), all in dtype (0 = float32,
+// 1 = bfloat16).  Returns the cudaError_t of the launch.
 extern "C" int glu_pwl_forward(const void* x, const void* wg, const void* wu, const void* bp,
-                               const void* dmq, int n_bp, void* out, int M, int N, int K,
-                               int dtype, void* stream) {
-  if (n_bp < 1 || n_bp > PWL_MAX_BP || M <= 0 || N <= 0 || K <= 0)
+                               const void* dmq, int n_bp, void* out, int E, int M, int N,
+                               int K, int dtype, void* stream) {
+  if (n_bp < 1 || n_bp > PWL_MAX_BP || E <= 0 || M <= 0 || N <= 0 || K <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return forward<float>(x, wg, wu, bp, dmq, n_bp, out, M, N, K, s);
-  if (dtype == 1) return forward<__nv_bfloat16>(x, wg, wu, bp, dmq, n_bp, out, M, N, K, s);
+  if (dtype == 0) return forward<float>(x, wg, wu, bp, dmq, n_bp, out, E, M, N, K, s);
+  if (dtype == 1) return forward<__nv_bfloat16>(x, wg, wu, bp, dmq, n_bp, out, E, M, N, K, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// x (M, K), wg/wu (K, N) and g (M, N) in dtype (0 = float32, 1 = bfloat16);
-// dzg, dzu (M, N) float32.  Returns the cudaError_t of the launch.
+// x (E, M, K), wg/wu (E, K, N) and g (E, M, N) in dtype (0 = float32,
+// 1 = bfloat16); dzg, dzu (E, M, N) float32.  Returns the cudaError_t of the
+// launch.
 extern "C" int glu_pwl_backward(const void* x, const void* wg, const void* wu, const void* g,
                                 const void* bp, const void* dmq, int n_bp, void* dzg,
-                                void* dzu, int M, int N, int K, int dtype, void* stream) {
-  if (n_bp < 1 || n_bp > PWL_MAX_BP || M <= 0 || N <= 0 || K <= 0)
+                                void* dzu, int E, int M, int N, int K, int dtype,
+                                void* stream) {
+  if (n_bp < 1 || n_bp > PWL_MAX_BP || E <= 0 || M <= 0 || N <= 0 || K <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return backward<float>(x, wg, wu, g, bp, dmq, n_bp, dzg, dzu, M, N, K, s);
+  if (dtype == 0)
+    return backward<float>(x, wg, wu, g, bp, dmq, n_bp, dzg, dzu, E, M, N, K, s);
   if (dtype == 1)
-    return backward<__nv_bfloat16>(x, wg, wu, g, bp, dmq, n_bp, dzg, dzu, M, N, K, s);
+    return backward<__nv_bfloat16>(x, wg, wu, g, bp, dmq, n_bp, dzg, dzu, E, M, N, K, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,7 +1,7 @@
 """Kernels with the PWL activation inside: producer epilogues (the fused
-GLU, forward and backward) and the PWL-exp softmax of attention (row
-softmax forward and backward, split-KV paged decode, flash forward and
-backward)."""
+GLU and the per-expert MoE GLU, forward and backward) and the PWL-exp
+softmax of attention (row softmax forward and backward, split-KV paged
+decode, flash forward and backward)."""
 from .attention import (
     flash_reference_attention,
     fused_flash_attention,
@@ -21,6 +21,7 @@ from .epilogue import (
     table_dtype_name,
 )
 from .glu import fused_glu, fused_glu_bwd, fused_glu_bwd_plain, fused_glu_plain
+from .moe import fused_moe_glu
 from .softmax import (
     fused_pwl_softmax,
     fused_pwl_softmax_bwd,
@@ -43,6 +44,7 @@ __all__ = [
     "fused_glu_bwd",
     "fused_glu_bwd_plain",
     "fused_glu_plain",
+    "fused_moe_glu",
     "fused_pwl_softmax",
     "fused_pwl_softmax_bwd",
     "fused_pwl_softmax_bwd_plain",

@@ -38,15 +38,17 @@ from .epilogue import EpiloguePlan, check_kernel_operands, device_operands
 
 _SIGNATURES = {
     "glu_pwl_forward": [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
-    + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     "glu_pwl_backward": [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-    + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 }
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def fused_glu_plain(x, w_gate, w_up, plan: EpiloguePlan, tables):
-    """Plain PyTorch version: f32 products, the same epilogue, one cast."""
+    """Plain PyTorch version on (M, K) x and (K, N) weights, or per expert on
+    (E, M, K) x and (E, K, N) weights: f32 products, the same epilogue, one
+    cast."""
     xf = x.to(torch.float32)
     zg = xf @ w_gate.to(torch.float32)
     zu = xf @ w_up.to(torch.float32)
@@ -54,9 +56,9 @@ def fused_glu_plain(x, w_gate, w_up, plan: EpiloguePlan, tables):
 
 
 def fused_glu_bwd_plain(x, w_gate, w_up, g, plan: EpiloguePlan, tables):
-    """Plain version of the backward kernel on (M, K) x and (M, N) g:
-    ``(dzg, dzu) = (g·zu·act'(zg), g·act(zg))``, each (M, N) f32, from the
-    recomputed f32 products."""
+    """Plain version of the backward kernel on x and g of g's rank ((M, ·)
+    or per expert (E, M, ·)): ``(dzg, dzu) = (g·zu·act'(zg), g·act(zg))``,
+    each f32 in g's shape, from the recomputed f32 products."""
     xf = x.to(torch.float32)
     zg = xf @ w_gate.to(torch.float32)
     zu = xf @ w_up.to(torch.float32)
@@ -65,97 +67,115 @@ def fused_glu_bwd_plain(x, w_gate, w_up, g, plan: EpiloguePlan, tables):
     return gf * zu * slope, gf * act_zg
 
 
-def _check_operands(x2, w_gate, w_up):
-    if x2.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"fused_glu kernel takes float32 or bfloat16, got {x2.dtype}")
-    dev = x2.device
+def _check_operands(what, x3, w_gate, w_up):
+    """x (E, M, K), w_gate/w_up (E, K, N) of one dtype on one device, made
+    contiguous."""
+    if x3.device.type != "cuda":
+        raise ValueError(f"{what} runs on cpu or cuda tensors, got {x3.device}")
+    if x3.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"the {what} kernel takes float32 or bfloat16, got {x3.dtype}")
+    dev = x3.device
     if w_gate.device != dev or w_up.device != dev:
         raise ValueError("x, w_gate and w_up must be on the same device")
-    if w_gate.dtype != x2.dtype or w_up.dtype != x2.dtype:
+    if w_gate.dtype != x3.dtype or w_up.dtype != x3.dtype:
         raise TypeError("w_gate and w_up must have x's dtype")
-    K = x2.shape[1]
-    N = w_gate.shape[1]
-    if w_gate.shape != (K, N) or w_up.shape != (K, N):
-        raise ValueError(f"weights must be ({K}, {N}), got {tuple(w_gate.shape)}, "
+    E, _, K = x3.shape
+    N = w_gate.shape[-1]
+    if w_gate.shape != (E, K, N) or w_up.shape != (E, K, N):
+        raise ValueError(f"weights must be ({E}, {K}, {N}), got {tuple(w_gate.shape)}, "
                          f"{tuple(w_up.shape)}")
-    return x2.contiguous(), w_gate.contiguous(), w_up.contiguous()
+    return x3.contiguous(), w_gate.contiguous(), w_up.contiguous()
 
 
-def _launch(x2, w_gate, w_up, plan, tables):
+def _launch_forward(what, x, w_gate, w_up, plan, tables):
+    """The forward kernel, one grid slice per expert on (E, M, K) x and
+    (E, K, N) weights, or the dense GLU on (M, K) and (K, N) as one expert:
+    the output in x's rank and dtype.  The caller counts the launch."""
     from repro_torch.kernels import _build
 
-    check_kernel_operands("GLU", plan, tables)
-    x2, wg, wu = _check_operands(x2, w_gate, w_up)
-    M, K = x2.shape
-    N = wg.shape[1]
+    if x.dim() == 2:
+        return _launch_forward(what, x[None], w_gate[None], w_up[None], plan, tables)[0]
+    check_kernel_operands(what, plan, tables)
+    x3, wg, wu = _check_operands(what, x, w_gate, w_up)
+    E, M, K = x3.shape
+    N = wg.shape[-1]
     bp, dmq = tables
-    dev = x2.device
-    out = torch.empty((M, N), dtype=x2.dtype, device=dev)
-    if M == 0 or N == 0:
+    dev = x3.device
+    out = torch.empty((E, M, N), dtype=x3.dtype, device=dev)
+    if E == 0 or M == 0 or N == 0:
         return out
     lib = _build.load("glu", _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.glu_pwl_forward(
-            x2.data_ptr(), wg.data_ptr(), wu.data_ptr(), bp.data_ptr(), dmq.data_ptr(),
-            plan.n_bp, out.data_ptr(), M, N, K, _KERNEL_DTYPES[x2.dtype], stream)
-    _build.check(err, "glu_pwl_forward")
-    fused_glu.launches += 1
+            x3.data_ptr(), wg.data_ptr(), wu.data_ptr(), bp.data_ptr(), dmq.data_ptr(),
+            plan.n_bp, out.data_ptr(), E, M, N, K, _KERNEL_DTYPES[x3.dtype], stream)
+    _build.check(err, f"{what} forward")
     return out
 
 
-def _launch_bwd(x2, w_gate, w_up, g2, plan, tables):
+def _launch_backward(what, x, w_gate, w_up, g, plan, tables):
+    """The backward kernel on the forward's operands and g of the output's
+    shape: ``(dzg, dzu)``, each f32 in g's shape.  The caller counts the
+    launch."""
     from repro_torch.kernels import _build
 
-    check_kernel_operands("GLU backward", plan, tables)
-    x2, wg, wu = _check_operands(x2, w_gate, w_up)
-    M, K = x2.shape
-    N = wg.shape[1]
-    if g2.shape != (M, N) or g2.device != x2.device:
-        raise ValueError(f"g must be ({M}, {N}) on {x2.device}, got {tuple(g2.shape)} "
-                         f"on {g2.device}")
-    g2 = g2.to(x2.dtype).contiguous()
+    if x.dim() == 2:
+        dzg, dzu = _launch_backward(what, x[None], w_gate[None], w_up[None], g[None], plan,
+                                    tables)
+        return dzg[0], dzu[0]
+    check_kernel_operands(f"{what} backward", plan, tables)
+    x3, wg, wu = _check_operands(what, x, w_gate, w_up)
+    E, M, K = x3.shape
+    N = wg.shape[-1]
+    if g.shape != (E, M, N) or g.device != x3.device:
+        raise ValueError(f"g must be ({E}, {M}, {N}) on {x3.device}, got "
+                         f"{tuple(g.shape)} on {g.device}")
+    g3 = g.to(x3.dtype).contiguous()
     bp, dmq = tables
-    dev = x2.device
-    dzg = torch.empty((M, N), dtype=torch.float32, device=dev)
-    dzu = torch.empty((M, N), dtype=torch.float32, device=dev)
-    if M == 0 or N == 0:
+    dev = x3.device
+    dzg = torch.empty((E, M, N), dtype=torch.float32, device=dev)
+    dzu = torch.empty((E, M, N), dtype=torch.float32, device=dev)
+    if E == 0 or M == 0 or N == 0:
         return dzg, dzu
     lib = _build.load("glu", _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.glu_pwl_backward(
-            x2.data_ptr(), wg.data_ptr(), wu.data_ptr(), g2.data_ptr(), bp.data_ptr(),
-            dmq.data_ptr(), plan.n_bp, dzg.data_ptr(), dzu.data_ptr(), M, N, K,
-            _KERNEL_DTYPES[x2.dtype], stream)
-    _build.check(err, "glu_pwl_backward")
-    fused_glu.bwd_launches += 1
+            x3.data_ptr(), wg.data_ptr(), wu.data_ptr(), g3.data_ptr(), bp.data_ptr(),
+            dmq.data_ptr(), plan.n_bp, dzg.data_ptr(), dzu.data_ptr(), E, M, N, K,
+            _KERNEL_DTYPES[x3.dtype], stream)
+    _build.check(err, f"{what} backward")
     return dzg, dzu
 
 
-def fused_glu_bwd(x2, w_gate, w_up, g2, plan: EpiloguePlan, tables):
-    """``(dzg, dzu)`` of the GLU: the backward kernel on CUDA tensors, its
-    plain version on CPU tensors."""
-    if x2.device.type == "cpu":
-        return fused_glu_bwd_plain(x2, w_gate, w_up, g2, plan, tables)
-    if x2.device.type == "cuda":
-        return _launch_bwd(x2, w_gate, w_up, g2, plan, tables)
-    raise ValueError(f"fused_glu runs on cpu or cuda tensors, got {x2.device}")
+def fused_glu_bwd(x, w_gate, w_up, g, plan: EpiloguePlan, tables, counter=None):
+    """``(dzg, dzu)`` of the GLU (x (M, K)) or of the per-expert GLU (x
+    (E, M, K)): the backward kernel on CUDA tensors, counted on
+    ``counter.bwd_launches`` (``fused_glu``'s unless the caller passes its
+    own wrapper), its plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return fused_glu_bwd_plain(x, w_gate, w_up, g, plan, tables)
+    counter = counter or fused_glu
+    out = _launch_backward(counter.__name__, x, w_gate, w_up, g, plan, tables)
+    counter.bwd_launches += 1
+    return out
 
 
 class _GLUOp(torch.autograd.Function):
-    """The fused GLU with the JAX package's VJP (``glu.py:_glu_op_bwd``)."""
+    """The fused GLU, dense or per expert, with the JAX package's VJP
+    (``glu.py:_glu_op_bwd``, ``moe.py:_moe_glu_op_bwd``); the tables get no
+    gradient.  ``counter`` is the public wrapper whose launches it counts."""
 
     @staticmethod
-    def forward(ctx, x2, w_gate, w_up, plan, tables, impl_bwd):
-        if x2.device.type == "cpu":
-            y = fused_glu_plain(x2, w_gate, w_up, plan, tables)
-        elif x2.device.type == "cuda":
-            y = _launch(x2, w_gate, w_up, plan, tables)
-        else:
-            raise ValueError(f"fused_glu runs on cpu or cuda tensors, got {x2.device}")
-        ctx.save_for_backward(x2, w_gate, w_up)
-        ctx.plan, ctx.tables, ctx.impl_bwd = plan, tables, impl_bwd
+    def forward(ctx, x, w_gate, w_up, plan, tables, impl_bwd, counter):
+        if x.device.type == "cpu":
+            y = fused_glu_plain(x, w_gate, w_up, plan, tables)
+        else:  # the kernel, or its refusals (another device among them)
+            y = _launch_forward(counter.__name__, x, w_gate, w_up, plan, tables)
+            counter.launches += 1
+        ctx.save_for_backward(x, w_gate, w_up)
+        ctx.plan, ctx.tables, ctx.impl_bwd, ctx.counter = plan, tables, impl_bwd, counter
         return y
 
     @staticmethod
@@ -163,15 +183,15 @@ class _GLUOp(torch.autograd.Function):
         x, wg, wu = ctx.saved_tensors
         plan, tables = ctx.plan, ctx.tables
         if ctx.impl_bwd == "fused":
-            dzg, dzu = fused_glu_bwd(x, wg, wu, g, plan, tables)
+            dzg, dzu = fused_glu_bwd(x, wg, wu, g, plan, tables, ctx.counter)
         else:
             dzg, dzu = fused_glu_bwd_plain(x, wg, wu, g, plan, tables)
         xf, wgf, wuf = (a.to(torch.float32) for a in (x, wg, wu))
         need_x, need_wg, need_wu = ctx.needs_input_grad[:3]
-        dx = (dzg @ wgf.T + dzu @ wuf.T).to(x.dtype) if need_x else None
-        dwg = (xf.T @ dzg).to(wg.dtype) if need_wg else None
-        dwu = (xf.T @ dzu).to(wu.dtype) if need_wu else None
-        return dx, dwg, dwu, None, None, None
+        dx = (dzg @ wgf.mT + dzu @ wuf.mT).to(x.dtype) if need_x else None
+        dwg = (xf.mT @ dzg).to(wg.dtype) if need_wg else None
+        dwu = (xf.mT @ dzu).to(wu.dtype) if need_wu else None
+        return dx, dwg, dwu, None, None, None, None
 
 
 def fused_glu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, *,
@@ -187,7 +207,7 @@ def fused_glu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, *,
     plan, tables = device_operands(table, act, x.device)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
-    y = _GLUOp.apply(x2, w_gate, w_up, plan, tables, resolve_impl_bwd(impl_bwd))
+    y = _GLUOp.apply(x2, w_gate, w_up, plan, tables, resolve_impl_bwd(impl_bwd), fused_glu)
     return y.reshape(*lead, w_gate.shape[1])
 
 

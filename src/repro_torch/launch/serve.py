@@ -19,6 +19,7 @@ JSON, the same format as the JAX package's.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 
@@ -55,6 +56,21 @@ def generate(model: Model, params, prompts: torch.Tensor, max_new: int = 32) -> 
     return torch.cat(out, dim=1)
 
 
+def _start_session(device: torch.device) -> None:
+    """Wait for the init's work, and start the peak-memory count afresh."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _session_peak(device: torch.device):
+    """The peak of allocated device memory since :func:`_start_session`."""
+    if device.type != "cuda":
+        return None
+    torch.cuda.synchronize(device)
+    return torch.cuda.max_memory_allocated(device)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="repro-100m")
@@ -85,11 +101,14 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def run(args: argparse.Namespace) -> dict:
+def run(args: argparse.Namespace, session=contextlib.nullcontext) -> dict:
     """One serving session as ``args`` describe it.  Returns a summary:
     ``results`` (paged: GenResults; dense: token rows), ``tokens``,
-    ``seconds``, ``tok_per_s``, plus ``engine`` and ``prefills`` /
-    ``decode_steps`` for the paged mode."""
+    ``seconds``, ``tok_per_s``, ``peak_bytes`` (the session's peak of
+    allocated device memory, weights included; None on the CPU), plus
+    ``engine`` and ``prefills`` / ``decode_steps`` for the paged mode.
+    ``session()`` is a context entered around the session alone, after the
+    model's init (a profiler, say)."""
     device = resolve_device(args.device)
     getter = get_reduced_config if args.reduced else get_config
     if args.plan:
@@ -116,16 +135,19 @@ def run(args: argparse.Namespace) -> dict:
           f"{args.max_new} new ({args.mode} mode)")
 
     if args.mode == "dense":
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        toks = generate(model, params, torch.from_numpy(prompts).to(device), args.max_new)
-        rows = toks.cpu().tolist()
-        dt = time.perf_counter() - t0
+        with session():
+            _start_session(device)
+            t0 = time.perf_counter()
+            toks = generate(model, params, torch.from_numpy(prompts).to(device), args.max_new)
+            rows = toks.cpu().tolist()
+            dt = time.perf_counter() - t0
+        peak = _session_peak(device)
         n = len(rows) * args.max_new
-        print(f"[serve] generated {n} tokens in {dt:.3f}s ({n / dt:.1f} tok/s)")
+        print(f"[serve] generated {n} tokens in {dt:.3f}s ({n / dt:.1f} tok/s"
+              + (f", peak device memory {peak / 1e9:.2f} GB)" if peak is not None else ")"))
         print("[serve] sample:", rows[0][:12])
-        return {"results": rows, "tokens": n, "seconds": dt, "tok_per_s": n / dt}
+        return {"results": rows, "tokens": n, "seconds": dt, "tok_per_s": n / dt,
+                "peak_bytes": peak}
 
     from repro_torch.serving import GenRequest, PagedServingEngine
 
@@ -135,13 +157,14 @@ def run(args: argparse.Namespace) -> dict:
     requests = [GenRequest(request_id=f"req{i}", prompt=prompts[i].tolist(),
                            max_new_tokens=args.max_new, deadline_ticks=args.deadline_ticks)
                 for i in range(len(prompts))]
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    results = engine.run(requests, on_result=lambda r: print(
-        f"[serve]   {r.request_id}: {len(r.tokens)} tokens ({r.finish_reason}), "
-        f"steps {r.admitted_at_step}-{r.finished_at_step}"))
-    dt = time.perf_counter() - t0
+    with session():
+        _start_session(device)
+        t0 = time.perf_counter()
+        results = engine.run(requests, on_result=lambda r: print(
+            f"[serve]   {r.request_id}: {len(r.tokens)} tokens ({r.finish_reason}), "
+            f"steps {r.admitted_at_step}-{r.finished_at_step}"))
+        dt = time.perf_counter() - t0
+    peak = _session_peak(device)
     health = engine.health_summary()
     by_id = {r.request_id: r for r in results}
     if "req0" in by_id:
@@ -149,7 +172,8 @@ def run(args: argparse.Namespace) -> dict:
     print(f"[serve] {len(results)} requests, {engine.generated} tokens in {dt:.3f}s "
           f"({engine.generated / dt:.1f} tok/s, {engine.prefills} prefills, "
           f"{engine.decode_steps} batched decode steps, "
-          f"{engine.sched.allocator.num_free} pages free at exit)")
+          f"{engine.sched.allocator.num_free} pages free at exit"
+          + (f", peak device memory {peak / 1e9:.2f} GB)" if peak is not None else ")"))
     print(f"[serve] health: policy={health['policy']} preemptions={health['preemptions']} "
           f"timeouts={health['timeouts']} retries={health['step_retries']} "
           f"nonfinite_logits={health['nonfinite_logits']}")
@@ -157,7 +181,8 @@ def run(args: argparse.Namespace) -> dict:
         print(f"[serve] rejected {rec['request_id']}: {rec['reason']}", file=sys.stderr)
     return {"results": results, "tokens": engine.generated, "seconds": dt,
             "tok_per_s": engine.generated / dt, "engine": engine,
-            "prefills": engine.prefills, "decode_steps": engine.decode_steps}
+            "prefills": engine.prefills, "decode_steps": engine.decode_steps,
+            "peak_bytes": peak}
 
 
 def serve(argv=None) -> int:

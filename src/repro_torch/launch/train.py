@@ -5,6 +5,7 @@ preemption handling and straggler monitoring, on one device.
         --batch 8 --seq 512 --ckpt-dir /tmp/ckpt --plan plan.json     # on cuda
     python -m repro_torch.launch.train --plan plan.json --batch 1 --seq 4096
     python -m repro_torch.launch.train --reduced --device cpu --steps 4
+    python -m repro_torch.launch.train --arch olmoe-1b-7b --reduced --plan plan.json
 
 The flags are the JAX launcher's (``repro/launch/train.py``), plus
 ``--device``: ``cuda`` by default, which raises without a GPU; ``cpu`` runs
@@ -13,7 +14,9 @@ config's own (exact activations, no kernels); ``--plan`` loads a plan JSON,
 under which the sites planned ``impl="fused"`` run the hand-written kernels
 forward and backward (with the softmax site fused, attention takes the row
 softmax kernels while B*H*S*S fits the dense cap, and the flash kernels past
-it, as at ``--batch 1 --seq 4096``).  Weights are the f32 masters of a
+it, as at ``--batch 1 --seq 4096``; an MoE arch runs its experts in the
+per-expert GLU kernels, and the log adds the load-balancing loss, of which
+0.01 is in the loss).  Weights are the f32 masters of a
 ``torch.Generator`` seeded 0; batches come from the seeded synthetic stream
 of :mod:`repro_torch.data.pipeline`.
 
@@ -158,7 +161,8 @@ def run(args: argparse.Namespace) -> dict:
             live["step"] = step + 1
             losses.append(loss)
             if step % args.log_every == 0 or step == args.steps - 1:
-                print(f"[train] step={step} loss={loss:.4f} lr={float(metrics['lr']):.2e} "
+                aux = f" aux={float(metrics['aux']):.4f}" if cfg.n_experts else ""
+                print(f"[train] step={step} loss={loss:.4f}{aux} lr={float(metrics['lr']):.2e} "
                       f"gnorm={float(metrics['grad_norm']):.3f}", flush=True)
             if ckpt and step > 0 and step % args.ckpt_every == 0:
                 save(step + 1)  # labelled with the steps done, so a resume redoes none

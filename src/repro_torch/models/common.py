@@ -51,6 +51,9 @@ class ModelConfig:
     global_every: Optional[int] = None
     rope_theta: float = 10000.0
     n_experts: int = 0
+    n_active_experts: int = 0
+    moe_d_ff: int = 0
+    capacity_factor: float = 1.25
     attn_every: Optional[int] = None
     moe_every: Optional[int] = None
     is_encoder_decoder: bool = False

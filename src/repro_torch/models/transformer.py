@@ -1,4 +1,5 @@
-"""Decoder LM over a periodic layer pattern (torch), dense attention stacks.
+"""Decoder LM over a periodic layer pattern (torch): global attention with a
+dense GLU or an MoE FFN per layer.
 
 Counterpart of ``repro/models/transformer.py``.  Parameters keep the JAX
 package's tree: ``{"embed", "final_norm", "layers", "unembed"}`` where
@@ -12,6 +13,7 @@ with ``nothing_saveable``).
 API (functions over a params tree):
   model_defs(cfg)                                   -> ParamDef tree
   forward(cfg, params, tokens)                      -> logits
+  forward_with_aux(cfg, params, tokens)             -> (logits, MoE aux loss)
   loss_fn(cfg, params, batch)                       -> (loss, metrics)
   make_cache / prefill / decode_step                 (dense cache)
   make_paged_cache / prefill_paged / decode_step_paged   (paged serving)
@@ -24,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import sfu
 
 from . import layers as L
+from . import moe as MOE
 from .common import ModelConfig, ParamDef, compute_params
 
 # ---------------------------------------------------------------------------
@@ -36,15 +39,33 @@ def _stack(defs: dict, n: int) -> dict:
             for k, v in defs.items()}
 
 
+def moe_defs(cfg: ModelConfig) -> dict:
+    """The MoE FFN.  The router is no matrix of the model dtype: it stays f32
+    in the serving tree too, as routing reads it (``moe.route``); rounding
+    it would change which experts are chosen."""
+    D, E, Fe = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    return {
+        "router": ParamDef((D, E), init="small_normal", matrix=False),
+        "w_gate": ParamDef((E, D, Fe)),
+        "w_up": ParamDef((E, D, Fe)),
+        "w_down": ParamDef((E, Fe, D)),
+    }
+
+
 def block_defs(cfg: ModelConfig, mixer: str, ffn: str) -> dict:
-    if mixer != "attn" or ffn != "dense":
+    if mixer != "attn" or ffn not in ("dense", "moe"):
         raise NotImplementedError(
-            f"layer kind ({mixer}, {ffn}) is not ported yet (dense attention only)")
+            f"layer kind ({mixer}, {ffn}) is not ported yet (global attention only)")
     if cfg.qkv_bias or cfg.norm_type != "rmsnorm" or cfg.mlp_type not in ("swiglu", "geglu"):
         raise NotImplementedError(f"config {cfg.name!r} needs layers not ported yet")
     D, H, Hkv, dh, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                         cfg.resolved_head_dim, cfg.d_ff)
     norm = {"scale": ParamDef((D,), init="zeros", matrix=False)}
+    dense = {
+        "w_gate": ParamDef((D, F)),
+        "w_up": ParamDef((D, F)),
+        "w_down": ParamDef((F, D)),
+    }
     return {
         "ln1": dict(norm),
         "ln2": dict(norm),
@@ -54,11 +75,7 @@ def block_defs(cfg: ModelConfig, mixer: str, ffn: str) -> dict:
             "wv": ParamDef((D, Hkv, dh)),
             "wo": ParamDef((H, dh, D)),
         },
-        "ffn": {
-            "w_gate": ParamDef((D, F)),
-            "w_up": ParamDef((D, F)),
-            "w_down": ParamDef((F, D)),
-        },
+        "ffn": moe_defs(cfg) if ffn == "moe" else dense,
     }
 
 
@@ -98,15 +115,21 @@ def _unbind(tree, n: int) -> list:
 # blocks / embeddings
 
 
-def block_apply(cfg: ModelConfig, p, h, cache=None, pos=None, plan=None, paged=None):
-    """Pre-norm residual block.  Returns (h, cache)."""
+def block_apply(cfg: ModelConfig, p, h, ffn: str, cache=None, pos=None, plan=None,
+                paged=None):
+    """Pre-norm residual block.  Returns (h, cache, aux): ``aux`` is the MoE
+    layer's load-balancing loss, None for a dense FFN (which adds 0)."""
     plan = plan if plan is not None else sfu.plan_for(cfg)
     hn = L.apply_norm(cfg, p["ln1"], h)
     y, cache = L.attention_layer(cfg, p["mixer"], hn, cache=cache, cache_pos=pos,
                                  plan=plan, paged=paged)
     h = h + y
     hn2 = L.apply_norm(cfg, p["ln2"], h)
-    return h + L.mlp(cfg, p["ffn"], hn2, plan=plan), cache
+    if ffn == "moe":
+        y2, aux = MOE.moe_layer(cfg, p["ffn"], hn2, plan=plan)
+    else:
+        y2, aux = L.mlp(cfg, p["ffn"], hn2, plan=plan), None
+    return h + y2, cache, aux
 
 
 def embed_tokens(cfg: ModelConfig, params, tokens):
@@ -129,26 +152,34 @@ def unembed(cfg: ModelConfig, params, h):
 
 def _run_layers(cfg: ModelConfig, params, h, cache=None, pos=None, paged=None,
                 remat: bool = False):
-    """The layer stack.  ``remat`` (a training forward) recomputes each
-    period in the backward instead of keeping its activations."""
+    """The layer stack -> (h, aux), ``aux`` the f32 sum of the MoE layers'
+    load-balancing losses in layer order (0 for a dense model).  ``remat``
+    (a training forward) recomputes each period in the backward instead of
+    keeping its activations."""
+    kinds = cfg.layer_kinds
     period = cfg.period
     n_periods = cfg.n_layers // period
     plan = sfu.plan_for(cfg)
     stacks = [_unbind(params["layers"][j], n_periods) for j in range(period)]
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(n_periods):
-        def period_fn(h, i=i):
+        def period_fn(h, aux, i=i):
             for j in range(period):
                 c = _layer(cache[j], i) if cache is not None else None
-                h, _ = block_apply(cfg, stacks[j][i], h, cache=c, pos=pos, plan=plan,
-                                   paged=paged)
-            return h
+                h, _, a = block_apply(cfg, stacks[j][i], h, kinds[j][1], cache=c, pos=pos,
+                                      plan=plan, paged=paged)
+                if a is not None:
+                    aux = aux + a
+            return h, aux
 
-        h = checkpoint(period_fn, h, use_reentrant=False) if remat else period_fn(h)
-    return h
+        h, aux = (checkpoint(period_fn, h, aux, use_reentrant=False) if remat
+                  else period_fn(h, aux))
+    return h, aux
 
 
-def forward(cfg: ModelConfig, params, tokens):
-    """Teacher-forcing forward -> (B, S, padded_vocab) f32 logits.
+def forward_with_aux(cfg: ModelConfig, params, tokens):
+    """Teacher-forcing forward -> ((B, S, padded_vocab) f32 logits, the f32
+    MoE aux loss summed over layers).
 
     ``params`` may be the serving tree or the f32 training masters: every
     matrix is cast to ``cfg.dtype`` first (differentiably).  Under
@@ -156,8 +187,13 @@ def forward(cfg: ModelConfig, params, tokens):
     backward."""
     params = compute_params(model_defs(cfg), params, cfg.dtype)
     h = embed_tokens(cfg, params, tokens)
-    h = _run_layers(cfg, params, h, remat=cfg.remat and torch.is_grad_enabled())
-    return unembed(cfg, params, L.apply_norm(cfg, params["final_norm"], h))
+    h, aux = _run_layers(cfg, params, h, remat=cfg.remat and torch.is_grad_enabled())
+    return unembed(cfg, params, L.apply_norm(cfg, params["final_norm"], h)), aux
+
+
+def forward(cfg: ModelConfig, params, tokens):
+    """Teacher-forcing forward -> (B, S, padded_vocab) f32 logits."""
+    return forward_with_aux(cfg, params, tokens)[0]
 
 
 def sharded_cross_entropy(logits, targets, mask=None):
@@ -176,12 +212,13 @@ def sharded_cross_entropy(logits, targets, mask=None):
 
 
 def loss_fn(cfg: ModelConfig, params, batch):
-    """Next-token cross entropy.  batch: ``tokens``, ``targets`` (B, S) int,
-    optional ``mask``.  Returns ``(loss, {"nll", "aux"})``; a dense model
-    has no auxiliary loss, so ``aux`` is 0 and the loss is the nll."""
-    logits = forward(cfg, params, batch["tokens"])
+    """Next-token cross entropy plus 0.01 x the MoE aux loss.  batch:
+    ``tokens``, ``targets`` (B, S) int, optional ``mask``.  Returns
+    ``(loss, {"nll", "aux"})``; a dense model's ``aux`` is 0 and its loss
+    the nll."""
+    logits, aux = forward_with_aux(cfg, params, batch["tokens"])
     nll = sharded_cross_entropy(logits, batch["targets"].long(), batch.get("mask"))
-    return nll, {"nll": nll, "aux": torch.zeros((), device=nll.device)}
+    return nll + 0.01 * aux, {"nll": nll, "aux": aux}
 
 
 # ---------------------------------------------------------------------------
@@ -201,14 +238,14 @@ def prefill(cfg: ModelConfig, params, tokens, cache):
     """Prompt through the model, filling ``cache`` in place.  Returns the
     last-position logits (B, 1, V)."""
     h = embed_tokens(cfg, params, tokens)
-    h = _run_layers(cfg, params, h, cache=cache, pos=0)
+    h, _ = _run_layers(cfg, params, h, cache=cache, pos=0)
     return unembed(cfg, params, L.apply_norm(cfg, params["final_norm"], h[:, -1:]))
 
 
 def decode_step(cfg: ModelConfig, params, tokens, cache, pos: int):
     """One-token decode at absolute position ``pos``.  tokens: (B, 1)."""
     h = embed_tokens(cfg, params, tokens)
-    h = _run_layers(cfg, params, h, cache=cache, pos=pos)
+    h, _ = _run_layers(cfg, params, h, cache=cache, pos=pos)
     return unembed(cfg, params, L.apply_norm(cfg, params["final_norm"], h))
 
 
@@ -241,8 +278,8 @@ def prefill_paged(cfg: ModelConfig, params, tokens, cache, page_table, lengths):
     with S a multiple of the page size; rows past ``lengths`` are pads.
     Returns the logits at position lengths-1, (B, 1, V)."""
     h = embed_tokens(cfg, params, tokens)
-    h = _run_layers(cfg, params, h, cache=cache, pos=0,
-                    paged={"page_table": page_table})
+    h, _ = _run_layers(cfg, params, h, cache=cache, pos=0,
+                       paged={"page_table": page_table})
     logits = unembed(cfg, params, L.apply_norm(cfg, params["final_norm"], h))
     idx = torch.clamp(lengths.long() - 1, 0, logits.shape[1] - 1)
     return logits[torch.arange(logits.shape[0], device=logits.device), idx][:, None]
@@ -252,6 +289,6 @@ def decode_step_paged(cfg: ModelConfig, params, tokens, cache, page_table, kv_le
     """One-token decode over the paged cache.  tokens: (B, 1); kv_len: (B,)
     per-request depths (the new token's position).  Returns (B, 1, V)."""
     h = embed_tokens(cfg, params, tokens)
-    h = _run_layers(cfg, params, h, cache=cache, pos=kv_len,
-                    paged={"page_table": page_table, "kv_len": kv_len})
+    h, _ = _run_layers(cfg, params, h, cache=cache, pos=kv_len,
+                       paged={"page_table": page_table, "kv_len": kv_len})
     return unembed(cfg, params, L.apply_norm(cfg, params["final_norm"], h))

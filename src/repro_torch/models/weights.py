@@ -4,8 +4,9 @@
 ``model_defs`` gives, with numpy leaves (for example
 ``jax.tree_util.tree_map(np.asarray, params)``): dicts keyed as in the port,
 per-layer leaves stacked ``(n_periods, ...)``.  For serving, matrices go to
-``cfg.dtype`` and norm scales stay f32, as :mod:`.common` holds them, so
-both packages compute the same thing from the same weights; with
+``cfg.dtype`` and norm scales and the MoE router stay f32, as :mod:`.common`
+holds them, so both packages compute the same thing from the same weights
+(the router in bf16 would change which experts are chosen); with
 ``master=True`` every leaf stays f32, the training masters the JAX package
 holds.  ``train_state_from_numpy`` converts a whole JAX AdamW state.
 """

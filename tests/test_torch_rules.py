@@ -5,13 +5,14 @@
   package ``repro`` (an AST scan of every import).
 * ``repro_torch.launch.serve`` runs on ``cuda`` by default and raises on a
   host without a GPU; it never moves to the CPU by itself.  With
-  ``--device cpu`` it serves the reduced config and returns 0.
+  ``--device cpu`` it serves the reduced config (repro-100m, and olmoe-1b-7b
+  through its MoE layers) and returns 0.
 * Each kernel wrapper carries a plain-int launch counter, and a second one
-  for its backward kernel where it has one (the GLU, the row softmax).
-* What only the CUDA kernels refuse (a native bf16 table; for the kernels
-  with no backward yet, the paged decode and the flash forward, an input
-  that requires grad) raises on a non-CPU tensor before any launch; the
-  plain version is never run there.
+  for its backward kernel where it has one (the GLU, the MoE GLU, the row
+  softmax, the flash attention).
+* What only the CUDA kernels refuse (a native bf16 table; for the paged
+  decode, which has no backward, an input that requires grad) raises on a
+  non-CPU tensor before any launch; the plain version is never run there.
 """
 import ast
 import importlib.util
@@ -65,11 +66,13 @@ def test_serve_defaults_to_cuda_and_raises_without_a_gpu(monkeypatch):
         serve.serve(["--reduced"])
 
 
-@pytest.mark.parametrize("mode", ["paged", "dense"])
-def test_serve_on_cpu_when_asked(mode, capsys):
+@pytest.mark.parametrize("mode,arch", [("paged", "repro-100m"), ("dense", "repro-100m"),
+                                       ("paged", "olmoe-1b-7b"), ("dense", "olmoe-1b-7b")],
+                         ids=["paged", "dense", "olmoe-1b-7b-paged", "olmoe-1b-7b-dense"])
+def test_serve_on_cpu_when_asked(mode, arch, capsys):
     from repro_torch.launch import serve
 
-    rc = serve.serve(["--reduced", "--device", "cpu", "--mode", mode,
+    rc = serve.serve(["--arch", arch, "--reduced", "--device", "cpu", "--mode", mode,
                       "--batch", "3", "--prompt-len", "20", "--max-new", "5"])
     assert rc == 0
     assert "tok/s" in capsys.readouterr().out
@@ -102,19 +105,20 @@ def test_kernel_wrappers_carry_launch_counters():
     from repro_torch.kernels.fused import (
         fused_flash_attention,
         fused_glu,
+        fused_moe_glu,
         fused_pwl_softmax,
         paged_flash_decode,
     )
     from repro_torch.serving.kv_cache import append_kv_, write_prompt_pages_
 
     for fn in (fused_glu, write_prompt_pages_, append_kv_, fused_pwl_softmax,
-               paged_flash_decode, fused_flash_attention):
+               paged_flash_decode, fused_flash_attention, fused_moe_glu):
         assert isinstance(fn.launches, int)
-    for fn in (fused_glu, fused_pwl_softmax):
+    for fn in (fused_glu, fused_pwl_softmax, fused_flash_attention, fused_moe_glu):
         assert isinstance(fn.bwd_launches, int)
 
 
-def _attention_calls(table, grad=False):
+def _kernel_calls(table, grad=False):
     from repro_torch.kernels import fused
 
     def t(*shape, dtype=torch.float32):
@@ -128,10 +132,11 @@ def _attention_calls(table, grad=False):
                                                    t(2, 3, 4, 16), pt, kv_len, table=table),
         "flash": lambda: fused.fused_flash_attention(t(1, 8, 4, 16), t(1, 8, 2, 16),
                                                      t(1, 8, 2, 16), table=table),
+        "moe": lambda: fused.fused_moe_glu(t(3, 4, 8), t(3, 8, 16), t(3, 8, 16), table=table),
     }
 
 
-@pytest.mark.parametrize("kernel", ["softmax", "decode", "flash"])
+@pytest.mark.parametrize("kernel", ["softmax", "decode", "flash", "moe"])
 def test_cuda_only_refusals_raise_off_the_cpu(kernel, monkeypatch):
     from repro_torch import sfu
     from repro_torch.kernels import fused
@@ -142,18 +147,19 @@ def test_cuda_only_refusals_raise_off_the_cpu(kernel, monkeypatch):
     monkeypatch.setattr(fused.softmax, "fused_pwl_softmax_plain", no_plain)
     monkeypatch.setattr(fused.decoding, "paged_flash_decode_plain", no_plain)
     monkeypatch.setattr(fused.attention, "fused_flash_attention_plain", no_plain)
+    monkeypatch.setattr(fused.glu, "fused_glu_plain", no_plain)
     native = sfu.get_store().get(fn="exp", n_breakpoints=32, dtype="bf16")
     with pytest.raises(NotImplementedError, match="native bf16"):
-        _attention_calls(native)[kernel]()
+        _kernel_calls(native)[kernel]()
     f32 = sfu.get_store().get(fn="exp", n_breakpoints=32)
-    if kernel in ("softmax", "flash"):  # they have backward kernels: grad is no refusal
+    if kernel != "decode":  # they have backward kernels: grad is no refusal
         with pytest.raises(ValueError, match="cpu or cuda"):
-            _attention_calls(f32, grad=True)[kernel]()
+            _kernel_calls(f32, grad=True)[kernel]()
     else:
         with pytest.raises(NotImplementedError, match="requires grad.*slice 3b"):
-            _attention_calls(f32, grad=True)[kernel]()
+            _kernel_calls(f32, grad=True)[kernel]()
     with pytest.raises(ValueError, match="cpu or cuda"):
-        _attention_calls(f32)[kernel]()
+        _kernel_calls(f32)[kernel]()
 
 
 def _load_script(name):

@@ -6,7 +6,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 
-ARCH_IDS = ["repro-100m", "olmoe-1b-7b"]
+ARCH_IDS = ["repro-100m", "olmoe-1b-7b", "whisper-small"]
 
 
 def _module(arch_id: str):

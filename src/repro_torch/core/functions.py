@@ -69,6 +69,12 @@ class FunctionSpec:
     right_is_edge: bool = False  # right boundary pinned to tangent at range edge
     left_is_edge: bool = False
 
+    def asymptote_left(self, p0):
+        return self.m_left * p0 + self.c_left
+
+    def asymptote_right(self, pn):
+        return self.m_right * pn + self.c_right
+
 
 REGISTRY: dict[str, FunctionSpec] = {}
 

@@ -1,5 +1,7 @@
 // Fused GLU with a PWL epilogue: out = pwl(x @ Wg) * (x @ Wu), and its
-// backward, for one weight pair (the dense GLU) or one per expert (the MoE).
+// backward, for one weight pair (the dense GLU) or one per expert (the MoE);
+// and, with one weight matrix, the fused linear layer out = pwl(x @ W + b)
+// and its backward.
 //
 // Replaces repro/kernels/fused/glu.py:_glu_kernel (the GeGLU gate GEMM of every
 // dense layer, with gelu_tanh as a non-uniform PWL table in its epilogue),
@@ -10,6 +12,17 @@
 // forward does, decodes value and slope of the gate accumulator at once, and
 // writes dzg = g * zu * m(zg) and dzu = g * pwl(zg) in f32 (g read in T and
 // widened per element), so the pre-activation never goes to device memory.
+//
+// The linear layer replaces repro/kernels/fused/linear.py:_linear_kernel
+// (whisper's MLP input projection, gelu as the table, with its bias) and
+// _linear_bwd_kernel (dz = g * m(x @ W + b), f32).  It is the same kernel with
+// one weight matrix (Cfg::NW = 1): the up product and its shared-memory tiles
+// drop out, and its two epilogues add the bias to the f32 accumulator after
+// the last K tile, as the JAX kernel does, before the decode.  At whisper's
+// shapes (K = 768, N = 3072; M = 4 per decode step, 128 per prefill of
+// 4 x 32 tokens, 6000 per encoder call over 4 x 1500 frames) it is bound by
+// the 4.7 MB of bf16 weights for small M and by the products for large M,
+// which run as the GLU's do, as f32 FMAs on the CUDA cores.
 //
 // x is (E, M, K), Wg and Wu are (E, K, N) row-major as the JAX package stores
 // them, out is (E, M, N); all in T (bf16 or f32), accumulation in f32.  The
@@ -92,10 +105,12 @@ __device__ __forceinline__ void load_vec(T* dst, const T* __restrict__ base, int
   }
 }
 
-template <typename T, int BM_, int BN_, int BK_, int TM_, int TN_, int STAGES_, int KS_>
+template <typename T, int BM_, int BN_, int BK_, int TM_, int TN_, int STAGES_, int KS_,
+          int NW_>
 struct Cfg {
   static constexpr int BM = BM_, BN = BN_, BK = BK_, TM = TM_, TN = TN_, STAGES = STAGES_;
   static constexpr int KS = KS_;                     // thread groups splitting a K tile
+  static constexpr int NW = NW_;                     // weight matrices: 2 (GLU) or 1 (linear)
   static constexpr int V = 16 / sizeof(T);
   static constexpr int TX = BN / TN;                 // threads across N
   static constexpr int GROUP = (BM / TM) * TX;       // threads of one K group
@@ -104,10 +119,11 @@ struct Cfg {
   static constexpr int XS = BK + V;                  // padded x row, 16-byte multiple
   static constexpr int X_ELEMS = BM * XS;
   static constexpr int W_ELEMS = BK * BN;
-  static constexpr int STAGE_ELEMS = X_ELEMS + 2 * W_ELEMS;
+  static constexpr int STAGE_ELEMS = X_ELEMS + NW * W_ELEMS;
   static constexpr size_t SMEM = (size_t)STAGES * STAGE_ELEMS * sizeof(T);
+  static_assert(NW == 1 || NW == 2, "one or two weight matrices");
   static_assert(BK % KS == 0, "K groups must split a tile evenly");
-  static_assert(KS == 1 || 2 * KS * BM * BN * sizeof(float) <= SMEM,
+  static_assert(KS == 1 || NW * KS * BM * BN * sizeof(float) <= SMEM,
                 "the partial sums must fit in the ring");
 };
 
@@ -144,6 +160,41 @@ struct BackwardEpi {
   }
 };
 
+// The linear layer's two epilogues (NW = 1: one accumulator, the up slot
+// unused): the bias, when there is one, is added to the f32 accumulator
+// after the last K tile, as the JAX kernel adds it, then the forward's
+// pwl(z) in T, or the backward's dz = g * m(z) in f32.
+template <typename T>
+struct LinearForwardEpi {
+  T* out;
+  const T* bias;  // (N,) or nullptr
+  int N;
+  __device__ __forceinline__ void operator()(int gm, int gn, float z, float,
+                                             const float* s_bp, const float* s_dmq,
+                                             int n_bp) const {
+    if (bias != nullptr) z += to_f32(bias[gn]);
+    store(pwl_value_and_slope(z, s_bp, s_dmq, n_bp).x, out + (size_t)gm * N + gn);
+  }
+};
+
+template <typename T>
+struct LinearBackwardEpi {
+  const T* g;
+  const T* bias;  // (N,) or nullptr
+  float* dz;
+  int N;
+  __device__ __forceinline__ void operator()(int gm, int gn, float z, float,
+                                             const float* s_bp, const float* s_dmq,
+                                             int n_bp) const {
+    if (bias != nullptr) z += to_f32(bias[gn]);
+    const size_t o = (size_t)gm * N + gn;
+    dz[o] = to_f32(g[o]) * pwl_value_and_slope(z, s_bp, s_dmq, n_bp).y;
+  }
+};
+
+// One kernel for both layers: C::NW = 2 is the GLU (the gate and up
+// products share each x tile), C::NW = 1 the linear layer (wu unused, the
+// epilogue's up accumulator 0).
 template <typename T, class C, class Epi>
 __global__ void __launch_bounds__(C::THREADS)
 glu_pwl_kernel(const T* __restrict__ x, const T* __restrict__ wg, const T* __restrict__ wu,
@@ -151,6 +202,7 @@ glu_pwl_kernel(const T* __restrict__ x, const T* __restrict__ wg, const T* __res
                Epi epi, int M, int N, int K, bool vec_x, bool vec_w) {
   constexpr int BM = C::BM, BN = C::BN, BK = C::BK, TM = C::TM, TN = C::TN;
   constexpr int V = C::V, TX = C::TX, XS = C::XS, STAGES = C::STAGES, KS = C::KS;
+  constexpr int NW = C::NW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const ring = reinterpret_cast<T*>(smem_raw);
   __shared__ float s_bp[PWL_MAX_BP];
@@ -160,7 +212,7 @@ glu_pwl_kernel(const T* __restrict__ x, const T* __restrict__ wg, const T* __res
   const size_t e = blockIdx.z;
   x += e * M * K;
   wg += e * K * N;
-  wu += e * K * N;
+  if constexpr (NW == 2) wu += e * K * N;
   const int row0 = static_cast<int>(e) * M;
 
   const int tid = threadIdx.x;
@@ -184,7 +236,7 @@ glu_pwl_kernel(const T* __restrict__ x, const T* __restrict__ wg, const T* __res
     for (int e = tid; e < BK * (BN / V); e += C::THREADS) {
       const int r = e / (BN / V), c = (e % (BN / V)) * V;
       load_vec<T>(gs + r * BN + c, wg, k0 + r, n0 + c, K, N, vec_w);
-      load_vec<T>(us + r * BN + c, wu, k0 + r, n0 + c, K, N, vec_w);
+      if constexpr (NW == 2) load_vec<T>(us + r * BN + c, wu, k0 + r, n0 + c, K, N, vec_w);
     }
   };
 
@@ -218,14 +270,14 @@ glu_pwl_kernel(const T* __restrict__ x, const T* __restrict__ wg, const T* __res
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         b[j] = to_f32(gs[kk * BN + tx + j * TX]);
-        u[j] = to_f32(us[kk * BN + tx + j * TX]);
+        if constexpr (NW == 2) u[j] = to_f32(us[kk * BN + tx + j * TX]);
       }
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
           accg[i][j] = fmaf(a[i], b[j], accg[i][j]);
-          accu[i][j] = fmaf(a[i], u[j], accu[i][j]);
+          if constexpr (NW == 2) accu[i][j] = fmaf(a[i], u[j], accu[i][j]);
         }
     }
   }
@@ -243,7 +295,7 @@ glu_pwl_kernel(const T* __restrict__ x, const T* __restrict__ wg, const T* __res
       for (int j = 0; j < TN; ++j) {
         const int o = kg * BM * BN + (ty * TM + i) * BN + tx + j * TX;
         red_g[o] = accg[i][j];
-        red_u[o] = accu[i][j];
+        if constexpr (NW == 2) red_u[o] = accu[i][j];
       }
     __syncthreads();
     for (int o = tid; o < BM * BN; o += C::THREADS) {
@@ -253,7 +305,7 @@ glu_pwl_kernel(const T* __restrict__ x, const T* __restrict__ wg, const T* __res
 #pragma unroll
       for (int q = 0; q < KS; ++q) {
         g += red_g[q * BM * BN + o];
-        u += red_u[q * BM * BN + o];
+        if constexpr (NW == 2) u += red_u[q * BM * BN + o];
       }
       epi(row0 + gm, gn, g, u, s_bp, s_dmq, n_bp);
     }
@@ -301,29 +353,31 @@ int launch(const void* x, const void* wg, const void* wu, const void* bp, const 
 
 // M <= 4 (a decode step; an MoE bucket at decode holds one row): 4 x 16 output tiles, 4 K groups of 64 threads,
 // 4-deep ring of 64-deep K tiles
-template <typename T>
-using Tiny = Cfg<T, 4, 16, 64, 1, 1, 4, 4>;
+template <typename T, int NW>
+using Tiny = Cfg<T, 4, 16, 64, 1, 1, 4, 4, NW>;
 // M <= 64: 8 x 16 output tiles, otherwise as Tiny
-template <typename T>
-using Small = Cfg<T, 8, 16, 64, 2, 1, 4, 4>;
+template <typename T, int NW>
+using Small = Cfg<T, 8, 16, 64, 2, 1, 4, 4, NW>;
 // large M: 64 x 64 output tiles, 256 threads with 4 x 4 register tiles
-template <typename T>
-using Large = Cfg<T, 64, 64, 32, 4, 4, 3, 1>;
+template <typename T, int NW>
+using Large = Cfg<T, 64, 64, 32, 4, 4, 3, 1, NW>;
 constexpr int TINY_M = 4, SMALL_M = 64;
 
-template <typename T, class Epi>
+template <typename T, int NW, class Epi>
 int dispatch(const void* x, const void* wg, const void* wu, const void* bp, const void* dmq,
              int n_bp, Epi epi, int E, int M, int N, int K, cudaStream_t s) {
-  if (M <= TINY_M) return launch<T, Tiny<T>>(x, wg, wu, bp, dmq, n_bp, epi, E, M, N, K, s);
-  if (M <= SMALL_M) return launch<T, Small<T>>(x, wg, wu, bp, dmq, n_bp, epi, E, M, N, K, s);
-  return launch<T, Large<T>>(x, wg, wu, bp, dmq, n_bp, epi, E, M, N, K, s);
+  if (M <= TINY_M)
+    return launch<T, Tiny<T, NW>>(x, wg, wu, bp, dmq, n_bp, epi, E, M, N, K, s);
+  if (M <= SMALL_M)
+    return launch<T, Small<T, NW>>(x, wg, wu, bp, dmq, n_bp, epi, E, M, N, K, s);
+  return launch<T, Large<T, NW>>(x, wg, wu, bp, dmq, n_bp, epi, E, M, N, K, s);
 }
 
 template <typename T>
 int forward(const void* x, const void* wg, const void* wu, const void* bp, const void* dmq,
             int n_bp, void* out, int E, int M, int N, int K, cudaStream_t s) {
-  return dispatch<T>(x, wg, wu, bp, dmq, n_bp, ForwardEpi<T>{static_cast<T*>(out), N}, E, M,
-                     N, K, s);
+  return dispatch<T, 2>(x, wg, wu, bp, dmq, n_bp, ForwardEpi<T>{static_cast<T*>(out), N}, E,
+                        M, N, K, s);
 }
 
 template <typename T>
@@ -332,7 +386,23 @@ int backward(const void* x, const void* wg, const void* wu, const void* g, const
              cudaStream_t s) {
   const BackwardEpi<T> epi{static_cast<const T*>(g), static_cast<float*>(dzg),
                            static_cast<float*>(dzu), N};
-  return dispatch<T>(x, wg, wu, bp, dmq, n_bp, epi, E, M, N, K, s);
+  return dispatch<T, 2>(x, wg, wu, bp, dmq, n_bp, epi, E, M, N, K, s);
+}
+
+template <typename T>
+int linear_forward(const void* x, const void* w, const void* b, const void* bp,
+                   const void* dmq, int n_bp, void* out, int M, int N, int K, cudaStream_t s) {
+  const LinearForwardEpi<T> epi{static_cast<T*>(out), static_cast<const T*>(b), N};
+  return dispatch<T, 1>(x, w, nullptr, bp, dmq, n_bp, epi, 1, M, N, K, s);
+}
+
+template <typename T>
+int linear_backward(const void* x, const void* w, const void* b, const void* g,
+                    const void* bp, const void* dmq, int n_bp, void* dz, int M, int N, int K,
+                    cudaStream_t s) {
+  const LinearBackwardEpi<T> epi{static_cast<const T*>(g), static_cast<const T*>(b),
+                                 static_cast<float*>(dz), N};
+  return dispatch<T, 1>(x, w, nullptr, bp, dmq, n_bp, epi, 1, M, N, K, s);
 }
 
 }  // namespace
@@ -364,5 +434,33 @@ extern "C" int glu_pwl_backward(const void* x, const void* wg, const void* wu, c
     return backward<float>(x, wg, wu, g, bp, dmq, n_bp, dzg, dzu, E, M, N, K, s);
   if (dtype == 1)
     return backward<__nv_bfloat16>(x, wg, wu, g, bp, dmq, n_bp, dzg, dzu, E, M, N, K, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The fused linear layer: x (M, K), w (K, N), b (N,) or null, out (M, N), all
+// in dtype (0 = float32, 1 = bfloat16).  Returns the cudaError_t of the launch.
+extern "C" int linear_pwl_forward(const void* x, const void* w, const void* b, const void* bp,
+                                  const void* dmq, int n_bp, void* out, int M, int N, int K,
+                                  int dtype, void* stream) {
+  if (n_bp < 1 || n_bp > PWL_MAX_BP || M <= 0 || N <= 0 || K <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return linear_forward<float>(x, w, b, bp, dmq, n_bp, out, M, N, K, s);
+  if (dtype == 1)
+    return linear_forward<__nv_bfloat16>(x, w, b, bp, dmq, n_bp, out, M, N, K, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Its backward: x, w, b as above and g (M, N) in dtype; dz (M, N) float32.
+// Returns the cudaError_t of the launch.
+extern "C" int linear_pwl_backward(const void* x, const void* w, const void* b, const void* g,
+                                   const void* bp, const void* dmq, int n_bp, void* dz, int M,
+                                   int N, int K, int dtype, void* stream) {
+  if (n_bp < 1 || n_bp > PWL_MAX_BP || M <= 0 || N <= 0 || K <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return linear_backward<float>(x, w, b, g, bp, dmq, n_bp, dz, M, N, K, s);
+  if (dtype == 1)
+    return linear_backward<__nv_bfloat16>(x, w, b, g, bp, dmq, n_bp, dz, M, N, K, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -19,13 +19,15 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
-LIBRARIES = ("glu", "kv_cache", "softmax", "decoding", "attention", "attention_bwd")
+LIBRARIES = ("glu", "kv_cache", "softmax", "decoding", "attention", "attention_bwd",
+             "pwl_act")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_SIGNED: set[tuple[str, str]] = set()  # (library, function) with argtypes set
 
 
 def nvcc_path() -> str:
@@ -83,18 +85,21 @@ def build(names=LIBRARIES) -> dict[str, dict]:
 def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     """The loaded library ``name`` (built first if needed), with
     ``argtypes`` set from ``signatures`` and every ``restype`` a C int
-    (the ``cudaError_t`` of the launch)."""
+    (the ``cudaError_t`` of the launch).  Modules that share a library
+    each pass their own functions' signatures."""
     lib = _LOADED.get(name)
     if lib is None:
         path = lib_path(name)
         if not path.exists():
             build((name,))
         lib = ctypes.CDLL(str(path))
-        for fn, argtypes in signatures.items():
+        _LOADED[name] = lib
+    for fn, argtypes in signatures.items():
+        if (name, fn) not in _SIGNED:
             f = getattr(lib, fn)
             f.argtypes = argtypes
             f.restype = ctypes.c_int
-        _LOADED[name] = lib
+            _SIGNED.add((name, fn))
     return lib
 
 

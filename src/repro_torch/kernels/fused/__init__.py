@@ -1,5 +1,6 @@
 """Kernels with the PWL activation inside: producer epilogues (the fused
-GLU and the per-expert MoE GLU, forward and backward) and the PWL-exp
+GLU, the per-expert MoE GLU and the fused linear layer, forward and
+backward) and the PWL-exp
 softmax of attention (row softmax forward and backward, split-KV paged
 decode, flash forward and backward)."""
 from .attention import (
@@ -21,6 +22,7 @@ from .epilogue import (
     table_dtype_name,
 )
 from .glu import fused_glu, fused_glu_bwd, fused_glu_bwd_plain, fused_glu_plain
+from .linear import fused_linear, fused_linear_bwd, fused_linear_bwd_plain, fused_linear_plain
 from .moe import fused_moe_glu
 from .softmax import (
     fused_pwl_softmax,
@@ -44,6 +46,10 @@ __all__ = [
     "fused_glu_bwd",
     "fused_glu_bwd_plain",
     "fused_glu_plain",
+    "fused_linear",
+    "fused_linear_bwd",
+    "fused_linear_bwd_plain",
+    "fused_linear_plain",
     "fused_moe_glu",
     "fused_pwl_softmax",
     "fused_pwl_softmax_bwd",

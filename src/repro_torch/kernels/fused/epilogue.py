@@ -158,42 +158,55 @@ def plan_and_operands(table: PWLTable | None, act: str | None = None):
     return IDENTITY, ()
 
 
+def pack_for(table: PWLTable, device, dtype: str | None = None):
+    """:func:`pack_table` for a decode on ``device``: off the CPU a bf16/f16
+    table is packed into the f32 delta layout, the one layout the CUDA
+    kernels read.  Its deltas are formed from the exactly upcast narrow
+    values, so it decodes bitwise as the native layout does (the plain
+    decode forms the same f32 deltas inside its loop).  On the CPU the
+    native layout stays, as the JAX package ships it.  Returns the operands
+    on ``device``, contiguous."""
+    dev = torch.device(device)
+    bp, dmq = pack_table(table, dtype, native=None if dev.type == "cpu" else False)
+    return bp.to(dev).contiguous(), dmq.to(dev).contiguous()
+
+
 # (table, plan, operands) per (table, device), kept with the table they came
 # from: packing and the host-to-device copy happen once per table and device
 _PACKED: dict[tuple[int, str], tuple] = {}
 
 
 def device_operands(table: PWLTable | None, act: str | None, device):
-    """:func:`plan_and_operands` with the operands on ``device``, packed and
-    copied once per (table, device), so a kernel call does neither."""
+    """:func:`plan_and_operands` with the operands packed for ``device``
+    (:func:`pack_for`; the plan keeps the table's storage tag) and copied
+    there once per (table, device), so a kernel call does neither."""
     if table is None:
         return plan_and_operands(None, act)
     if act is not None:
         raise ValueError("pass either table= (PWL epilogue) or act= (exact), not both")
-    key = (id(table), str(device))
+    key = (id(table), str(torch.device(device)))
     hit = _PACKED.get(key)
     if hit is None or hit[0] is not table:
-        plan, tables = plan_and_operands(table)
-        hit = (table, plan, tuple(t.to(device).contiguous() for t in tables))
+        tables = pack_for(table, device)
+        plan = EpiloguePlan("pwl", int(tables[0].shape[0]), table_dtype_name(table))
+        hit = (table, plan, tables)
         _PACKED[key] = hit
     return hit[1], hit[2]
 
 
 def check_kernel_operands(what: str, plan: EpiloguePlan, tables, *forward_only) -> None:
     """Refuse what the CUDA kernels do not take, before any launch: an
-    epilogue other than a PWL table in the f32 delta layout (f32 or int8
-    storage; native bf16/f16 operands and the exact ``act=`` epilogue wait
-    for ROADMAP slice 5), and, for a kernel with no backward (the paged
-    decode, which serves only; the flash attention has had its backward
-    kernels since ROADMAP slice 3b), an input in ``forward_only`` that
-    requires grad."""
+    epilogue other than a PWL table (the exact ``act=`` epilogue), and, for
+    a kernel with no backward (the paged decode, which serves only; the
+    flash attention has had its backward kernels since ROADMAP slice 3b), an
+    input in ``forward_only`` that requires grad.  Every table format
+    reaches the kernels in the f32 delta layout (:func:`device_operands`)."""
     if plan.kind != "pwl":
         raise NotImplementedError(
             f"the CUDA {what} kernel takes a PWL table epilogue, not {plan.kind!r}")
-    if tables[1].dtype != torch.float32:
-        raise NotImplementedError(
-            f"native {plan.table_dtype} table operands are not supported by the "
-            f"CUDA {what} kernel yet (f32 delta layout only; see ROADMAP)")
+    if tables[0].dtype != torch.float32 or tables[1].dtype != torch.float32:
+        raise TypeError(f"the CUDA {what} kernel reads f32 delta-layout table operands "
+                        "(device_operands packs every format so)")
     if any(t.requires_grad for t in forward_only):
         raise NotImplementedError(
             f"the CUDA {what} kernel is forward only: an input requires grad "

@@ -200,8 +200,8 @@ def fused_glu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, *,
     """``act(x @ w_gate) * (x @ w_up)``.  x: (..., K); w_gate/w_up: (K, N).
 
     table -> PWL epilogue, act -> exact epilogue, neither -> plain bilinear
-    GLU.  On a CUDA tensor the PWL epilogue with an f32 or int8 table runs
-    the hand-written kernels (forward, and backward under
+    GLU.  On a CUDA tensor the PWL epilogue, with a table of any format,
+    runs the hand-written kernels (forward, and backward under
     ``impl_bwd="fused"``); anything else there raises.  Differentiable in
     x, w_gate and w_up."""
     plan, tables = device_operands(table, act, x.device)

@@ -44,8 +44,8 @@ def fused_moe_glu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, *,
     x: (E, C, K) dispatched expert buckets; w_gate/w_up: (E, K, N).  Returns
     (E, C, N) in x's dtype.  Epilogue selection as in :func:`fused_glu`
     (table -> PWL, act -> exact, neither -> plain bilinear GLU); on a CUDA
-    tensor only the PWL epilogue with an f32 or int8 table runs (forward, and
-    backward under ``impl_bwd="fused"``), anything else there raises.
+    tensor only the PWL epilogue runs, with a table of any format (forward,
+    and backward under ``impl_bwd="fused"``), anything else there raises.
     Differentiable in x, w_gate and w_up.  Its plain versions are the GLU's,
     ``fused_glu_plain`` and ``fused_glu_bwd_plain``, on (E, C, ·) operands;
     ``fused_glu_bwd(..., counter=fused_moe_glu)`` is its backward kernel's

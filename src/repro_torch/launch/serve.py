@@ -41,6 +41,17 @@ def resolve_device(name: str) -> torch.device:
     return torch.device(name)
 
 
+def refuse_encoder_decoder(cfg) -> None:
+    """The launchers drive decoder-only models (the JAX package's cannot run
+    an encoder-decoder either: its batches carry no frames); say so plainly."""
+    if cfg.is_encoder_decoder:
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder model, which the launchers do not drive: "
+            "serve it through Model.prefill(params, tokens, cache, frames=) and "
+            "Model.decode_step, train it through Model.loss on a batch that carries "
+            "'frames'")
+
+
 def generate(model: Model, params, prompts: torch.Tensor, max_new: int = 32) -> torch.Tensor:
     """Greedy-decode ``max_new`` tokens for a batch of prompts over a dense
     per-request cache: prefill once, then one ``decode_step`` per token."""
@@ -120,6 +131,7 @@ def run(args: argparse.Namespace, session=contextlib.nullcontext) -> dict:
                              f"{missing} that arch {args.arch!r} instantiates")
     else:
         cfg = getter(args.arch, act_impl="fused")
+    refuse_encoder_decoder(cfg)
     plan = sfu.plan_for(cfg)
     print(f"[serve] activation plan {plan.fingerprint}: "
           f"{ {k: s.impl for k, s in plan.items()} }")

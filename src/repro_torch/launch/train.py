@@ -38,7 +38,7 @@ from repro_torch.checkpoint.manager import CheckpointManager, install_sigterm_sa
 from repro_torch.configs import get_config, get_reduced_config
 from repro_torch.data.pipeline import DataConfig, IteratorState, PrefetchIterator, SyntheticLMData
 from repro_torch.distributed.monitor import StepMonitor
-from repro_torch.launch.serve import resolve_device
+from repro_torch.launch.serve import refuse_encoder_decoder, resolve_device
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models import Model
 from repro_torch.optim import adamw
@@ -76,7 +76,9 @@ def build_parser() -> argparse.ArgumentParser:
 def resolve_config(args: argparse.Namespace):
     """The model config ``args`` ask for: the arch (reduced or not), the
     ``--plan`` it loads (every site the arch instantiates must be in it) and
-    the ``--impl-bwd`` it pins."""
+    the ``--impl-bwd`` it pins.  Refuses, before any step, an
+    encoder-decoder arch and a plan with an ``impl="kernel"`` site (no
+    backward)."""
     getter = get_reduced_config if args.reduced else get_config
     if args.plan:
         loaded = sfu.load_plan(args.plan)
@@ -87,6 +89,13 @@ def resolve_config(args: argparse.Namespace):
                              f"{missing} that arch {args.arch!r} instantiates")
     else:
         cfg = getter(args.arch)
+    refuse_encoder_decoder(cfg)
+    kernel_sites = [k for k, s in sfu.plan_for(cfg).items() if s.impl == "kernel"]
+    if kernel_sites:
+        raise ValueError(
+            f"sites {kernel_sites} are planned impl='kernel', the standalone PWL kernel, "
+            "which has no backward (nor has the JAX kernel): plan them 'fused' or 'jnp' "
+            "to train")
     if args.impl_bwd is not None:
         cfg = dataclasses.replace(cfg, act_impl_bwd=args.impl_bwd)
     return cfg

@@ -57,6 +57,8 @@ class ModelConfig:
     attn_every: Optional[int] = None
     moe_every: Optional[int] = None
     is_encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    encoder_seq: int = 1500           # stub frame-embedding length
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True                # recompute each layer in the backward
     tie_embeddings: bool = False

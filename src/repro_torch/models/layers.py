@@ -1,13 +1,17 @@
-"""Model layers (torch): RMSNorm, RoPE, attention, GLU MLP.
+"""Model layers (torch): RMSNorm, LayerNorm, RoPE, sinusoidal positions,
+attention (self and cross), GLU and plain MLPs.
 
-The dense subset of ``repro/models/layers.py`` that the serving path of a
-dense decoder runs.  Every nonlinearity resolves through the compiled
+The subset of ``repro/models/layers.py`` that the dense decoders and the
+encoder-decoder run.  Every nonlinearity resolves through the compiled
 ``sfu.ActivationPlan``; an ``mlp`` site planned ``impl="fused"`` runs the
-fused GLU kernel (``kernels/fused/glu.py``).  Attention uses exact ``exp``
-unless the plan has an ``attn.softmax:exp`` site: planned ``impl="fused"``
-its softmax runs in the fused PWL-exp kernels (the row softmax, the
-split-KV paged decode, or the flash attention, chosen by shape as the JAX
-package chooses), otherwise the PWL exp is evaluated elementwise.
+fused GLU kernel (``kernels/fused/glu.py``), or for a plain MLP the fused
+linear kernel (``kernels/fused/linear.py``); a site planned
+``impl="kernel"`` runs the standalone PWL kernel (``kernels/ops.py``).
+Attention uses exact ``exp`` unless the plan has an ``attn.softmax:exp``
+site: planned ``impl="fused"`` its softmax runs in the fused PWL-exp
+kernels (the row softmax, the split-KV paged decode, or the flash
+attention, chosen by shape as the JAX package chooses), otherwise the PWL
+exp is evaluated elementwise.
 
 Masking follows the JAX package: masked scores are filled with ``-1e30``
 before the row max, masked probabilities are zeroed, and the row sum is
@@ -38,9 +42,19 @@ def rms_norm(x, scale, eps=1e-6):
     return (y * (1.0 + scale.to(torch.float32))).to(x.dtype)
 
 
+def layer_norm(x, scale, bias, eps=1e-5):
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
+
+
 def apply_norm(cfg: ModelConfig, params, x):
     if cfg.norm_type == "rmsnorm":
         return rms_norm(x, params["scale"])
+    if cfg.norm_type == "layernorm":
+        return layer_norm(x, params["scale"], params["bias"])
     raise NotImplementedError(f"norm_type {cfg.norm_type!r} is not ported yet")
 
 
@@ -58,6 +72,17 @@ def rope(x, positions, theta: float):
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(seq_len: int, d_model: int, device=None):
+    """(seq_len, d_model) f32: sin on the even columns, cos on the odd."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(10000.0, dim / d_model)
+    pe = torch.zeros((seq_len, d_model), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(angle)
+    pe[:, 1::2] = torch.cos(angle)
+    return pe
 
 
 # ---------------------------------------------------------------------------
@@ -284,27 +309,36 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, kv_len,
 
 
 def _fused_mlp_hidden(cfg: ModelConfig, params, x, plan):
-    """Hidden state from the fused GLU kernel when the ``mlp`` site is
-    planned ``impl="fused"``; None otherwise."""
+    """Hidden state from the fused GLU kernel (or, for a plain MLP, the
+    fused linear kernel with its bias) when the ``mlp`` site is planned
+    ``impl="fused"``; None otherwise."""
     key = sfu.site_key(sfu.SITE_MLP, cfg.activation)
     table = plan.fused_table(key)
     if table is None:
         return None
-    if cfg.mlp_type not in ("swiglu", "geglu"):
-        raise NotImplementedError(f"fused {cfg.mlp_type!r} MLP is not ported yet")
-    return fused.fused_glu(x, params["w_gate"], params["w_up"], table=table)
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        return fused.fused_glu(x, params["w_gate"], params["w_up"], table=table)
+    return fused.fused_linear(x, params["w_in"], params.get("b_in"), table=table)
 
 
 def mlp(cfg: ModelConfig, params, x, plan=None):
-    """Dense GLU FFN; activation via the plan's ``mlp:<activation>`` site."""
+    """Dense FFN: swiglu / geglu, or a plain (biased) MLP; activation via the
+    plan's ``mlp:<activation>`` site."""
     plan = plan if plan is not None else sfu.plan_for(cfg)
     h = _fused_mlp_hidden(cfg, params, x, plan)
     if h is None:
-        if cfg.mlp_type not in ("swiglu", "geglu"):
-            raise NotImplementedError(f"{cfg.mlp_type!r} MLP is not ported yet")
         act = plan.act(sfu.site_key(sfu.SITE_MLP, cfg.activation))
-        h = act(x @ params["w_gate"]) * (x @ params["w_up"])
-    return h @ params["w_down"]
+        if cfg.mlp_type in ("swiglu", "geglu"):
+            h = act(x @ params["w_gate"]) * (x @ params["w_up"])
+        else:
+            h = x @ params["w_in"]
+            if "b_in" in params:
+                h = h + params["b_in"]
+            h = act(h)
+    y = h @ params["w_down"]
+    if "b_down" in params:
+        y = y + params["b_down"]
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -312,30 +346,37 @@ def mlp(cfg: ModelConfig, params, x, plan=None):
 
 
 def attention_layer(cfg: ModelConfig, params, x, *, cache=None, cache_pos=None,
-                    plan=None, paged=None):
+                    plan=None, paged=None, cross_kv=None, use_rope: bool = True):
     """Returns (y, cache).  ``cache`` is a dense {k, v} layer cache (B, T,
     Hkv, dh) or a paged {k_pages, v_pages} layer pool (Hkv, P, ps, dh); both
     are written in place.  ``cache_pos`` is the write offset: an int, or (B,)
     per-request depths (continuous batching).  ``paged`` holds the shared
-    ``page_table`` (and ``kv_len`` when decoding)."""
+    ``page_table`` (and ``kv_len`` when decoding).  ``cross_kv`` = (k, v)
+    attends x's queries to given keys and values, unmasked and with no cache
+    write (the encoder-decoder's cross-attention, and its encoder's
+    bidirectional self-attention); ``use_rope=False`` leaves positions out."""
     B, S, D = x.shape
     plan = plan if plan is not None else sfu.plan_for(cfg)
     exp_fn = resolve_exp(cfg, plan)
     softmax_table = _softmax_fused_table(plan)
 
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    if cross_kv is None:
+        k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+        v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    else:
+        k, v = cross_kv
 
     off = 0 if cache_pos is None else cache_pos
-    ar = torch.arange(S, device=x.device)
-    if torch.is_tensor(off) and off.dim() == 1:  # per-request depths (serving)
-        positions = off[:, None] + ar[None, :]
-    else:
-        positions = ar[None, :] + off
-    positions = positions.expand(B, S)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    if use_rope and cross_kv is None:
+        ar = torch.arange(S, device=x.device)
+        if torch.is_tensor(off) and off.dim() == 1:  # per-request depths (serving)
+            positions = off[:, None] + ar[None, :]
+        else:
+            positions = ar[None, :] + off
+        positions = positions.expand(B, S)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
 
     if cache is not None and "k_pages" in cache:
         page_table = paged["page_table"]
@@ -351,7 +392,7 @@ def attention_layer(cfg: ModelConfig, params, x, *, cache=None, cache_pos=None,
             _pg.write_prompt_pages_(cache["k_pages"], cache["v_pages"], k, v, page_table)
             y = _attn_softmax_dispatch(q, k, v, causal=True, exp_fn=exp_fn,
                                        table=softmax_table)
-    elif cache is not None:
+    elif cache is not None and cross_kv is None:
         T = cache["k"].shape[1]
         pos0 = int(off)
         cache["k"][:, pos0:pos0 + S] = k.to(cache["k"].dtype)
@@ -364,8 +405,8 @@ def attention_layer(cfg: ModelConfig, params, x, *, cache=None, cache_pos=None,
             y = _attn_softmax_dispatch(q, k, v, causal=True, exp_fn=exp_fn,
                                        table=softmax_table)
     else:
-        y = _attn_softmax_dispatch(q, k, v, causal=True, exp_fn=exp_fn,
-                                       table=softmax_table)
+        y = _attn_softmax_dispatch(q, k, v, causal=cross_kv is None, exp_fn=exp_fn,
+                                   table=softmax_table)
 
     out = torch.einsum("bshk,hkd->bsd", y, params["wo"])
     return out, cache

@@ -52,30 +52,50 @@ def moe_defs(cfg: ModelConfig) -> dict:
     }
 
 
+def norm_defs(cfg: ModelConfig) -> dict:
+    """A norm's parameters, f32 (the JAX package reads them in f32)."""
+    D = cfg.d_model
+    if cfg.norm_type == "rmsnorm":
+        return {"scale": ParamDef((D,), init="zeros", matrix=False)}
+    if cfg.norm_type == "layernorm":
+        return {"scale": ParamDef((D,), init="ones", matrix=False),
+                "bias": ParamDef((D,), init="zeros", matrix=False)}
+    raise NotImplementedError(f"norm_type {cfg.norm_type!r} is not ported yet")
+
+
+def attn_defs(cfg: ModelConfig) -> dict:
+    D, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    return {
+        "wq": ParamDef((D, H, dh)),
+        "wk": ParamDef((D, Hkv, dh)),
+        "wv": ParamDef((D, Hkv, dh)),
+        "wo": ParamDef((H, dh, D)),
+    }
+
+
+def mlp_defs(cfg: ModelConfig) -> dict:
+    """A dense FFN: the GLU's two input projections, or a plain MLP with
+    biases (held in the model dtype: the JAX package casts them to it at
+    each use)."""
+    D, F = cfg.d_model, cfg.d_ff
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        return {"w_gate": ParamDef((D, F)), "w_up": ParamDef((D, F)),
+                "w_down": ParamDef((F, D))}
+    return {"w_in": ParamDef((D, F)), "b_in": ParamDef((F,), init="zeros"),
+            "w_down": ParamDef((F, D)), "b_down": ParamDef((D,), init="zeros")}
+
+
 def block_defs(cfg: ModelConfig, mixer: str, ffn: str) -> dict:
     if mixer != "attn" or ffn not in ("dense", "moe"):
         raise NotImplementedError(
             f"layer kind ({mixer}, {ffn}) is not ported yet (global attention only)")
-    if cfg.qkv_bias or cfg.norm_type != "rmsnorm" or cfg.mlp_type not in ("swiglu", "geglu"):
-        raise NotImplementedError(f"config {cfg.name!r} needs layers not ported yet")
-    D, H, Hkv, dh, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                        cfg.resolved_head_dim, cfg.d_ff)
-    norm = {"scale": ParamDef((D,), init="zeros", matrix=False)}
-    dense = {
-        "w_gate": ParamDef((D, F)),
-        "w_up": ParamDef((D, F)),
-        "w_down": ParamDef((F, D)),
-    }
+    if cfg.qkv_bias:
+        raise NotImplementedError(f"config {cfg.name!r} needs qkv biases, not ported yet")
     return {
-        "ln1": dict(norm),
-        "ln2": dict(norm),
-        "mixer": {
-            "wq": ParamDef((D, H, dh)),
-            "wk": ParamDef((D, Hkv, dh)),
-            "wv": ParamDef((D, Hkv, dh)),
-            "wo": ParamDef((H, dh, D)),
-        },
-        "ffn": moe_defs(cfg) if ffn == "moe" else dense,
+        "ln1": norm_defs(cfg),
+        "ln2": norm_defs(cfg),
+        "mixer": attn_defs(cfg),
+        "ffn": moe_defs(cfg) if ffn == "moe" else mlp_defs(cfg),
     }
 
 
@@ -85,7 +105,7 @@ def model_defs(cfg: ModelConfig) -> dict:
     n_periods = cfg.n_layers // period
     defs = {
         "embed": ParamDef((cfg.padded_vocab, cfg.d_model), init="small_normal"),
-        "final_norm": {"scale": ParamDef((cfg.d_model,), init="zeros", matrix=False)},
+        "final_norm": norm_defs(cfg),
         "layers": [_stack(block_defs(cfg, *kinds[j]), n_periods) for j in range(period)],
     }
     if not cfg.tie_embeddings:

@@ -1,7 +1,8 @@
 """Convert the JAX package's parameter and optimizer trees into the port's.
 
 ``params_from_numpy(tree, cfg, device)`` takes the structure the JAX
-``model_defs`` gives, with numpy leaves (for example
+``model_defs`` (or, for an encoder-decoder, ``encdec_defs``) gives, with
+numpy leaves (for example
 ``jax.tree_util.tree_map(np.asarray, params)``): dicts keyed as in the port,
 per-layer leaves stacked ``(n_periods, ...)``.  For serving, matrices go to
 ``cfg.dtype`` and norm scales and the MoE router stay f32, as :mod:`.common`
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from .common import ModelConfig, ParamDef
-from .transformer import model_defs
+from .model import param_defs
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device, master: bool = False) -> dict:
@@ -39,7 +40,7 @@ def params_from_numpy(tree, cfg: ModelConfig, device, master: bool = False) -> d
             raise ValueError(f"{path}: {len(node)} entries != expected {len(defs)}")
         return [conv(d, n, f"{path}[{i}]") for i, (d, n) in enumerate(zip(defs, node))]
 
-    return conv(model_defs(cfg), tree, "params")
+    return conv(param_defs(cfg), tree, "params")
 
 
 def train_state_from_numpy(state, cfg: ModelConfig, device) -> dict:

@@ -136,12 +136,16 @@ def resolve_spec(spec: ApproxSpec, store: Optional[TableStore] = None) -> Callab
     """ApproxSpec -> elementwise callable (any shape/dtype input)."""
     if spec.impl == "exact":
         return F.get(spec.fn).fn
-    if spec.impl == "kernel":
-        raise NotImplementedError(
-            "impl='kernel' needs the standalone PWL kernel, which is not "
-            "ported yet (ROADMAP)")
     table = (store or get_store()).get(spec)
+    if spec.impl == "kernel":
+        from repro_torch.kernels import ops as kops
 
+        def pwl_kernel_act(x, _table=table):
+            return kops.pwl_activation(x, _table)
+
+        return pwl_kernel_act
+
+    # "jnp", and the elementwise fallback of "fused"
     def pwl_act(x, _table=table):
         return pwl.eval_coeff(x, _table)
 

@@ -8,11 +8,14 @@
   ``--device cpu`` it serves the reduced config (repro-100m, and olmoe-1b-7b
   through its MoE layers) and returns 0.
 * Each kernel wrapper carries a plain-int launch counter, and a second one
-  for its backward kernel where it has one (the GLU, the MoE GLU, the row
-  softmax, the flash attention).
-* What only the CUDA kernels refuse (a native bf16 table; for the paged
-  decode, which has no backward, an input that requires grad) raises on a
-  non-CPU tensor before any launch; the plain version is never run there.
+  for its backward kernel where it has one (the GLU, the MoE GLU, the fused
+  linear layer, the row softmax, the flash attention).
+* A bf16 table passes every wrapper's operand check (it reaches the kernels
+  in the f32 delta layout) and meets the device check; what only the CUDA
+  kernels refuse (for the paged decode, which has no backward, an input
+  that requires grad) raises on a non-CPU tensor before any launch, and the
+  standalone PWL activation refuses a gradient on any device; the plain
+  version is never run off the CPU.
 """
 import ast
 import importlib.util
@@ -105,21 +108,25 @@ def test_kernel_wrappers_carry_launch_counters():
     from repro_torch.kernels.fused import (
         fused_flash_attention,
         fused_glu,
+        fused_linear,
         fused_moe_glu,
         fused_pwl_softmax,
         paged_flash_decode,
     )
+    from repro_torch.kernels.ops import pwl_activation, pwl_activation_uniform
     from repro_torch.serving.kv_cache import append_kv_, write_prompt_pages_
 
     for fn in (fused_glu, write_prompt_pages_, append_kv_, fused_pwl_softmax,
-               paged_flash_decode, fused_flash_attention, fused_moe_glu):
+               paged_flash_decode, fused_flash_attention, fused_moe_glu, fused_linear,
+               pwl_activation, pwl_activation_uniform):
         assert isinstance(fn.launches, int)
-    for fn in (fused_glu, fused_pwl_softmax, fused_flash_attention, fused_moe_glu):
+    for fn in (fused_glu, fused_pwl_softmax, fused_flash_attention, fused_moe_glu,
+               fused_linear):
         assert isinstance(fn.bwd_launches, int)
 
 
 def _kernel_calls(table, grad=False):
-    from repro_torch.kernels import fused
+    from repro_torch.kernels import fused, ops
 
     def t(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device="meta").requires_grad_(grad)
@@ -133,13 +140,17 @@ def _kernel_calls(table, grad=False):
         "flash": lambda: fused.fused_flash_attention(t(1, 8, 4, 16), t(1, 8, 2, 16),
                                                      t(1, 8, 2, 16), table=table),
         "moe": lambda: fused.fused_moe_glu(t(3, 4, 8), t(3, 8, 16), t(3, 8, 16), table=table),
+        "linear": lambda: fused.fused_linear(t(4, 8), t(8, 16), t(16), table=table),
+        "pwl": lambda: ops.pwl_activation(t(4, 8), table),
+        "pwl_uniform": lambda: ops.pwl_activation_uniform(t(4, 8), table.m, table.q, -8.0, 8.0),
     }
 
 
-@pytest.mark.parametrize("kernel", ["softmax", "decode", "flash", "moe"])
+@pytest.mark.parametrize("kernel", ["softmax", "decode", "flash", "moe", "linear", "pwl",
+                                    "pwl_uniform"])
 def test_cuda_only_refusals_raise_off_the_cpu(kernel, monkeypatch):
     from repro_torch import sfu
-    from repro_torch.kernels import fused
+    from repro_torch.kernels import fused, pwl_act
 
     def no_plain(*a, **kw):
         raise AssertionError("a wrapper ran its plain version on a non-CPU tensor")
@@ -148,11 +159,19 @@ def test_cuda_only_refusals_raise_off_the_cpu(kernel, monkeypatch):
     monkeypatch.setattr(fused.decoding, "paged_flash_decode_plain", no_plain)
     monkeypatch.setattr(fused.attention, "fused_flash_attention_plain", no_plain)
     monkeypatch.setattr(fused.glu, "fused_glu_plain", no_plain)
+    monkeypatch.setattr(fused.linear, "fused_linear_plain", no_plain)
+    monkeypatch.setattr(pwl_act, "pwl_nonuniform_plain", no_plain)
+    monkeypatch.setattr(pwl_act, "pwl_uniform_plain", no_plain)
+    # a bf16 table is no refusal: packed into the f32 delta layout, it
+    # reaches the device check
     native = sfu.get_store().get(fn="exp", n_breakpoints=32, dtype="bf16")
-    with pytest.raises(NotImplementedError, match="native bf16"):
+    with pytest.raises(ValueError, match="cpu or cuda"):
         _kernel_calls(native)[kernel]()
     f32 = sfu.get_store().get(fn="exp", n_breakpoints=32)
-    if kernel != "decode":  # they have backward kernels: grad is no refusal
+    if kernel in ("pwl", "pwl_uniform"):  # no backward on any device, as in JAX
+        with pytest.raises(NotImplementedError, match="no backward"):
+            _kernel_calls(f32, grad=True)[kernel]()
+    elif kernel != "decode":  # they have backward kernels: grad is no refusal
         with pytest.raises(ValueError, match="cpu or cuda"):
             _kernel_calls(f32, grad=True)[kernel]()
     else:

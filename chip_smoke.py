@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. builds every CUDA kernel of the serving and training paths from
-   ``src/repro_torch/csrc`` (one ``nvcc`` per source, all seven started
+   ``src/repro_torch/csrc`` (one ``nvcc`` per source, all eight started
    together);
 2. holds each kernel against its plain PyTorch version on the card at the
    shapes the serving and training paths give it (the backward kernels of
@@ -59,7 +59,17 @@
    trains it 4 steps at 8 x 448 over 1500 frames (the encoder past the
    dense cap: the flash kernels, non-causal), holds its full-width
    gradients (backward kernels against plain recomputation) and reduced
-   whisper on the card against the CPU.
+   whisper on the card against the CPU;
+9. slice 7: holds the fused RMSNorm (``csrc/norm.cu``, forward and
+   backward) against its plain versions at repro-100m's training rows and
+   olmoe's width in bf16 and at odd widths in f32, with identity, PWL (f32,
+   bf16, int8 tables) and exact epilogues, and drives it once through its
+   autograd (no model calls it); holds every kernel that takes an epilogue
+   plan under exact (``act=``) and identity plans, forward and backward,
+   on grids that hit the kinks, and drives each through its public entry
+   point; holds the flash forward and backward at head dim 256 (gemma3-1b's
+   attention, causal with and without its 512 window) and the split-KV
+   decode at dh 256.
 
 Every failed check exits non-zero.  The last two lines of standard output
 are the kernels' JSON line and ``{"ok": true, "device": {...}}``; the card's
@@ -822,16 +832,30 @@ def softmax_phase(torch):
     return rows
 
 
+def _decode_sdpa_ms(torch, q, k_pages, v_pages, tab, lens) -> float:
+    """The paged decode's yardstick: ``scaled_dot_product_attention`` over
+    the K/V gathered into logical order and repeated to the query heads (the
+    gather and the repeat not timed), each row masked to its kv_len."""
+    import torch.nn.functional as F
+
+    from repro_torch.serving import kv_cache as KV
+
+    G = q.shape[2] // k_pages.shape[0]
+    kd, vd = (KV.gather_pages(t, tab).permute(0, 2, 1, 3).repeat_interleave(G, dim=1)
+              .contiguous() for t in (k_pages, v_pages))
+    valid = torch.arange(kd.shape[2], device=q.device)[None, :] < lens[:, None]
+    qh = q.permute(0, 2, 1, 3).contiguous()
+    return time_ms(torch, lambda i: F.scaled_dot_product_attention(
+        qh, kd, vd, attn_mask=valid[:, None, None, :]))
+
+
 def decode_phase(torch):
     """paged_flash_decode on CUDA tensors (split + merge kernels) vs its plain
     version on fragmented page tables: bf16 q and pools (bf16 output) at
     1e-2, f32 at 1e-5; repro-100m's head dim 64, and olmoe-1b-7b's decode
     step under the fused-softmax plan (16 KV heads of dim 128, G = 1)."""
-    import torch.nn.functional as F
-
     from repro_torch.kernels.fused import paged_flash_decode
     from repro_torch.kernels.fused.decoding import paged_flash_decode_plain
-    from repro_torch.serving import kv_cache as KV
 
     dev = torch.device("cuda")
     table, plan, tables = _exp_table(torch)
@@ -879,14 +903,7 @@ def decode_phase(torch):
             k_ms = time_ms(torch, lambda i: paged_flash_decode(q, kp, vp, tab, lens, table=table))
             p_ms = time_ms(torch, lambda i: paged_flash_decode_plain(
                 q, kp, vp, tab, lens, plan, tables, eff), reps=3, iters=3)
-            # yardstick: SDPA over the K/V gathered into logical order (the
-            # gather is not timed)
-            kd = KV.gather_pages(kp, tab).permute(0, 2, 1, 3).contiguous()
-            vd = KV.gather_pages(vp, tab).permute(0, 2, 1, 3).contiguous()
-            valid = (torch.arange(kd.shape[2], device=dev)[None, :] < lens[:, None])
-            qh = q.permute(0, 2, 1, 3).contiguous()
-            l_ms = time_ms(torch, lambda i: F.scaled_dot_product_attention(
-                qh, kd, vd, attn_mask=valid[:, None, None, :]))
+            l_ms = _decode_sdpa_ms(torch, q, kp, vp, tab, lens)
             n_keys = int(lens.sum())
             live_pages = sum(-(-n // PS) for n in kv_len)
             nbytes = (2 * live_pages * PS * dh * hkv * 2 + 2 * q.numel() * 2
@@ -1112,11 +1129,13 @@ def _counters() -> dict:
             "fused_pwl_softmax": (fused.fused_pwl_softmax, "launches"),
             "paged_flash_decode": (fused.paged_flash_decode, "launches"),
             "fused_flash_attention": (fused.fused_flash_attention, "launches"),
+            "fused_rmsnorm": (fused.fused_rmsnorm, "launches"),
             "fused_glu_bwd": (fused.fused_glu, "bwd_launches"),
             "fused_linear_bwd": (fused.fused_linear, "bwd_launches"),
             "fused_moe_glu_bwd": (fused.fused_moe_glu, "bwd_launches"),
             "fused_pwl_softmax_bwd": (fused.fused_pwl_softmax, "bwd_launches"),
-            "fused_flash_attention_bwd": (fused.fused_flash_attention, "bwd_launches")}
+            "fused_flash_attention_bwd": (fused.fused_flash_attention, "bwd_launches"),
+            "fused_rmsnorm_bwd": (fused.fused_rmsnorm, "bwd_launches")}
 
 
 def reset_counters():
@@ -1808,13 +1827,19 @@ def moe_reference_phase(torch, plan: str):
 # slice 5: the standalone PWL kernels; bf16 tables on the card
 
 
+def _f32_bound(nbytes: float, f32_ops: float) -> dict:
+    """Bytes over the HBM rate against f32 operations over the rate of the
+    CUDA cores outside the tensor cores."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = f32_ops / PEAK_F32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def _elementwise_bound(n: int, esize: int, ops_per_elem: float) -> dict:
     """x read once, y written once, against the decode's f32 operations on
     the CUDA cores (~3 a breakpoint)."""
-    t_bytes = 2.0 * n * esize / PEAK_BYTES_PER_S * 1e3
-    t_ops = n * ops_per_elem / PEAK_F32_FLOP_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    return _f32_bound(2.0 * n * esize, n * ops_per_elem)
 
 
 def _bitwise(torch, got, want, what) -> None:
@@ -2286,6 +2311,677 @@ def whisper_reference_phase(torch, plan: str):
           f"{serve_err:.3g}")
 
 
+# ---------------------------------------------------------------------------
+# slice 7: the fused RMSNorm, the exact and identity epilogues, head_dim 256
+
+
+NORM_EPILOGUES = ("identity", "gelu PWL f32", "gelu PWL bf16", "gelu PWL int8", "exact gelu")
+NORM_EPS = 1e-6
+
+
+def _epilogue_kwargs(name: str) -> dict:
+    """``table=`` or ``act=`` of a named epilogue: "identity", "exact <fn>" or
+    "<fn> PWL <format>" (32 breakpoints)."""
+    from repro_torch import sfu
+
+    if name == "identity":
+        return {}
+    if name.startswith("exact "):
+        return {"act": name.split()[1]}
+    fn, _, fmt = name.split()
+    return {"table": sfu.get_store().get(fn=fn, n_breakpoints=32, dtype=fmt)}
+
+
+def _epilogue_operands(torch, kw: dict):
+    """``(plan, operands)`` twice for an epilogue's kwargs: as the plain
+    versions take them (a bf16 table in its native layout) and as the kernel
+    wrappers take them (the f32 delta layout), both on the card."""
+    from repro_torch.kernels.fused.epilogue import device_operands, plan_and_operands
+
+    plan, tables = plan_and_operands(kw.get("table"), kw.get("act"))
+    kplan, ktables = device_operands(kw.get("table"), kw.get("act"), "cuda")
+    return (plan, tuple(t.cuda() for t in tables)), (kplan, ktables)
+
+
+def _norm_bound(M: int, D: int, esize: int, n_bp: int, backward: bool) -> dict:
+    """The fused RMSNorm's least time: x read and y written once (the
+    backward: x and g read, dx written in f32, ds written), scale read once;
+    against ~4 f32 operations an element for the normalisation (10 for the
+    backward) and ~3 a breakpoint for a PWL decode.  An exact function's
+    libm operations are not counted (at 4096 x 768 they would need over 60
+    an element to pass the bytes)."""
+    if backward:
+        nbytes = M * D * (2 * esize + 4) + 2 * D * 4
+    else:
+        nbytes = 2 * M * D * esize + D * 4
+    return _f32_bound(nbytes, M * D * ((10 if backward else 4) + 3 * n_bp))
+
+
+def norm_phase(torch):
+    """``fused_rmsnorm`` (TPU kernels 17-18) on CUDA tensors against its
+    plain versions: the forward through ``fused_rmsnorm`` (its launches
+    counted), the backward through autograd under ``impl_bwd="fused"`` (its
+    ``bwd_launches`` counted; the gradient of x must be the kernel's dx) and
+    through ``fused_rmsnorm_bwd``; at repro-100m's training rows (4096 x
+    768) and olmoe-1b-7b's width (4096 x 2048) in bf16 (1e-2), and at the
+    JAX tests' odd widths (33 x 40, 21 x 48) in f32 (forward 1e-5, dx and ds
+    1e-4 of each one's max); each with the identity, gelu PWL (f32, bf16 and
+    int8 tables) and exact gelu epilogues.  ds must be bitwise the same from
+    a second backward.  Timed at 4096 x 768 (every epilogue but the bf16 and
+    int8 tables) and at 4096 x 2048 (the f32 table), against
+    ``torch.nn.functional.rms_norm`` (weight 1 + scale) and its autograd."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels.fused import fused_rmsnorm
+    from repro_torch.kernels.fused.norm import (
+        fused_rmsnorm_bwd,
+        fused_rmsnorm_bwd_plain,
+        fused_rmsnorm_plain,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    cases = [  # (name, M, D, dtype)
+        (f"{TRAIN_TOKENS} x {K_DIM} bf16", TRAIN_TOKENS, K_DIM, torch.bfloat16),
+        (f"{TRAIN_TOKENS} x {MOE_K} bf16", TRAIN_TOKENS, MOE_K, torch.bfloat16),
+        ("33 x 40 f32", 33, 40, torch.float32),
+        ("21 x 48 f32", 21, 48, torch.float32),
+    ]
+    rows = {}
+    for name, M, D, dtype in cases:
+        tol, gtol = (1e-2, 1e-2) if dtype == torch.bfloat16 else (1e-5, 1e-4)
+        x = (torch.randn(M, D, generator=gen, device=dev) * 3.0).to(dtype)
+        s = torch.randn(D, generator=gen, device=dev) * 0.3
+        g = torch.randn(M, D, generator=gen, device=dev).to(dtype)
+        for ep in NORM_EPILOGUES:
+            kw = _epilogue_kwargs(ep)
+            (plan, tables), (kplan, ktables) = _epilogue_operands(torch, kw)
+            what = f"fused_rmsnorm {name} {ep}"
+            xr = x.detach().requires_grad_(True)
+            n0, b0 = fused_rmsnorm.launches, fused_rmsnorm.bwd_launches
+            y = fused_rmsnorm(xr, s, impl_bwd="fused", **kw)
+            check(fused_rmsnorm.launches == n0 + 1, f"{what}: forward kernel not launched")
+            y.backward(g)
+            check(fused_rmsnorm.bwd_launches == b0 + 1, f"{what}: backward kernel not launched")
+            want = fused_rmsnorm_plain(x, s, plan, tables, NORM_EPS)
+            dx, ds = fused_rmsnorm_bwd(x, s, g, kplan, ktables)
+            _, ds2 = fused_rmsnorm_bwd(x, s, g, kplan, ktables)
+            wdx, wds = fused_rmsnorm_bwd_plain(x, s, g, plan, tables, NORM_EPS)
+            torch.cuda.synchronize()
+            check(y.dtype == dtype, f"{what}: output {y.dtype}")
+            err = _compare(torch, y, want, tol, what)
+            errs = [_compare_scaled(torch, dx, wdx, gtol, f"{what} dx"),
+                    _compare_scaled(torch, ds, wds, gtol, f"{what} ds")]
+            check(torch.equal(xr.grad, dx.to(dtype)), f"{what}: autograd's dx is not the kernel's")
+            check(torch.equal(ds, ds2), f"{what}: ds differs between two backward calls")
+            line = (f"[smoke] fused_rmsnorm {name} {ep}: max_abs_err {err:.3g} (tol {tol}), "
+                    f"backward dx {errs[0]:.3g} ds {errs[1]:.3g} (tol {gtol} of each max), ds "
+                    "bitwise repeatable")
+            timed = (M == TRAIN_TOKENS and ep in ("identity", "gelu PWL f32", "exact gelu")
+                     and (D == K_DIM or ep == "gelu PWL f32"))
+            if timed:
+                n_bp = 32 if "PWL" in ep else 0
+                w1 = (1.0 + s).to(dtype)
+                k_ms = time_ms(torch, lambda i: fused_rmsnorm(x, s, **kw))
+                p_ms = time_ms(torch, lambda i: fused_rmsnorm_plain(x, s, plan, tables,
+                                                                    NORM_EPS), reps=5, iters=4)
+                l_ms = time_ms(torch, lambda i: Fn.rms_norm(x, (D,), weight=w1, eps=NORM_EPS))
+                kb_ms = time_ms(torch, lambda i: fused_rmsnorm_bwd(x, s, g, kplan, ktables))
+                pb_ms = time_ms(torch, lambda i: fused_rmsnorm_bwd_plain(
+                    x, s, g, plan, tables, NORM_EPS), reps=5, iters=4)
+                xl, wl = x.detach().requires_grad_(True), w1.detach().requires_grad_(True)
+
+                def library(i):  # the autograd of rms_norm, forward included
+                    return torch.autograd.grad(Fn.rms_norm(xl, (D,), weight=wl, eps=NORM_EPS),
+                                               (xl, wl), g)
+
+                lb_ms = time_ms(torch, library)
+                esize = x.element_size()
+                rows[(name, ep)] = {
+                    "fwd": {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "max_abs_err": err,
+                            **_norm_bound(M, D, esize, n_bp, backward=False)},
+                    "bwd": {"ms": kb_ms, "plain_ms": pb_ms, "library_ms": lb_ms,
+                            "max_abs_err": max(errs),
+                            **_norm_bound(M, D, esize, n_bp, backward=True)}}
+                r = rows[(name, ep)]
+                line += (f"; forward kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, "
+                         f"F.rms_norm {l_ms * 1e3:.2f} us, bound {r['fwd']['bound_ms'] * 1e3:.2f}"
+                         f" us ({r['fwd']['bound_by']}); backward kernel {kb_ms * 1e3:.2f} us, "
+                         f"plain {pb_ms * 1e3:.2f} us, autograd of F.rms_norm {lb_ms * 1e3:.2f} "
+                         f"us, bound {r['bwd']['bound_ms'] * 1e3:.2f} us ({r['bwd']['bound_by']})")
+            print(line)
+    return rows
+
+
+def norm_path(torch) -> dict:
+    """The slice's own path, the op through its public entry point (no model
+    calls it, in the JAX package or here): counters reset, one forward and
+    one backward of ``fused_rmsnorm`` under autograd at repro-100m's
+    training rows (bf16, the gelu table), counters read."""
+    from repro_torch.kernels.fused import fused_rmsnorm
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    x = torch.randn(TRAIN_TOKENS, K_DIM, generator=gen, device=dev).to(torch.bfloat16)
+    s = (torch.randn(K_DIM, generator=gen, device=dev) * 0.3).requires_grad_(True)
+    xr = x.requires_grad_(True)
+    reset_counters()
+    y = fused_rmsnorm(xr, s, **_epilogue_kwargs("gelu PWL f32"))
+    torch.cos(y.float()).sum().backward()
+    torch.cuda.synchronize()
+    counts = read_counters()
+    check(bool(torch.isfinite(xr.grad.float()).all()) and bool(torch.isfinite(s.grad).all()),
+          "fused_rmsnorm path: non-finite gradients")
+    check(counts["fused_rmsnorm"] == 1 and counts["fused_rmsnorm_bwd"] == 1,
+          f"fused_rmsnorm path: launches {counts}")
+    return counts
+
+
+def _kink_grid(torch, gen, shape, dtype, span, step):
+    """Integer-grid values: every product and sum of them is exact in f32, so
+    the kernel's pre-activations equal the plain version's bit for bit and
+    the kinks -3, 0 and 3 are hit exactly."""
+    ints = torch.randint(-span, span + 1, shape, generator=gen, device="cuda")
+    return (ints.to(torch.float32) * step).to(dtype)
+
+
+def _check_kinks(torch, z, what: str) -> None:
+    for k in (-3.0, 0.0, 3.0):
+        check(bool((z == k).any()), f"{what}: no pre-activation at the kink {k}")
+
+
+def exact_epilogue_phase(torch):
+    """Every kernel that takes an epilogue plan, under exact (``act=``) and
+    identity plans, against its plain version on the card, forward and
+    backward: the GLU (gelu, hardswish, identity) at M = 512, K = 768,
+    N = 3072, the MoE GLU (the same) at E = 3, C = 37, K = 65, N = 130, the
+    linear layer (gelu, hardswish, tanh, identity) at M = 128, K = 768,
+    N = 3072 with a bias, in f32 on integer grids whose pre-activations hit
+    -3, 0 and 3 exactly (1e-4 of each output's max, as the PWL cases); the
+    row softmax, the split-KV decode and the flash attention with no table
+    (the exact exp inside the clamps; softmax rows at 1e-5, decode 1e-5,
+    flash forward 1e-5 and backward 1e-4, integer-grid scores with ties).
+    Timed at the main paths' shapes in bf16: the GLU at M = 4096 (gelu
+    forward and backward, identity forward), the MoE GLU at olmoe's decode
+    step (C = 1, gelu), the linear layer at whisper's decode step (M = 4)
+    and its backward at the training encoder's M = 12000 (gelu), the row
+    softmax forward and backward at the training rows, the decode at the
+    serving step, the flash forward and backward at S = T = 4096."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels.fused import (
+        fused_flash_attention,
+        fused_glu,
+        fused_linear,
+        fused_moe_glu,
+        fused_pwl_softmax,
+        paged_flash_decode,
+    )
+    from repro_torch.kernels.fused import attention as A
+    from repro_torch.kernels.fused.decoding import paged_flash_decode_plain
+    from repro_torch.kernels.fused.glu import fused_glu_bwd, fused_glu_bwd_plain, fused_glu_plain
+    from repro_torch.kernels.fused.linear import (
+        fused_linear_bwd,
+        fused_linear_bwd_plain,
+        fused_linear_plain,
+    )
+    from repro_torch.kernels.fused.softmax import (
+        fused_pwl_softmax_bwd,
+        fused_pwl_softmax_bwd_plain,
+        fused_pwl_softmax_plain,
+        static_mask,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    f32, bf16 = torch.float32, torch.bfloat16
+    rows = {}
+
+    def gated(name, fwd_kernel, fwd_plain, bwd_kernel, bwd_plain, counter, n_out):
+        """forward and backward of one epilogue against the plain versions"""
+        n0, b0 = counter.launches, counter.bwd_launches
+        got, want = fwd_kernel(), fwd_plain()
+        gb, wb = bwd_kernel(), bwd_plain()
+        check(counter.launches == n0 + 1 and counter.bwd_launches == b0 + 1,
+              f"{name}: kernels not launched")
+        torch.cuda.synchronize()
+        err = _compare_scaled(torch, got, want, 1e-4, name)
+        gb, wb = (gb, wb) if n_out == 2 else ((gb,), (wb,))
+        errs = [_compare_scaled(torch, a, b, 1e-4, f"{name} backward") for a, b in zip(gb, wb)]
+        print(f"[smoke] {name}: max_abs_err {err:.3g}, backward {max(errs):.3g} (tol 1e-4 of "
+              "each max)")
+
+    # the GLU and the MoE GLU: x on a 1/2 grid, weights on a 1/2 grid
+    for what, shape_x, shape_w, counter in (
+            ("fused_glu M=512 K=768 N=3072", (512, K_DIM), (K_DIM, N_DIM), fused_glu),
+            ("fused_moe_glu E=3 C=37 K=65 N=130", (3, 37, 65), (3, 65, 130), fused_moe_glu)):
+        x = _kink_grid(torch, gen, shape_x, f32, 2, 0.5)
+        wg = _kink_grid(torch, gen, shape_w, f32, 1, 0.5)
+        wu = _kink_grid(torch, gen, shape_w, f32, 1, 0.5)
+        g = torch.randn(*shape_x[:-1], shape_w[-1], generator=gen, device=dev)
+        _check_kinks(torch, x @ wg, what)
+        for act in ("gelu", "hardswish", None):
+            (plan, tables), _ = _epilogue_operands(torch, {"act": act})
+            gated(f"{what} {act or 'identity'} f32", lambda: counter(x, wg, wu, act=act),
+                  lambda: fused_glu_plain(x, wg, wu, plan, tables),
+                  lambda: fused_glu_bwd(x, wg, wu, g, plan, tables, counter),
+                  lambda: fused_glu_bwd_plain(x, wg, wu, g, plan, tables), counter, 2)
+
+    # the linear layer, with a bias on the 1/2 grid
+    x = _kink_grid(torch, gen, (128, K_DIM), f32, 2, 0.5)
+    w = _kink_grid(torch, gen, (K_DIM, N_DIM), f32, 1, 0.5)
+    b = _kink_grid(torch, gen, (N_DIM,), f32, 4, 0.5)
+    g = torch.randn(128, N_DIM, generator=gen, device=dev)
+    _check_kinks(torch, x @ w + b, "fused_linear")
+    for act in ("gelu", "hardswish", "tanh", None):
+        (plan, tables), _ = _epilogue_operands(torch, {"act": act})
+        gated(f"fused_linear M=128 K=768 N=3072 bias {act or 'identity'} f32",
+              lambda: fused_linear(x, w, b, act=act),
+              lambda: fused_linear_plain(x, w, b, plan, tables),
+              lambda: fused_linear_bwd(x, w, b, g, plan, tables),
+              lambda: fused_linear_bwd_plain(x, w, b, g, plan, tables), fused_linear, 1)
+
+    # the softmax chains with the exact exp (no table)
+    (eplan, etabs), _ = _epilogue_operands(torch, {"act": "exp"})
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    xs = _kink_grid(torch, gen, (B, 1, HKV, S, S), f32, 24, 0.125)
+    gs = torch.randn(xs.shape, generator=gen, device=dev)
+    x2, g2 = xs.reshape(-1, S), gs.reshape(-1, S)
+    mask2 = static_mask(x2.shape[0], S, S, True, None, device=dev)
+    live = mask2 > 0
+    xr = xs.clone().requires_grad_(True)
+    n0, b0 = fused_pwl_softmax.launches, fused_pwl_softmax.bwd_launches
+    got = fused_pwl_softmax(xr, causal=True)
+    (gx,) = torch.autograd.grad(got, xr, gs)
+    check(fused_pwl_softmax.launches == n0 + 1 and fused_pwl_softmax.bwd_launches == b0 + 1,
+          "softmax exact exp: kernels not launched")
+    err = _compare_probs(torch, got, fused_pwl_softmax_plain(x2, mask2, eplan, etabs), live, 1e-5,
+                         "softmax exact exp")
+    errb = _compare_rows(torch, gx, fused_pwl_softmax_bwd_plain(x2, mask2, g2, eplan, etabs),
+                         live, 1e-5, "softmax exact exp backward")
+    print(f"[smoke] fused_pwl_softmax {TRAIN_SOFTMAX} exact exp: max_abs_err {err:.3g}, backward "
+          f"{errb:.3g} (rows at 1e-5)")
+    k_ms = time_ms(torch, lambda i: fused_pwl_softmax(xs, causal=True))
+    p_ms = time_ms(torch, lambda i: fused_pwl_softmax_plain(x2, mask2, eplan, etabs), reps=5,
+                   iters=4)
+    l_ms = time_ms(torch, lambda i: torch.softmax(xs, dim=-1))
+    n = xs.numel()
+    rows["fused_pwl_softmax"] = {
+        "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "max_abs_err": err,
+        **_bound(_softmax_bytes(n, int(live.sum()), 1, False), 0.0)}
+    k_ms = time_ms(torch, lambda i: fused_pwl_softmax_bwd(x2, None, g2, eplan, etabs, S, True),
+                   reps=5, iters=4)
+    p_ms = time_ms(torch, lambda i: fused_pwl_softmax_bwd_plain(x2, mask2, g2, eplan, etabs),
+                   reps=2, iters=2)
+    xl = xs.clone().requires_grad_(True)  # a leaf whose graph no earlier call keeps alive
+    l_ms = time_ms(torch, lambda i: torch.autograd.grad(torch.softmax(xl, dim=-1), xl, gs),
+                   reps=5, iters=4)
+    rows["fused_pwl_softmax_bwd"] = {
+        "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "max_abs_err": errb,
+        **_bound(_softmax_bytes(n, int(live.sum()), 2, False), 0.0)}
+
+    # the split-KV decode, exact exp
+    kv_len, n_cols, P = [19, 32, 15, 0], 4, 17
+    tab = torch.zeros((4, n_cols), dtype=torch.int32)
+    for bi, r in enumerate(_fragmented_table(4, n_cols, P)):
+        tab[bi, :len(r)] = torch.tensor(r)
+    tab, lens = tab.to(dev), torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    for dtype, tol in ((bf16, 1e-2), (f32, 1e-5)):
+        q = torch.randn(4, 1, HKV, DH, generator=gen, device=dev).to(dtype)
+        kp = torch.randn(HKV, P, PS, DH, generator=gen, device=dev).to(dtype)
+        vp = torch.randn(HKV, P, PS, DH, generator=gen, device=dev).to(dtype)
+        n0 = paged_flash_decode.launches
+        got = paged_flash_decode(q, kp, vp, tab, lens)
+        check(paged_flash_decode.launches == n0 + 1, "decode exact exp: not launched")
+        want = paged_flash_decode_plain(q, kp, vp, tab, lens, eplan, etabs, n_cols)
+        torch.cuda.synchronize()
+        err = _compare(torch, got, want, tol, f"decode exact exp {dtype}")
+        print(f"[smoke] paged_flash_decode B=4 kv_len {{19,32,15,0}} exact exp {dtype}: "
+              f"max_abs_err {err:.3g} (tol {tol})")
+    qb, kb, vb = q.to(bf16), kp.to(bf16), vp.to(bf16)
+    k_ms = time_ms(torch, lambda i: paged_flash_decode(qb, kb, vb, tab, lens))
+    p_ms = time_ms(torch, lambda i: paged_flash_decode_plain(qb, kb, vb, tab, lens, eplan, etabs,
+                                                             n_cols), reps=3, iters=3)
+    live_pages = sum(-(-n // PS) for n in kv_len)
+    nbytes = 2 * live_pages * PS * DH * HKV * 2 + 2 * qb.numel() * 2 + tab.numel() * 4 + 16
+    rows["paged_flash_decode"] = {"ms": k_ms, "plain_ms": p_ms,
+                                  "library_ms": _decode_sdpa_ms(torch, qb, kb, vb, tab, lens),
+                                  "max_abs_err": err,
+                                  **_bound(nbytes, 4.0 * sum(kv_len) * HKV * DH)}
+
+    # the flash attention, exact exp: forward and backward, integer grids
+    for name, S_, T_, H, hkv, dtype, timed in (
+            ("S=T=1000 causal H=4 Hkv=2", 1000, 1000, 4, 2, f32, False),
+            ("S=T=4096 causal H=12", LONG_SEQ, LONG_SEQ, 12, HKV, bf16, True)):
+        q = _igrid(torch, gen, (1, S_, H, DH), dtype)
+        k = _igrid(torch, gen, (1, T_, hkv, DH), dtype)
+        v = _igrid(torch, gen, (1, T_, hkv, DH), dtype)
+        dout = _igrid(torch, gen, (1, S_, H, DH), dtype)
+        kw = dict(causal=True, window=None, q_offset=0, kv_valid_len=None)
+        n0 = fused_flash_attention.launches
+        got = fused_flash_attention(q, k, v, causal=True)
+        check(fused_flash_attention.launches == n0 + 1, "flash exact exp: not launched")
+        _, m = A._launch(q, k, v, eplan, etabs, True, None, 0, None, True)
+        want, m_plain = A.fused_flash_attention_plain(q, k, v, eplan, etabs, **kw)
+        b0 = fused_flash_attention.bwd_launches
+        grads = A.fused_flash_attention_bwd(q, k, v, dout, m, eplan, etabs, **kw)
+        check(fused_flash_attention.bwd_launches == b0 + 1, "flash exact exp bwd: not launched")
+        wgrads = A.fused_flash_attention_bwd_plain(q, k, v, dout, m, eplan, etabs, **kw)
+        torch.cuda.synchronize()
+        what = f"flash {name} exact exp {dtype}"
+        check(torch.equal(m, m_plain), f"{what}: the kernel's row max is not the plain one's")
+        tol = 1e-2 if dtype == bf16 else 1e-5
+        err = _compare(torch, got, want, tol, what)
+        errs = [_compare_scaled(torch, a, b_, 1e-2 if dtype == bf16 else 1e-4, f"{what} d{n}")
+                for n, a, b_ in zip("qkv", grads, wgrads)]
+        print(f"[smoke] fused_flash_attention {name} exact exp {dtype}: max_abs_err {err:.3g}, "
+              f"backward {max(errs):.3g}")
+        if timed:
+            pairs = H * S_ * (S_ + 1) / 2
+            qh, kh, vh = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
+            k_ms = time_ms(torch, lambda i: fused_flash_attention(q, k, v, causal=True),
+                           reps=5, iters=4)
+            p_ms = time_ms(torch, lambda i: A.fused_flash_attention_plain(
+                q, k, v, eplan, etabs, **kw), reps=2, iters=2)
+            l_ms = time_ms(torch, lambda i: Fn.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True))
+            rows["fused_flash_attention"] = {
+                "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "max_abs_err": err,
+                **_bound((2 * q.numel() + 2 * k.numel()) * 2, 4.0 * pairs * DH)}
+            kb_ms = time_ms(torch, lambda i: A.fused_flash_attention_bwd(
+                q, k, v, dout, m, eplan, etabs, **kw), reps=3, iters=3)
+            pb_ms = time_ms(torch, lambda i: A.fused_flash_attention_bwd_plain(
+                q, k, v, dout, m, eplan, etabs, **kw), reps=1, iters=2)
+            qg, kg, vg = (t.detach().requires_grad_(True) for t in (qh, kh, vh))
+            doh = dout.permute(0, 2, 1, 3).contiguous()
+            lb_ms = time_ms(torch, lambda i: torch.autograd.grad(
+                Fn.scaled_dot_product_attention(qg, kg, vg, is_causal=True), (qg, kg, vg), doh),
+                reps=5, iters=4)
+            rows["fused_flash_attention_bwd"] = {
+                "ms": kb_ms, "plain_ms": pb_ms, "library_ms": lb_ms, "max_abs_err": max(errs),
+                **_bound(7 * q.numel() * 2 + m.numel() * 4, 10.0 * pairs * DH)}
+
+    # timings of the matmul-family kernels at the main paths' shapes, bf16
+    (gplan, gtabs), _ = _epilogue_operands(torch, {"act": "gelu"})
+    x = torch.randn(TRAIN_TOKENS, K_DIM, generator=gen, device=dev).to(bf16)
+    wg = (torch.randn(K_DIM, N_DIM, generator=gen, device=dev) / math.sqrt(K_DIM)).to(bf16)
+    wu = (torch.randn(K_DIM, N_DIM, generator=gen, device=dev) / math.sqrt(K_DIM)).to(bf16)
+    g = torch.randn(TRAIN_TOKENS, N_DIM, generator=gen, device=dev).to(bf16)
+    wcat = torch.cat([wg, wu], dim=1)
+    for act, key in (("gelu", "fused_glu"), (None, "fused_glu identity")):
+        (plan, tables), _ = _epilogue_operands(torch, {"act": act})
+        err = _compare(torch, fused_glu(x, wg, wu, act=act),
+                       fused_glu_plain(x, wg, wu, plan, tables), 1e-2, f"fused_glu M=4096 {act} bf16")
+        rows[key] = {"ms": time_ms(torch, lambda i: fused_glu(x, wg, wu, act=act), reps=5,
+                                   iters=4),
+                     "plain_ms": time_ms(torch, lambda i: fused_glu_plain(x, wg, wu, plan, tables),
+                                         reps=3, iters=3),
+                     "library_ms": time_ms(torch, lambda i: torch.matmul(x, wcat), reps=5, iters=4),
+                     "max_abs_err": err,
+                     **_bound((TRAIN_TOKENS * K_DIM + 2 * K_DIM * N_DIM + TRAIN_TOKENS * N_DIM) * 2,
+                              4.0 * TRAIN_TOKENS * K_DIM * N_DIM)}
+    dzg, dzu = fused_glu_bwd(x, wg, wu, g, gplan, gtabs)
+    wdzg, wdzu = fused_glu_bwd_plain(x, wg, wu, g, gplan, gtabs)
+    err = max(_compare_scaled(torch, dzg, wdzg, 1e-2, "fused_glu bwd gelu bf16"),
+              _compare_scaled(torch, dzu, wdzu, 1e-2, "fused_glu bwd gelu bf16"))
+    rows["fused_glu_bwd"] = {
+        "ms": time_ms(torch, lambda i: fused_glu_bwd(x, wg, wu, g, gplan, gtabs), reps=5, iters=4),
+        "plain_ms": time_ms(torch, lambda i: fused_glu_bwd_plain(x, wg, wu, g, gplan, gtabs),
+                            reps=3, iters=3),
+        "library_ms": time_ms(torch, lambda i: torch.matmul(x, wcat), reps=5, iters=4),
+        "max_abs_err": err,
+        **_bound((TRAIN_TOKENS * K_DIM + 2 * K_DIM * N_DIM + TRAIN_TOKENS * N_DIM) * 2
+                 + 2 * TRAIN_TOKENS * N_DIM * 4, 4.0 * TRAIN_TOKENS * K_DIM * N_DIM)}
+    # the MoE GLU at olmoe's decode step: E = 64, C = 1
+    xm = torch.randn(MOE_E, 1, MOE_K, generator=gen, device=dev).to(bf16)
+    wgm = (torch.randn(MOE_E, MOE_K, MOE_N, generator=gen, device=dev) / math.sqrt(MOE_K)).to(bf16)
+    wum = (torch.randn(MOE_E, MOE_K, MOE_N, generator=gen, device=dev) / math.sqrt(MOE_K)).to(bf16)
+    wmcat = torch.cat([wgm, wum], dim=2)
+    err = _compare(torch, fused_moe_glu(xm, wgm, wum, act="gelu"),
+                   fused_glu_plain(xm, wgm, wum, gplan, gtabs), 1e-2, "fused_moe_glu C=1 gelu")
+    rows["fused_moe_glu"] = {
+        "ms": time_ms(torch, lambda i: fused_moe_glu(xm, wgm, wum, act="gelu"), reps=5, iters=4),
+        "plain_ms": time_ms(torch, lambda i: fused_glu_plain(xm, wgm, wum, gplan, gtabs), reps=3,
+                            iters=3),
+        "library_ms": time_ms(torch, lambda i: torch.bmm(xm, wmcat), reps=5, iters=4),
+        "max_abs_err": err,
+        **_bound(_moe_bytes(MOE_E, 1, MOE_K, MOE_N, 2), 4.0 * MOE_E * MOE_K * MOE_N)}
+    del wgm, wum, wmcat
+    # the linear layer: whisper's decode step forward, the training encoder's backward
+    w = (torch.randn(K_DIM, N_DIM, generator=gen, device=dev) / math.sqrt(K_DIM)).to(bf16)
+    b = (torch.randn(N_DIM, generator=gen, device=dev) * 0.1).to(bf16)
+    x4 = torch.randn(4, K_DIM, generator=gen, device=dev).to(bf16)
+    err = _compare(torch, fused_linear(x4, w, b, act="gelu"),
+                   fused_linear_plain(x4, w, b, gplan, gtabs), 1e-2, "fused_linear M=4 gelu")
+    rows["fused_linear"] = {
+        "ms": time_ms(torch, lambda i: fused_linear(x4, w, b, act="gelu")),
+        "plain_ms": time_ms(torch, lambda i: fused_linear_plain(x4, w, b, gplan, gtabs), reps=3,
+                            iters=3),
+        "library_ms": time_ms(torch, lambda i: torch.addmm(b, x4, w)), "max_abs_err": err,
+        **_bound((4 * K_DIM + K_DIM * N_DIM + N_DIM + 4 * N_DIM) * 2, 2.0 * 4 * K_DIM * N_DIM)}
+    M = WHISPER_TRAIN_BATCH * WHISPER_FRAMES
+    xl = torch.randn(M, K_DIM, generator=gen, device=dev).to(bf16)
+    gl = torch.randn(M, N_DIM, generator=gen, device=dev).to(bf16)
+    err = _compare_scaled(torch, fused_linear_bwd(xl, w, b, gl, gplan, gtabs),
+                          fused_linear_bwd_plain(xl, w, b, gl, gplan, gtabs), 1e-2,
+                          "fused_linear bwd M=12000 gelu")
+    xlr, wr, br = (t.detach().requires_grad_(True) for t in (xl, w, b))
+    rows["fused_linear_bwd"] = {
+        "ms": time_ms(torch, lambda i: fused_linear_bwd(xl, w, b, gl, gplan, gtabs), reps=5,
+                      iters=4),
+        "plain_ms": time_ms(torch, lambda i: fused_linear_bwd_plain(xl, w, b, gl, gplan, gtabs),
+                            reps=3, iters=3),
+        "library_ms": time_ms(torch, lambda i: torch.autograd.grad(
+            torch.addmm(br, xlr, wr), (xlr, wr, br), gl), reps=5, iters=4),
+        "max_abs_err": err,
+        **_bound((M * K_DIM + K_DIM * N_DIM + N_DIM + M * N_DIM) * 2 + M * N_DIM * 4,
+                 2.0 * M * K_DIM * N_DIM)}
+    for key, r in rows.items():
+        lib = "-" if r["library_ms"] is None else f"{r['library_ms'] * 1e3:.2f} us"
+        print(f"[smoke] exact/identity epilogue {key}: kernel {r['ms'] * 1e3:.2f} us, plain "
+              f"{r['plain_ms'] * 1e3:.2f} us, library {lib}, bound {r['bound_ms'] * 1e3:.2f} us "
+              f"({r['bound_by']})")
+    return rows
+
+
+def exact_path(torch) -> dict:
+    """The exact and identity epilogues through the ops' public entry points
+    (no model path takes them: the models always pass a table): counters
+    reset, then a forward and, where the op has one, a backward under
+    autograd of each at a small shape, counters read."""
+    from repro_torch.kernels import fused
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(18)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).requires_grad_(True)
+
+    reset_counters()
+    outs = [fused.fused_glu(rnd(64, K_DIM), rnd(K_DIM, N_DIM), rnd(K_DIM, N_DIM), act="gelu"),
+            fused.fused_moe_glu(rnd(4, 8, 64), rnd(4, 64, 96), rnd(4, 64, 96), act="hardswish"),
+            fused.fused_linear(rnd(64, K_DIM), rnd(K_DIM, N_DIM), rnd(N_DIM), act="gelu"),
+            fused.fused_linear(rnd(64, K_DIM), rnd(K_DIM, N_DIM), rnd(N_DIM)),
+            fused.fused_rmsnorm(rnd(64, K_DIM), rnd(K_DIM), act="gelu"),
+            fused.fused_pwl_softmax(rnd(2, HKV, 32, 32), causal=True),
+            fused.fused_flash_attention(rnd(1, 256, HKV, DH), rnd(1, 256, HKV, DH),
+                                        rnd(1, 256, HKV, DH))]
+    torch.stack([torch.cos(o.float()).sum() for o in outs]).sum().backward()
+    pt = torch.arange(8, dtype=torch.int32, device=dev).reshape(2, 4) + 1
+    fused.paged_flash_decode(torch.randn(2, 1, HKV, DH, device=dev),
+                             torch.randn(HKV, 9, PS, DH, device=dev),
+                             torch.randn(HKV, 9, PS, DH, device=dev), pt,
+                             torch.tensor([40, 64], dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    counts = read_counters()
+    want = {"fused_glu": 1, "fused_moe_glu": 1, "fused_linear": 2, "fused_rmsnorm": 1,
+            "fused_pwl_softmax": 1, "fused_flash_attention": 1, "paged_flash_decode": 1,
+            "fused_glu_bwd": 1, "fused_moe_glu_bwd": 1, "fused_linear_bwd": 2,
+            "fused_rmsnorm_bwd": 1, "fused_pwl_softmax_bwd": 1, "fused_flash_attention_bwd": 1}
+    for name, n in counts.items():
+        check(n == want.get(name, 0), f"exact-epilogue path: {name} launches {n}")
+    return counts
+
+
+GEMMA_H, GEMMA_HKV, GEMMA_DH, GEMMA_WINDOW = 4, 1, 256, 512  # gemma3-1b's attention
+GEMMA_SEQ = 2048
+
+
+def dh256_phase(torch):
+    """Head dim 256 at gemma3-1b's attention shape (H = 4, Hkv = 1, bf16):
+    the flash forward and backward at B = 1, S = T = 2048, causal, once
+    with its 512-token window and once without, against their plain
+    versions (integer-grid inputs: the kernel's row max must equal the plain
+    chain's bitwise; forward 1e-2, dq, dk, dv 1e-2 of each max), and in f32
+    at S = T = 700 (1e-5, 1e-4); the split-KV decode at dh 256 (bf16 1e-2,
+    f32 1e-5).  Timed in bf16 against ``scaled_dot_product_attention`` over
+    the K/V repeated to the 4 query heads (the repeat not timed)."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels.fused import fused_flash_attention, paged_flash_decode
+    from repro_torch.kernels.fused import attention as A
+    from repro_torch.kernels.fused.decoding import paged_flash_decode_plain
+
+    dev = torch.device("cuda")
+    table, plan, tables = _exp_table(torch)
+    gen = torch.Generator(device=dev).manual_seed(19)
+    H, hkv, dh = GEMMA_H, GEMMA_HKV, GEMMA_DH
+    rows = {}
+    cases = [(f"S=T={GEMMA_SEQ} causal", GEMMA_SEQ, torch.bfloat16, None, True),
+             (f"S=T={GEMMA_SEQ} causal window {GEMMA_WINDOW}", GEMMA_SEQ, torch.bfloat16,
+              GEMMA_WINDOW, True),
+             ("S=T=700 causal", 700, torch.float32, None, False),
+             ("S=T=700 causal window 128", 700, torch.float32, 128, False)]
+    for name, S, dtype, window, timed in cases:
+        q = _igrid(torch, gen, (1, S, H, dh), dtype)
+        k = _igrid(torch, gen, (1, S, hkv, dh), dtype)
+        v = _igrid(torch, gen, (1, S, hkv, dh), dtype)
+        dout = _igrid(torch, gen, (1, S, H, dh), dtype)
+        kw = dict(causal=True, window=window, q_offset=0, kv_valid_len=None)
+        what = f"dh 256 flash {name} {dtype}"
+        n0 = fused_flash_attention.launches
+        got = fused_flash_attention(q, k, v, table=table, causal=True, window=window)
+        check(fused_flash_attention.launches == n0 + 1, f"{what}: not launched")
+        out_m, m = A._launch(q, k, v, plan, tables, True, window, 0, None, True)
+        want, m_plain = A.fused_flash_attention_plain(q, k, v, plan, tables, **kw)
+        b0 = fused_flash_attention.bwd_launches
+        grads = A.fused_flash_attention_bwd(q, k, v, dout, m, plan, tables, **kw)
+        check(fused_flash_attention.bwd_launches == b0 + 1, f"{what}: backward not launched")
+        wgrads = A.fused_flash_attention_bwd_plain(q, k, v, dout, m, plan, tables, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(got, out_m), f"{what}: the output changes with m written")
+        check(torch.equal(m, m_plain), f"{what}: the kernel's row max is not the plain one's")
+        tol, gtol = (1e-2, 1e-2) if dtype == torch.bfloat16 else (1e-5, 1e-4)
+        err = _compare(torch, got, want, tol, what)
+        errs = [_compare_scaled(torch, a, b, gtol, f"{what} d{n}")
+                for n, a, b in zip("qkv", grads, wgrads)]
+        line = (f"[smoke] fused_flash_attention dh=256 H={H} Hkv={hkv} {name} {dtype}: "
+                f"max_abs_err {err:.3g} (tol {tol}), backward dq {errs[0]:.3g} dk {errs[1]:.3g} "
+                f"dv {errs[2]:.3g} (tol {gtol} of each max)")
+        if timed:
+            qh, kh, vh = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
+            kh, vh = (t.repeat_interleave(H // hkv, dim=1) for t in (kh, vh))
+            pos = torch.arange(S, device=dev)
+            keep = pos[None, :] <= pos[:, None]
+            if window is not None:
+                keep &= (pos[:, None] - pos[None, :]) < window
+            sdpa = dict(is_causal=True) if window is None else dict(attn_mask=keep)
+            k_ms = time_ms(torch, lambda i: fused_flash_attention(
+                q, k, v, table=table, causal=True, window=window), reps=5, iters=4)
+            p_ms = time_ms(torch, lambda i: A.fused_flash_attention_plain(
+                q, k, v, plan, tables, **kw), reps=2, iters=2)
+            l_ms = time_ms(torch, lambda i: Fn.scaled_dot_product_attention(qh, kh, vh, **sdpa))
+            pairs = H * int(keep.sum())
+            rows[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "max_abs_err": err,
+                          **_bound((2 * q.numel() + 2 * k.numel()) * 2, 4.0 * pairs * dh)}
+            kb_ms = time_ms(torch, lambda i: A.fused_flash_attention_bwd(
+                q, k, v, dout, m, plan, tables, **kw), reps=3, iters=3)
+            pb_ms = time_ms(torch, lambda i: A.fused_flash_attention_bwd_plain(
+                q, k, v, dout, m, plan, tables, **kw), reps=1, iters=2)
+            qg, kg, vg = (t.detach().requires_grad_(True) for t in (qh, kh, vh))
+            doh = dout.permute(0, 2, 1, 3).contiguous()
+            lb_ms = time_ms(torch, lambda i: torch.autograd.grad(
+                Fn.scaled_dot_product_attention(qg, kg, vg, **sdpa), (qg, kg, vg), doh),
+                reps=5, iters=4)
+            rows[name + " bwd"] = {
+                "ms": kb_ms, "plain_ms": pb_ms, "library_ms": lb_ms, "max_abs_err": max(errs),
+                **_bound((4 * q.numel() + 3 * k.numel()) * 2 + m.numel() * 4,
+                         10.0 * pairs * dh)}
+            line += (f"; forward kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, SDPA "
+                     f"{l_ms * 1e3:.1f} us, bound {rows[name]['bound_ms'] * 1e3:.1f} us; backward "
+                     f"kernels {kb_ms * 1e3:.1f} us, plain {pb_ms * 1e3:.1f} us, autograd of SDPA "
+                     f"{lb_ms * 1e3:.1f} us, bound {rows[name + ' bwd']['bound_ms'] * 1e3:.1f} us")
+        print(line)
+
+    # the split-KV decode at dh 256: 4 slots over the one KV head, G = 4
+    kv_len, n_cols = [19, 32, 15, 2100], 132
+    P = 4 * n_cols + 1
+    tab = torch.zeros((4, n_cols), dtype=torch.int32)
+    for bi, r in enumerate(_fragmented_table(4, n_cols, P)):
+        tab[bi, :len(r)] = torch.tensor(r)
+    tab, lens = tab.to(dev), torch.tensor(kv_len, dtype=torch.int32, device=dev)
+    pps = 2048 // PS
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-5)):
+        q = torch.randn(4, 1, H, dh, generator=gen, device=dev).to(dtype)
+        kp = torch.randn(hkv, P, PS, dh, generator=gen, device=dev).to(dtype)
+        vp = torch.randn(hkv, P, PS, dh, generator=gen, device=dev).to(dtype)
+        n0 = paged_flash_decode.launches
+        got = paged_flash_decode(q, kp, vp, tab, lens, table=table)
+        check(paged_flash_decode.launches == n0 + 1, "dh 256 decode: not launched")
+        want = paged_flash_decode_plain(q, kp, vp, tab, lens, plan, tables, min(pps, n_cols))
+        torch.cuda.synchronize()
+        err = _compare(torch, got, want, tol, f"dh 256 decode {dtype}")
+        print(f"[smoke] paged_flash_decode dh=256 H={H} Hkv={hkv} kv_len {kv_len} {dtype}: "
+              f"max_abs_err {err:.3g} (tol {tol})")
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, kp, vp))
+    k_ms = time_ms(torch, lambda i: paged_flash_decode(qb, kb, vb, tab, lens, table=table))
+    p_ms = time_ms(torch, lambda i: paged_flash_decode_plain(qb, kb, vb, tab, lens, plan, tables,
+                                                             min(pps, n_cols)), reps=3, iters=3)
+    live_pages = sum(-(-n // PS) for n in kv_len)
+    nbytes = 2 * live_pages * PS * dh * hkv * 2 + 2 * qb.numel() * 2 + tab.numel() * 4 + 16
+    rows["decode"] = {"ms": k_ms, "plain_ms": p_ms,
+                      "library_ms": _decode_sdpa_ms(torch, qb, kb, vb, tab, lens),
+                      "max_abs_err": err, **_bound(nbytes, 4.0 * sum(kv_len) * H * dh)}
+    print(f"[smoke] paged_flash_decode dh=256: kernel {k_ms * 1e3:.2f} us, plain "
+          f"{p_ms * 1e3:.2f} us, SDPA {rows['decode']['library_ms'] * 1e3:.2f} us, bound "
+          f"{rows['decode']['bound_ms'] * 1e3:.3f} us")
+    return rows
+
+
+def dh256_path(torch) -> dict:
+    """gemma3-1b's attention at dh 256 through the ops' public entry points:
+    counters reset, one flash forward and backward under autograd (B = 1,
+    S = T = 2048, causal, the 512 window, bf16) and one paged decode step,
+    counters read."""
+    from repro_torch.kernels import fused
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    table = _exp_table(torch)[0]
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q = rnd(1, GEMMA_SEQ, GEMMA_H, GEMMA_DH).requires_grad_(True)
+    k = rnd(1, GEMMA_SEQ, GEMMA_HKV, GEMMA_DH).requires_grad_(True)
+    v = rnd(1, GEMMA_SEQ, GEMMA_HKV, GEMMA_DH).requires_grad_(True)
+    reset_counters()
+    out = fused.fused_flash_attention(q, k, v, table=table, causal=True, window=GEMMA_WINDOW)
+    torch.cos(out.float()).sum().backward()
+    pt = torch.arange(8, dtype=torch.int32, device=dev).reshape(2, 4) + 1
+    fused.paged_flash_decode(rnd(2, 1, GEMMA_H, GEMMA_DH), rnd(GEMMA_HKV, 9, PS, GEMMA_DH),
+                             rnd(GEMMA_HKV, 9, PS, GEMMA_DH), pt,
+                             torch.tensor([40, 64], dtype=torch.int32, device=dev), table=table)
+    torch.cuda.synchronize()
+    counts = read_counters()
+    check(all(bool(torch.isfinite(t.grad.float()).all()) for t in (q, k, v)),
+          "dh 256 path: non-finite gradients")
+    check(counts["fused_flash_attention"] == 1 and counts["fused_flash_attention_bwd"] == 1
+          and counts["paged_flash_decode"] == 1, f"dh 256 path: launches {counts}")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -2322,6 +3018,13 @@ def main() -> int:
         fl_bwd = flash_bwd_phase(torch)
         lin_bwd = linear_bwd_phase(torch)
         mark("backward kernel phases")
+        nrm = norm_phase(torch)
+        norm_counts = norm_path(torch)
+        exact = exact_epilogue_phase(torch)
+        exact_counts = exact_path(torch)
+        d256 = dh256_phase(torch)
+        d256_counts = dh256_path(torch)
+        mark("slice 7 phases (RMSNorm, exact and identity epilogues, head dim 256)")
         main_counts = serve_phase(torch, [], no_attention_kernels)
         serve_phase(torch, ["--batch", "8", "--prompt-len", "256", "--max-new", "32"],
                     no_attention_kernels)
@@ -2380,6 +3083,14 @@ def main() -> int:
         path_counts["pwl_activation"] = kernel_counts["pwl_activation"]
         path_counts["fused_linear"] = whisper_counts["fused_linear"]
         path_counts["fused_linear_bwd"] = whisper_trained["counts"]["fused_linear_bwd"]
+        for name in ("fused_rmsnorm", "fused_rmsnorm_bwd"):
+            path_counts[name] = norm_counts[name]
+        for name, n in exact_counts.items():
+            if n:
+                path_counts[f"{name} exact"] = n
+        for name, n in d256_counts.items():
+            if n:
+                path_counts[f"{name} dh256"] = n
         for name, n in path_counts.items():
             check(n > 0, f"{name} never launched on its serving or training path")
     except SmokeFailure as e:
@@ -2461,6 +3172,73 @@ def main() -> int:
          "launches": path_counts["fused_linear_bwd"],
          **lin_bwd[WHISPER_TRAIN_BATCH * WHISPER_FRAMES]},
     ]
+    # slice 7: kernels 17-18 (on no model path: launches from the op's own
+    # path), the exact and identity epilogues (launches of each wrapper in
+    # the exact-epilogue path, both kinds together) and head dim 256
+    norm_src, fused_src = "src/repro_torch/csrc/norm.cu", "src/repro/kernels/fused"
+    for D, ep, tag in ((K_DIM, "gelu PWL f32", ""), (MOE_K, "gelu PWL f32", "[D=2048]"),
+                       (K_DIM, "identity", "[identity]"), (K_DIM, "exact gelu", "[act=gelu]")):
+        counts = norm_counts if ep == "gelu PWL f32" else exact_counts
+        r = nrm[(f"{TRAIN_TOKENS} x {D} bf16", ep)]
+        for bwd, line in ((False, 31), (True, 102)):
+            suffix = "_bwd" if bwd else ""
+            kernels.append({
+                "name": f"fused_rmsnorm{suffix}{tag}", "route": "cuda", "source": norm_src,
+                "replaces": f"{fused_src}/norm.py:{line}",
+                "shape": f"M={TRAIN_TOKENS} D={D} bf16, {ep} (repro-100m's training rows; "
+                         "olmoe's width at D=2048)",
+                "launches": counts[f"fused_rmsnorm{suffix}"], **r["bwd" if bwd else "fwd"]})
+    variants = [  # (name, source, replaces, shape, counter, row of exact_epilogue_phase)
+        ("fused_glu[act=gelu]", "glu.cu", "glu.py:30", f"M={TRAIN_TOKENS} K={K_DIM} N={N_DIM} bf16",
+         "fused_glu", "fused_glu"),
+        ("fused_glu[identity]", "glu.cu", "glu.py:30", f"M={TRAIN_TOKENS} K={K_DIM} N={N_DIM} bf16",
+         "fused_glu", "fused_glu identity"),
+        ("fused_glu_bwd[act=gelu]", "glu.cu", "glu.py:97",
+         f"M={TRAIN_TOKENS} K={K_DIM} N={N_DIM} bf16", "fused_glu_bwd", "fused_glu_bwd"),
+        ("fused_moe_glu[act=gelu]", "glu.cu", "moe.py:41",
+         f"E={MOE_E} C=1 K={MOE_K} N={MOE_N} bf16", "fused_moe_glu", "fused_moe_glu"),
+        ("fused_linear[act=gelu]", "glu.cu", "linear.py:54", f"M=4 K={K_DIM} N={N_DIM} bf16, bias",
+         "fused_linear", "fused_linear"),
+        ("fused_linear_bwd[act=gelu]", "glu.cu", "linear.py:137",
+         f"M={WHISPER_TRAIN_BATCH * WHISPER_FRAMES} K={K_DIM} N={N_DIM} bf16, bias",
+         "fused_linear_bwd", "fused_linear_bwd"),
+        ("fused_pwl_softmax[act=exp]", "softmax.cu", "softmax.py:69", f"{TRAIN_SOFTMAX} f32",
+         "fused_pwl_softmax", "fused_pwl_softmax"),
+        ("fused_pwl_softmax_bwd[act=exp]", "softmax.cu", "softmax.py:213", f"{TRAIN_SOFTMAX} f32",
+         "fused_pwl_softmax_bwd", "fused_pwl_softmax_bwd"),
+        ("paged_flash_decode[act=exp]", "decoding.cu", "decoding.py:72",
+         f"B=4 Hkv={HKV} dh={DH} ps={PS} bf16, kv_len 19/32/15/0", "paged_flash_decode",
+         "paged_flash_decode"),
+        ("fused_flash_attention[act=exp]", "attention.cu", "attention.py:100",
+         f"S=T={LONG_SEQ} causal H={HKV} dh={DH} bf16", "fused_flash_attention",
+         "fused_flash_attention"),
+        ("fused_flash_attention_bwd[act=exp]", "attention_bwd.cu",
+         "attention.py:334/396/445/498", f"S=T={LONG_SEQ} causal H={HKV} dh={DH} bf16",
+         "fused_flash_attention_bwd", "fused_flash_attention_bwd"),
+    ]
+    for name, src, rep, shape, counter, key in variants:
+        kernels.append({"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{src}",
+                        "replaces": f"{fused_src}/{rep}", "shape": shape,
+                        "launches": exact_counts[counter], **exact[key]})
+    gemma = f"B=1 S=T={GEMMA_SEQ} H={GEMMA_H} Hkv={GEMMA_HKV} dh={GEMMA_DH} bf16 (gemma3-1b)"
+    for key, tag in ((f"S=T={GEMMA_SEQ} causal window {GEMMA_WINDOW}", "window 512"),
+                     (f"S=T={GEMMA_SEQ} causal", "causal")):
+        for bwd in (False, True):
+            suffix = "_bwd" if bwd else ""
+            kernels.append({
+                "name": f"fused_flash_attention{suffix}[dh=256, {tag}]", "route": "cuda",
+                "source": f"src/repro_torch/csrc/attention{suffix}.cu",
+                "replaces": f"{fused_src}/attention.py:" + ("334/396/445/498" if bwd else "100"),
+                "shape": f"{gemma}, causal" + (f", window {GEMMA_WINDOW}" if "window" in tag
+                                               else ""),
+                "launches": d256_counts[f"fused_flash_attention{suffix}"],
+                **d256[key + (" bwd" if bwd else "")]})
+    kernels.append({"name": "paged_flash_decode[dh=256]", "route": "cuda",
+                    "source": "src/repro_torch/csrc/decoding.cu",
+                    "replaces": f"{fused_src}/decoding.py:72",
+                    "shape": f"B=4 H={GEMMA_H} Hkv={GEMMA_HKV} dh={GEMMA_DH} ps={PS} bf16, kv_len "
+                             "19/32/15/2100",
+                    "launches": d256_counts["paged_flash_decode"], **d256["decode"]})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     print(f"[smoke] whisper-small train step {whisper_trained['step_ms']:.1f} ms median, "

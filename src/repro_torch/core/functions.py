@@ -44,8 +44,22 @@ def _softplus(x):
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
+def tie_max(x, c: float):
+    """``torch.maximum(x, c)``: its gradient is 0.5 at a tie, as jnp's
+    ``maximum``.  The constant is filled on x's device (no host copy, so a
+    CUDA graph can capture it)."""
+    return torch.maximum(x, torch.full((), c, dtype=x.dtype, device=x.device))
+
+
+def tie_min(x, c: float):
+    """``torch.minimum(x, c)``, split 0.5 at a tie as :func:`tie_max`."""
+    return torch.minimum(x, torch.full((), c, dtype=x.dtype, device=x.device))
+
+
 def _hardswish(x):
-    return x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0
+    # jnp.clip is minimum(maximum(.)): slope -1/4 at -3 and 5/4 at 3, where
+    # torch.clamp would pass the whole gradient at its bounds
+    return x * tie_min(tie_max(x + 3.0, 0.0), 6.0) / 6.0
 
 
 def _elu(x):

@@ -30,41 +30,50 @@
 // decodes ~100 M scores at ~3 * n_bp f32 operations each, so it is bound by
 // operations.  This first version runs the products as f32 FMAs on CUDA
 // cores (tensor cores are later work).  The design: a block owns 64 query rows
-// of one head, keeps their Q tile in shared memory, and for each 512-key block
-// computes the whole 64 x 512 f32 score tile into shared memory (132 KB),
-// 64 keys of K at a time; takes the per-row block max; decodes the
-// probabilities in place; then multiplies them into V, 64 keys at a time, with
-// a 4 x (dh / 16) register tile of the output per thread.  Rows are padded in
-// shared memory so the three phases read without bank conflicts.
+// of one head (32 at dh > 128), keeps their Q tile in shared memory, and for
+// each 512-key block computes the whole 64 x 512 f32 score tile into shared
+// memory (132 KB), 64 keys of K at a time; takes the per-row block max;
+// decodes the probabilities in place; then multiplies them into V, 64 keys at
+// a time, with a 4 x (dh / 16) register tile of the output per thread (2 x
+// (dh / 16) at dh > 128).  Rows are padded in shared memory so the three
+// phases read without bank conflicts.  pwl is the launch's epilogue
+// (epilogue.cuh): the exp table, or the exact exp (act="exp", the default of
+// the JAX op without a table) inside the same clamps.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "pwl_decode.cuh"
+#include "epilogue.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int BQ = 64;          // query rows per block
 constexpr int KC = 64;          // keys per staged K or V chunk
 constexpr int BKV_MAX = 512;    // the chain's block width
 constexpr int SST = BKV_MAX + 4;  // score row stride (bank offset 4 per row)
-constexpr int MAX_DH = 128;
-constexpr int MAX_NJ = MAX_DH / 16;
+constexpr int MAX_DH = 256;
+constexpr int SMALL_DH = 128;   // up to here: 64 query rows a block
 
-size_t smem_bytes(int dh) {
-  return ((size_t)BQ * (dh + 1) + (size_t)KC * (dh + 1) + (size_t)BQ * SST) * sizeof(float);
+// Two tilings, one instantiation each: dh <= 128 keeps 64 query rows a block
+// (the order of every sum as before), dh up to 256 takes 32, so that its
+// Q, K/V and score tiles fit the 227 KB of shared memory a block may hold
+// (64 rows at dh 256 would need 263,680 bytes).  Each score is the same fmaf
+// chain over d from 0 in both, so the row max is bitwise the plain chain's.
+size_t smem_bytes(int bq, int dh) {
+  return ((size_t)bq * (dh + 1) + (size_t)KC * (dh + 1) + (size_t)bq * SST) * sizeof(float);
 }
 
-template <typename T>
+template <typename T, int BQ, int MAX_NJ, bool TABLE>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              const float* __restrict__ valid_len, const float* __restrict__ bp,
-             const float* __restrict__ dmq, int n_bp, T* __restrict__ out,
+             const float* __restrict__ dmq, Epilogue ep, T* __restrict__ out,
              float* __restrict__ m_out, int S, int Tk, int H,
              int Hkv, int dh, int bkv, float scale, int causal, int has_window, int window,
              int q_offset) {
+  constexpr int RI = BQ / 16;        // query rows per thread in the products
+  constexpr int LPR = THREADS / BQ;  // lanes per row in the row statistics
   extern __shared__ __align__(16) float smem[];
   __shared__ float s_bp[PWL_MAX_BP];
   __shared__ float s_dmq[2 * (PWL_MAX_BP + 1)];
@@ -76,8 +85,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   float* sS = sKV + KC * DS;     // BQ x SST: scores, then probabilities
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;  // products: rows ty*4 + i, columns tx + 16 j
-  const int r = tid >> 2, l4 = tid & 3;    // row statistics: row r, 4 lanes per row
+  const int tx = tid % 16, ty = tid / 16;  // products: rows ty*RI + i, columns tx + 16 j
+  const int r = tid / LPR, lr = tid % LPR;  // row statistics: row r, LPR lanes per row
   const int bh = blockIdx.x;               // b * H + hq
   const int b = bh / H, hq = bh % H;
   const int hk = hq / (H / Hkv);
@@ -94,17 +103,17 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     return kp;
   };
 
-  pwl_load_table(s_bp, s_dmq, bp, dmq, n_bp);
+  epi_load_table<TABLE>(s_bp, s_dmq, bp, dmq, ep);
   for (int e = tid; e < BQ * dh; e += THREADS) {
     const int rr = e / dh, d = e - rr * dh;
     const int sq = q0 + rr;
     sQ[rr * DS + d] = sq < S ? to_f32(q[(((size_t)b * S + sq) * H + hq) * dh + d]) : 0.0f;
   }
 
-  float m_run = NEG_FILL, l_run = 0.0f;  // row r's chain state, on each of its 4 lanes
-  float acc[4][MAX_NJ];
+  float m_run = NEG_FILL, l_run = 0.0f;  // row r's chain state, on each of its lanes
+  float acc[RI][MAX_NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < MAX_NJ; ++j) acc[i][j] = 0.0f;
 
@@ -128,25 +137,25 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
         sKV[kr * DS + d] = t < Tk ? to_f32(k[(((size_t)b * Tk + t) * Hkv + hk) * dh + d]) : 0.0f;
       }
       __syncthreads();
-      float sacc[4][4];
+      float sacc[RI][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) sacc[i][j] = 0.0f;
       for (int d = 0; d < dh; ++d) {
-        float qa[4], ka[4];
+        float qa[RI], ka[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) qa[i] = sQ[(ty * 4 + i) * DS + d];
+        for (int i = 0; i < RI; ++i) qa[i] = sQ[(ty * RI + i) * DS + d];
 #pragma unroll
         for (int j = 0; j < 4; ++j) ka[j] = sKV[(tx + 16 * j) * DS + d];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < RI; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j) sacc[i][j] = fmaf(qa[i], ka[j], sacc[i][j]);
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = ty * 4 + i;
+      for (int i = 0; i < RI; ++i) {
+        const int row = ty * RI + i;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int col = kc + tx + 16 * j;
@@ -161,29 +170,29 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     {
       float* srow = sS + r * SST;
       float mx = -INFINITY;
-      for (int c = l4; c < bkv; c += 4) mx = fmaxf(mx, srow[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      for (int c = lr; c < bkv; c += LPR) mx = fmaxf(mx, srow[c]);
+#pragma unroll
+      for (int o = 1; o < LPR; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
       const float m_new = fmaxf(m_run, mx);
-      const float corr = pwl_exp(m_run - m_new, s_bp, s_dmq, n_bp);
+      const float corr = epi_exp<TABLE>(ep, m_run - m_new, s_bp, s_dmq);
       float sum = 0.0f;
-      for (int c = l4; c < bkv; c += 4) {
-        const float p = keep(j0 + c, qpos_r) ? pwl_exp(srow[c] - m_new, s_bp, s_dmq, n_bp)
-                                             : 0.0f;
+      for (int c = lr; c < bkv; c += LPR) {
+        const float p =
+            keep(j0 + c, qpos_r) ? epi_exp<TABLE>(ep, srow[c] - m_new, s_bp, s_dmq) : 0.0f;
         srow[c] = p;
         sum += p;
       }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+#pragma unroll
+      for (int o = 1; o < LPR; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
       l_run = l_run * corr + sum;
       m_run = m_new;
-      if (l4 == 0) s_corr[r] = corr;
+      if (lr == 0) s_corr[r] = corr;
     }
 
     // p . v over the block, KC keys at a time, then acc = acc * corr + p . v
-    float pv[4][MAX_NJ];
+    float pv[RI][MAX_NJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int j = 0; j < MAX_NJ; ++j) pv[i][j] = 0.0f;
     for (int kc = 0; kc < bkv; kc += KC) {
@@ -195,33 +204,33 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
       }
       __syncthreads();
       for (int kk = 0; kk < KC; ++kk) {
-        float pa[4];
+        float pa[RI];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) pa[i] = sS[(ty * 4 + i) * SST + kc + kk];
+        for (int i = 0; i < RI; ++i) pa[i] = sS[(ty * RI + i) * SST + kc + kk];
 #pragma unroll
         for (int j = 0; j < MAX_NJ; ++j) {
           if (j < nj) {
             const float vv = sKV[kk * DS + tx + 16 * j];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) pv[i][j] = fmaf(pa[i], vv, pv[i][j]);
+            for (int i = 0; i < RI; ++i) pv[i][j] = fmaf(pa[i], vv, pv[i][j]);
           }
         }
       }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float c = s_corr[ty * 4 + i];
+    for (int i = 0; i < RI; ++i) {
+      const float c = s_corr[ty * RI + i];
 #pragma unroll
       for (int j = 0; j < MAX_NJ; ++j) acc[i][j] = acc[i][j] * c + pv[i][j];
     }
   }
 
-  if (l4 == 0) s_l[r] = l_run;
-  if (m_out != nullptr && l4 == 0 && q0 + r < S) m_out[(size_t)bh * S + q0 + r] = m_run;
+  if (lr == 0) s_l[r] = l_run;
+  if (m_out != nullptr && lr == 0 && q0 + r < S) m_out[(size_t)bh * S + q0 + r] = m_run;
   __syncthreads();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = ty * 4 + i;
+  for (int i = 0; i < RI; ++i) {
+    const int row = ty * RI + i;
     const int sq = q0 + row;
     if (sq >= S) continue;
     const float L = fmaxf(s_l[row], 1e-30f);
@@ -233,14 +242,14 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 }
 
-template <typename T>
+template <typename T, int BQ, int MAX_NJ, bool TABLE>
 int launch(const void* q, const void* k, const void* v, const float* valid_len,
-           const float* bp, const float* dmq, int n_bp, void* out, float* m_out, int B, int S,
-           int Tk, int H,
-           int Hkv, int dh, int causal, int has_window, int window, int q_offset,
-           cudaStream_t stream) {
-  const size_t smem = smem_bytes(dh);
-  auto kern = flash_kernel<T>;
+           const float* bp, const float* dmq, Epilogue ep, void* out, float* m_out, int B,
+           int S, int Tk, int H, int Hkv, int dh, int causal, int has_window, int window,
+           int q_offset, cudaStream_t stream) {
+  if ((S + BQ - 1) / BQ > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(BQ, dh);
+  auto kern = flash_kernel<T, BQ, MAX_NJ, TABLE>;
   static size_t smem_allowed = 48 * 1024;  // raised once per size
   if (smem > smem_allowed) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -254,27 +263,45 @@ int launch(const void* q, const void* k, const void* v, const float* valid_len,
   dim3 grid(B * H, (S + BQ - 1) / BQ);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), valid_len,
-      bp, dmq, n_bp, static_cast<T*>(out), m_out, S, Tk, H, Hkv, dh, bkv, scale, causal,
+      bp, dmq, ep, static_cast<T*>(out), m_out, S, Tk, H, Hkv, dh, bkv, scale, causal,
       has_window, window, q_offset);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, const float* valid_len,
+             const float* bp, const float* dmq, Epilogue ep, void* out, float* m_out, int B,
+             int S, int Tk, int H, int Hkv, int dh, int causal, int has_window, int window,
+             int q_offset, cudaStream_t stream) {
+  return with_table(ep, [&](auto table) {
+    constexpr bool TB = decltype(table)::value;
+    if (dh <= SMALL_DH)
+      return launch<T, 64, SMALL_DH / 16, TB>(q, k, v, valid_len, bp, dmq, ep, out, m_out, B, S,
+                                              Tk, H, Hkv, dh, causal, has_window, window,
+                                              q_offset, stream);
+    return launch<T, 32, MAX_DH / 16, TB>(q, k, v, valid_len, bp, dmq, ep, out, m_out, B, S,
+                                          Tk, H, Hkv, dh, causal, has_window, window, q_offset,
+                                          stream);
+  });
 }
 
 }  // namespace
 
 // q, out: (B, S, H, dh); k, v: (B, T, Hkv, dh); all contiguous, in dtype
-// (0 = float32, 1 = bfloat16).  valid_len: (B,) f32 or null.  m_out: (B, H, S)
-// f32 for each row's final running max, or null (then nothing else
-// changes: the output is the same either way).  dh must be a
-// multiple of 16, at most 128; H a multiple of Hkv.  Returns the cudaError_t
-// of the launch.
+// (0 = float32, 1 = bfloat16).  valid_len: (B,) f32 or null.  The exp is the
+// epilogue (bp, dmq, n_bp, kind, fn) of epilogue.cuh.  m_out: (B, H, S) f32
+// for each row's final running max, or null (then nothing else changes: the
+// output is the same either way).  dh must be a multiple of 16, at most 256;
+// H a multiple of Hkv.  Returns the cudaError_t of the launch.
 extern "C" int flash_pwl_forward(const void* q, const void* k, const void* v,
                                  const void* valid_len, const void* bp, const void* dmq,
-                                 int n_bp, void* out, void* m_out, int B, int S, int T,
-                                 int H, int Hkv,
-                                 int dh, int causal, int has_window, int window, int q_offset,
-                                 int dtype, void* stream) {
-  if (n_bp < 1 || n_bp > PWL_MAX_BP || B < 0 || S < 0 || T < 1 || Hkv < 1 || H % Hkv != 0 ||
-      dh < 16 || dh > MAX_DH || dh % 16 != 0 || (S + BQ - 1) / BQ > 65535)
+                                 int n_bp, int kind, int fn, void* out, void* m_out, int B,
+                                 int S, int T, int H, int Hkv, int dh, int causal,
+                                 int has_window, int window, int q_offset, int dtype,
+                                 void* stream) {
+  const Epilogue ep{kind, fn, n_bp};
+  if (!epilogue_ok(ep) || B < 0 || S < 0 || T < 1 || Hkv < 1 || H % Hkv != 0 || dh < 16 ||
+      dh > MAX_DH || dh % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || S == 0 || H == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -283,10 +310,10 @@ extern "C" int flash_pwl_forward(const void* q, const void* k, const void* v,
   const float* dmqf = static_cast<const float*>(dmq);
   float* mf = static_cast<float*>(m_out);
   if (dtype == 0)
-    return launch<float>(q, k, v, vl, bpf, dmqf, n_bp, out, mf, B, S, T, H, Hkv, dh, causal,
-                         has_window, window, q_offset, st);
+    return dispatch<float>(q, k, v, vl, bpf, dmqf, ep, out, mf, B, S, T, H, Hkv, dh, causal,
+                           has_window, window, q_offset, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, vl, bpf, dmqf, n_bp, out, mf, B, S, T, H, Hkv, dh,
-                                 causal, has_window, window, q_offset, st);
+    return dispatch<__nv_bfloat16>(q, k, v, vl, bpf, dmqf, ep, out, mf, B, S, T, H, Hkv, dh,
+                                   causal, has_window, window, q_offset, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -20,6 +20,7 @@
 //   corr  = max(pwl(max(m - m_new, -1e4)), 0)
 //   l     = l * corr + sum(p);   acc = acc * corr + p . v
 //
+// pwl is the launch's epilogue (epilogue.cuh): the table, or the exact exp.
 // The page boundaries are part of the function: pwl(0) is not 1, so a chain
 // with other steps gives other numbers.  The merge rescales split s by
 // e_s = max(pwl(max(m_s - max_s m_s, -1e4)), 0) and returns
@@ -40,7 +41,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "pwl_decode.cuh"
+#include "epilogue.cuh"
 
 namespace {
 
@@ -51,11 +52,11 @@ size_t split_smem_floats(int ps, int dh, int G) {
   return (size_t)ps * (dh + 1) + (size_t)ps * dh + (size_t)G * (2 * dh + ps + 3);
 }
 
-template <typename TQ, typename TKV>
+template <typename TQ, typename TKV, bool TABLE>
 __global__ void __launch_bounds__(THREADS)
 split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __restrict__ vp,
              const int* __restrict__ page_table, int n_cols, const int* __restrict__ kv_len,
-             const float* __restrict__ bp, const float* __restrict__ dmq, int n_bp,
+             const float* __restrict__ bp, const float* __restrict__ dmq, Epilogue ep,
              float* __restrict__ m_out, float* __restrict__ l_out, float* __restrict__ acc_out,
              int Hkv, int P, int ps, int dh, int G, int pps, int n_splits, float scale) {
   extern __shared__ __align__(16) float smem[];
@@ -75,7 +76,7 @@ split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
   float* sC = sL + G;
   float* sAcc = sC + G;
 
-  pwl_load_table(s_bp, s_dmq, bp, dmq, n_bp);
+  epi_load_table<TABLE>(s_bp, s_dmq, bp, dmq, ep);
   for (int e = tid; e < G * dh; e += THREADS) {
     sQ[e] = to_f32(q[(size_t)a * G * dh + e]);
     sAcc[e] = 0.0f;
@@ -114,13 +115,13 @@ split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
       for (int k = 0; k < ps; ++k) mx = fmaxf(mx, sS[g * ps + k]);
       const float m_prev = sM[g];
       const float m_new = fmaxf(m_prev, mx);
-      sC[g] = pwl_exp(m_prev - m_new, s_bp, s_dmq, n_bp);
+      sC[g] = epi_exp<TABLE>(ep, m_prev - m_new, s_bp, s_dmq);
       sM[g] = m_new;
     }
     __syncthreads();
     for (int e = tid; e < G * ps; e += THREADS) {
       const int g = e / ps, k = e - g * ps;
-      sS[e] = page0 + k < kvl ? pwl_exp(sS[e] - sM[g], s_bp, s_dmq, n_bp) : 0.0f;
+      sS[e] = page0 + k < kvl ? epi_exp<TABLE>(ep, sS[e] - sM[g], s_bp, s_dmq) : 0.0f;
     }
     __syncthreads();
     for (int g = tid; g < G; g += THREADS) {
@@ -144,15 +145,15 @@ split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
   for (int o = tid; o < G * dh; o += THREADS) acc_out[part * G * dh + o] = sAcc[o];
 }
 
-template <typename TQ>
+template <typename TQ, bool TABLE>
 __global__ void __launch_bounds__(THREADS)
 merge_kernel(const float* __restrict__ m_p, const float* __restrict__ l_p,
              const float* __restrict__ acc_p, const float* __restrict__ bp,
-             const float* __restrict__ dmq, int n_bp, TQ* __restrict__ out, int G, int dh,
+             const float* __restrict__ dmq, Epilogue ep, TQ* __restrict__ out, int G, int dh,
              int n_splits) {
   __shared__ float s_bp[PWL_MAX_BP];
   __shared__ float s_dmq[2 * (PWL_MAX_BP + 1)];
-  pwl_load_table(s_bp, s_dmq, bp, dmq, n_bp);
+  epi_load_table<TABLE>(s_bp, s_dmq, bp, dmq, ep);
   __syncthreads();
   const int a = blockIdx.x;
   const size_t p0 = (size_t)a * n_splits;
@@ -163,7 +164,7 @@ merge_kernel(const float* __restrict__ m_p, const float* __restrict__ l_p,
     float l = 0.0f, acc = 0.0f;
     for (int s = 0; s < n_splits; ++s) {
       const size_t i = (p0 + s) * G + g;
-      const float e = pwl_exp(m_p[i] - m_max, s_bp, s_dmq, n_bp);
+      const float e = epi_exp<TABLE>(ep, m_p[i] - m_max, s_bp, s_dmq);
       l += l_p[i] * e;
       acc += acc_p[i * dh + d] * e;
     }
@@ -171,13 +172,13 @@ merge_kernel(const float* __restrict__ m_p, const float* __restrict__ l_p,
   }
 }
 
-template <typename TQ, typename TKV>
+template <typename TQ, typename TKV, bool TABLE>
 int launch(const void* q, const void* kp, const void* vp, const int* pt, int n_cols,
-           const int* kv_len, const float* bp, const float* dmq, int n_bp, float* m_p,
+           const int* kv_len, const float* bp, const float* dmq, Epilogue ep, float* m_p,
            float* l_p, float* acc_p, void* out, int B, int Hkv, int P, int ps, int dh, int G,
            int pps, int n_splits, cudaStream_t stream) {
   const size_t smem = split_smem_floats(ps, dh, G) * sizeof(float);
-  auto kern = split_kernel<TQ, TKV>;
+  auto kern = split_kernel<TQ, TKV, TABLE>;
   static size_t smem_allowed = 48 * 1024;  // raised once per size
   if (smem > smem_allowed) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -189,10 +190,10 @@ int launch(const void* q, const void* kp, const void* vp, const int* pt, int n_c
   dim3 grid(B * Hkv, n_splits);
   kern<<<grid, THREADS, smem, stream>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(kp), static_cast<const TKV*>(vp), pt,
-      n_cols, kv_len, bp, dmq, n_bp, m_p, l_p, acc_p, Hkv, P, ps, dh, G, pps, n_splits, scale);
+      n_cols, kv_len, bp, dmq, ep, m_p, l_p, acc_p, Hkv, P, ps, dh, G, pps, n_splits, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  merge_kernel<TQ><<<B * Hkv, THREADS, 0, stream>>>(m_p, l_p, acc_p, bp, dmq, n_bp,
+  merge_kernel<TQ, TABLE><<<B * Hkv, THREADS, 0, stream>>>(m_p, l_p, acc_p, bp, dmq, ep,
                                                      static_cast<TQ*>(out), G, dh, n_splits);
   return static_cast<int>(cudaGetLastError());
 }
@@ -202,15 +203,17 @@ int launch(const void* q, const void* kp, const void* vp, const int* pt, int n_c
 // q, out: (B, 1, H = Hkv * G, dh) in q_dtype; k/v pools: (Hkv, P, ps, dh) in
 // kv_dtype; page_table: (B, n_cols) int32; kv_len: (B,) int32; m_p, l_p:
 // (B * Hkv, n_splits, G) f32 and acc_p: (B * Hkv, n_splits, G, dh) f32 scratch
-// for the partials.  Dtype codes: 0 = float32, 1 = bfloat16.  Launches the
+// for the partials.  The exp is the epilogue (bp, dmq, n_bp, kind, fn) of
+// epilogue.cuh.  Dtype codes: 0 = float32, 1 = bfloat16.  Launches the
 // split kernel and the merge kernel on `stream`; returns the cudaError_t.
 extern "C" int paged_decode_forward(const void* q, const void* kp, const void* vp,
                                     const void* page_table, int n_cols, const void* kv_len,
-                                    const void* bp, const void* dmq, int n_bp, void* m_p,
-                                    void* l_p, void* acc_p, void* out, int B, int Hkv, int P,
-                                    int ps, int dh, int G, int pps, int n_splits, int q_dtype,
-                                    int kv_dtype, void* stream) {
-  if (n_bp < 1 || n_bp > PWL_MAX_BP || B < 0 || Hkv < 1 || P < 1 || ps < 1 || dh < 1 ||
+                                    const void* bp, const void* dmq, int n_bp, int kind,
+                                    int fn, void* m_p, void* l_p, void* acc_p, void* out,
+                                    int B, int Hkv, int P, int ps, int dh, int G, int pps,
+                                    int n_splits, int q_dtype, int kv_dtype, void* stream) {
+  const Epilogue ep{kind, fn, n_bp};
+  if (!epilogue_ok(ep) || B < 0 || Hkv < 1 || P < 1 || ps < 1 || dh < 1 ||
       G < 1 || pps < 1 || n_splits < 1 || n_cols < 1 || B * Hkv > 0x7fffffff / 2 ||
       n_splits > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -225,13 +228,16 @@ extern "C" int paged_decode_forward(const void* q, const void* kp, const void* v
   float* mf = static_cast<float*>(m_p);
   float* lf = static_cast<float*>(l_p);
   float* af = static_cast<float*>(acc_p);
-#define PAGED_DECODE_LAUNCH(TQ, TKV)                                                         \
-  return launch<TQ, TKV>(q, kp, vp, pt, n_cols, lens, bpf, dmqf, n_bp, mf, lf, af, out, B,  \
-                         Hkv, P, ps, dh, G, pps, n_splits, st)
-  if (q_dtype == 0 && kv_dtype == 0) PAGED_DECODE_LAUNCH(float, float);
-  if (q_dtype == 0 && kv_dtype == 1) PAGED_DECODE_LAUNCH(float, __nv_bfloat16);
-  if (q_dtype == 1 && kv_dtype == 0) PAGED_DECODE_LAUNCH(__nv_bfloat16, float);
-  if (q_dtype == 1 && kv_dtype == 1) PAGED_DECODE_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+  return with_table(ep, [&](auto table) {
+    constexpr bool TB = decltype(table)::value;
+#define PAGED_DECODE_LAUNCH(TQ, TKV)                                                           \
+  return launch<TQ, TKV, TB>(q, kp, vp, pt, n_cols, lens, bpf, dmqf, ep, mf, lf, af, out, B, \
+                             Hkv, P, ps, dh, G, pps, n_splits, st)
+    if (q_dtype == 0 && kv_dtype == 0) PAGED_DECODE_LAUNCH(float, float);
+    if (q_dtype == 0 && kv_dtype == 1) PAGED_DECODE_LAUNCH(float, __nv_bfloat16);
+    if (q_dtype == 1 && kv_dtype == 0) PAGED_DECODE_LAUNCH(__nv_bfloat16, float);
+    if (q_dtype == 1 && kv_dtype == 1) PAGED_DECODE_LAUNCH(__nv_bfloat16, __nv_bfloat16);
 #undef PAGED_DECODE_LAUNCH
-  return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(cudaErrorInvalidValue);
+  });
 }

@@ -1,7 +1,8 @@
 // Fused GLU with a PWL epilogue: out = pwl(x @ Wg) * (x @ Wu), and its
 // backward, for one weight pair (the dense GLU) or one per expert (the MoE);
 // and, with one weight matrix, the fused linear layer out = pwl(x @ W + b)
-// and its backward.
+// and its backward.  The epilogue may also be an exact function (act=) or
+// the identity (epilogue.cuh), as the JAX kernels' plans may.
 //
 // Replaces repro/kernels/fused/glu.py:_glu_kernel (the GeGLU gate GEMM of every
 // dense layer, with gelu_tanh as a non-uniform PWL table in its epilogue),
@@ -65,7 +66,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "pwl_decode.cuh"
+#include "epilogue.cuh"
 
 namespace {
 
@@ -130,30 +131,35 @@ struct Cfg {
 // The two epilogues on one output element (gm, gn), gm counting the rows of
 // all experts (e * M + m), with its gate and up accumulators, each a template
 // argument of the kernel (two instantiations with their own symbol names, no
-// branch in the store loop): the forward's pwl(zg) * zu in T, and the
-// backward's (g * zu * m(zg), g * pwl(zg)) in f32.
-template <typename T>
+// branch in the store loop): the forward's act(zg) * zu in T, and the
+// backward's (g * zu * act'(zg), g * act(zg)) in f32, act the launch's
+// epilogue (epilogue.cuh: the PWL table, an exact function or the identity;
+// TABLE selects the table's instantiation, the code the kernel had before the
+// other kinds came).
+template <typename T, bool TABLE>
 struct ForwardEpi {
+  static constexpr bool kTable = TABLE;
   T* out;
   int N;
   __device__ __forceinline__ void operator()(int gm, int gn, float zg, float zu,
                                              const float* s_bp, const float* s_dmq,
-                                             int n_bp) const {
-    store(pwl_value_and_slope(zg, s_bp, s_dmq, n_bp).x * zu, out + (size_t)gm * N + gn);
+                                             const Epilogue& ep) const {
+    store(epi_value<TABLE>(ep, zg, s_bp, s_dmq) * zu, out + (size_t)gm * N + gn);
   }
 };
 
-template <typename T>
+template <typename T, bool TABLE>
 struct BackwardEpi {
+  static constexpr bool kTable = TABLE;
   const T* g;
   float* dzg;
   float* dzu;
   int N;
   __device__ __forceinline__ void operator()(int gm, int gn, float zg, float zu,
                                              const float* s_bp, const float* s_dmq,
-                                             int n_bp) const {
+                                             const Epilogue& ep) const {
     const size_t o = (size_t)gm * N + gn;
-    const float2 vs = pwl_value_and_slope(zg, s_bp, s_dmq, n_bp);
+    const float2 vs = epi_value_and_slope<TABLE>(ep, zg, s_bp, s_dmq);
     const float gf = to_f32(g[o]);
     dzg[o] = gf * zu * vs.y;
     dzu[o] = gf * vs.x;
@@ -163,32 +169,34 @@ struct BackwardEpi {
 // The linear layer's two epilogues (NW = 1: one accumulator, the up slot
 // unused): the bias, when there is one, is added to the f32 accumulator
 // after the last K tile, as the JAX kernel adds it, then the forward's
-// pwl(z) in T, or the backward's dz = g * m(z) in f32.
-template <typename T>
+// act(z) in T, or the backward's dz = g * act'(z) in f32.
+template <typename T, bool TABLE>
 struct LinearForwardEpi {
+  static constexpr bool kTable = TABLE;
   T* out;
   const T* bias;  // (N,) or nullptr
   int N;
   __device__ __forceinline__ void operator()(int gm, int gn, float z, float,
                                              const float* s_bp, const float* s_dmq,
-                                             int n_bp) const {
+                                             const Epilogue& ep) const {
     if (bias != nullptr) z += to_f32(bias[gn]);
-    store(pwl_value_and_slope(z, s_bp, s_dmq, n_bp).x, out + (size_t)gm * N + gn);
+    store(epi_value<TABLE>(ep, z, s_bp, s_dmq), out + (size_t)gm * N + gn);
   }
 };
 
-template <typename T>
+template <typename T, bool TABLE>
 struct LinearBackwardEpi {
+  static constexpr bool kTable = TABLE;
   const T* g;
   const T* bias;  // (N,) or nullptr
   float* dz;
   int N;
   __device__ __forceinline__ void operator()(int gm, int gn, float z, float,
                                              const float* s_bp, const float* s_dmq,
-                                             int n_bp) const {
+                                             const Epilogue& ep) const {
     if (bias != nullptr) z += to_f32(bias[gn]);
     const size_t o = (size_t)gm * N + gn;
-    dz[o] = to_f32(g[o]) * pwl_value_and_slope(z, s_bp, s_dmq, n_bp).y;
+    dz[o] = to_f32(g[o]) * epi_value_and_slope<TABLE>(ep, z, s_bp, s_dmq).y;
   }
 };
 
@@ -198,7 +206,7 @@ struct LinearBackwardEpi {
 template <typename T, class C, class Epi>
 __global__ void __launch_bounds__(C::THREADS)
 glu_pwl_kernel(const T* __restrict__ x, const T* __restrict__ wg, const T* __restrict__ wu,
-               const float* __restrict__ bp, const float* __restrict__ dmq, int n_bp,
+               const float* __restrict__ bp, const float* __restrict__ dmq, Epilogue ep,
                Epi epi, int M, int N, int K, bool vec_x, bool vec_w) {
   constexpr int BM = C::BM, BN = C::BN, BK = C::BK, TM = C::TM, TN = C::TN;
   constexpr int V = C::V, TX = C::TX, XS = C::XS, STAGES = C::STAGES, KS = C::KS;
@@ -223,7 +231,7 @@ glu_pwl_kernel(const T* __restrict__ x, const T* __restrict__ wg, const T* __res
   const int n0 = blockIdx.x * BN;
   const int nk = (K + BK - 1) / BK;
 
-  pwl_load_table(s_bp, s_dmq, bp, dmq, n_bp);
+  epi_load_table<Epi::kTable>(s_bp, s_dmq, bp, dmq, ep);
 
   auto load_stage = [&](int stage, int k0) {
     T* xs = ring + stage * C::STAGE_ELEMS;
@@ -307,7 +315,7 @@ glu_pwl_kernel(const T* __restrict__ x, const T* __restrict__ wg, const T* __res
         g += red_g[q * BM * BN + o];
         if constexpr (NW == 2) u += red_u[q * BM * BN + o];
       }
-      epi(row0 + gm, gn, g, u, s_bp, s_dmq, n_bp);
+      epi(row0 + gm, gn, g, u, s_bp, s_dmq, ep);
     }
     return;
   }
@@ -322,7 +330,7 @@ glu_pwl_kernel(const T* __restrict__ x, const T* __restrict__ wg, const T* __res
     for (int j = 0; j < TN; ++j) {
       const int gn = n0 + tx + j * TX;
       if (gn >= N) continue;
-      epi(row0 + gm, gn, accg[i][j], accu[i][j], s_bp, s_dmq, n_bp);
+      epi(row0 + gm, gn, accg[i][j], accu[i][j], s_bp, s_dmq, ep);
     }
   }
 }
@@ -331,7 +339,7 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) ==
 
 template <typename T, class C, class Epi>
 int launch(const void* x, const void* wg, const void* wu, const void* bp, const void* dmq,
-           int n_bp, Epi epi, int E, int M, int N, int K, cudaStream_t stream) {
+           Epilogue ep, Epi epi, int E, int M, int N, int K, cudaStream_t stream) {
   constexpr int V = C::V;
   const bool vec_x = K % V == 0 && aligned16(x);
   const bool vec_w = N % V == 0 && aligned16(wg) && aligned16(wu);
@@ -346,7 +354,7 @@ int launch(const void* x, const void* wg, const void* wu, const void* bp, const 
   dim3 grid((N + C::BN - 1) / C::BN, (M + C::BM - 1) / C::BM, E);
   kern<<<grid, C::THREADS, C::SMEM, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(wg), static_cast<const T*>(wu),
-      static_cast<const float*>(bp), static_cast<const float*>(dmq), n_bp, epi, M, N, K,
+      static_cast<const float*>(bp), static_cast<const float*>(dmq), ep, epi, M, N, K,
       vec_x, vec_w);
   return static_cast<int>(cudaGetLastError());
 }
@@ -365,58 +373,73 @@ constexpr int TINY_M = 4, SMALL_M = 64;
 
 template <typename T, int NW, class Epi>
 int dispatch(const void* x, const void* wg, const void* wu, const void* bp, const void* dmq,
-             int n_bp, Epi epi, int E, int M, int N, int K, cudaStream_t s) {
+             Epilogue ep, Epi epi, int E, int M, int N, int K, cudaStream_t s) {
   if (M <= TINY_M)
-    return launch<T, Tiny<T, NW>>(x, wg, wu, bp, dmq, n_bp, epi, E, M, N, K, s);
+    return launch<T, Tiny<T, NW>>(x, wg, wu, bp, dmq, ep, epi, E, M, N, K, s);
   if (M <= SMALL_M)
-    return launch<T, Small<T, NW>>(x, wg, wu, bp, dmq, n_bp, epi, E, M, N, K, s);
-  return launch<T, Large<T, NW>>(x, wg, wu, bp, dmq, n_bp, epi, E, M, N, K, s);
+    return launch<T, Small<T, NW>>(x, wg, wu, bp, dmq, ep, epi, E, M, N, K, s);
+  return launch<T, Large<T, NW>>(x, wg, wu, bp, dmq, ep, epi, E, M, N, K, s);
 }
 
 template <typename T>
 int forward(const void* x, const void* wg, const void* wu, const void* bp, const void* dmq,
-            int n_bp, void* out, int E, int M, int N, int K, cudaStream_t s) {
-  return dispatch<T, 2>(x, wg, wu, bp, dmq, n_bp, ForwardEpi<T>{static_cast<T*>(out), N}, E,
-                        M, N, K, s);
+            Epilogue ep, void* out, int E, int M, int N, int K, cudaStream_t s) {
+  return with_table(ep, [&](auto table) {
+    const ForwardEpi<T, decltype(table)::value> epi{static_cast<T*>(out), N};
+    return dispatch<T, 2>(x, wg, wu, bp, dmq, ep, epi, E, M, N, K, s);
+  });
 }
 
 template <typename T>
 int backward(const void* x, const void* wg, const void* wu, const void* g, const void* bp,
-             const void* dmq, int n_bp, void* dzg, void* dzu, int E, int M, int N, int K,
+             const void* dmq, Epilogue ep, void* dzg, void* dzu, int E, int M, int N, int K,
              cudaStream_t s) {
-  const BackwardEpi<T> epi{static_cast<const T*>(g), static_cast<float*>(dzg),
-                           static_cast<float*>(dzu), N};
-  return dispatch<T, 2>(x, wg, wu, bp, dmq, n_bp, epi, E, M, N, K, s);
+  return with_table(ep, [&](auto table) {
+    const BackwardEpi<T, decltype(table)::value> epi{
+        static_cast<const T*>(g), static_cast<float*>(dzg), static_cast<float*>(dzu), N};
+    return dispatch<T, 2>(x, wg, wu, bp, dmq, ep, epi, E, M, N, K, s);
+  });
 }
 
 template <typename T>
 int linear_forward(const void* x, const void* w, const void* b, const void* bp,
-                   const void* dmq, int n_bp, void* out, int M, int N, int K, cudaStream_t s) {
-  const LinearForwardEpi<T> epi{static_cast<T*>(out), static_cast<const T*>(b), N};
-  return dispatch<T, 1>(x, w, nullptr, bp, dmq, n_bp, epi, 1, M, N, K, s);
+                   const void* dmq, Epilogue ep, void* out, int M, int N, int K,
+                   cudaStream_t s) {
+  return with_table(ep, [&](auto table) {
+    const LinearForwardEpi<T, decltype(table)::value> epi{static_cast<T*>(out),
+                                                          static_cast<const T*>(b), N};
+    return dispatch<T, 1>(x, w, nullptr, bp, dmq, ep, epi, 1, M, N, K, s);
+  });
 }
 
 template <typename T>
 int linear_backward(const void* x, const void* w, const void* b, const void* g,
-                    const void* bp, const void* dmq, int n_bp, void* dz, int M, int N, int K,
+                    const void* bp, const void* dmq, Epilogue ep, void* dz, int M, int N, int K,
                     cudaStream_t s) {
-  const LinearBackwardEpi<T> epi{static_cast<const T*>(g), static_cast<const T*>(b),
-                                 static_cast<float*>(dz), N};
-  return dispatch<T, 1>(x, w, nullptr, bp, dmq, n_bp, epi, 1, M, N, K, s);
+  return with_table(ep, [&](auto table) {
+    const LinearBackwardEpi<T, decltype(table)::value> epi{
+        static_cast<const T*>(g), static_cast<const T*>(b), static_cast<float*>(dz), N};
+    return dispatch<T, 1>(x, w, nullptr, bp, dmq, ep, epi, 1, M, N, K, s);
+  });
 }
 
 }  // namespace
 
+// Every entry point takes the epilogue as (bp, dmq, n_bp, kind, fn): kind
+// EPI_PWL with the table's f32 delta operands and n_bp breakpoints, EPI_EXACT
+// with exact function fn, or EPI_IDENTITY (bp and dmq unread, may be null).
+
 // x (E, M, K), wg/wu (E, K, N), out (E, M, N), all in dtype (0 = float32,
 // 1 = bfloat16).  Returns the cudaError_t of the launch.
 extern "C" int glu_pwl_forward(const void* x, const void* wg, const void* wu, const void* bp,
-                               const void* dmq, int n_bp, void* out, int E, int M, int N,
-                               int K, int dtype, void* stream) {
-  if (n_bp < 1 || n_bp > PWL_MAX_BP || E <= 0 || M <= 0 || N <= 0 || K <= 0)
+                               const void* dmq, int n_bp, int kind, int fn, void* out, int E,
+                               int M, int N, int K, int dtype, void* stream) {
+  const Epilogue ep{kind, fn, n_bp};
+  if (!epilogue_ok(ep) || E <= 0 || M <= 0 || N <= 0 || K <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return forward<float>(x, wg, wu, bp, dmq, n_bp, out, E, M, N, K, s);
-  if (dtype == 1) return forward<__nv_bfloat16>(x, wg, wu, bp, dmq, n_bp, out, E, M, N, K, s);
+  if (dtype == 0) return forward<float>(x, wg, wu, bp, dmq, ep, out, E, M, N, K, s);
+  if (dtype == 1) return forward<__nv_bfloat16>(x, wg, wu, bp, dmq, ep, out, E, M, N, K, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -424,43 +447,46 @@ extern "C" int glu_pwl_forward(const void* x, const void* wg, const void* wu, co
 // 1 = bfloat16); dzg, dzu (E, M, N) float32.  Returns the cudaError_t of the
 // launch.
 extern "C" int glu_pwl_backward(const void* x, const void* wg, const void* wu, const void* g,
-                                const void* bp, const void* dmq, int n_bp, void* dzg,
-                                void* dzu, int E, int M, int N, int K, int dtype,
+                                const void* bp, const void* dmq, int n_bp, int kind, int fn,
+                                void* dzg, void* dzu, int E, int M, int N, int K, int dtype,
                                 void* stream) {
-  if (n_bp < 1 || n_bp > PWL_MAX_BP || E <= 0 || M <= 0 || N <= 0 || K <= 0)
+  const Epilogue ep{kind, fn, n_bp};
+  if (!epilogue_ok(ep) || E <= 0 || M <= 0 || N <= 0 || K <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return backward<float>(x, wg, wu, g, bp, dmq, n_bp, dzg, dzu, E, M, N, K, s);
+    return backward<float>(x, wg, wu, g, bp, dmq, ep, dzg, dzu, E, M, N, K, s);
   if (dtype == 1)
-    return backward<__nv_bfloat16>(x, wg, wu, g, bp, dmq, n_bp, dzg, dzu, E, M, N, K, s);
+    return backward<__nv_bfloat16>(x, wg, wu, g, bp, dmq, ep, dzg, dzu, E, M, N, K, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The fused linear layer: x (M, K), w (K, N), b (N,) or null, out (M, N), all
 // in dtype (0 = float32, 1 = bfloat16).  Returns the cudaError_t of the launch.
 extern "C" int linear_pwl_forward(const void* x, const void* w, const void* b, const void* bp,
-                                  const void* dmq, int n_bp, void* out, int M, int N, int K,
-                                  int dtype, void* stream) {
-  if (n_bp < 1 || n_bp > PWL_MAX_BP || M <= 0 || N <= 0 || K <= 0)
+                                  const void* dmq, int n_bp, int kind, int fn, void* out, int M,
+                                  int N, int K, int dtype, void* stream) {
+  const Epilogue ep{kind, fn, n_bp};
+  if (!epilogue_ok(ep) || M <= 0 || N <= 0 || K <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return linear_forward<float>(x, w, b, bp, dmq, n_bp, out, M, N, K, s);
+  if (dtype == 0) return linear_forward<float>(x, w, b, bp, dmq, ep, out, M, N, K, s);
   if (dtype == 1)
-    return linear_forward<__nv_bfloat16>(x, w, b, bp, dmq, n_bp, out, M, N, K, s);
+    return linear_forward<__nv_bfloat16>(x, w, b, bp, dmq, ep, out, M, N, K, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Its backward: x, w, b as above and g (M, N) in dtype; dz (M, N) float32.
 // Returns the cudaError_t of the launch.
 extern "C" int linear_pwl_backward(const void* x, const void* w, const void* b, const void* g,
-                                   const void* bp, const void* dmq, int n_bp, void* dz, int M,
-                                   int N, int K, int dtype, void* stream) {
-  if (n_bp < 1 || n_bp > PWL_MAX_BP || M <= 0 || N <= 0 || K <= 0)
+                                   const void* bp, const void* dmq, int n_bp, int kind, int fn,
+                                   void* dz, int M, int N, int K, int dtype, void* stream) {
+  const Epilogue ep{kind, fn, n_bp};
+  if (!epilogue_ok(ep) || M <= 0 || N <= 0 || K <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return linear_backward<float>(x, w, b, g, bp, dmq, n_bp, dz, M, N, K, s);
+  if (dtype == 0) return linear_backward<float>(x, w, b, g, bp, dmq, ep, dz, M, N, K, s);
   if (dtype == 1)
-    return linear_backward<__nv_bfloat16>(x, w, b, g, bp, dmq, n_bp, dz, M, N, K, s);
+    return linear_backward<__nv_bfloat16>(x, w, b, g, bp, dmq, ep, dz, M, N, K, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,7 +5,8 @@
 // Replaces repro/kernels/pwl_act.py:_pwl_nonuniform_kernel (the
 // impl="kernel" activation of a plan site: the strict compare-count delta
 // decode of pwl_decode.cuh, then m * x + q in f32, cast to x's type) and
-// _pwl_uniform_kernel (idx = clip(floor((x - lo) * inv_h) + 1, 0, n_seg - 1),
+// _pwl_uniform_kernel (idx = clip(int32(floor((x - lo) * inv_h)) + 1, 0,
+// n_seg - 1),
 // then that segment's (m, q) fetched by delta accumulation over the n_seg - 1
 // segment edges, as the TPU kernel fetches it, and m * x + q).
 //
@@ -13,9 +14,9 @@
 // (__fmul_rn, __fadd_rn), as the plain versions in kernels/pwl_act.py do, so
 // each kernel is bitwise its plain version.  The uniform kernel forms its
 // deltas (m_i - m_{i-1}, q_i - q_{i-1}) once per block with the same f32
-// subtraction as the plain version's loop.  The index is computed in f32
-// and clipped before it is compared; the TPU kernel converts floor(...) to
-// int32 first, which only differs for |x - lo| beyond 2^31 segment widths.
+// subtraction as the plain version's loop.  The index takes the TPU
+// kernel's int32 steps: a saturating conversion, a +1 that wraps, then the
+// clip, so |x - lo| beyond 2^31 segment widths lands in segment 0 there too.
 //
 // What bounds them on an H100: each element is read once and written once
 // (4 bytes in bf16, 8 in f32), against ~3 f32 operations per breakpoint for
@@ -60,16 +61,19 @@ pwl_uniform_kernel(const T* __restrict__ x, const float* __restrict__ mq, int n_
   for (int i = threadIdx.x; i < 2 * n_seg; i += blockDim.x)
     s_d[i] = i < 2 ? mq[i] : __fsub_rn(mq[i], mq[i - 2]);
   __syncthreads();
-  const float last = static_cast<float>(n_seg - 1);
+  const int last = n_seg - 1;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     const float xf = to_f32(x[i]);
+    // int32(floor(t)) + 1 as XLA computes it: the conversion saturates (NaN
+    // to 0) and the +1 wraps (done unsigned), so t >= 2^31 lands in segment 0
     const float t = floorf(__fmul_rn(__fsub_rn(xf, lo), inv_h));
-    const float idx = fminf(fmaxf(__fadd_rn(t, 1.0f), 0.0f), last);
+    const int step = static_cast<int>(static_cast<unsigned>(__float2int_rz(t)) + 1u);
+    const int idx = step < 0 ? 0 : (step > last ? last : step);
     float m = s_d[0];
     float q = s_d[1];
     for (int j = 0; j < n_seg - 1; ++j) {
-      const float c = idx > static_cast<float>(j) ? 1.0f : 0.0f;
+      const float c = idx > j ? 1.0f : 0.0f;
       m = fmaf(c, s_d[2 * j + 2], m);
       q = fmaf(c, s_d[2 * j + 3], q);
     }

@@ -19,8 +19,9 @@
 // The table is at most 64 + 65 * 2 floats: a block loads it into shared
 // memory once, and every thread reads it from there (a broadcast read).
 //
-// Also here: the element conversions every kernel shares, and the exp of the
-// softmax chains with the JAX package's masking constants.
+// Also here: the element conversions every kernel shares and the JAX
+// package's masking constants.  epilogue.cuh selects between this decode, an
+// exact function and the identity.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -72,10 +73,4 @@ __device__ __forceinline__ float pwl_value(float x, const float* s_bp, const flo
     q = fmaf(c, s_dmq[2 * i + 3], q);
   }
   return __fadd_rn(__fmul_rn(m, x), q);
-}
-
-// The exp of the softmax chains: the decode of x clamped at -1e4, clamped at 0.
-__device__ __forceinline__ float pwl_exp(float x, const float* s_bp, const float* s_dmq,
-                                         int n_bp) {
-  return fmaxf(pwl_value_and_slope(fmaxf(x, SHIFT_CLAMP), s_bp, s_dmq, n_bp).x, 0.0f);
 }

@@ -11,7 +11,9 @@
 // keep is either an explicit {0, 1} f32 mask (R, N) or synthesized from the
 // position: rows flatten (..., seq_len), so qpos = row % seq_len, and keep is
 // (col <= qpos) under causal and (qpos - col < window) under a window; with
-// neither it is all ones.
+// neither it is all ones.  pwl is the launch's epilogue (epilogue.cuh): the
+// table's decode, or the exact exp (act="exp", the JAX package's default
+// when no table is given) inside the same clamps.
 //
 // What bounds it on an H100: one read of x where a score is kept (and of the
 // mask) and one write of y, at most 8 bytes per score (12 with a mask, 6
@@ -53,7 +55,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "pwl_decode.cuh"
+#include "epilogue.cuh"
 
 namespace {
 
@@ -96,10 +98,10 @@ __device__ __forceinline__ float row_reduce(float v, float* s_red) {
   return v;
 }
 
-template <int RPB>
+template <int RPB, bool TABLE>
 __global__ void __launch_bounds__(THREADS)
 softmax_kernel(const float* __restrict__ x, const float* __restrict__ mask,
-               const float* __restrict__ bp, const float* __restrict__ dmq, int n_bp,
+               const float* __restrict__ bp, const float* __restrict__ dmq, Epilogue ep,
                float* __restrict__ out, int R, int N, int seq_len, int causal, int has_window,
                int window) {
   constexpr int TPR = THREADS / RPB;  // threads per row
@@ -108,7 +110,7 @@ softmax_kernel(const float* __restrict__ x, const float* __restrict__ mask,
   __shared__ float s_dmq[2 * (PWL_MAX_BP + 1)];
   __shared__ float s_red[THREADS / 32];
 
-  pwl_load_table(s_bp, s_dmq, bp, dmq, n_bp);
+  epi_load_table<TABLE>(s_bp, s_dmq, bp, dmq, ep);
   __syncthreads();
 
   const int sub = threadIdx.x / TPR;
@@ -135,7 +137,7 @@ softmax_kernel(const float* __restrict__ x, const float* __restrict__ mask,
   float sum = 0.0f;
   if (live) {
     for (int c = lane; c < N; c += TPR) {
-      const float p = pwl_exp(srow[c] - m, s_bp, s_dmq, n_bp) * keep(c);
+      const float p = epi_exp<TABLE>(ep, srow[c] - m, s_bp, s_dmq) * keep(c);
       srow[c] = p;
       sum += p;
     }
@@ -152,11 +154,11 @@ __device__ __forceinline__ float max_gate(float v, float threshold) {
   return v > threshold ? 1.0f : (v == threshold ? 0.5f : 0.0f);
 }
 
-template <int RPB>
+template <int RPB, bool TABLE>
 __global__ void __launch_bounds__(THREADS)
 softmax_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mask,
                    const float* __restrict__ g, const float* __restrict__ bp,
-                   const float* __restrict__ dmq, int n_bp, float* __restrict__ dx, int R,
+                   const float* __restrict__ dmq, Epilogue ep, float* __restrict__ dx, int R,
                    int N, int seq_len, int causal, int has_window, int window) {
   constexpr int TPR = THREADS / RPB;  // threads per row
   extern __shared__ __align__(16) float s_rows[];  // RPB rows of N floats
@@ -164,7 +166,7 @@ softmax_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mask,
   __shared__ float s_dmq[2 * (PWL_MAX_BP + 1)];
   __shared__ float s_red[THREADS / 32];
 
-  pwl_load_table(s_bp, s_dmq, bp, dmq, n_bp);
+  epi_load_table<TABLE>(s_bp, s_dmq, bp, dmq, ep);
   __syncthreads();
 
   const int sub = threadIdx.x / TPR;
@@ -195,7 +197,7 @@ softmax_bwd_kernel(const float* __restrict__ x, const float* __restrict__ mask,
     for (int c = lane; c < N; c += TPR) {
       const float xm = srow[c];
       const float t = xm - m;
-      const float2 vs = pwl_value_and_slope(fmaxf(t, SHIFT_CLAMP), s_bp, s_dmq, n_bp);
+      const float2 vs = epi_value_and_slope<TABLE>(ep, fmaxf(t, SHIFT_CLAMP), s_bp, s_dmq);
       const float k = keep(c);
       const float u = fmaxf(vs.x, 0.0f) * k;
       l_part += u;
@@ -253,46 +255,48 @@ int grid_of(int R, int rpb, unsigned* blocks) {
   return 0;
 }
 
-template <int RPB>
-int launch(const float* x, const float* mask, const float* bp, const float* dmq, int n_bp,
+template <int RPB, bool TABLE>
+int launch(const float* x, const float* mask, const float* bp, const float* dmq, Epilogue ep,
            float* out, int R, int N, int seq_len, int causal, int has_window, int window,
            cudaStream_t stream) {
   const size_t smem = (size_t)RPB * N * sizeof(float);
-  auto kern = softmax_kernel<RPB>;
+  auto kern = softmax_kernel<RPB, TABLE>;
   static size_t smem_allowed = 48 * 1024;
   unsigned blocks = 0;
   if (int e = allow_smem(kern, smem, &smem_allowed)) return e;
   if (int e = grid_of(R, RPB, &blocks)) return e;
   kern<<<blocks, THREADS, smem, stream>>>(
-      x, mask, bp, dmq, n_bp, out, R, N, seq_len, causal, has_window, window);
+      x, mask, bp, dmq, ep, out, R, N, seq_len, causal, has_window, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int RPB>
+template <int RPB, bool TABLE>
 int launch_bwd(const float* x, const float* mask, const float* g, const float* bp,
-               const float* dmq, int n_bp, float* dx, int R, int N, int seq_len, int causal,
+               const float* dmq, Epilogue ep, float* dx, int R, int N, int seq_len, int causal,
                int has_window, int window, cudaStream_t stream) {
   const size_t smem = (size_t)RPB * N * sizeof(float);
-  auto kern = softmax_bwd_kernel<RPB>;
+  auto kern = softmax_bwd_kernel<RPB, TABLE>;
   static size_t smem_allowed = 48 * 1024;
   unsigned blocks = 0;
   if (int e = allow_smem(kern, smem, &smem_allowed)) return e;
   if (int e = grid_of(R, RPB, &blocks)) return e;
   kern<<<blocks, THREADS, smem, stream>>>(
-      x, mask, g, bp, dmq, n_bp, dx, R, N, seq_len, causal, has_window, window);
+      x, mask, g, bp, dmq, ep, dx, R, N, seq_len, causal, has_window, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // x, out: (R, N) f32, contiguous; mask: (R, N) f32 in {0, 1} or null.
-// seq_len: rows per query block for the synthesized causal/window mask.
-// Returns the cudaError_t of the launch.
+// seq_len: rows per query block for the synthesized causal/window mask.  The
+// exp is the epilogue (bp, dmq, n_bp, kind, fn) of epilogue.cuh: the PWL
+// table, or an exact function (exp).  Returns the cudaError_t of the launch.
 extern "C" int pwl_softmax_forward(const void* x, const void* mask, const void* bp,
-                                   const void* dmq, int n_bp, void* out, int R, int N,
-                                   int seq_len, int causal, int has_window, int window,
-                                   void* stream) {
-  if (n_bp < 1 || n_bp > PWL_MAX_BP || R < 0 || N < 1 || N > MAX_WIDTH || seq_len < 1)
+                                   const void* dmq, int n_bp, int kind, int fn, void* out,
+                                   int R, int N, int seq_len, int causal, int has_window,
+                                   int window, void* stream) {
+  const Epilogue ep{kind, fn, n_bp};
+  if (!epilogue_ok(ep) || R < 0 || N < 1 || N > MAX_WIDTH || seq_len < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -301,19 +305,25 @@ extern "C" int pwl_softmax_forward(const void* x, const void* mask, const void* 
   const float* bpf = static_cast<const float*>(bp);
   const float* dmqf = static_cast<const float*>(dmq);
   float* of = static_cast<float*>(out);
-  if (N <= NARROW_WIDTH)
-    return launch<8>(xf, mf, bpf, dmqf, n_bp, of, R, N, seq_len, causal, has_window, window, s);
-  return launch<1>(xf, mf, bpf, dmqf, n_bp, of, R, N, seq_len, causal, has_window, window, s);
+  return with_table(ep, [&](auto table) {
+    constexpr bool TB = decltype(table)::value;
+    if (N <= NARROW_WIDTH)
+      return launch<8, TB>(xf, mf, bpf, dmqf, ep, of, R, N, seq_len, causal, has_window, window,
+                           s);
+    return launch<1, TB>(xf, mf, bpf, dmqf, ep, of, R, N, seq_len, causal, has_window, window,
+                         s);
+  });
 }
 
 // x, g, dx: (R, N) f32, contiguous; mask: (R, N) f32 in {0, 1} or null;
-// seq_len, causal, window as for the forward.  Returns the cudaError_t of the
-// launch.
+// seq_len, causal, window and the epilogue as for the forward.  Returns the
+// cudaError_t of the launch.
 extern "C" int pwl_softmax_backward(const void* x, const void* mask, const void* g,
-                                    const void* bp, const void* dmq, int n_bp, void* dx,
-                                    int R, int N, int seq_len, int causal, int has_window,
-                                    int window, void* stream) {
-  if (n_bp < 1 || n_bp > PWL_MAX_BP || R < 0 || N < 1 || N > MAX_WIDTH || seq_len < 1)
+                                    const void* bp, const void* dmq, int n_bp, int kind, int fn,
+                                    void* dx, int R, int N, int seq_len, int causal,
+                                    int has_window, int window, void* stream) {
+  const Epilogue ep{kind, fn, n_bp};
+  if (!epilogue_ok(ep) || R < 0 || N < 1 || N > MAX_WIDTH || seq_len < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -323,9 +333,12 @@ extern "C" int pwl_softmax_backward(const void* x, const void* mask, const void*
   const float* bpf = static_cast<const float*>(bp);
   const float* dmqf = static_cast<const float*>(dmq);
   float* df = static_cast<float*>(dx);
-  if (N <= NARROW_WIDTH)
-    return launch_bwd<8>(xf, mf, gf, bpf, dmqf, n_bp, df, R, N, seq_len, causal, has_window,
-                         window, s);
-  return launch_bwd<1>(xf, mf, gf, bpf, dmqf, n_bp, df, R, N, seq_len, causal, has_window,
-                       window, s);
+  return with_table(ep, [&](auto table) {
+    constexpr bool TB = decltype(table)::value;
+    if (N <= NARROW_WIDTH)
+      return launch_bwd<8, TB>(xf, mf, gf, bpf, dmqf, ep, df, R, N, seq_len, causal,
+                               has_window, window, s);
+    return launch_bwd<1, TB>(xf, mf, gf, bpf, dmqf, ep, df, R, N, seq_len, causal, has_window,
+                             window, s);
+  });
 }

@@ -20,7 +20,7 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
 LIBRARIES = ("glu", "kv_cache", "softmax", "decoding", "attention", "attention_bwd",
-             "pwl_act")
+             "pwl_act", "norm")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,8 +1,7 @@
 """Kernels with the PWL activation inside: producer epilogues (the fused
-GLU, the per-expert MoE GLU and the fused linear layer, forward and
-backward) and the PWL-exp
-softmax of attention (row softmax forward and backward, split-KV paged
-decode, flash forward and backward)."""
+GLU, the per-expert MoE GLU, the fused linear layer and the fused RMSNorm,
+forward and backward) and the PWL-exp softmax of attention (row softmax
+forward and backward, split-KV paged decode, flash forward and backward)."""
 from .attention import (
     flash_reference_attention,
     fused_flash_attention,
@@ -24,6 +23,7 @@ from .epilogue import (
 from .glu import fused_glu, fused_glu_bwd, fused_glu_bwd_plain, fused_glu_plain
 from .linear import fused_linear, fused_linear_bwd, fused_linear_bwd_plain, fused_linear_plain
 from .moe import fused_moe_glu
+from .norm import fused_rmsnorm, fused_rmsnorm_bwd, fused_rmsnorm_bwd_plain, fused_rmsnorm_plain
 from .softmax import (
     fused_pwl_softmax,
     fused_pwl_softmax_bwd,
@@ -55,6 +55,10 @@ __all__ = [
     "fused_pwl_softmax_bwd",
     "fused_pwl_softmax_bwd_plain",
     "fused_pwl_softmax_plain",
+    "fused_rmsnorm",
+    "fused_rmsnorm_bwd",
+    "fused_rmsnorm_bwd_plain",
+    "fused_rmsnorm_plain",
     "merge_split_partials",
     "pack_table",
     "paged_flash_decode",

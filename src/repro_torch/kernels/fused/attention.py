@@ -37,7 +37,9 @@ five products of the gradient (~64 GFLOP) and decodes every score again,
 so both are bound by operations; this first version runs the products as
 f32 FMAs on CUDA cores.  The forward's block owns 64 query rows of one head
 and keeps each 64 x 512 score tile in shared memory, so the block max is
-known before any PWL exp of the block.
+known before any PWL exp of the block.  At head dim 128 < dh <= 256
+(gemma3-1b's 256) the forward takes 32 query rows a block and the backward
+32 x 32 tiles, to fit the 227 KB of shared memory a block may hold.
 
 A CPU tensor takes the plain versions below (the same 512-key chain
 forward); a CUDA tensor launches the kernels or raises.
@@ -49,21 +51,28 @@ import math
 
 import torch
 
+from repro_torch.core.functions import tie_max
 from repro_torch.core.pwl import PWLTable
 
 from .backward import resolve_impl_bwd
-from .epilogue import EpiloguePlan, check_kernel_operands, device_operands
-from .softmax import NEG_FILL, SHIFT_CLAMP, _max, fused_pwl_softmax_plain, pwl_exp
+from .epilogue import (
+    EPILOGUE_ARGTYPES,
+    EpiloguePlan,
+    check_kernel_operands,
+    device_operands,
+    kernel_epilogue,
+)
+from .softmax import NEG_FILL, SHIFT_CLAMP, fused_pwl_softmax_plain, pwl_exp
 
 DEFAULT_BLOCK_KV = 512  # keys per chain step, as the JAX kernel's KV blocks
-MAX_HEAD_DIM = 128      # the kernels' Q and K/V tiles fit shared memory up to here
+MAX_HEAD_DIM = 256      # the JAX kernels' VMEM budget; past 128 the CUDA tiles halve
 
 _SIGNATURES = {
-    "flash_pwl_forward": [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+    "flash_pwl_forward": [ctypes.c_void_p] * 4 + EPILOGUE_ARGTYPES + [ctypes.c_void_p] * 2
     + [ctypes.c_int] * 11 + [ctypes.c_void_p],
 }
 _BWD_SIGNATURES = {
-    "flash_pwl_backward": [ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_void_p] * 4
+    "flash_pwl_backward": [ctypes.c_void_p] * 6 + EPILOGUE_ARGTYPES + [ctypes.c_void_p] * 4
     + [ctypes.c_int] * 11 + [ctypes.c_void_p],
 }
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -198,8 +207,8 @@ def fused_flash_attention_bwd_plain(q, k, v, dout, m, plan: EpiloguePlan, tables
         s = torch.where(keepf > 0, s, NEG_FILL)
         eq = (s == mv).to(torch.float32)
         t = s - mv
-        p_raw, slope = plan.apply_value_and_slope(_max(t, SHIFT_CLAMP), *tables)
-        u = _max(p_raw, 0.0) * keepf
+        p_raw, slope = plan.apply_value_and_slope(tie_max(t, SHIFT_CLAMP), *tables)
+        u = tie_max(p_raw, 0.0) * keepf
         gate = keepf * _gate(p_raw, 0.0) * slope * _gate(t, SHIFT_CLAMP)
         return u, gate, eq, keepf
 
@@ -215,9 +224,9 @@ def fused_flash_attention_bwd_plain(q, k, v, dout, m, plan: EpiloguePlan, tables
         l = l + u.sum(dim=-1, keepdim=True)
         acc_o = acc_o + torch.einsum("bhgqk,bhkd->bhgqd", u, vf[:, :, j0:j1])
         ntie = ntie + eq.sum(dim=-1, keepdim=True)
-    L = _max(l, 1e-30)
+    L = tie_max(l, 1e-30)
     delta = (dof * acc_o).sum(dim=-1, keepdim=True) / L
-    ntie = _max(ntie, 1.0)
+    ntie = tie_max(ntie, 1.0)
     gl = _gate(l, 1e-30)
 
     # pass B: the row max's gradient
@@ -277,13 +286,12 @@ def _launch(q, k, v, plan, tables, causal, window, q_offset, kv_valid_len, want_
     vl = _valid_len(kv_valid_len, dev)
     out = torch.empty_like(qc)
     m = torch.empty((B, H, S), dtype=torch.float32, device=dev) if want_max else None
-    bp, dmq = tables
     lib = _build.load("attention", _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_pwl_forward(
             qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), None if vl is None else vl.data_ptr(),
-            bp.data_ptr(), dmq.data_ptr(), plan.n_bp, out.data_ptr(),
+            *kernel_epilogue(plan, tables), out.data_ptr(),
             None if m is None else m.data_ptr(), B, S, T, H, Hkv, dh,
             int(causal), int(window is not None), 0 if window is None else int(window),
             int(q_offset), _KERNEL_DTYPES[q.dtype], stream)
@@ -310,14 +318,13 @@ def _launch_bwd(q, k, v, dout, m, plan, tables, causal, window, q_offset, kv_val
     vl = _valid_len(kv_valid_len, dev)
     dq, dk, dv = torch.empty_like(qc), torch.empty_like(kc), torch.empty_like(vc)
     stats = torch.empty((4, B, H, S), dtype=torch.float32, device=dev)  # l, delta, ntie, dm
-    bp, dmq = tables
     lib = _build.load("attention_bwd", _BWD_SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_pwl_backward(
             qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), doc.data_ptr(),
-            None if vl is None else vl.data_ptr(), mc.data_ptr(), bp.data_ptr(),
-            dmq.data_ptr(), plan.n_bp, stats.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            None if vl is None else vl.data_ptr(), mc.data_ptr(),
+            *kernel_epilogue(plan, tables), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), B, S, T, H, Hkv, dh, int(causal), int(window is not None),
             0 if window is None else int(window), int(q_offset), _KERNEL_DTYPES[q.dtype],
             stream)
@@ -385,9 +392,9 @@ def fused_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: (B, S, H, dh); k/v: (B, T, Hkv, dh) with H a multiple of Hkv.
     ``table`` is the exp table of the ``attn.softmax:exp`` site; ``act="exp"``
     (the default when neither is given) runs the exact exponential in the
-    same chain (CPU only).  ``causal``/``window`` mask by position (queries
-    start at ``q_offset``); ``kv_valid_len`` (B,) is each row's valid key
-    prefix.  Returns (B, S, H, dh) in q's dtype.  Differentiable in q, k
+    same chain, on the card too; head_dim a multiple of 16 up to 256 there.
+    ``causal``/``window`` mask by position (queries start at ``q_offset``);
+    ``kv_valid_len`` (B,) is each row's valid key prefix.  Returns (B, S, H, dh) in q's dtype.  Differentiable in q, k
     and v; ``impl_bwd`` picks the backward (:mod:`.backward`)."""
     if table is None and act is None:
         act = "exp"

@@ -35,14 +35,20 @@ import torch
 
 from repro_torch.core.pwl import PWLTable
 
-from .epilogue import EpiloguePlan, check_kernel_operands, device_operands
+from .epilogue import (
+    EPILOGUE_ARGTYPES,
+    EpiloguePlan,
+    check_kernel_operands,
+    device_operands,
+    kernel_epilogue,
+)
 from .softmax import NEG_FILL, pwl_exp
 
 DEFAULT_SPLIT_KEYS = 2048  # key positions per KV split
 
 _SIGNATURES = {
-    "paged_decode_forward": [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-    + [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
+    "paged_decode_forward": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    + EPILOGUE_ARGTYPES + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
 }
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -125,7 +131,6 @@ def _launch(q, k_pages, v_pages, page_table, kv_len, plan, tables, pps):
     qc = q.contiguous()
     pt = page_table.to(torch.int32).contiguous()
     kvl = kv_len.to(torch.int32).contiguous()
-    bp, dmq = tables
     m_p = torch.empty((B * Hkv, ns, G), dtype=torch.float32, device=dev)
     l_p = torch.empty_like(m_p)
     acc_p = torch.empty((B * Hkv, ns, G, dh), dtype=torch.float32, device=dev)
@@ -135,7 +140,7 @@ def _launch(q, k_pages, v_pages, page_table, kv_len, plan, tables, pps):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.paged_decode_forward(
             qc.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), pt.data_ptr(), n_cols,
-            kvl.data_ptr(), bp.data_ptr(), dmq.data_ptr(), plan.n_bp, m_p.data_ptr(),
+            kvl.data_ptr(), *kernel_epilogue(plan, tables), m_p.data_ptr(),
             l_p.data_ptr(), acc_p.data_ptr(), out.data_ptr(), B, Hkv, P, ps, dh, G, pps, ns,
             _KERNEL_DTYPES[q.dtype], _KERNEL_DTYPES[k_pages.dtype], stream)
     _build.check(err, "paged_decode_forward")
@@ -153,7 +158,7 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Te
     page_table: (B, n_cols) int (0 = sentinel); kv_len: (B,) valid prefix
     (0 = inactive slot).  ``table`` is the exp table; ``act="exp"`` (the
     default when neither is given) runs the exact exponential through the
-    same chain (CPU only).  Returns (B, 1, H, dh) in q's dtype."""
+    same chain, on the card too.  Returns (B, 1, H, dh) in q's dtype."""
     if table is None and act is None:
         act = "exp"
     plan, tables = device_operands(table, act, q.device)

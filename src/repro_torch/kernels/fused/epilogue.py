@@ -4,12 +4,15 @@ The paper puts activation evaluation inside the datapath that produced the
 pre-activation.  On the card that means the kernel epilogue: the PWL decode
 runs on the accumulator in registers before the one store.  This module is
 the host half: :func:`pack_table` lays a table out as the operands a kernel
-reads, :class:`EpiloguePlan` names the epilogue, and
-:func:`pwl_value_and_slope` is the plain version of the device decode in
-``csrc/pwl_decode.cuh``, accumulating the deltas in the same order.
+reads, :class:`EpiloguePlan` names the epilogue, :func:`kernel_epilogue`
+passes it to a kernel (``csrc/epilogue.cuh`` selects identity, an exact
+function or the table), and :func:`pwl_value_and_slope` is the plain version
+of the device decode in ``csrc/pwl_decode.cuh``, accumulating the deltas in
+the same order.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import torch
@@ -194,17 +197,36 @@ def device_operands(table: PWLTable | None, act: str | None, device):
     return hit[1], hit[2]
 
 
+# The kernels' epilogue codes (csrc/epilogue.cuh): the kind, and the id of an
+# exact function in the order of repro_torch.core.functions.REGISTRY
+KIND_IDS = {"identity": 0, "exact": 1, "pwl": 2}
+EXACT_IDS = {name: i for i, name in enumerate(F.REGISTRY)}
+EPILOGUE_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3
+
+
+def kernel_epilogue(plan: EpiloguePlan, tables) -> tuple:
+    """The epilogue as every CUDA kernel's C interface takes it, ``(bp, dmq,
+    n_bp, kind, fn)`` (:data:`EPILOGUE_ARGTYPES`): the table operands'
+    pointers and breakpoint count for a PWL plan (null and 0 otherwise), the
+    kind, and the exact function's id."""
+    if plan.kind == "pwl":
+        bp, dmq = tables
+        return bp.data_ptr(), dmq.data_ptr(), plan.n_bp, KIND_IDS["pwl"], 0
+    if plan.kind == "identity":
+        return None, None, 0, KIND_IDS["identity"], 0
+    return None, None, 0, KIND_IDS["exact"], EXACT_IDS[plan.kind.split(":", 1)[1]]
+
+
 def check_kernel_operands(what: str, plan: EpiloguePlan, tables, *forward_only) -> None:
-    """Refuse what the CUDA kernels do not take, before any launch: an
-    epilogue other than a PWL table (the exact ``act=`` epilogue), and, for
-    a kernel with no backward (the paged decode, which serves only; the
-    flash attention has had its backward kernels since ROADMAP slice 3b), an
-    input in ``forward_only`` that requires grad.  Every table format
-    reaches the kernels in the f32 delta layout (:func:`device_operands`)."""
-    if plan.kind != "pwl":
-        raise NotImplementedError(
-            f"the CUDA {what} kernel takes a PWL table epilogue, not {plan.kind!r}")
-    if tables[0].dtype != torch.float32 or tables[1].dtype != torch.float32:
+    """Refuse what the CUDA kernels do not take, before any launch: table
+    operands other than the f32 delta layout, and, for a kernel with no
+    backward (the paged decode, which serves only; the flash attention has
+    had its backward kernels since ROADMAP slice 3b), an input in
+    ``forward_only`` that requires grad.  Every epilogue kind runs on the
+    card (identity, exact ``act=``, PWL); every table format reaches the
+    kernels in the f32 delta layout (:func:`device_operands`)."""
+    if plan.kind == "pwl" and (tables[0].dtype != torch.float32
+                               or tables[1].dtype != torch.float32):
         raise TypeError(f"the CUDA {what} kernel reads f32 delta-layout table operands "
                         "(device_operands packs every format so)")
     if any(t.requires_grad for t in forward_only):

@@ -34,12 +34,18 @@ import torch
 from repro_torch.core.pwl import PWLTable
 
 from .backward import resolve_impl_bwd
-from .epilogue import EpiloguePlan, check_kernel_operands, device_operands
+from .epilogue import (
+    EPILOGUE_ARGTYPES,
+    EpiloguePlan,
+    check_kernel_operands,
+    device_operands,
+    kernel_epilogue,
+)
 
 _SIGNATURES = {
-    "glu_pwl_forward": [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    "glu_pwl_forward": [ctypes.c_void_p] * 3 + EPILOGUE_ARGTYPES + [ctypes.c_void_p]
     + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-    "glu_pwl_backward": [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+    "glu_pwl_backward": [ctypes.c_void_p] * 4 + EPILOGUE_ARGTYPES + [ctypes.c_void_p] * 2
     + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 }
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -99,7 +105,6 @@ def _launch_forward(what, x, w_gate, w_up, plan, tables):
     x3, wg, wu = _check_operands(what, x, w_gate, w_up)
     E, M, K = x3.shape
     N = wg.shape[-1]
-    bp, dmq = tables
     dev = x3.device
     out = torch.empty((E, M, N), dtype=x3.dtype, device=dev)
     if E == 0 or M == 0 or N == 0:
@@ -108,8 +113,8 @@ def _launch_forward(what, x, w_gate, w_up, plan, tables):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.glu_pwl_forward(
-            x3.data_ptr(), wg.data_ptr(), wu.data_ptr(), bp.data_ptr(), dmq.data_ptr(),
-            plan.n_bp, out.data_ptr(), E, M, N, K, _KERNEL_DTYPES[x3.dtype], stream)
+            x3.data_ptr(), wg.data_ptr(), wu.data_ptr(), *kernel_epilogue(plan, tables),
+            out.data_ptr(), E, M, N, K, _KERNEL_DTYPES[x3.dtype], stream)
     _build.check(err, f"{what} forward")
     return out
 
@@ -132,7 +137,6 @@ def _launch_backward(what, x, w_gate, w_up, g, plan, tables):
         raise ValueError(f"g must be ({E}, {M}, {N}) on {x3.device}, got "
                          f"{tuple(g.shape)} on {g.device}")
     g3 = g.to(x3.dtype).contiguous()
-    bp, dmq = tables
     dev = x3.device
     dzg = torch.empty((E, M, N), dtype=torch.float32, device=dev)
     dzu = torch.empty((E, M, N), dtype=torch.float32, device=dev)
@@ -142,8 +146,8 @@ def _launch_backward(what, x, w_gate, w_up, g, plan, tables):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.glu_pwl_backward(
-            x3.data_ptr(), wg.data_ptr(), wu.data_ptr(), g3.data_ptr(), bp.data_ptr(),
-            dmq.data_ptr(), plan.n_bp, dzg.data_ptr(), dzu.data_ptr(), E, M, N, K,
+            x3.data_ptr(), wg.data_ptr(), wu.data_ptr(), g3.data_ptr(),
+            *kernel_epilogue(plan, tables), dzg.data_ptr(), dzu.data_ptr(), E, M, N, K,
             _KERNEL_DTYPES[x3.dtype], stream)
     _build.check(err, f"{what} backward")
     return dzg, dzu
@@ -200,10 +204,9 @@ def fused_glu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, *,
     """``act(x @ w_gate) * (x @ w_up)``.  x: (..., K); w_gate/w_up: (K, N).
 
     table -> PWL epilogue, act -> exact epilogue, neither -> plain bilinear
-    GLU.  On a CUDA tensor the PWL epilogue, with a table of any format,
-    runs the hand-written kernels (forward, and backward under
-    ``impl_bwd="fused"``); anything else there raises.  Differentiable in
-    x, w_gate and w_up."""
+    GLU.  On a CUDA tensor every epilogue, and a table of any format, runs
+    the hand-written kernels (forward, and backward under
+    ``impl_bwd="fused"``).  Differentiable in x, w_gate and w_up."""
     plan, tables = device_operands(table, act, x.device)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])

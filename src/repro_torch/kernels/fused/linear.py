@@ -30,12 +30,18 @@ import torch
 from repro_torch.core.pwl import PWLTable
 
 from .backward import resolve_impl_bwd
-from .epilogue import EpiloguePlan, check_kernel_operands, device_operands
+from .epilogue import (
+    EPILOGUE_ARGTYPES,
+    EpiloguePlan,
+    check_kernel_operands,
+    device_operands,
+    kernel_epilogue,
+)
 
 _SIGNATURES = {
-    "linear_pwl_forward": [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    "linear_pwl_forward": [ctypes.c_void_p] * 3 + EPILOGUE_ARGTYPES + [ctypes.c_void_p]
     + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-    "linear_pwl_backward": [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+    "linear_pwl_backward": [ctypes.c_void_p] * 4 + EPILOGUE_ARGTYPES + [ctypes.c_void_p]
     + [ctypes.c_int] * 4 + [ctypes.c_void_p],
 }
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -93,20 +99,19 @@ def _launch(what, x, w, b, plan, tables, g=None):
     out = torch.empty((M, N), dtype=x.dtype if g is None else torch.float32, device=dev)
     if M == 0 or N == 0:
         return out
-    bp, dmq = tables
     bias = 0 if b is None else b.data_ptr()
     lib = _build.load("glu", _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if g is None:
             err = lib.linear_pwl_forward(
-                x.data_ptr(), w.data_ptr(), bias, bp.data_ptr(), dmq.data_ptr(), plan.n_bp,
+                x.data_ptr(), w.data_ptr(), bias, *kernel_epilogue(plan, tables),
                 out.data_ptr(), M, N, K, _KERNEL_DTYPES[x.dtype], stream)
         else:
             g = g.to(x.dtype).contiguous()
             err = lib.linear_pwl_backward(
-                x.data_ptr(), w.data_ptr(), bias, g.data_ptr(), bp.data_ptr(), dmq.data_ptr(),
-                plan.n_bp, out.data_ptr(), M, N, K, _KERNEL_DTYPES[x.dtype], stream)
+                x.data_ptr(), w.data_ptr(), bias, g.data_ptr(), *kernel_epilogue(plan, tables),
+                out.data_ptr(), M, N, K, _KERNEL_DTYPES[x.dtype], stream)
     _build.check(err, f"{what} {'forward' if g is None else 'backward'}")
     return out
 
@@ -157,9 +162,8 @@ def fused_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None
     """``act(x @ w + b)``.  x: (..., K); w: (K, N); b: (N,) or None.
 
     table -> PWL epilogue, act -> exact epilogue, neither -> identity.  On a
-    CUDA tensor the PWL epilogue runs the hand-written kernels (forward, and
-    backward under ``impl_bwd="fused"``); anything else there raises.
-    Differentiable in x, w and b."""
+    CUDA tensor each of them runs the hand-written kernels (forward, and
+    backward under ``impl_bwd="fused"``).  Differentiable in x, w and b."""
     plan, tables = device_operands(table, act, x.device)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])

@@ -39,19 +39,26 @@ import ctypes
 
 import torch
 
+from repro_torch.core.functions import tie_max
 from repro_torch.core.pwl import PWLTable
 
 from .backward import resolve_impl_bwd
-from .epilogue import EpiloguePlan, check_kernel_operands, device_operands
+from .epilogue import (
+    EPILOGUE_ARGTYPES,
+    EpiloguePlan,
+    check_kernel_operands,
+    device_operands,
+    kernel_epilogue,
+)
 
 NEG_FILL = -1e30     # masked-score fill, as the JAX package's
 SHIFT_CLAMP = -1e4   # lower clamp on the shifted scores
 MAX_WIDTH = 32768    # widest row the kernel holds in shared memory
 
 _SIGNATURES = {
-    "pwl_softmax_forward": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+    "pwl_softmax_forward": [ctypes.c_void_p] * 2 + EPILOGUE_ARGTYPES + [ctypes.c_void_p]
     + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    "pwl_softmax_backward": [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    "pwl_softmax_backward": [ctypes.c_void_p] * 3 + EPILOGUE_ARGTYPES + [ctypes.c_void_p]
     + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
 
@@ -69,17 +76,10 @@ def static_mask(R: int, N: int, seq_len: int, causal: bool, window, device=None)
     return keep.to(torch.float32)
 
 
-def _max(x, c: float):
-    """``torch.maximum(x, c)``: its gradient is 0.5 at a tie, as jnp's.  The
-    constant is filled on x's device (no host copy, so a CUDA graph can
-    capture it)."""
-    return torch.maximum(x, torch.full((), c, dtype=x.dtype, device=x.device))
-
-
 def pwl_exp(x, plan: EpiloguePlan, tables):
     """The exp of the softmax chains: the epilogue on ``x`` clamped at
     ``-1e4``, clamped at 0 after the decode."""
-    return _max(plan.apply(_max(x, SHIFT_CLAMP), *tables), 0.0)
+    return tie_max(plan.apply(tie_max(x, SHIFT_CLAMP), *tables), 0.0)
 
 
 def fused_pwl_softmax_plain(x2, mask2, plan: EpiloguePlan, tables):
@@ -92,7 +92,7 @@ def fused_pwl_softmax_plain(x2, mask2, plan: EpiloguePlan, tables):
     if mask2 is not None:
         p = p * mask2
     l = p.sum(dim=-1, keepdim=True)
-    return p / _max(l, 1e-30)
+    return p / tie_max(l, 1e-30)
 
 
 def fused_pwl_softmax_bwd_plain(x2, mask2, g2, plan: EpiloguePlan, tables):
@@ -112,11 +112,11 @@ def fused_pwl_softmax_bwd_plain(x2, mask2, g2, plan: EpiloguePlan, tables):
     xm = torch.where(mask > 0, xf, NEG_FILL)
     m = xm.amax(dim=-1, keepdim=True)
     t = xm - m
-    s = _max(t, SHIFT_CLAMP)
+    s = tie_max(t, SHIFT_CLAMP)
     p_raw, slope = plan.apply_value_and_slope(s, *tables)
-    u = _max(p_raw, 0.0) * mask
+    u = tie_max(p_raw, 0.0) * mask
     l = u.sum(dim=-1, keepdim=True)
-    L = _max(l, 1e-30)
+    L = tie_max(l, 1e-30)
     gf = g2.to(torch.float32)
     gl = (l > 1e-30).to(torch.float32) + 0.5 * (l == 1e-30).to(torch.float32)
     du = gf / L - gl * (gf * u).sum(dim=-1, keepdim=True) / (L * L)
@@ -151,13 +151,12 @@ def _launch(x2, mask2, plan, tables, seq_len, causal, window):
     out = torch.empty((R, N), dtype=torch.float32, device=dev)
     if R == 0 or N == 0:
         return out
-    bp, dmq = tables
     lib = _build.load("softmax", _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pwl_softmax_forward(
-            x2.data_ptr(), None if mask2 is None else mask2.data_ptr(), bp.data_ptr(),
-            dmq.data_ptr(), plan.n_bp, out.data_ptr(), R, N, seq_len, int(causal),
+            x2.data_ptr(), None if mask2 is None else mask2.data_ptr(),
+            *kernel_epilogue(plan, tables), out.data_ptr(), R, N, seq_len, int(causal),
             int(window is not None), 0 if window is None else int(window), stream)
     _build.check(err, "pwl_softmax_forward")
     fused_pwl_softmax.launches += 1
@@ -178,13 +177,12 @@ def _launch_bwd(x2, mask2, g2, plan, tables, seq_len, causal, window):
     dx = torch.empty((R, N), dtype=torch.float32, device=dev)
     if R == 0 or N == 0:
         return dx
-    bp, dmq = tables
     lib = _build.load("softmax", _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pwl_softmax_backward(
             x2.data_ptr(), None if mask2 is None else mask2.data_ptr(), g2.data_ptr(),
-            bp.data_ptr(), dmq.data_ptr(), plan.n_bp, dx.data_ptr(), R, N, seq_len,
+            *kernel_epilogue(plan, tables), dx.data_ptr(), R, N, seq_len,
             int(causal), int(window is not None), 0 if window is None else int(window),
             stream)
     _build.check(err, "pwl_softmax_backward")
@@ -250,7 +248,7 @@ def fused_pwl_softmax(x: torch.Tensor, *, table: PWLTable | None = None,
 
     x: (..., N) scores.  ``table`` is the exp table of the
     ``attn.softmax:exp`` site; ``act="exp"`` (the default when neither is
-    given) runs the exact exponential in the same reduction (CPU only).
+    given) runs the exact exponential in the same reduction, on the card too.
     ``mask`` (broadcastable to x, nonzero = keep) is dynamic validity;
     ``causal``/``window`` are position-static masks made from the query
     position (second-to-last axis) and the key position (last axis), and

@@ -52,18 +52,30 @@ def pwl_nonuniform_plain(x, bp, dmq):
     return pwl_value_and_slope(x, bp, dmq, int(bp.shape[0]))[0].to(x.dtype)
 
 
+def _int32_index(t):
+    """``int32(t) + 1`` as XLA computes it on the CPU: the conversion
+    saturates (NaN to 0) and the +1 wraps, so t >= 2^31 gives -2^31 (int64
+    holding int32 values)."""
+    ti = torch.nan_to_num(t.to(torch.float64), nan=0.0).clamp(-2.0**31, 2.0**31 - 1)
+    ti = ti.to(torch.int64) + 1
+    return torch.where(ti > 2**31 - 1, ti - 2**32, ti)
+
+
 def pwl_uniform_plain(x, mq, lo: float, hi: float):
-    """Plain version of the uniform kernel: ``idx = clip(floor((x - lo)·inv_h)
-    + 1, 0, n_seg - 1)`` in f32, the segment's (m, q) by delta accumulation
-    over the ``n_seg - 1`` segment edges (the deltas formed in f32 in that
-    order), then ``m·x + q``, cast to x's dtype.  ``mq``: (n_seg, 2) f32."""
+    """Plain version of the uniform kernel: ``idx = clip(int32(floor((x -
+    lo)·inv_h)) + 1, 0, n_seg - 1)``, the int32 step as JAX's
+    (:func:`_int32_index`: past 2^31 segment widths the index wraps to
+    segment 0, NaN lands in segment 1), the segment's (m, q) by delta
+    accumulation over the ``n_seg - 1`` segment edges (the deltas formed in
+    f32 in that order), then ``m·x + q``, cast to x's dtype.  ``mq``:
+    (n_seg, 2) f32."""
     xf = x.to(torch.float32)
     mq = mq.to(device=xf.device, dtype=torch.float32)
     n_seg = int(mq.shape[0])
     # filled on x's device (no host copy, so a CUDA graph can capture it)
     lo32, inv_h32 = (torch.full((), c, dtype=torch.float32, device=xf.device)
                      for c in uniform_constants(lo, hi, n_seg))
-    idx = torch.clamp(torch.floor((xf - lo32) * inv_h32) + 1.0, 0.0, float(n_seg - 1))
+    idx = torch.clamp(_int32_index(torch.floor((xf - lo32) * inv_h32)), 0, n_seg - 1)
     m = mq[0, 0].expand(xf.shape).clone()
     q = mq[0, 1].expand(xf.shape).clone()
     for i in range(n_seg - 1):

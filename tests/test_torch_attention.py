@@ -82,3 +82,14 @@ def test_flash_table_formats_short_cache(n_bp, fmt):
 def test_flash_exact_exp():
     got, want = _both(_qkv(5, 1, 600, 600, 2, 2), None, None, causal=True)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=True, window=16)],
+                         ids=["causal", "window"])
+def test_flash_head_dim_256_gqa(kw):
+    """gemma3-1b's head dim and 4:1 grouping (H = 4, Hkv = 1): JAX pads dh to
+    a multiple of 128 and budgets VMEM up to 256; the CUDA kernels halve
+    their query tile past 128."""
+    jt, tt = _tables()
+    got, want = _both(_qkv(11, 1, 40, 40, 4, 1, dh=256), jt, tt, **kw)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)

@@ -200,3 +200,13 @@ def test_a_row_with_no_valid_key_gets_zero_gradients(impl_bwd):
     assert all(bool(torch.isfinite(g).all()) for g in grads)
     assert not any(bool(g[0].any()) for g in grads)
     _assert_grads_close(grads, _jax_grads(qkv, jt, **JAX_BLOCKS, **kw))
+
+
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=True, window=7)],
+                         ids=["causal", "window"])
+def test_flash_grads_head_dim_256_gqa(kw):
+    """gemma3-1b's head dim 256 and 4:1 grouping, on the integer grid (the
+    scale 1/16 is exact)."""
+    qkv, (jt, tt) = _qkv(B=1, S=20, H=4, Hkv=1, dh=256, seed=20), _tables()
+    want = _jax_grads(qkv, jt, **JAX_BLOCKS, **kw)
+    _assert_grads_close(_port_grads(qkv, tt, **kw), want)

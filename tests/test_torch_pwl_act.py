@@ -150,12 +150,15 @@ def test_uniform_segment_edges_belong_to_the_jax_segment(n_seg):
     got = tops.pwl_activation_uniform(torch.from_numpy(x), torch.from_numpy(m),
                                       torch.from_numpy(q), lo, hi).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
-    # past 2^31 segment widths the TPU kernel's int32 index overflows (its
-    # +inf lands in segment 0); the port clips in f32: the boundary segments
+    # past 2^31 segment widths the int32 index saturates and its +1 wraps:
+    # both ends land in segment 0, in the port as in JAX
     far = np.float32([-1e30, 1e30])
+    want = _np(jops.pwl_activation_uniform(jnp.asarray(far), jnp.asarray(m), jnp.asarray(q),
+                                           lo, hi))
     got = tops.pwl_activation_uniform(torch.from_numpy(far), torch.from_numpy(m),
                                       torch.from_numpy(q), lo, hi).numpy()
-    np.testing.assert_allclose(got, m[[0, -1]] * far + q[[0, -1]], rtol=1e-6)
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    np.testing.assert_allclose(got, m[0] * far + q[0], rtol=1e-6)
 
 
 def test_uniform_constants_are_the_f32_roundings():

@@ -9,9 +9,10 @@
   through its MoE layers) and returns 0.
 * Each kernel wrapper carries a plain-int launch counter, and a second one
   for its backward kernel where it has one (the GLU, the MoE GLU, the fused
-  linear layer, the row softmax, the flash attention).
+  linear layer, the fused RMSNorm, the row softmax, the flash attention).
 * A bf16 table passes every wrapper's operand check (it reaches the kernels
-  in the f32 delta layout) and meets the device check; what only the CUDA
+  in the f32 delta layout) and meets the device check, as do the exact
+  (``act=``) and identity epilogues, which the kernels take; what only the CUDA
   kernels refuse (for the paged decode, which has no backward, an input
   that requires grad) raises on a non-CPU tensor before any launch, and the
   standalone PWL activation refuses a gradient on any device; the plain
@@ -111,6 +112,7 @@ def test_kernel_wrappers_carry_launch_counters():
         fused_linear,
         fused_moe_glu,
         fused_pwl_softmax,
+        fused_rmsnorm,
         paged_flash_decode,
     )
     from repro_torch.kernels.ops import pwl_activation, pwl_activation_uniform
@@ -118,14 +120,17 @@ def test_kernel_wrappers_carry_launch_counters():
 
     for fn in (fused_glu, write_prompt_pages_, append_kv_, fused_pwl_softmax,
                paged_flash_decode, fused_flash_attention, fused_moe_glu, fused_linear,
-               pwl_activation, pwl_activation_uniform):
+               fused_rmsnorm, pwl_activation, pwl_activation_uniform):
         assert isinstance(fn.launches, int)
     for fn in (fused_glu, fused_pwl_softmax, fused_flash_attention, fused_moe_glu,
-               fused_linear):
+               fused_linear, fused_rmsnorm):
         assert isinstance(fn.bwd_launches, int)
 
 
-def _kernel_calls(table, grad=False):
+def _kernel_calls(table, grad=False, act=None):
+    """Each kernel's wrapper on meta tensors, with ``table``, or with the
+    exact ``act`` where the wrapper takes one (no table: the softmax chains
+    default to the exact exp)."""
     from repro_torch.kernels import fused, ops
 
     def t(*shape, dtype=torch.float32):
@@ -133,21 +138,24 @@ def _kernel_calls(table, grad=False):
 
     pt = torch.zeros((2, 1), dtype=torch.int32, device="meta")
     kv_len = torch.ones((2,), dtype=torch.int32, device="meta")
+    ep = {"table": table, "act": act}
+    exp = {"table": table}
     return {
-        "softmax": lambda: fused.fused_pwl_softmax(t(2, 4, 8), table=table, causal=True),
+        "softmax": lambda: fused.fused_pwl_softmax(t(2, 4, 8), **exp, causal=True),
         "decode": lambda: fused.paged_flash_decode(t(2, 1, 4, 16), t(2, 3, 4, 16),
-                                                   t(2, 3, 4, 16), pt, kv_len, table=table),
+                                                   t(2, 3, 4, 16), pt, kv_len, **exp),
         "flash": lambda: fused.fused_flash_attention(t(1, 8, 4, 16), t(1, 8, 2, 16),
-                                                     t(1, 8, 2, 16), table=table),
-        "moe": lambda: fused.fused_moe_glu(t(3, 4, 8), t(3, 8, 16), t(3, 8, 16), table=table),
-        "linear": lambda: fused.fused_linear(t(4, 8), t(8, 16), t(16), table=table),
+                                                     t(1, 8, 2, 16), **exp),
+        "moe": lambda: fused.fused_moe_glu(t(3, 4, 8), t(3, 8, 16), t(3, 8, 16), **ep),
+        "linear": lambda: fused.fused_linear(t(4, 8), t(8, 16), t(16), **ep),
+        "norm": lambda: fused.fused_rmsnorm(t(4, 8), t(8), **ep),
         "pwl": lambda: ops.pwl_activation(t(4, 8), table),
         "pwl_uniform": lambda: ops.pwl_activation_uniform(t(4, 8), table.m, table.q, -8.0, 8.0),
     }
 
 
-@pytest.mark.parametrize("kernel", ["softmax", "decode", "flash", "moe", "linear", "pwl",
-                                    "pwl_uniform"])
+@pytest.mark.parametrize("kernel", ["softmax", "decode", "flash", "moe", "linear", "norm",
+                                    "pwl", "pwl_uniform"])
 def test_cuda_only_refusals_raise_off_the_cpu(kernel, monkeypatch):
     from repro_torch import sfu
     from repro_torch.kernels import fused, pwl_act
@@ -160,6 +168,7 @@ def test_cuda_only_refusals_raise_off_the_cpu(kernel, monkeypatch):
     monkeypatch.setattr(fused.attention, "fused_flash_attention_plain", no_plain)
     monkeypatch.setattr(fused.glu, "fused_glu_plain", no_plain)
     monkeypatch.setattr(fused.linear, "fused_linear_plain", no_plain)
+    monkeypatch.setattr(fused.norm, "fused_rmsnorm_plain", no_plain)
     monkeypatch.setattr(pwl_act, "pwl_nonuniform_plain", no_plain)
     monkeypatch.setattr(pwl_act, "pwl_uniform_plain", no_plain)
     # a bf16 table is no refusal: packed into the f32 delta layout, it
@@ -179,6 +188,12 @@ def test_cuda_only_refusals_raise_off_the_cpu(kernel, monkeypatch):
             _kernel_calls(f32, grad=True)[kernel]()
     with pytest.raises(ValueError, match="cpu or cuda"):
         _kernel_calls(f32)[kernel]()
+    if kernel not in ("pwl", "pwl_uniform"):
+        # the exact and identity epilogues are no refusal either: the exact
+        # exp of the softmax chains, act="gelu" and no act for the others
+        for act in ("gelu", None):
+            with pytest.raises(ValueError, match="cpu or cuda"):
+                _kernel_calls(None, act=act)[kernel]()
 
 
 def _load_script(name):

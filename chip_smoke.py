@@ -69,7 +69,16 @@
    on grids that hit the kinks, and drives each through its public entry
    point; holds the flash forward and backward at head dim 256 (gemma3-1b's
    attention, causal with and without its 512 window) and the split-KV
-   decode at dh 256.
+   decode at dh 256;
+10. slice 8: prints each kernel's registers and spills and the tensor-core
+   (HMMA) instructions of the flash kernels' SASS; holds the flash kernels'
+   bf16 tensor-core design against the plain versions on every mask
+   (GQA, the 512 window, ``kv_valid_len`` with 0, ``q_offset``, T of 700,
+   1500 and 3000, whisper's non-causal encoder, dh 64, 80, 128, 208 and
+   256), the row max bitwise on integer grids, and on random bf16 inputs
+   checks that the backward's stats kernel finds every live row's forward
+   row max again (its raw tie count at least 1).  ``ab_flash.py`` times the
+   flash kernels of two checkouts in turns.
 
 Every failed check exits non-zero.  The last two lines of standard output
 are the kernels' JSON line and ``{"ok": true, "device": {...}}``; the card's
@@ -151,7 +160,20 @@ def time_ms(torch, fn, reps: int = 20, iters: int = 10) -> float:
     return start.elapsed_time(end) / (iters * reps)
 
 
+def _demangle(names: list[str]) -> list[str]:
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, timeout=60, check=True).stdout.splitlines()
+        return [n.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+                for n in out]
+    except (OSError, subprocess.SubprocessError):
+        return names
+
+
 def build_phase():
+    """Build every CUDA library; print each kernel's registers and spills
+    (ptxas) and, for the flash libraries, the count of tensor-core
+    instructions (HMMA) in each kernel's SASS (``cuobjdump``)."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -160,9 +182,28 @@ def build_phase():
     print(f"[smoke] built {sorted(info)} in {secs:.2f}s (wall, parallel nvcc)")
     for name, rec in sorted(info.items()):
         print(f"[smoke]   {name}: {rec['seconds']:.2f}s cached={rec['cached']}")
+        entries, fn, spill = [], None, ""
         for line in rec["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[smoke]     ptxas {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif "spill" in line:
+                spill = line.strip()
+            elif "registers" in line and fn is not None:
+                entries.append((fn, line.split("Used")[1].split(",")[0].strip(), spill))
+                fn, spill = None, ""
+        for (raw, regs, spill), short in zip(entries, _demangle([e[0] for e in entries])):
+            print(f"[smoke]     ptxas {short}: {regs}; {spill}")
+    cuobjdump = pathlib.Path(_build.nvcc_path()).with_name("cuobjdump")
+    for name in ("attention", "attention_bwd"):
+        if not cuobjdump.exists():
+            print(f"[smoke]   SASS of {name}: cuobjdump not found")
+            break
+        sass = subprocess.run([str(cuobjdump), "-sass", str(_build.lib_path(name))],
+                              capture_output=True, text=True, timeout=300).stdout
+        funcs = [f.split("\n", 1) for f in sass.split("Function : ")[1:]]
+        shorts = _demangle([f[0].strip() for f in funcs])
+        for short, (_, body) in zip(shorts, funcs):
+            print(f"[smoke]   SASS {short}: {body.count('HMMA')} HMMA instructions")
     return secs
 
 
@@ -919,9 +960,32 @@ def decode_phase(torch):
     return rows
 
 
+# bf16 cases of the flash kernels' tensor-core design: the masks of the f32
+# cases, whisper's non-causal encoder, and head dims 128, 80 and 208 (a
+# multiple of 16 below its instantiation's largest); T not a multiple of 64
+# or 512.  (name, B, S, T, H, Hkv, kwargs; "dh" in kwargs, else DH)
+BF16_FLASH_CASES = [
+    ("S=T=3000 causal H=4", 1, 3000, 3000, 4, 4, {"causal": True}),
+    ("S=T=3000 causal window 512 H=4", 1, 3000, 3000, 4, 4, {"causal": True, "window": 512}),
+    ("decode rows over T=40000 kv_valid_len {39999, 12345}", 2, 1, 40000, 12, HKV,
+     {"causal": False, "kv_valid_len": [39999, 12345]}),
+    ("G=2 S=T=1000 causal H=12 Hkv=6", 1, 1000, 1000, 12, 6, {"causal": True}),
+    ("G=2 S=300 T=700 kv_valid_len {0, 513} H=4 Hkv=2", 2, 300, 700, 4, 2,
+     {"causal": False, "kv_valid_len": [0, 513]}),
+    ("S=300 T=700 causal q_offset 400 H=4", 1, 300, 700, 4, 4, {"causal": True, "q_offset": 400}),
+    ("whisper encoder S=T=1500 non-causal H=12", 2, 1500, 1500, 12, 12, {"causal": False}),
+    ("dh=128 G=2 S=T=700 causal H=4 Hkv=2", 1, 700, 700, 4, 2, {"causal": True, "dh": 128}),
+    ("dh=128 S=T=3000 causal window 512 H=2", 1, 3000, 3000, 2, 2,
+     {"causal": True, "window": 512, "dh": 128}),
+    ("dh=80 S=T=300 causal H=2", 1, 300, 300, 2, 2, {"causal": True, "dh": 80}),
+    ("dh=208 S=T=300 causal H=2", 1, 300, 300, 2, 2, {"causal": True, "dh": 208}),
+]
+
+
 def flash_phase(torch):
     """fused_flash_attention on CUDA tensors (its kernel) vs its plain version
-    (the same 512-key chain): bf16 at 1e-2, f32 at 1e-5."""
+    (the same 512-key chain): bf16 at 1e-2 (the tensor-core design, every
+    case of ``BF16_FLASH_CASES`` too), f32 at 1e-5."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.fused import fused_flash_attention
@@ -940,14 +1004,16 @@ def flash_phase(torch):
          torch.float32, {"causal": False, "kv_valid_len": [39999, 12345]}, False),
         ("G=2 S=T=1000 causal H=12 Hkv=6", 1, 1000, 1000, 12, 6, torch.float32,
          {"causal": True}, False),
-    ]
+    ] + [(n, B, S, T, H, hkv, torch.bfloat16, kw, False)
+         for n, B, S, T, H, hkv, kw in BF16_FLASH_CASES]
     rows = {}
     for name, B, S, T, H, hkv, dtype, kw, timed in cases:
         tol = 1e-2 if dtype == torch.bfloat16 else 1e-5
-        q = torch.randn(B, S, H, DH, generator=gen, device=dev).to(dtype)
-        k = torch.randn(B, T, hkv, DH, generator=gen, device=dev).to(dtype)
-        v = torch.randn(B, T, hkv, DH, generator=gen, device=dev).to(dtype)
         kw = dict(kw)
+        dh = kw.pop("dh", DH)
+        q = torch.randn(B, S, H, dh, generator=gen, device=dev).to(dtype)
+        k = torch.randn(B, T, hkv, dh, generator=gen, device=dev).to(dtype)
+        v = torch.randn(B, T, hkv, dh, generator=gen, device=dev).to(dtype)
         if "kv_valid_len" in kw:
             kw["kv_valid_len"] = torch.tensor(kw["kv_valid_len"], device=dev)
         n0 = fused_flash_attention.launches
@@ -955,7 +1021,7 @@ def flash_phase(torch):
         check(fused_flash_attention.launches == n0 + 1, f"flash {name}: kernel not launched")
         want, _ = fused_flash_attention_plain(
             q, k, v, plan, tables, causal=kw.get("causal", True), window=kw.get("window"),
-            q_offset=0, kv_valid_len=kw.get("kv_valid_len"))
+            q_offset=kw.get("q_offset", 0), kv_valid_len=kw.get("kv_valid_len"))
         torch.cuda.synchronize()
         err = _compare(torch, got, want, tol, f"flash {name} {dtype}")
         line = f"[smoke] fused_flash_attention {name} {dtype}: max_abs_err {err:.3g} (tol {tol})"
@@ -989,15 +1055,49 @@ def _igrid(torch, gen, shape, dtype, span=8, step=0.125):
     return (ints.to(torch.float32) * step).to(dtype)
 
 
+def _check_raw_ties(torch, q, k, v, dout, causal, window, what) -> dict:
+    """The backward kernels recompute every score, and the stats kernel
+    counts, for each row, the keys whose recomputed score equals the
+    forward's row max m bitwise (``stats[2]``, stored raw).  On random
+    inputs, where no integer grid makes every sum exact, each row with a
+    live key (m > -1e30) must count at least one: the recompute re-found
+    the forward kernel's max.  Under the exp table and the exact exp (the
+    two instantiations).  Returns the smallest count of a live row."""
+    from repro_torch.kernels.fused import attention as A
+    from repro_torch.kernels.fused.epilogue import plan_and_operands
+
+    B, S, H, _ = q.shape
+    worst = math.inf
+    for name, (plan, tables) in (("exp table", _exp_table(torch)[1:]),
+                                 ("exact exp", plan_and_operands(None, "exp"))):
+        _, m = A._launch(q, k, v, plan, tables, causal, window, 0, None, True)
+        stats = torch.empty((4, B, H, S), dtype=torch.float32, device=q.device)
+        A._launch_bwd(q, k, v, dout, m, plan, tables, causal, window, 0, None, stats=stats)
+        torch.cuda.synchronize()
+        live = m > -1e30
+        ntie = stats[2][live]
+        lost = int((ntie < 1).sum())
+        check(lost == 0, f"{what} {name}: {lost} of {int(live.sum())} live rows count no key "
+              "at the forward's row max (a backward score is not the forward's bitwise)")
+        low = float(ntie.min())
+        worst = min(worst, low)
+        print(f"[smoke] {what} {name}: raw tie count >= 1 on all {int(live.sum())} live rows "
+              f"(min {low:g}, {int((ntie > 1).sum())} rows with more than one)")
+    return {"min_raw_ties": worst}
+
+
 def flash_bwd_phase(torch):
     """The flash backward kernels (through ``fused_flash_attention_bwd``, the
     backward's wrapper) vs ``fused_flash_attention_bwd_plain`` on the card,
-    with m from the forward kernel: the cases of ``flash_phase``, a batch
-    row with ``kv_valid_len`` 0 and a causal ``q_offset``; dq, dk and dv each
-    held on its own scale, f32 at 1e-4 (sums over up to 4096 keys or queries
-    in another order), bf16 at 1e-2.  Integer-grid inputs (``_igrid``), so
-    the kernel's m must equal the plain chain's bitwise; the forward's
-    output with m written must be bitwise its output without.  At
+    with m from the forward kernel: the cases of ``flash_phase`` (the bf16
+    ones on the tensor-core design), a batch row with ``kv_valid_len`` 0 and
+    a causal ``q_offset``; dq, dk and dv each held on its own scale, f32 at
+    1e-4 (sums over up to 4096 keys or queries in another order), bf16 at
+    1e-2.  Integer-grid inputs (``_igrid``), so the kernel's m must equal
+    the plain chain's bitwise; the forward's output with m written must be
+    bitwise its output without.  Then random normal bf16 inputs at the long
+    train step's shape, where every live row's raw tie count must be at
+    least 1 (``_check_raw_ties``).  At
     B = 1, S = T = 4096, H = 12 causal bf16 (the long-context train step's
     shape) one backward must raise the peak of allocated memory by less
     than 1/8 of the dense f32 score tensor, and the kernels, the plain
@@ -1027,15 +1127,18 @@ def flash_bwd_phase(torch):
          {"causal": False, "kv_valid_len": [0, 513]}, False),
         ("S=300 T=700 causal q_offset 400 H=4", 1, 300, 700, 4, 4, torch.float32,
          {"causal": True, "q_offset": 400}, False),
-    ]
+    ] + [(n, B, S, T, H, hkv, torch.bfloat16, kw, False)
+         for n, B, S, T, H, hkv, kw in BF16_FLASH_CASES
+         if n != "G=2 S=300 T=700 kv_valid_len {0, 513} H=4 Hkv=2"]  # above already
     rows = {}
     for name, B, S, T, H, hkv, dtype, kw, timed in cases:
         tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
-        q = _igrid(torch, gen, (B, S, H, DH), dtype)
-        k = _igrid(torch, gen, (B, T, hkv, DH), dtype)
-        v = _igrid(torch, gen, (B, T, hkv, DH), dtype)
-        dout = _igrid(torch, gen, (B, S, H, DH), dtype)
         kw = {"window": None, "q_offset": 0, "kv_valid_len": None, **kw}
+        dh = kw.pop("dh", DH)
+        q = _igrid(torch, gen, (B, S, H, dh), dtype)
+        k = _igrid(torch, gen, (B, T, hkv, dh), dtype)
+        v = _igrid(torch, gen, (B, T, hkv, dh), dtype)
+        dout = _igrid(torch, gen, (B, S, H, dh), dtype)
         if kw["kv_valid_len"] is not None:
             kw["kv_valid_len"] = torch.tensor(kw["kv_valid_len"], device=dev)
         args = (kw["causal"], kw["window"], kw["q_offset"], kw["kv_valid_len"])
@@ -1106,6 +1209,11 @@ def flash_bwd_phase(torch):
                          for k, v in passes.items()) + f", peak "
                      f"memory rise {rise / 1e6:.1f} MB (dense scores {dense / 1e6:.0f} MB)")
         print(line)
+    # random normal bf16 at the long-context train step's shape
+    q, k, v, dout = (torch.randn(LONG_BATCH, LONG_SEQ, HKV, DH, generator=gen, device=dev)
+                     .to(torch.bfloat16) for _ in range(4))
+    _check_raw_ties(torch, q, k, v, dout, True, None,
+                    f"flash bwd S=T={LONG_SEQ} causal H={HKV} random bf16")
     return rows
 
 
@@ -2833,9 +2941,10 @@ def dh256_phase(torch):
     the flash forward and backward at B = 1, S = T = 2048, causal, once
     with its 512-token window and once without, against their plain
     versions (integer-grid inputs: the kernel's row max must equal the plain
-    chain's bitwise; forward 1e-2, dq, dk, dv 1e-2 of each max), and in f32
-    at S = T = 700 (1e-5, 1e-4); the split-KV decode at dh 256 (bf16 1e-2,
-    f32 1e-5).  Timed in bf16 against ``scaled_dot_product_attention`` over
+    chain's bitwise; forward 1e-2, dq, dk, dv 1e-2 of each max), and at
+    S = T = 700 in bf16 and f32 (1e-5, 1e-4); random normal bf16 inputs
+    with and without the window, where every live row's raw tie count must
+    be at least 1; the split-KV decode at dh 256 (bf16 1e-2, f32 1e-5).  Timed in bf16 against ``scaled_dot_product_attention`` over
     the K/V repeated to the 4 query heads (the repeat not timed)."""
     import torch.nn.functional as Fn
 
@@ -2851,6 +2960,7 @@ def dh256_phase(torch):
     cases = [(f"S=T={GEMMA_SEQ} causal", GEMMA_SEQ, torch.bfloat16, None, True),
              (f"S=T={GEMMA_SEQ} causal window {GEMMA_WINDOW}", GEMMA_SEQ, torch.bfloat16,
               GEMMA_WINDOW, True),
+             ("S=T=700 causal", 700, torch.bfloat16, None, False),
              ("S=T=700 causal", 700, torch.float32, None, False),
              ("S=T=700 causal window 128", 700, torch.float32, 128, False)]
     for name, S, dtype, window, timed in cases:
@@ -2913,6 +3023,15 @@ def dh256_phase(torch):
                      f"kernels {kb_ms * 1e3:.1f} us, plain {pb_ms * 1e3:.1f} us, autograd of SDPA "
                      f"{lb_ms * 1e3:.1f} us, bound {rows[name + ' bwd']['bound_ms'] * 1e3:.1f} us")
         print(line)
+
+    # random normal bf16 at the same shape
+    for window in (None, GEMMA_WINDOW):
+        q, dout = (torch.randn(1, GEMMA_SEQ, H, dh, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(1, GEMMA_SEQ, hkv, dh, generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        _check_raw_ties(torch, q, k, v, dout, True, window,
+                        f"dh 256 flash bwd S=T={GEMMA_SEQ} causal window {window} random bf16")
 
     # the split-KV decode at dh 256: 4 slots over the one KV head, G = 4
     kv_len, n_cols = [19, 32, 15, 2100], 132

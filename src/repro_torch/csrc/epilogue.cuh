@@ -187,3 +187,40 @@ __device__ __forceinline__ float epi_exp(const Epilogue& e, float x, const float
                                          const float* s_dmq) {
   return fmaxf(epi_value<TABLE>(e, fmaxf(x, SHIFT_CLAMP), s_bp, s_dmq), 0.0f);
 }
+
+// The flash kernels' bf16 design decodes by the search (pwl_decode.cuh): the
+// same values and slopes from the padded breakpoints and the prefix table.
+// piv: pwl_search_pivots of the table (unused without one).
+template <bool TABLE>
+__device__ __forceinline__ void epi_load_search(PwlSearch* t, const float* __restrict__ bp,
+                                                const float* __restrict__ mq, const Epilogue& e) {
+  if constexpr (TABLE) pwl_search_load(t, bp, mq, e.n_bp);
+}
+
+template <bool TABLE>
+__device__ __forceinline__ float3 epi_search_pivots(const PwlSearch& t) {
+  if constexpr (TABLE) return pwl_search_pivots(t);
+  return make_float3(0.0f, 0.0f, 0.0f);
+}
+
+template <bool TABLE>
+__device__ __forceinline__ float2 epi_search_value_and_slope(const Epilogue& e, float x,
+                                                             const PwlSearch& t, float3 piv) {
+  if constexpr (TABLE) {
+    return pwl_search_value_and_slope(x, t, piv);
+  } else {
+    return e.kind == EPI_EXACT ? exact_eval<true>(e.fn, x) : make_float2(x, 1.0f);
+  }
+}
+
+template <bool TABLE>
+__device__ __forceinline__ float epi_search_exp(const Epilogue& e, float x, const PwlSearch& t,
+                                                float3 piv) {
+  float v;
+  if constexpr (TABLE) {
+    v = pwl_search_value_and_slope(fmaxf(x, SHIFT_CLAMP), t, piv).x;
+  } else {
+    v = epi_value<false>(e, fmaxf(x, SHIFT_CLAMP), nullptr, nullptr);
+  }
+  return fmaxf(v, 0.0f);
+}

@@ -19,6 +19,10 @@
 // The table is at most 64 + 65 * 2 floats: a block loads it into shared
 // memory once, and every thread reads it from there (a broadcast read).
 //
+// pwl_search_value_and_slope is the same function by a search over the
+// breakpoints (the paper's binary-tree address decoder), for the flash
+// kernels' bf16 design: ~7 steps and one table read a score, not n_bp.
+//
 // Also here: the element conversions every kernel shares and the JAX
 // package's masking constants.  epilogue.cuh selects between this decode, an
 // exact function and the identity.
@@ -26,6 +30,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <math.h>
 
 #define PWL_MAX_BP 64
 
@@ -73,4 +78,53 @@ __device__ __forceinline__ float pwl_value(float x, const float* s_bp, const flo
     q = fmaf(c, s_dmq[2 * i + 3], q);
   }
   return __fadd_rn(__fmul_rn(m, x), q);
+}
+
+// The search decode.  For ascending breakpoints the set {i : x > bp_i} is a
+// prefix, so the linear chain's (m, q) is entry k = #{i : x > bp_i} of the
+// table of its partial sums: (m_0, q_0) = (dmq[0], dmq[1]), (m_{k+1}, q_{k+1})
+// = (m_k + dm_k, q_k + dq_k), each an f32 add rounded in that order, then the
+// adds of 0 * dm_i (i >= k) the chain makes for the breakpoints x does not
+// pass (they turn a -0 into +0).  The host builds that table
+// (kernels/fused/epilogue.py:search_prefix) and refuses breakpoints that are
+// not ascending.  The breakpoints are padded with +inf to 128, so the search
+// is seven branch-free steps whatever n_bp is, and a warp's searches for its
+// many scores interleave: the compare is strict, a NaN passes none (segment
+// 0), +inf every real one.  The first two steps compare against three
+// pivots held in registers, the other five read shared memory.  The value is
+// fmaf(m, x, q), as pwl_value_and_slope forms it, so both give the same bits.
+#define PWL_SEARCH_PAD (2 * PWL_MAX_BP)  // the padded breakpoints
+
+struct PwlSearch {
+  float bp[PWL_SEARCH_PAD];
+  float2 mq[PWL_MAX_BP + 1];
+};
+
+// Into shared memory, every thread of the block: the padded breakpoints and
+// the (n_bp + 1) x 2 prefix table mq.  The caller synchronises.
+__device__ __forceinline__ void pwl_search_load(PwlSearch* t, const float* __restrict__ bp,
+                                                const float* __restrict__ mq, int n_bp) {
+  for (int i = threadIdx.x; i < PWL_SEARCH_PAD; i += blockDim.x)
+    t->bp[i] = i < n_bp ? bp[i] : INFINITY;
+  for (int i = threadIdx.x; i <= n_bp; i += blockDim.x)
+    t->mq[i] = make_float2(mq[2 * i], mq[2 * i + 1]);
+}
+
+// The first two steps' pivots, bp[63], bp[31] and bp[95], once a thread.
+__device__ __forceinline__ float3 pwl_search_pivots(const PwlSearch& t) {
+  return make_float3(t.bp[63], t.bp[31], t.bp[95]);
+}
+
+// k is kept as the byte offset 4 k, so each step's read is one shared load
+// at a register plus a constant.
+__device__ __forceinline__ float2 pwl_search_value_and_slope(float x, const PwlSearch& t,
+                                                             float3 piv) {
+  const char* bp = reinterpret_cast<const char*>(t.bp);
+  int k4 = x > piv.x ? 4 * 64 : 0;
+  k4 += x > (k4 ? piv.z : piv.y) ? 4 * 32 : 0;
+#pragma unroll
+  for (int h = 16; h > 0; h >>= 1)
+    k4 += x > *reinterpret_cast<const float*>(bp + k4 + 4 * (h - 1)) ? 4 * h : 0;
+  const float2 mq = *reinterpret_cast<const float2*>(reinterpret_cast<const char*>(t.mq) + 2 * k4);
+  return make_float2(fmaf(mq.x, x, mq.y), mq.x);
 }

@@ -31,15 +31,20 @@ under ``"recompute"`` by autograd through the dense oracle.
 
 The CUDA kernels are ``csrc/attention.cu`` (forward) and
 ``csrc/attention_bwd.cu`` (backward).  What bounds them on an H100: at
-S = T = 4096 causal, 12 heads, dh 64, the forward moves 25 MB but does ~13
-GFLOP of products and decodes ~100 M scores, and the backward does the
-five products of the gradient (~64 GFLOP) and decodes every score again,
-so both are bound by operations; this first version runs the products as
-f32 FMAs on CUDA cores.  The forward's block owns 64 query rows of one head
-and keeps each 64 x 512 score tile in shared memory, so the block max is
-known before any PWL exp of the block.  At head dim 128 < dh <= 256
-(gemma3-1b's 256) the forward takes 32 query rows a block and the backward
-32 x 32 tiles, to fit the 227 KB of shared memory a block may hold.
+S = T = 4096 causal, 12 heads, dh 64, the forward moves 25 MB but does ~26
+GFLOP of products and decodes ~1e8 scores, and the backward does the five
+products of the gradient (~64 GFLOP) and decodes every score three times,
+so both are bound by operations, most of them the PWL decode on CUDA cores
+(the work the paper's SFU does in hardware).  The C dispatch picks the
+design by dtype.  bf16, the model paths' dtype, runs the products on tensor
+cores (``mma.sync`` bf16 into f32; a product whose left operand is a decoded
+f32 value, p, u / L or ds, as two bf16 products of its hi and lo halves)
+and decodes by a binary search over the breakpoints with a prefix table
+(:func:`.epilogue.search_prefix`, built once per packed table; the
+breakpoints must ascend, as ``PWLTable`` promises, and the wrappers refuse
+a table whose breakpoints do not).  Each score is summed in the same order in all four
+kernels, so the backward re-finds the forward's row max bitwise.  f32 keeps
+the first design, f32 FMAs on CUDA cores and the linear decode.
 
 A CPU tensor takes the plain versions below (the same 512-key chain
 forward); a CUDA tensor launches the kernels or raises.
@@ -58,21 +63,23 @@ from .backward import resolve_impl_bwd
 from .epilogue import (
     EPILOGUE_ARGTYPES,
     EpiloguePlan,
+    check_ascending,
     check_kernel_operands,
     device_operands,
     kernel_epilogue,
+    search_prefix,
 )
 from .softmax import NEG_FILL, SHIFT_CLAMP, fused_pwl_softmax_plain, pwl_exp
 
 DEFAULT_BLOCK_KV = 512  # keys per chain step, as the JAX kernel's KV blocks
-MAX_HEAD_DIM = 256      # the JAX kernels' VMEM budget; past 128 the CUDA tiles halve
+MAX_HEAD_DIM = 256      # the JAX kernels' VMEM budget
 
 _SIGNATURES = {
-    "flash_pwl_forward": [ctypes.c_void_p] * 4 + EPILOGUE_ARGTYPES + [ctypes.c_void_p] * 2
+    "flash_pwl_forward": [ctypes.c_void_p] * 4 + EPILOGUE_ARGTYPES + [ctypes.c_void_p] * 3
     + [ctypes.c_int] * 11 + [ctypes.c_void_p],
 }
 _BWD_SIGNATURES = {
-    "flash_pwl_backward": [ctypes.c_void_p] * 6 + EPILOGUE_ARGTYPES + [ctypes.c_void_p] * 4
+    "flash_pwl_backward": [ctypes.c_void_p] * 6 + EPILOGUE_ARGTYPES + [ctypes.c_void_p] * 5
     + [ctypes.c_int] * 11 + [ctypes.c_void_p],
 }
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -264,7 +271,20 @@ def _check_operands(q, k, v, what: str):
     if dh % 16 or dh > MAX_HEAD_DIM:
         raise ValueError(f"{what} kernel takes head_dim a multiple of 16 up to "
                          f"{MAX_HEAD_DIM}, got {dh}")
-    return q.contiguous(), k.contiguous(), v.contiguous()
+    return tuple(_aligned(t.contiguous()) for t in (q, k, v))
+
+
+def _aligned(t):
+    """``t``, or a copy of it if its data does not start on 16 bytes (the
+    bf16 kernels copy tiles 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _search_prefix(plan, tables):
+    """The prefix table's pointer for the kernels (null without a table);
+    refuses breakpoints that are not ascending."""
+    mq = search_prefix(plan, tables)
+    return None if mq is None else mq.data_ptr()
 
 
 def _valid_len(kv_valid_len, dev):
@@ -291,7 +311,7 @@ def _launch(q, k, v, plan, tables, causal, window, q_offset, kv_valid_len, want_
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_pwl_forward(
             qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), None if vl is None else vl.data_ptr(),
-            *kernel_epilogue(plan, tables), out.data_ptr(),
+            *kernel_epilogue(plan, tables), _search_prefix(plan, tables), out.data_ptr(),
             None if m is None else m.data_ptr(), B, S, T, H, Hkv, dh,
             int(causal), int(window is not None), 0 if window is None else int(window),
             int(q_offset), _KERNEL_DTYPES[q.dtype], stream)
@@ -300,7 +320,11 @@ def _launch(q, k, v, plan, tables, causal, window, q_offset, kv_valid_len, want_
     return out, m
 
 
-def _launch_bwd(q, k, v, dout, m, plan, tables, causal, window, q_offset, kv_valid_len):
+def _launch_bwd(q, k, v, dout, m, plan, tables, causal, window, q_offset, kv_valid_len,
+                stats=None):
+    """The backward kernels: ``(dq, dk, dv)``.  ``stats`` is the (4, B, H, S)
+    f32 scratch of the row statistics (l, delta, the raw tie count, dm),
+    allocated here unless the caller passes one to read it back."""
     from repro_torch.kernels import _build
 
     check_kernel_operands("flash attention backward", plan, tables)
@@ -314,17 +338,22 @@ def _launch_bwd(q, k, v, dout, m, plan, tables, causal, window, q_offset, kv_val
     if m.shape != (B, H, S) or m.dtype != torch.float32 or m.device != dev:
         raise ValueError(f"m must be ({B}, {H}, {S}) float32 on {dev}, got "
                          f"{tuple(m.shape)} {m.dtype} on {m.device}")
-    doc, mc = dout.contiguous(), m.contiguous()
+    doc, mc = _aligned(dout.contiguous()), m.contiguous()
     vl = _valid_len(kv_valid_len, dev)
     dq, dk, dv = torch.empty_like(qc), torch.empty_like(kc), torch.empty_like(vc)
-    stats = torch.empty((4, B, H, S), dtype=torch.float32, device=dev)  # l, delta, ntie, dm
+    if stats is None:
+        stats = torch.empty((4, B, H, S), dtype=torch.float32, device=dev)
+    elif stats.shape != (4, B, H, S) or stats.dtype != torch.float32 or stats.device != dev \
+            or not stats.is_contiguous():
+        raise ValueError(f"stats must be contiguous (4, {B}, {H}, {S}) float32 on {dev}")
     lib = _build.load("attention_bwd", _BWD_SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_pwl_backward(
             qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), doc.data_ptr(),
             None if vl is None else vl.data_ptr(), mc.data_ptr(),
-            *kernel_epilogue(plan, tables), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            *kernel_epilogue(plan, tables), _search_prefix(plan, tables), stats.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), B, S, T, H, Hkv, dh, int(causal), int(window is not None),
             0 if window is None else int(window), int(q_offset), _KERNEL_DTYPES[q.dtype],
             stream)
@@ -340,6 +369,8 @@ def fused_flash_attention_bwd(q, k, v, dout, m, plan: EpiloguePlan, tables, *, c
     tensors, their plain version on CPU tensors."""
     kw = dict(causal=causal, window=window, q_offset=int(q_offset), kv_valid_len=kv_valid_len)
     if q.device.type == "cpu":
+        if plan.kind == "pwl":
+            check_ascending(tables[0])
         return fused_flash_attention_bwd_plain(q, k, v, dout, m, plan, tables, **kw)
     return _launch_bwd(q, k, v, dout, m, plan, tables, causal, window, int(q_offset),
                        kv_valid_len)
@@ -398,6 +429,8 @@ def fused_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     and v; ``impl_bwd`` picks the backward (:mod:`.backward`)."""
     if table is None and act is None:
         act = "exp"
+    if table is not None and q.device.type == "cpu":
+        check_ascending(table.bp)  # on the card the kernels' prefix table checks it
     plan, tables = device_operands(table, act, q.device)
     B, S, H, dh = q.shape
     if k.dim() != 4 or k.shape[0] != B or k.shape[3] != dh or v.shape != k.shape:

@@ -8,13 +8,16 @@ reads, :class:`EpiloguePlan` names the epilogue, :func:`kernel_epilogue`
 passes it to a kernel (``csrc/epilogue.cuh`` selects identity, an exact
 function or the table), and :func:`pwl_value_and_slope` is the plain version
 of the device decode in ``csrc/pwl_decode.cuh``, accumulating the deltas in
-the same order.
+the same order.  :func:`prefix_table` builds the table of that chain's
+partial sums which the flash kernels' breakpoint search reads.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import weakref
 
+import numpy as np
 import torch
 
 from repro_torch.core import functions as F
@@ -195,6 +198,60 @@ def device_operands(table: PWLTable | None, act: str | None, device):
         hit = (table, plan, tables)
         _PACKED[key] = hit
     return hit[1], hit[2]
+
+
+def check_ascending(bp) -> None:
+    """Refuse breakpoints that are not ascending (a NaN is not): the search
+    decode of the flash kernels relies on the order ``PWLTable`` promises."""
+    b = bp.detach().reshape(-1).to(torch.float32)
+    if not bool((b[1:] >= b[:-1]).all()):
+        raise ValueError("the flash attention's PWL table needs ascending breakpoints")
+
+
+def prefix_table(dmq) -> torch.Tensor:
+    """The search decode's table (``csrc/pwl_decode.cuh:pwl_search_value_and_slope``)
+    from f32 delta-layout operands ``dmq`` (n_bp+1, 2): row k is the (m, q)
+    the linear chain reaches when x passes exactly the first k breakpoints.
+    Built as the chain builds it, in f32: the partial sums (m_0, q_0),
+    (m_0 + dm_0, q_0 + dq_0), ..., each add rounded in that order, then for
+    each breakpoint i the chain's add of 0 * (dm_i, dq_i) to every row that
+    does not pass it (an add that turns a -0 into +0).  Returns CPU f32."""
+    d = dmq.detach().to("cpu", torch.float32).numpy().reshape(-1, 2)
+    n = d.shape[0] - 1
+    out = np.empty_like(d)
+    out[0] = d[0]
+    zero = np.float32(0.0)
+    with np.errstate(invalid="ignore", over="ignore"):  # inf deltas give NaN, as the chain does
+        for i in range(n):
+            out[i + 1] = out[i] + d[i + 1]
+        for i in range(n):
+            out[:i + 1] = out[:i + 1] + zero * d[i + 1]
+    return torch.from_numpy(out)
+
+
+# (weak reference to dmq, prefix table on dmq's device) per packed operands,
+# for as long as they live: device_operands packs a table once per device,
+# and the flash kernels' prefix is built once per such packing
+_PREFIX: dict[int, tuple] = {}
+
+
+def search_prefix(plan: EpiloguePlan, tables):
+    """The flash kernels' prefix table (:func:`prefix_table`) for f32
+    delta-layout operands ``(bp, dmq)``, built once per operand tensor and
+    kept on its device while that tensor lives; None for a plan without a
+    table.  Raises on breakpoints that are not ascending
+    (:func:`check_ascending`)."""
+    if plan.kind != "pwl":
+        return None
+    bp, dmq = tables
+    key = id(dmq)
+    hit = _PREFIX.get(key)
+    if hit is None or hit[0]() is not dmq:
+        check_ascending(bp)
+        hit = (weakref.ref(dmq), prefix_table(dmq).to(dmq.device).contiguous())
+        _PREFIX[key] = hit
+        weakref.finalize(dmq, _PREFIX.pop, key, None)
+    return hit[1]
 
 
 # The kernels' epilogue codes (csrc/epilogue.cuh): the kind, and the id of an

@@ -11,7 +11,7 @@
    the GLU, the MoE GLU, the row softmax and the flash attention included;
    the MoE GLU at olmoe-1b-7b's experts and the bucket capacities of its
    calls; the dense GLU, and the MoE GLU at one expert, bitwise the outputs
-   recorded from the dense-only kernel; the page writes and the paged decode
+   recorded in ``GLU_DIGESTS``; the page writes and the paged decode
    also at olmoe's 16 KV heads of dim 128), and times kernel, plain version
    and a PyTorch yardstick call the port never makes;
 3. serves full-width repro-100m through ``repro_torch.launch.serve`` on
@@ -77,8 +77,11 @@
    1500 and 3000, whisper's non-causal encoder, dh 64, 80, 128, 208 and
    256), the row max bitwise on integer grids, and on random bf16 inputs
    checks that the backward's stats kernel finds every live row's forward
-   row max again (its raw tie count at least 1).  ``ab_flash.py`` times the
-   flash kernels of two checkouts in turns.
+   row max again (its raw tie count at least 1);
+11. slice 9: prints the HMMA count of the GLU library's SASS too; the paged
+   decode's long splits run as three kernels over all of a split's pages
+   (``decode_phase`` and ``dh256_phase`` hold them).  ``ab_flash.py`` times
+   the kernels of two checkouts in turns and holds their outputs bitwise.
 
 Every failed check exits non-zero.  The last two lines of standard output
 are the kernels' JSON line and ``{"ok": true, "device": {...}}``; the card's
@@ -172,8 +175,8 @@ def _demangle(names: list[str]) -> list[str]:
 
 def build_phase():
     """Build every CUDA library; print each kernel's registers and spills
-    (ptxas) and, for the flash libraries, the count of tensor-core
-    instructions (HMMA) in each kernel's SASS (``cuobjdump``)."""
+    (ptxas) and the count of tensor-core instructions (HMMA) in the SASS
+    (``cuobjdump``) of each flash kernel and, summed, of the GLU library."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -194,13 +197,17 @@ def build_phase():
         for (raw, regs, spill), short in zip(entries, _demangle([e[0] for e in entries])):
             print(f"[smoke]     ptxas {short}: {regs}; {spill}")
     cuobjdump = pathlib.Path(_build.nvcc_path()).with_name("cuobjdump")
-    for name in ("attention", "attention_bwd"):
+    for name in ("attention", "attention_bwd", "glu"):
         if not cuobjdump.exists():
             print(f"[smoke]   SASS of {name}: cuobjdump not found")
             break
         sass = subprocess.run([str(cuobjdump), "-sass", str(_build.lib_path(name))],
                               capture_output=True, text=True, timeout=300).stdout
         funcs = [f.split("\n", 1) for f in sass.split("Function : ")[1:]]
+        if name == "glu":  # one line for all of its instantiations
+            print(f"[smoke]   SASS glu: {len(funcs)} kernels, "
+                  f"{sum(body.count('HMMA') for _, body in funcs)} HMMA instructions")
+            continue
         shorts = _demangle([f[0].strip() for f in funcs])
         for short, (_, body) in zip(shorts, funcs):
             print(f"[smoke]   SASS {short}: {body.count('HMMA')} HMMA instructions")

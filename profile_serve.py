@@ -16,9 +16,10 @@ engine's session alone, not the weights' random init before it, and prints:
 * the top operators by host (self CPU) time and by device time;
 * the port's own kernels by name (``glu_pwl_kernel``, the dense GLU's and
   the MoE experts' alike, ``prompt_write_kernel``, ``append_kernel``, and
-  under a plan with the softmax site fused ``softmax_kernel``,
-  ``split_kernel`` + ``merge_kernel`` of the paged decode, ``flash_kernel``)
-  with their call counts and mean device time.
+  under a plan with the softmax site fused ``softmax_kernel``, the paged
+  decode's ``split_kernel``, ``page_scores_kernel``, ``page_pv_kernel``,
+  ``recurrence_kernel`` and ``merge_kernel``, ``flash_kernel``) with their
+  call counts and mean device time.
 
 It needs a CUDA GPU.
 """
@@ -92,7 +93,8 @@ def main(argv=None) -> int:
               f"{d / max(e.count, 1):.2f}")
     print("[profile] serving-path kernels: name | calls | mean device us")
     for frag in ("glu_pwl_kernel", "prompt_write_kernel", "append_kernel", "softmax_kernel",
-                 "split_kernel", "merge_kernel", "flash_kernel"):
+                 "split_kernel", "page_scores_kernel", "page_pv_kernel", "recurrence_kernel",
+                 "merge_kernel", "flash_kernel"):
         hits = [e for e in kernels if frag in e.key]
         n = sum(e.count for e in hits)
         d = sum(_device_us(e) for e in hits)

@@ -67,6 +67,7 @@
 #include <stdint.h>
 
 #include "epilogue.cuh"
+#include "mma.cuh"  // cp_async16, cp_async_commit, cp_async_wait
 
 namespace {
 
@@ -76,17 +77,6 @@ template <>
 __device__ __forceinline__ float zero<float>() { return 0.0f; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() { return __float2bfloat16_rn(0.0f); }
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // V = 16 / sizeof(T) elements of a row-major rows x cols matrix at
 // (row, col .. col+V) into shared memory, zero outside the matrix.  vec: cols
@@ -98,7 +88,7 @@ __device__ __forceinline__ void load_vec(T* dst, const T* __restrict__ base, int
   constexpr int V = 16 / sizeof(T);
   if (vec) {
     const bool in = row < rows && col < cols;
-    cp_async16(dst, in ? base + (size_t)row * cols + col : base, in ? 16 : 0);
+    cp_async16(dst, in ? base + (size_t)row * cols + col : base, in);
   } else {
 #pragma unroll
     for (int i = 0; i < V; ++i)

@@ -19,9 +19,13 @@ from both sums, and a request with ``kv_len == 0`` gives exact zeros.
 The CUDA kernels are ``csrc/decoding.cu`` (split, then merge, from one
 call).  What bounds them on an H100: each live page is read once (bytes),
 with a few FMAs per element, so at the serving shapes (4 requests of ~40
-keys) launch latency is the cost.  They read the bf16 pools in place and
-widen in shared memory (no f32 copy of the pool), and read ``kv_len`` and
-the page table on the device (no host sync).
+keys) launch latency is the cost, and on a long split a serial walk over
+its pages.  The kernels compute the scores, page maxima, running maxima,
+``p`` and ``p . v`` of many pages at once and leave only the recurrence
+serial: a split of one chunk of pages in one block, a longer one in three
+kernels over all its pages (its scratch is the ``scratch`` tensor below).
+They read the pools in their own type (no f32 copy of the pool) and
+``kv_len`` and the page table on the device (no host sync).
 
 A CPU tensor takes the plain version below (the same page chain as a
 Python loop); a CUDA tensor launches the kernels or raises.
@@ -48,7 +52,9 @@ DEFAULT_SPLIT_KEYS = 2048  # key positions per KV split
 
 _SIGNATURES = {
     "paged_decode_forward": [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
-    + EPILOGUE_ARGTYPES + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p],
+    + EPILOGUE_ARGTYPES + [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_void_p]
+    + [ctypes.c_int] * 10 + [ctypes.c_void_p],
+    "paged_decode_scratch_floats": [ctypes.c_int] * 8 + [ctypes.c_void_p],
 }
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -136,12 +142,19 @@ def _launch(q, k_pages, v_pages, page_table, kv_len, plan, tables, pps):
     acc_p = torch.empty((B * Hkv, ns, G, dh), dtype=torch.float32, device=dev)
     out = torch.empty((B, 1, H, dh), dtype=q.dtype, device=dev)
     lib = _build.load("decoding", _SIGNATURES)
+    # scores, page maxima, corrections, p . v and sum(p) of a long split's
+    # pages; none when every split is short (one block each)
+    n_scratch = ctypes.c_longlong()
+    lib.paged_decode_scratch_floats(B, Hkv, ps, dh, G, pps, ns, _KERNEL_DTYPES[k_pages.dtype],
+                                    ctypes.byref(n_scratch))
+    scratch = torch.empty(n_scratch.value, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.paged_decode_forward(
             qc.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), pt.data_ptr(), n_cols,
             kvl.data_ptr(), *kernel_epilogue(plan, tables), m_p.data_ptr(),
-            l_p.data_ptr(), acc_p.data_ptr(), out.data_ptr(), B, Hkv, P, ps, dh, G, pps, ns,
+            l_p.data_ptr(), acc_p.data_ptr(), scratch.data_ptr() if n_scratch.value else None,
+            n_scratch.value, out.data_ptr(), B, Hkv, P, ps, dh, G, pps, ns,
             _KERNEL_DTYPES[q.dtype], _KERNEL_DTYPES[k_pages.dtype], stream)
     _build.check(err, "paged_decode_forward")
     paged_flash_decode.launches += 1

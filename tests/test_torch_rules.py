@@ -1,8 +1,8 @@
 """Rules of the torch port.
 
 * No module under ``src/repro_torch/``, and none of ``chip_smoke.py``,
-  ``profile_serve.py`` and ``profile_train.py``, imports ``jax`` or the JAX
-  package ``repro`` (an AST scan of every import).
+  ``ab_flash.py``, ``profile_serve.py`` and ``profile_train.py``, imports
+  ``jax`` or the JAX package ``repro`` (an AST scan of every import).
 * ``repro_torch.launch.serve`` runs on ``cuda`` by default and raises on a
   host without a GPU; it never moves to the CPU by itself.  With
   ``--device cpu`` it serves the reduced config (repro-100m, and olmoe-1b-7b
@@ -32,7 +32,7 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 def _port_files():
     files = sorted(PORT.rglob("*.py"))
-    for script in ("chip_smoke.py", "profile_serve.py", "profile_train.py"):
+    for script in ("chip_smoke.py", "ab_flash.py", "profile_serve.py", "profile_train.py"):
         if (ROOT / script).exists():
             files.append(ROOT / script)
     return files

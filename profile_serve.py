@@ -14,8 +14,9 @@ engine's session alone, not the weights' random init before it, and prints:
 * the kernel launches of the session (``cudaLaunchKernel*`` and
   ``cuLaunchKernel*`` calls) per model call;
 * the top operators by host (self CPU) time and by device time;
-* the port's own kernels by name (``glu_pwl_kernel``, the dense GLU's and
-  the MoE experts' alike, ``prompt_write_kernel``, ``append_kernel``, and
+* the port's own kernels by name (the dense GLU's and the MoE experts'
+  alike: ``glu_pwl_kernel`` at M <= 4, ``glu_tc_kernel`` above;
+  ``prompt_write_kernel``, ``append_kernel``, and
   under a plan with the softmax site fused ``softmax_kernel``, the paged
   decode's ``split_kernel``, ``page_scores_kernel``, ``page_pv_kernel``,
   ``recurrence_kernel`` and ``merge_kernel``, ``flash_kernel``) with their
@@ -92,7 +93,8 @@ def main(argv=None) -> int:
         print(f"[profile]   {e.key[:60]} | {e.count} | {d / 1e3:.3f} | "
               f"{d / max(e.count, 1):.2f}")
     print("[profile] serving-path kernels: name | calls | mean device us")
-    for frag in ("glu_pwl_kernel", "prompt_write_kernel", "append_kernel", "softmax_kernel",
+    for frag in ("glu_pwl_kernel", "glu_tc_kernel", "prompt_write_kernel", "append_kernel",
+                 "softmax_kernel",
                  "split_kernel", "page_scores_kernel", "page_pv_kernel", "recurrence_kernel",
                  "merge_kernel", "flash_kernel"):
         hits = [e for e in kernels if frag in e.key]

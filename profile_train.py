@@ -16,8 +16,9 @@ CUDA activity, and prints:
 * the kernels' summed device time per profiled step against that step
   time, so the device's busy share is visible;
 * the top kernels by device time, and the port's own kernels (the GLU's
-  forward and backward, ``glu_pwl_kernel`` instantiated with
-  ``ForwardEpi`` or ``BackwardEpi``; ``softmax_kernel`` and
+  forward and backward, bf16 at M = 4096 on the tensor cores:
+  ``glu_tc_kernel`` instantiated with ``ForwardEpi`` or ``BackwardEpi``;
+  ``softmax_kernel`` and
   ``softmax_bwd_kernel``; the flash forward ``flash_kernel`` and its
   backward ``flash_bwd_stats_kernel``, ``flash_bwd_dq_kernel`` and
   ``flash_bwd_dkv_kernel``) with calls per step, mean device time and
@@ -45,8 +46,8 @@ from repro_torch.optim import adamw  # noqa: E402
 
 TOP = 15  # rows of the kernel table
 PORT_KERNELS = (  # (label, the kernel function's name, a fragment of its template arguments)
-    ("glu_pwl_kernel forward", "glu_pwl_kernel", "ForwardEpi"),
-    ("glu_pwl_kernel backward", "glu_pwl_kernel", "BackwardEpi"),
+    ("glu_tc_kernel forward", "glu_tc_kernel", "ForwardEpi"),
+    ("glu_tc_kernel backward", "glu_tc_kernel", "BackwardEpi"),
     ("softmax_kernel", "softmax_kernel", ""),
     ("softmax_bwd_kernel", "softmax_bwd_kernel", ""),
     ("flash_kernel", "flash_kernel", ""),

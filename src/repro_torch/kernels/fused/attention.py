@@ -67,7 +67,8 @@ from .epilogue import (
     check_kernel_operands,
     device_operands,
     kernel_epilogue,
-    search_prefix,
+    refuse_unsorted,
+    search_prefix_ptr,
 )
 from .softmax import NEG_FILL, SHIFT_CLAMP, fused_pwl_softmax_plain, pwl_exp
 
@@ -280,13 +281,6 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _search_prefix(plan, tables):
-    """The prefix table's pointer for the kernels (null without a table);
-    refuses breakpoints that are not ascending."""
-    mq = search_prefix(plan, tables)
-    return None if mq is None else mq.data_ptr()
-
-
 def _valid_len(kv_valid_len, dev):
     if kv_valid_len is None:
         return None
@@ -311,7 +305,7 @@ def _launch(q, k, v, plan, tables, causal, window, q_offset, kv_valid_len, want_
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.flash_pwl_forward(
             qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), None if vl is None else vl.data_ptr(),
-            *kernel_epilogue(plan, tables), _search_prefix(plan, tables), out.data_ptr(),
+            *kernel_epilogue(plan, tables), search_prefix_ptr(plan, tables), out.data_ptr(),
             None if m is None else m.data_ptr(), B, S, T, H, Hkv, dh,
             int(causal), int(window is not None), 0 if window is None else int(window),
             int(q_offset), _KERNEL_DTYPES[q.dtype], stream)
@@ -352,7 +346,7 @@ def _launch_bwd(q, k, v, dout, m, plan, tables, causal, window, q_offset, kv_val
         err = lib.flash_pwl_backward(
             qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), doc.data_ptr(),
             None if vl is None else vl.data_ptr(), mc.data_ptr(),
-            *kernel_epilogue(plan, tables), _search_prefix(plan, tables), stats.data_ptr(),
+            *kernel_epilogue(plan, tables), search_prefix_ptr(plan, tables), stats.data_ptr(),
             dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), B, S, T, H, Hkv, dh, int(causal), int(window is not None),
             0 if window is None else int(window), int(q_offset), _KERNEL_DTYPES[q.dtype],
@@ -369,8 +363,7 @@ def fused_flash_attention_bwd(q, k, v, dout, m, plan: EpiloguePlan, tables, *, c
     tensors, their plain version on CPU tensors."""
     kw = dict(causal=causal, window=window, q_offset=int(q_offset), kv_valid_len=kv_valid_len)
     if q.device.type == "cpu":
-        if plan.kind == "pwl":
-            check_ascending(tables[0])
+        refuse_unsorted(plan, tables)
         return fused_flash_attention_bwd_plain(q, k, v, dout, m, plan, tables, **kw)
     return _launch_bwd(q, k, v, dout, m, plan, tables, causal, window, int(q_offset),
                        kv_valid_len)

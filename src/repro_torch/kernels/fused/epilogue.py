@@ -9,7 +9,8 @@ passes it to a kernel (``csrc/epilogue.cuh`` selects identity, an exact
 function or the table), and :func:`pwl_value_and_slope` is the plain version
 of the device decode in ``csrc/pwl_decode.cuh``, accumulating the deltas in
 the same order.  :func:`prefix_table` builds the table of that chain's
-partial sums which the flash kernels' breakpoint search reads.
+partial sums which the breakpoint search of the flash kernels and of the GLU
+family's bf16 kernel reads.
 """
 from __future__ import annotations
 
@@ -202,10 +203,11 @@ def device_operands(table: PWLTable | None, act: str | None, device):
 
 def check_ascending(bp) -> None:
     """Refuse breakpoints that are not ascending (a NaN is not): the search
-    decode of the flash kernels relies on the order ``PWLTable`` promises."""
+    decode of the flash kernels and of the GLU family's bf16 kernel relies on
+    the order ``PWLTable`` promises."""
     b = bp.detach().reshape(-1).to(torch.float32)
     if not bool((b[1:] >= b[:-1]).all()):
-        raise ValueError("the flash attention's PWL table needs ascending breakpoints")
+        raise ValueError("the fused kernels' PWL table needs ascending breakpoints")
 
 
 def prefix_table(dmq) -> torch.Tensor:
@@ -231,12 +233,12 @@ def prefix_table(dmq) -> torch.Tensor:
 
 # (weak reference to dmq, prefix table on dmq's device) per packed operands,
 # for as long as they live: device_operands packs a table once per device,
-# and the flash kernels' prefix is built once per such packing
+# and the search decode's prefix is built once per such packing
 _PREFIX: dict[int, tuple] = {}
 
 
 def search_prefix(plan: EpiloguePlan, tables):
-    """The flash kernels' prefix table (:func:`prefix_table`) for f32
+    """The search decode's prefix table (:func:`prefix_table`) for f32
     delta-layout operands ``(bp, dmq)``, built once per operand tensor and
     kept on its device while that tensor lives; None for a plan without a
     table.  Raises on breakpoints that are not ascending
@@ -252,6 +254,21 @@ def search_prefix(plan: EpiloguePlan, tables):
         _PREFIX[key] = hit
         weakref.finalize(dmq, _PREFIX.pop, key, None)
     return hit[1]
+
+
+def search_prefix_ptr(plan: EpiloguePlan, tables):
+    """The pointer of :func:`search_prefix`'s table for a kernel's C
+    interface (None without a table); raises on breakpoints that are not
+    ascending."""
+    mq = search_prefix(plan, tables)
+    return None if mq is None else mq.data_ptr()
+
+
+def refuse_unsorted(plan: EpiloguePlan, tables) -> None:
+    """On the CPU too, the search kernels' refusal of a PWL plan whose
+    breakpoints are not ascending (:func:`check_ascending`)."""
+    if plan.kind == "pwl":
+        check_ascending(tables[0])
 
 
 # The kernels' epilogue codes (csrc/epilogue.cuh): the kind, and the id of an

@@ -10,20 +10,22 @@ way, decodes value and slope at once and writes
 goes through device memory.  ``dx``, ``dWg`` and ``dWu`` are then f32
 ``torch.matmul`` products, as the JAX package leaves them to XLA.
 
-What bounds them on an H100: at the serving shapes (K = 768, N = 3072,
-M = 4 per decode step, M = 32 per prefill) the forward reads 9.4 MB of bf16
-weights for ~0.3 GFLOP, so it is bound by weight bytes (~2.8 us at
-3.35 TB/s).  The kernel streams every weight once per M tile through a
-ring of 16-byte ``cp.async`` copies, uses narrow 4x16 / 8x16 output tiles
-for small M (192 blocks at N = 3072, each K tile split over 8 warps) so
-every SM streams weights, and masks ragged edges instead of padding copies
-of the weights.  At the training shape (M = 4096) both passes are
-products: 38.7 GFLOP each, 39 us on bf16 tensor cores, 577 us as the f32
-FMAs on CUDA cores that the 64x64 tiles of both kernels still use.
+What bounds them on an H100: at the training shape (M = 4096, K = 768,
+N = 3072) the products, 38.7 GFLOP a pass, 39 us on bf16 tensor cores;
+bf16 runs them as ``mma.sync`` bf16 products with f32 accumulation, each
+output summed over K in 16-wide chunks from 0 whatever the tile, and
+decodes by a binary search over the breakpoints from a host-built prefix
+table (:func:`.epilogue.search_prefix`).  At a decode step (M <= 4) the
+forward reads 9.4 MB of bf16 weights for ~0.1 GFLOP, bound by weight bytes
+(~2.8 us at 3.35 TB/s): that shape, and f32 at every M, keep the CUDA-core
+kernel, narrow output tiles streaming every weight once through a ring of
+16-byte ``cp.async`` copies.
 
 A CPU tensor takes the plain versions below (same decode order); a CUDA
-tensor launches the kernels or raises.  ``impl_bwd="recompute"`` keeps the
-forward kernel and recomputes the backward with plain ops.
+tensor launches the kernels or raises.  Both refuse a table whose
+breakpoints do not ascend (:func:`.epilogue.check_ascending`).
+``impl_bwd="recompute"`` keeps the forward kernel and recomputes the
+backward with plain ops.
 """
 from __future__ import annotations
 
@@ -40,12 +42,15 @@ from .epilogue import (
     check_kernel_operands,
     device_operands,
     kernel_epilogue,
+    refuse_unsorted,
+    search_prefix_ptr,
 )
 
+# the epilogue, then the prefix table of the search decode
 _SIGNATURES = {
-    "glu_pwl_forward": [ctypes.c_void_p] * 3 + EPILOGUE_ARGTYPES + [ctypes.c_void_p]
+    "glu_pwl_forward": [ctypes.c_void_p] * 3 + EPILOGUE_ARGTYPES + [ctypes.c_void_p] * 2
     + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-    "glu_pwl_backward": [ctypes.c_void_p] * 4 + EPILOGUE_ARGTYPES + [ctypes.c_void_p] * 2
+    "glu_pwl_backward": [ctypes.c_void_p] * 4 + EPILOGUE_ARGTYPES + [ctypes.c_void_p] * 3
     + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 }
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -71,6 +76,13 @@ def fused_glu_bwd_plain(x, w_gate, w_up, g, plan: EpiloguePlan, tables):
     act_zg, slope = plan.apply_value_and_slope(zg, *tables)
     gf = g.to(torch.float32)
     return gf * zu * slope, gf * act_zg
+
+
+def kernel_table(plan: EpiloguePlan, tables) -> tuple:
+    """The epilogue as the GLU-family kernels take it: :func:`kernel_epilogue`
+    and the prefix table's pointer (null without a table).  Refuses a table
+    whose breakpoints do not ascend."""
+    return (*kernel_epilogue(plan, tables), search_prefix_ptr(plan, tables))
 
 
 def _check_operands(what, x3, w_gate, w_up):
@@ -113,7 +125,7 @@ def _launch_forward(what, x, w_gate, w_up, plan, tables):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.glu_pwl_forward(
-            x3.data_ptr(), wg.data_ptr(), wu.data_ptr(), *kernel_epilogue(plan, tables),
+            x3.data_ptr(), wg.data_ptr(), wu.data_ptr(), *kernel_table(plan, tables),
             out.data_ptr(), E, M, N, K, _KERNEL_DTYPES[x3.dtype], stream)
     _build.check(err, f"{what} forward")
     return out
@@ -147,7 +159,7 @@ def _launch_backward(what, x, w_gate, w_up, g, plan, tables):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.glu_pwl_backward(
             x3.data_ptr(), wg.data_ptr(), wu.data_ptr(), g3.data_ptr(),
-            *kernel_epilogue(plan, tables), dzg.data_ptr(), dzu.data_ptr(), E, M, N, K,
+            *kernel_table(plan, tables), dzg.data_ptr(), dzu.data_ptr(), E, M, N, K,
             _KERNEL_DTYPES[x3.dtype], stream)
     _build.check(err, f"{what} backward")
     return dzg, dzu
@@ -159,6 +171,7 @@ def fused_glu_bwd(x, w_gate, w_up, g, plan: EpiloguePlan, tables, counter=None):
     ``counter.bwd_launches`` (``fused_glu``'s unless the caller passes its
     own wrapper), its plain version on CPU tensors."""
     if x.device.type == "cpu":
+        refuse_unsorted(plan, tables)
         return fused_glu_bwd_plain(x, w_gate, w_up, g, plan, tables)
     counter = counter or fused_glu
     out = _launch_backward(counter.__name__, x, w_gate, w_up, g, plan, tables)
@@ -174,6 +187,7 @@ class _GLUOp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w_gate, w_up, plan, tables, impl_bwd, counter):
         if x.device.type == "cpu":
+            refuse_unsorted(plan, tables)
             y = fused_glu_plain(x, w_gate, w_up, plan, tables)
         else:  # the kernel, or its refusals (another device among them)
             y = _launch_forward(counter.__name__, x, w_gate, w_up, plan, tables)

@@ -14,8 +14,9 @@ XLA) and ``db = Σ dz`` follow.
 What bounds them on an H100: at whisper's decode and prefill shapes (K =
 768, N = 3072, M = 4 or 128) the 4.7 MB of bf16 weights (~1.4 us at
 3.35 TB/s); at the encoder's M = 6000 (4 x 1500 frames) the 28 GFLOP of
-the product, which the kernel runs as f32 FMAs on the CUDA cores, as the
-GLU's.
+the product, which bf16 runs on the tensor cores and decodes by the
+breakpoint search, as the GLU's (f32, and bf16 at M <= 4, keep the
+CUDA-core kernel).
 
 A CPU tensor takes the plain versions below; a CUDA tensor launches the
 kernels or raises.  ``impl_bwd="recompute"`` keeps the forward kernel and
@@ -35,13 +36,15 @@ from .epilogue import (
     EpiloguePlan,
     check_kernel_operands,
     device_operands,
-    kernel_epilogue,
+    refuse_unsorted,
 )
+from .glu import kernel_table
 
+# the epilogue, then the prefix table of the search decode
 _SIGNATURES = {
-    "linear_pwl_forward": [ctypes.c_void_p] * 3 + EPILOGUE_ARGTYPES + [ctypes.c_void_p]
+    "linear_pwl_forward": [ctypes.c_void_p] * 3 + EPILOGUE_ARGTYPES + [ctypes.c_void_p] * 2
     + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-    "linear_pwl_backward": [ctypes.c_void_p] * 4 + EPILOGUE_ARGTYPES + [ctypes.c_void_p]
+    "linear_pwl_backward": [ctypes.c_void_p] * 4 + EPILOGUE_ARGTYPES + [ctypes.c_void_p] * 2
     + [ctypes.c_int] * 4 + [ctypes.c_void_p],
 }
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -105,12 +108,12 @@ def _launch(what, x, w, b, plan, tables, g=None):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if g is None:
             err = lib.linear_pwl_forward(
-                x.data_ptr(), w.data_ptr(), bias, *kernel_epilogue(plan, tables),
+                x.data_ptr(), w.data_ptr(), bias, *kernel_table(plan, tables),
                 out.data_ptr(), M, N, K, _KERNEL_DTYPES[x.dtype], stream)
         else:
             g = g.to(x.dtype).contiguous()
             err = lib.linear_pwl_backward(
-                x.data_ptr(), w.data_ptr(), bias, g.data_ptr(), *kernel_epilogue(plan, tables),
+                x.data_ptr(), w.data_ptr(), bias, g.data_ptr(), *kernel_table(plan, tables),
                 out.data_ptr(), M, N, K, _KERNEL_DTYPES[x.dtype], stream)
     _build.check(err, f"{what} {'forward' if g is None else 'backward'}")
     return out
@@ -121,6 +124,7 @@ def fused_linear_bwd(x, w, b, g, plan: EpiloguePlan, tables):
     CUDA tensors, counted on ``fused_linear.bwd_launches``, its plain
     version on CPU tensors."""
     if x.device.type == "cpu":
+        refuse_unsorted(plan, tables)
         return fused_linear_bwd_plain(x, w, b, g, plan, tables)
     dz = _launch("fused_linear", x, w, b, plan, tables, g=g)
     fused_linear.bwd_launches += 1
@@ -134,6 +138,7 @@ class _LinearOp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, b, plan, tables, impl_bwd):
         if x.device.type == "cpu":
+            refuse_unsorted(plan, tables)
             y = fused_linear_plain(x, w, b, plan, tables)
         else:  # the kernel, or its refusals (another device among them)
             y = _launch("fused_linear", x, w, b, plan, tables)

@@ -19,7 +19,8 @@ N = 1024): the gate and up weights are 537 MB of bf16, read once per call,
 ~160 us at 3.35 TB/s for the bucket capacities of serving (C = 1 at a
 4-slot decode step, 5 for a 32-token prefill, 40 for 256 tokens); at
 C = 640 (8 x 512 training tokens) the 344 GFLOP of the two products bound
-it.  Every bucket is computed, empty or not, as the JAX kernel computes it.
+it, which bf16 runs on the tensor cores above C = 4 (``csrc/glu.cu``).
+Every bucket is computed, empty or not, as the JAX kernel computes it.
 
 A CPU tensor takes the plain versions; a CUDA tensor launches the kernels
 or raises.  ``impl_bwd="recompute"`` keeps the forward kernel and

@@ -12,12 +12,23 @@ against the JAX package.
   rel 1e-6 of each gradient's max, for the four table formats.
 * ``impl_bwd`` selection, and the slope of a pre-activation that lies
   exactly on a breakpoint (the left segment's), bitwise.
+* The order band of ``chip_smoke.py``'s backward checks: the plain
+  backward in four summation orders of the pre-activation (sequential K,
+  reversed K, 16-wide chunks as the tensor cores sum them, and
+  ``torch.matmul``), on hypothesis-drawn inputs aimed at the breakpoints.
+  Wherever two orders decode different slopes, the ``torch.matmul``
+  pre-activation lies within ``ORDER_BAND_C·(K+1)·2⁻²⁴·(|x|@|w| + |b|)`` of
+  a breakpoint, so the band the card holds the kernels to is wide enough.
 """
+import itertools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import repro  # noqa: F401
 import repro_torch.sfu as tsfu
@@ -136,3 +147,87 @@ def test_slope_on_breakpoints_is_bitwise(fmt):
     m = tt.m.to(torch.float32) if fmt == "f32" else None
     if m is not None:  # on bp_i the slope is segment i's (the one ending at bp_i)
         torch.testing.assert_close(dzg[0], m[:-1], rtol=0, atol=0)
+
+
+ORDER_BAND_C = 4  # chip_smoke.ORDER_BAND_C
+ORDERS = ("sequential", "reversed", "chunks16", "matmul")
+
+
+def _z_in_order(x, w, order):
+    """``x @ w`` in f32 with the sum over K taken in ``order``: one product
+    and one add rounded at a time (from k = 0, or from k = K - 1), 16-wide
+    chunks from 0 added one after another, or one ``torch.matmul``."""
+    if order == "matmul":
+        return x @ w
+    K = x.shape[1]
+    acc = torch.zeros(x.shape[0], w.shape[1])
+    if order == "chunks16":
+        for k0 in range(0, K, 16):
+            acc = acc + x[:, k0:k0 + 16] @ w[k0:k0 + 16]
+        return acc
+    for k in (range(K) if order == "sequential" else reversed(range(K))):
+        acc = acc + x[:, k:k + 1] * w[k:k + 1]
+    return acc
+
+
+def _aimed(rng, M, K, N, bp, bias):
+    """Normal x (M, K) and w (K, N) /sqrt(K) whose last row is chosen so
+    that the exact pre-activation of row j % M, column j lands on breakpoint
+    j % n_bp (x's last column is 1): every order then rounds it to either
+    side of that breakpoint."""
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    w = (rng.normal(size=(K, N)) / np.sqrt(K)).astype(np.float32)
+    x[:, K - 1] = 1.0
+    for j in range(N):
+        i = j % M
+        part = float(x[i, :K - 1].astype(np.float64) @ w[:K - 1, j].astype(np.float64))
+        w[K - 1, j] = np.float32(bp[j % len(bp)] - part - (0.0 if bias is None else bias[j]))
+    return torch.from_numpy(x), torch.from_numpy(w)
+
+
+def _check_order_band(fn, seed, M, K, N, with_bias):
+    """The slopes of four summation orders disagree only within the order
+    band; returns the number of disagreeing elements."""
+    table = tsfu.get_store().get(fn=fn, n_breakpoints=32)
+    plan, tabs = plan_and_operands(table)
+    bp = tabs[0].reshape(-1).double().numpy()
+    rng = np.random.default_rng(seed)
+    bias = (rng.normal(size=N) * 0.1).astype(np.float32) if with_bias else None
+    x, w = _aimed(rng, M, K, N, bp, bias)
+    b = None if bias is None else torch.from_numpy(bias)
+    slopes = {}
+    for order in ORDERS:
+        z = _z_in_order(x, w, order)
+        if b is not None:
+            z = z + b
+        slopes[order] = plan.apply_value_and_slope(z, *tabs)[1]
+        if order == "matmul":
+            zp = z
+    mag = x.abs() @ w.abs() + (0.0 if b is None else b.abs())
+    band = ORDER_BAND_C * (K + 1) * 2.0 ** -24 * mag
+    dist = (zp[..., None] - torch.from_numpy(bp).float()).abs().min(dim=-1).values
+    flips = torch.zeros_like(zp, dtype=torch.bool)
+    for a, c in itertools.combinations(ORDERS, 2):
+        flips |= slopes[a] != slopes[c]
+    outside = flips & (dist > band)
+    assert not bool(outside.any()), (
+        f"{int(outside.sum())} slope disagreements outside the band: z {zp[outside]}, "
+        f"distance {dist[outside]}, band {band[outside]}")
+    return int(flips.sum())
+
+
+@settings(max_examples=40, deadline=None)
+@given(seed=st.integers(0, 2 ** 31 - 1), M=st.integers(1, 6), K=st.integers(2, 96),
+       N=st.integers(1, 40), fn=st.sampled_from(["gelu_tanh", "silu", "gelu"]),
+       with_bias=st.booleans())
+def test_order_band_holds_for_four_summation_orders(seed, M, K, N, fn, with_bias):
+    _check_order_band(fn, seed, M, K, N, with_bias)
+
+
+@pytest.mark.parametrize("fn, with_bias", [("gelu_tanh", False), ("silu", False),
+                                           ("gelu", True)])
+def test_order_band_holds_at_model_width(fn, with_bias):
+    """At repro-100m's K = 768 (the GLU's gelu_tanh, olmoe's silu experts,
+    whisper's biased gelu linear layer), aimed at every breakpoint: the
+    orders do disagree there, and only within the band."""
+    assert _check_order_band(fn, 0, 4, 768, 96, with_bias) > 0

@@ -23,12 +23,20 @@ import torch
 
 from repro_torch import sfu
 from repro_torch.core.pwl import PWLTable
+from repro_torch.kernels import fused as tfused
 from repro_torch.kernels.fused import attention as tattn
 from repro_torch.kernels.fused.epilogue import (
     EpiloguePlan,
     pack_table,
+    plan_and_operands,
     prefix_table,
     search_prefix,
+)
+from repro_torch.kernels.fused.glu import fused_glu_bwd, fused_glu_bwd_plain, fused_glu_plain
+from repro_torch.kernels.fused.linear import (
+    fused_linear_bwd,
+    fused_linear_bwd_plain,
+    fused_linear_plain,
 )
 
 PAD = 128  # PWL_SEARCH_PAD: the padded breakpoints
@@ -197,3 +205,56 @@ def test_flash_wrappers_take_sorted_tables():
     out = tattn.fused_flash_attention(q, k, v, table=sfu.get_store().get(fn="exp",
                                                                           n_breakpoints=8))
     assert out.shape == q.shape and bool(torch.isfinite(out).all())
+
+
+# The GLU family's bf16 kernel decodes by the same search (csrc/glu.cu), so
+# its wrappers refuse unsorted breakpoints too, on the CPU as on the card.
+GLU_FAMILY = ("fused_glu", "fused_glu_bwd", "fused_moe_glu", "fused_linear", "fused_linear_bwd")
+
+
+def _glu_family(wrapper, table):
+    """``wrapper`` on small CPU operands (two experts for the MoE GLU) with
+    ``table``, and its plain version on the table's packed operands."""
+    rng = np.random.default_rng(3)
+    x, wg, wu = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                 for s in ((2, 5, 16), (2, 16, 8), (2, 16, 8)))
+    g = torch.from_numpy(rng.normal(size=(2, 5, 8)).astype(np.float32))
+    b = wu[0, 0]
+    plan, tabs = plan_and_operands(table)
+    if wrapper == "fused_glu":
+        return (tfused.fused_glu(x[0], wg[0], wu[0], table=table),
+                fused_glu_plain(x[0], wg[0], wu[0], plan, tabs))
+    if wrapper == "fused_moe_glu":
+        return (tfused.fused_moe_glu(x, wg, wu, table=table),
+                fused_glu_plain(x, wg, wu, plan, tabs))
+    if wrapper == "fused_glu_bwd":
+        return (torch.cat(fused_glu_bwd(x[0], wg[0], wu[0], g[0], plan, tabs)),
+                torch.cat(fused_glu_bwd_plain(x[0], wg[0], wu[0], g[0], plan, tabs)))
+    if wrapper == "fused_linear":
+        return (tfused.fused_linear(x[0], wg[0], b, table=table),
+                fused_linear_plain(x[0], wg[0], b, plan, tabs))
+    return (fused_linear_bwd(x[0], wg[0], b, g[0], plan, tabs),
+            fused_linear_bwd_plain(x[0], wg[0], b, g[0], plan, tabs))
+
+
+@pytest.mark.parametrize("bad", ["descending", "nan"])
+@pytest.mark.parametrize("wrapper", GLU_FAMILY)
+def test_glu_family_wrappers_refuse_unsorted_breakpoints(wrapper, bad):
+    t = sfu.get_store().get(fn="gelu_tanh", n_breakpoints=8)
+    bp = t.bp.flip(0) if bad == "descending" else t.bp.clone()
+    if bad == "nan":
+        bp[3] = float("nan")
+    table = PWLTable(bp=bp, m=t.m, q=t.q, name=f"gelu_tanh {bad}")
+    with pytest.raises(ValueError, match="ascending"):
+        _glu_family(wrapper, table)
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("wrapper", GLU_FAMILY)
+def test_glu_family_wrappers_take_shipped_tables(wrapper, fmt):
+    """The check passes the shipped (ascending) tables of every format: each
+    wrapper runs on the CPU and gives its plain version's output."""
+    got, want = _glu_family(wrapper, sfu.get_store().get(fn="silu", n_breakpoints=32,
+                                                         dtype=fmt))
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -7,7 +7,8 @@ held-out training gate across GLU summation orders.
 The first form runs phases of ``chip_smoke.py`` (by default the flash
 phases ``flash_phase``, ``flash_bwd_phase`` and ``dh256_phase``; also
 ``glu_phase``, ``glu_bwd_phase``, ``moe_phase``, ``moe_bwd_phase``,
-``linear_phase``, ``linear_bwd_phase`` and ``decode_phase``) from
+``linear_phase``, ``linear_bwd_phase``, ``decode_phase``, ``softmax_phase``
+and ``softmax_bwd_phase``) from
 OTHER_CHECKOUT (A) and from this checkout (B) in the order A, B, B, A, each
 in a process of its own that imports that checkout's ``src`` and
 ``chip_smoke.py`` and builds its kernels into that checkout's
@@ -15,7 +16,8 @@ in a process of its own that imports that checkout's ``src`` and
 outputs of fixed inputs that the two checkouts must give bitwise alike:
 the f32 flash forward outputs, row max and gradients; the f32 GLU, MoE GLU
 and linear layer, forward and backward, and the bf16 ones at M <= 4 (the
-CUDA-core kernel); the paged decode's f32 and bf16 outputs.  Then B runs
+CUDA-core kernel); the paged decode's f32 and bf16 outputs; the row
+softmax's f32 forward and backward outputs on rows up to 1024 wide.  Then B runs
 once more for each tensor-core configuration of ``csrc/glu.cu``, forced by
 the compile-time define ``GLU_TC_FORCE`` in a build directory of its own:
 the bf16 GLU-family digests at M > 4 ("tc ..." keys) must be equal in
@@ -207,6 +209,47 @@ def decode_digests(torch, cs) -> dict:
     return digests
 
 
+# row-softmax cases whose f32 forward and backward outputs are digested: the
+# narrow rows (N <= 1024, one warp a row), whose sums keep one order. (name,
+# score shape, kwargs); "lens" a prefix mask per leading index, "ties" the
+# row max tied three ways
+SOFTMAX_CASES = [
+    ("train 8x12x512 rows x 512 causal", (8, 1, 12, 512, 512), {"causal": True}),
+    ("prefill 12x32 rows x 32 causal", (1, 1, 12, 32, 32), {"causal": True}),
+    ("dense decode 48 x 48 mask", (4, 12, 1, 48), {"lens": [48, 33, 1, 0]}),
+    ("512 x 512 three-way ties", (512, 512), {"ties": True}),
+]
+
+
+def softmax_digests(torch, cs) -> dict:
+    """The row softmax's f32 outputs, forward (``fused_pwl_softmax``) and
+    backward (``fused_pwl_softmax_bwd``), under the fused-softmax plan's exp
+    table, on ``SOFTMAX_CASES``."""
+    from repro_torch.kernels.fused import fused_pwl_softmax
+    from repro_torch.kernels.fused.softmax import fused_pwl_softmax_bwd
+
+    table, plan, tables = cs._exp_table(torch)
+    gen = torch.Generator(device="cuda").manual_seed(1357)
+    digests = {}
+    for name, shape, kw in SOFTMAX_CASES:
+        x = torch.randn(shape, generator=gen, device="cuda") * 3.0
+        g = torch.randn(shape, generator=gen, device="cuda")
+        N = shape[-1]
+        if kw.get("ties"):
+            x[..., :3] = x.amax(dim=-1, keepdim=True) + 1.0
+        fkw, mask2, causal = {}, None, bool(kw.get("causal"))
+        if "lens" in kw:
+            lens = torch.tensor(kw["lens"], device="cuda")
+            fkw["mask"] = (torch.arange(N, device="cuda")[None, :] < lens[:, None])[:, None, None]
+            mask2 = torch.broadcast_to(fkw["mask"], shape).reshape(-1, N).to(torch.float32)
+        y = fused_pwl_softmax(x, table=table, causal=causal, **fkw)
+        dx = fused_pwl_softmax_bwd(x.reshape(-1, N), mask2, g.reshape(-1, N), plan, tables,
+                                   shape[-2] if causal else 1, causal)
+        torch.cuda.synchronize()
+        digests[f"softmax {name}"] = _digest([y, dx])
+    return digests
+
+
 def tc_rows(torch, cs) -> dict:
     """Device time (ms a call) of the bf16 GLU family at the model paths'
     shapes above M = 4: the GLU forward at a prefill (M = 32, 128, 512) and
@@ -308,7 +351,8 @@ def worker(tree: pathlib.Path, force: int | None, phases) -> dict:
         out = getattr(cs, ph)(torch)
         rows.update({f"{ph}: {k}": v["ms"] for k, v in out.items()
                      if isinstance(v, dict) and "ms" in v})
-    digests = {**flash_digests(torch, cs), **glu_digests(torch), **decode_digests(torch, cs)}
+    digests = {**flash_digests(torch, cs), **glu_digests(torch), **decode_digests(torch, cs),
+               **softmax_digests(torch, cs)}
     return {"rows": rows, "digests": digests, "card": cs.card_line()}
 
 
@@ -539,9 +583,10 @@ def main(argv) -> int:
             print(f"[ab] differs: {n}: " + ", ".join(f"{r['tag']} {v}"
                                                      for r, v in zip(among, vals)))
     same = not differ
-    print(f"[ab] f32 flash, f32 GLU family, bf16 GLU family at M <= 4 and f32/bf16 decode "
-          f"outputs bitwise equal across all runs, and bf16 GLU family at M > 4 across this "
-          f"checkout's runs and its {N_TC_CONFIGS} forced tensor-core configurations: {same}")
+    print(f"[ab] f32 flash, f32 GLU family, bf16 GLU family at M <= 4, f32/bf16 decode and "
+          f"f32 row softmax (N <= 1024) outputs bitwise equal across all runs, and bf16 GLU "
+          f"family at M > 4 across this checkout's runs and its {N_TC_CONFIGS} forced "
+          f"tensor-core configurations: {same}")
     print(json.dumps({"runs": runs, "bitwise_equal": same, "differ": differ}))
     return 0 if same else 1
 

@@ -91,7 +91,14 @@
    gradients at 1e-2 outside the order band of a breakpoint, and every slope
    that is not the plain version's within that band, a neighbouring
    segment's (``_order_band``).  ``ab_flash.py --gate`` runs the two
-   training gates under several GLU summation orders.
+   training gates under several GLU summation orders;
+13. slice 11: the row softmax, forward and backward, decodes by the
+   breakpoint search, skips masked scores, and splits rows wider than 1024
+   over a thread-block cluster; its phases add whisper's decode
+   cross-attention (48 rows of 1500, timed), odd widths 1025 and 4097
+   under causal + window, and a backward over 48 rows of 32768 with
+   three-way ties and wholly masked rows (their dx the plain version's,
+   NaN and all).
 
 Every failed check exits non-zero.  The last two lines of standard output
 are the kernels' JSON line and ``{"ok": true, "device": {...}}``; the card's
@@ -115,6 +122,9 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 PEAK_F32_FLOP_PER_S = 67e12    # H100 SXM f32 outside the tensor cores
+SMS = 132                      # H100 SXM streaming multiprocessors
+SM_CLOCK_HZ = 1.98e9           # H100 SXM boost clock (NVIDIA data sheet)
+SEARCH_SHARED_LOADS = 6        # shared loads of one breakpoint-search decode
 K_DIM, N_DIM = 768, 3072       # repro-100m d_model, d_ff
 HKV, DH, PS = 12, 64, 16       # repro-100m KV heads, head dim; serve page size
 N_LAYERS = 12                  # repro-100m layers
@@ -690,10 +700,15 @@ def softmax_bwd_phase(torch):
     """The row-softmax backward kernel (through ``fused_pwl_softmax`` under
     autograd) vs ``fused_pwl_softmax_bwd_plain``, f32, each row at 1e-5 of
     its scale: the training rows (8 x 12 heads x 512 queries, 512 keys,
-    causal), a {0, 1} mask over rows of 2048 (a block per row), and rows
-    whose max is tied three ways."""
+    causal), a {0, 1} mask over rows of 2048 (two blocks a row), rows whose
+    max is tied three ways, and 48 rows of 32768 (a cluster of 8 blocks a
+    row) under a prefix mask with three-way ties, whose last 12 rows are
+    wholly masked.  An all-masked row's dx is the plain version's, NaN where
+    it is NaN (the VJP's gl * 0 / L^2 is 0 / 0 there, in the JAX package
+    too), and equal elsewhere."""
     from repro_torch.kernels.fused import fused_pwl_softmax
     from repro_torch.kernels.fused.softmax import (
+        _split_plan,
         fused_pwl_softmax_bwd,
         fused_pwl_softmax_bwd_plain,
         static_mask,
@@ -708,6 +723,8 @@ def softmax_bwd_phase(torch):
         (train, (B, 1, HKV, S, S), {"causal": True}),
         ("96 rows x 2048 mask", (8, HKV, 2048), {"mask": True}),
         ("512 rows x 512 three-way argmax ties", (512, 512), {"ties": True}),
+        ("48 x 32768 mask, three-way ties, 12 rows all masked", (4, HKV, 32768),
+         {"ties": True, "lens": [32768, 20000, 5, 0]}),
     ]
     rows = {}
     for name, shape, kw in cases:
@@ -720,6 +737,10 @@ def softmax_bwd_phase(torch):
             fkw["mask"] = torch.rand(shape, generator=gen, device=dev) > 0.3
             fkw["mask"][..., 0] = True  # no row is wholly masked
             mask2 = fkw["mask"].reshape(-1, N).to(torch.float32)
+        elif kw.get("lens"):
+            lens = torch.tensor(kw["lens"], device=dev)
+            fkw["mask"] = (torch.arange(N, device=dev)[None, :] < lens[:, None])[:, None, :]
+            mask2 = torch.broadcast_to(fkw["mask"], shape).reshape(-1, N).to(torch.float32)
         elif kw.get("causal"):
             fkw["causal"] = True
             mask2 = static_mask(x.numel() // N, N, S, True, None, device=dev)
@@ -734,8 +755,16 @@ def softmax_bwd_phase(torch):
         want = fused_pwl_softmax_bwd_plain(x2, mask2, g2, plan, tables)
         torch.cuda.synchronize()
         live = torch.ones_like(x2, dtype=torch.bool) if mask2 is None else mask2 > 0
-        err = _compare_rows(torch, got, want, live, 1e-5, f"softmax bwd {name}")
-        line = f"[smoke] fused_pwl_softmax backward {name}: max_abs_err {err:.3g} (row tol 1e-5)"
+        some = live.any(dim=-1)
+        got2 = got.reshape(-1, N)
+        err = _compare_rows(torch, got2[some], want[some], live[some], 1e-5,
+                            f"softmax bwd {name}")
+        line = (f"[smoke] fused_pwl_softmax backward {name} (cluster "
+                f"{_split_plan(x2.shape[0], N).cluster}): max_abs_err {err:.3g} (row tol 1e-5)")
+        if not bool(some.all()):
+            _same_or_nan(torch, got2[~some], want[~some], f"softmax bwd {name} all-masked rows")
+            line += (f"; {int((~some).sum())} all-masked rows equal to the plain version's "
+                     f"(NaN share {torch.isnan(want[~some]).float().mean().item():.3g})")
         if name == train:
             def library(i):
                 return torch.autograd.grad(torch.softmax(xr, dim=-1), xr, g)
@@ -748,12 +777,20 @@ def softmax_bwd_phase(torch):
             n = x.numel()
             nbytes = _softmax_bytes(n, int(live.sum()), n_live_inputs=2, explicit_mask=False)
             rows[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "max_abs_err": err,
-                          **_bound(nbytes, 0.0), "decode_ms": _decode_ms(n)}
+                          **_bound(nbytes, 0.0), "decode_ms": _search_decode_ms(int(live.sum()))}
             line += (f", kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, autograd of "
                      f"torch.softmax {l_ms * 1e3:.1f} us, bound {rows[name]['bound_ms'] * 1e3:.1f}"
-                     f" us (bytes), CUDA-core decode {rows[name]['decode_ms'] * 1e3:.1f} us")
+                     f" us (bytes), search decode {rows[name]['decode_ms'] * 1e3:.1f} us")
         print(line)
     return rows
+
+
+def _same_or_nan(torch, got, want, what) -> None:
+    """``got`` is ``want`` bitwise, NaN where ``want`` is NaN."""
+    nan = torch.isnan(want)
+    check(torch.equal(torch.isnan(got), nan), f"{what}: the NaN pattern differs")
+    check(torch.equal(got[~nan].view(torch.int32), want[~nan].view(torch.int32)),
+          f"{what}: differs from the plain version")
 
 
 def _fragmented_table(n_rows, n_cols, num_pages):
@@ -917,8 +954,18 @@ def _softmax_bytes(n: int, n_live: int, n_live_inputs: int, explicit_mask: bool)
 
 def _decode_ms(n_scores: float) -> float:
     """CUDA-core time of the linear delta decode alone, ~3 f32 operations per
-    breakpoint per score: the work a later decode design has to beat."""
+    breakpoint per score (the paged decode's chain)."""
     return n_scores * 3 * EXP_BP / PEAK_F32_FLOP_PER_S * 1e3
+
+
+def _search_decode_ms(n_scores: float) -> float:
+    """Shared-memory time of the breakpoint search alone (the row softmax's
+    and the flash kernels' decode, ``csrc/pwl_decode.cuh``): five shared
+    loads of the padded breakpoints and one of the prefix table a score,
+    each warp-wide load serving 32 scores, one such load a clock on each SM
+    when its lanes hit no bank twice (the search at 32 breakpoints hits one
+    at most twice; not counted)."""
+    return n_scores * SEARCH_SHARED_LOADS / 32 / (SMS * SM_CLOCK_HZ) * 1e3
 
 
 def softmax_phase(torch):
@@ -927,7 +974,7 @@ def softmax_phase(torch):
     at 1e-5; bf16 scores, whose bf16 output checks the output cast, at 1e-2
     against the plain version's f32 result on the same scores."""
     from repro_torch.kernels.fused import fused_pwl_softmax
-    from repro_torch.kernels.fused.softmax import fused_pwl_softmax_plain, static_mask
+    from repro_torch.kernels.fused.softmax import _split_plan, fused_pwl_softmax_plain, static_mask
 
     dev = torch.device("cuda")
     table, plan, tables = _exp_table(torch)
@@ -948,6 +995,11 @@ def softmax_phase(torch):
         ("48 x 32768 mask", (4, HKV, 1, 32768),
          {"mask": prefix_mask([32768, 20000, 5, 0], 32768)[:, None, None, :]}, True),
         (TRAIN_SOFTMAX, (TRAIN_BATCH, 1, HKV, TRAIN_SEQ, TRAIN_SEQ), {"causal": True}, True),
+        (WHISPER_CROSS_SOFTMAX, (4, HKV, 1, WHISPER_FRAMES), {}, True),
+        ("odd 4x1025 x 1025 causal window 300", (1, 1, 4, 1025, 1025),
+         {"causal": True, "window": 300}, False),
+        ("odd 4097 x 4097 causal window 1000", (1, 1, 1, 4097, 4097),
+         {"causal": True, "window": 1000}, False),
     ]
     rows = {}
     for name, shape, kw, timed in cases:
@@ -978,13 +1030,15 @@ def softmax_phase(torch):
                            reps=5, iters=4)
             l_ms = time_ms(torch, lambda i: torch.softmax(x, dim=-1))
             n = x.numel()
-            nbytes = _softmax_bytes(n, int(live.sum()), n_live_inputs=1,
-                                    explicit_mask="mask" in kw)
+            n_live = int(live.sum())
+            nbytes = _softmax_bytes(n, n_live, n_live_inputs=1, explicit_mask="mask" in kw)
             rows[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "max_abs_err": err,
-                          **_bound(nbytes, 0.0), "decode_ms": _decode_ms(n)}
+                          **_bound(nbytes, 0.0), "decode_ms": _search_decode_ms(n_live),
+                          "cluster": _split_plan(x2.shape[0], N).cluster}
             line += (f", kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, torch.softmax "
                      f"{l_ms * 1e3:.2f} us, bound {rows[name]['bound_ms'] * 1e3:.2f} us "
-                     f"(bytes), CUDA-core decode {rows[name]['decode_ms'] * 1e3:.2f} us")
+                     f"(bytes), search decode {rows[name]['decode_ms'] * 1e3:.2f} us, "
+                     f"cluster {rows[name]['cluster']}")
         print(line)
     return rows
 
@@ -1153,10 +1207,11 @@ def flash_phase(torch):
             pairs = B * H * S * (S + 1) / 2
             nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
             rows[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "max_abs_err": err,
-                          **_bound(nbytes, 4.0 * pairs * DH), "decode_ms": _decode_ms(pairs)}
+                          **_bound(nbytes, 4.0 * pairs * DH),
+                          "decode_ms": _search_decode_ms(pairs)}
             line += (f", kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, SDPA "
                      f"{l_ms * 1e3:.1f} us, bound {rows[name]['bound_ms'] * 1e3:.1f} us "
-                     f"({rows[name]['bound_by']}), CUDA-core decode "
+                     f"({rows[name]['bound_by']}), search decode "
                      f"{rows[name]['decode_ms'] * 1e3:.1f} us")
         print(line)
     return rows
@@ -2290,6 +2345,7 @@ def bf16_table_phase(torch):
 
 
 WHISPER_D, WHISPER_LAYERS, WHISPER_FRAMES = 768, 12, 1500
+WHISPER_CROSS_SOFTMAX = f"whisper cross-attention 4x{HKV} x {WHISPER_FRAMES}"  # a decode step's
 WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ = 8, 448  # Whisper's text context
 WHISPER_ENC_M = 4 * WHISPER_FRAMES  # the encoder MLP's rows in a 4-request prefill
 
@@ -3432,6 +3488,13 @@ def main() -> int:
          "replaces": "src/repro/kernels/fused/softmax.py:69",
          "shape": "12x32 rows x 32 causal f32 (prefill, B=1)",
          "launches": path_counts["fused_pwl_softmax"], **sm["prefill B=1 12x32 x 32 causal"]},
+        {"name": "fused_pwl_softmax[48x1500]", "route": "cuda",
+         "source": "src/repro_torch/csrc/softmax.cu",
+         "replaces": "src/repro/kernels/fused/softmax.py:69",
+         "shape": f"4x{HKV} rows x {WHISPER_FRAMES} f32, a cluster of "
+                  f"{sm[WHISPER_CROSS_SOFTMAX]['cluster']} blocks a row (whisper-small's decode "
+                  "cross-attention); launches: every row softmax of the whisper session",
+         "launches": whisper_counts["fused_pwl_softmax"], **sm[WHISPER_CROSS_SOFTMAX]},
         {"name": "paged_flash_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/decoding.cu",
          "replaces": "src/repro/kernels/fused/decoding.py:72",

@@ -17,7 +17,8 @@ engine's session alone, not the weights' random init before it, and prints:
 * the port's own kernels by name (the dense GLU's and the MoE experts'
   alike: ``glu_pwl_kernel`` at M <= 4, ``glu_tc_kernel`` above;
   ``prompt_write_kernel``, ``append_kernel``, and
-  under a plan with the softmax site fused ``softmax_kernel``, the paged
+  under a plan with the softmax site fused ``softmax_narrow_kernel`` and
+  ``softmax_wide_kernel`` (rows up to 1024 wide, and wider), the paged
   decode's ``split_kernel``, ``page_scores_kernel``, ``page_pv_kernel``,
   ``recurrence_kernel`` and ``merge_kernel``, ``flash_kernel``) with their
   call counts and mean device time.
@@ -94,7 +95,7 @@ def main(argv=None) -> int:
               f"{d / max(e.count, 1):.2f}")
     print("[profile] serving-path kernels: name | calls | mean device us")
     for frag in ("glu_pwl_kernel", "glu_tc_kernel", "prompt_write_kernel", "append_kernel",
-                 "softmax_kernel",
+                 "softmax_narrow_kernel", "softmax_wide_kernel",
                  "split_kernel", "page_scores_kernel", "page_pv_kernel", "recurrence_kernel",
                  "merge_kernel", "flash_kernel"):
         hits = [e for e in kernels if frag in e.key]

@@ -18,11 +18,12 @@ CUDA activity, and prints:
 * the top kernels by device time, and the port's own kernels (the GLU's
   forward and backward, bf16 at M = 4096 on the tensor cores:
   ``glu_tc_kernel`` instantiated with ``ForwardEpi`` or ``BackwardEpi``;
-  ``softmax_kernel`` and
-  ``softmax_bwd_kernel``; the flash forward ``flash_kernel`` and its
-  backward ``flash_bwd_stats_kernel``, ``flash_bwd_dq_kernel`` and
-  ``flash_bwd_dkv_kernel``) with calls per step, mean device time and
-  their share of the step.
+  the row softmax's ``softmax_narrow_kernel`` and
+  ``softmax_bwd_narrow_kernel`` (rows up to 1024 wide; wider rows
+  ``softmax_wide_kernel`` and ``softmax_bwd_wide_kernel``); the flash
+  forward ``flash_kernel`` and its backward ``flash_bwd_stats_kernel``,
+  ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel``) with calls per
+  step, mean device time and their share of the step.
 
 It needs a CUDA GPU.
 """
@@ -48,8 +49,10 @@ TOP = 15  # rows of the kernel table
 PORT_KERNELS = (  # (label, the kernel function's name, a fragment of its template arguments)
     ("glu_tc_kernel forward", "glu_tc_kernel", "ForwardEpi"),
     ("glu_tc_kernel backward", "glu_tc_kernel", "BackwardEpi"),
-    ("softmax_kernel", "softmax_kernel", ""),
-    ("softmax_bwd_kernel", "softmax_bwd_kernel", ""),
+    ("softmax_narrow_kernel", "softmax_narrow_kernel", ""),
+    ("softmax_bwd_narrow_kernel", "softmax_bwd_narrow_kernel", ""),
+    ("softmax_wide_kernel", "softmax_wide_kernel", ""),
+    ("softmax_bwd_wide_kernel", "softmax_bwd_wide_kernel", ""),
     ("flash_kernel", "flash_kernel", ""),
     ("flash_bwd_stats_kernel", "flash_bwd_stats_kernel", ""),
     ("flash_bwd_dq_kernel", "flash_bwd_dq_kernel", ""),
@@ -71,8 +74,8 @@ def _device_us(evt) -> float:
 
 
 def _kernel_name(key: str) -> str:
-    """``void (anonymous namespace)::softmax_kernel<8>(float const*, ...)``
-    -> ``softmax_kernel``: the function's own name."""
+    """``void (anonymous namespace)::softmax_narrow_kernel<16, true>(float
+    const*, ...)`` -> ``softmax_narrow_kernel``: the function's own name."""
     m = re.search(r"::(\w+)\s*[<(]", key) or re.match(r"(?:void\s+)?(\w+)", key)
     return m.group(1) if m else key
 

@@ -9,21 +9,27 @@ row, instead of three elementwise passes.  Masked scores are filled with
 table's linear left tail cannot overflow, and the row sum is clamped at
 ``1e-30``, so a row with no valid entry gives zeros.
 
-The CUDA kernel is ``csrc/softmax.cu``.  What bounds it on an H100: it reads
-x where the mask keeps a score and writes every output, at most 8 bytes per
-score (12 with a mask; 6 under a causal mask), but decodes each score through about
-3·n_bp f32 operations (the delta-accumulation decode of
-``csrc/pwl_decode.cuh``, 96 at 32 breakpoints), so it is bound by CUDA-core
-operations.  A row stays in shared memory (128 KB of f32 at the 32768-wide
-limit :data:`MAX_WIDTH` that the model dispatch keeps), so each score is read
-once, decoded once and written once; narrow rows take a warp each.
+The CUDA kernel is ``csrc/softmax.cu``.  What bounds it on an H100: bytes
+at the least.  It reads x where the mask keeps a score and writes every
+output, at most 8 bytes per score (12 with a mask; about 6 under a causal
+mask).  A table is decoded by the breakpoint search of
+``csrc/pwl_decode.cuh`` (about 6 shared loads for a warp's 32 scores, from
+the prefix table :func:`.epilogue.search_prefix`); with the IEEE division
+by the row sum a kept score still costs ~50 instructions, and that issue,
+not bandwidth, holds the measured kernel at ~1.7x the bytes' time.  A
+masked score is neither read nor decoded.  Rows up to
+1024 wide take a warp each and live in registers, summed in the order of the
+shared-memory design before it (lane l owns columns l, l + 32, ...), so
+their outputs keep its bits.  Wider rows split over a thread-block cluster
+of up to 8 blocks (:func:`_split_plan`), each holding its slice in
+registers; the blocks exchange their partial max and sum through
+distributed shared memory.
 
 The backward (same source) recomputes a row's forward and applies the
-softmax VJP in the same pass.  The VJP needs x and g where the mask keeps a
-score and writes dx in full: 8 bytes per score under a causal mask, 12
-without one (the kernel reads all of g, 10 bytes per causal score), against
-one decode of value and slope, so at the training rows (8·12·512 rows of
-512) it is bound by bytes.  The row max is differentiated,
+softmax VJP in the same pass.  It reads x and g where the mask keeps a score,
+once each, and writes dx in full (about 8 bytes per causal score), with one
+search decode of value and slope per kept score, so it is bound by bytes as
+well.  The row max is differentiated,
 as in the JAX package: for a PWL exp the shift term does not cancel, and its
 gradient is split equally across argmax ties.
 
@@ -36,6 +42,7 @@ takes the backward by autograd through the plain forward, whose clamps are
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -49,18 +56,64 @@ from .epilogue import (
     check_kernel_operands,
     device_operands,
     kernel_epilogue,
+    refuse_unsorted,
+    search_prefix_ptr,
 )
 
 NEG_FILL = -1e30     # masked-score fill, as the JAX package's
 SHIFT_CLAMP = -1e4   # lower clamp on the shifted scores
-MAX_WIDTH = 32768    # widest row the kernel holds in shared memory
+MAX_WIDTH = 32768    # widest row the kernel takes
 
 _SIGNATURES = {
-    "pwl_softmax_forward": [ctypes.c_void_p] * 2 + EPILOGUE_ARGTYPES + [ctypes.c_void_p]
-    + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    "pwl_softmax_backward": [ctypes.c_void_p] * 3 + EPILOGUE_ARGTYPES + [ctypes.c_void_p]
-    + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "pwl_softmax_forward": [ctypes.c_void_p] * 2 + EPILOGUE_ARGTYPES + [ctypes.c_void_p] * 2
+    + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "pwl_softmax_backward": [ctypes.c_void_p] * 3 + EPILOGUE_ARGTYPES + [ctypes.c_void_p] * 2
+    + [ctypes.c_int] * 7 + [ctypes.c_void_p],
 }
+
+# The kernels' split of a row (csrc/softmax.cu, which checks the same rule)
+SMS = 132                 # streaming multiprocessors of an H100 SXM
+THREADS = 256             # threads a block
+NARROW_WIDTH = 1024       # rows up to this wide take one warp each
+MAX_CLUSTER = 8           # blocks a wide row splits over, at most (the portable cluster size)
+NARROW_PER_LANE = 32      # a narrow row's columns a lane holds, at most
+WIDE_PER_THREAD = 16      # a wide row's columns a thread holds, at most
+SLICE_ALIGN = 32          # a block's slice of a wide row starts on a warp's columns
+
+
+class SplitPlan(NamedTuple):
+    """How the kernels lay one row over threads: ``cluster`` blocks a row
+    (1 for a narrow row, which a warp holds), each owning ``slice``
+    consecutive columns, and ``per_thread``, the register bucket (a power of
+    two) of columns a thread holds: ``ceil(N / 32)`` a lane for a narrow
+    row, ``ceil(slice / THREADS)`` for a wide one."""
+
+    cluster: int
+    slice: int
+    per_thread: int
+
+
+def _bucket(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def _split_plan(R: int, N: int) -> SplitPlan:
+    """The split the kernels run (R, N) rows with.  A narrow row is one
+    warp's.  A wide row takes the fewest blocks that hold it at
+    :data:`WIDE_PER_THREAD` columns a thread, then twice as many while the
+    rows' blocks do not fill the SMs (R · cluster < :data:`SMS`), the
+    cluster stays within :data:`MAX_CLUSTER` and each block keeps at least
+    a column a thread: 48 rows of 32768 or of 1500 split, 24,576 rows of
+    2048 do not."""
+    if N <= NARROW_WIDTH:
+        return SplitPlan(1, N, _bucket(-(-N // 32)))
+    cs = 1
+    while -(-N // cs) > THREADS * WIDE_PER_THREAD:
+        cs *= 2
+    while cs < MAX_CLUSTER and R * cs < SMS and N // (2 * cs) >= THREADS:
+        cs *= 2
+    width = -(-(-(-N // cs)) // SLICE_ALIGN) * SLICE_ALIGN
+    return SplitPlan(cs, width, _bucket(-(-width // THREADS)))
 
 
 def static_mask(R: int, N: int, seq_len: int, causal: bool, window, device=None):
@@ -151,13 +204,15 @@ def _launch(x2, mask2, plan, tables, seq_len, causal, window):
     out = torch.empty((R, N), dtype=torch.float32, device=dev)
     if R == 0 or N == 0:
         return out
+    mq = search_prefix_ptr(plan, tables)
     lib = _build.load("softmax", _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pwl_softmax_forward(
             x2.data_ptr(), None if mask2 is None else mask2.data_ptr(),
-            *kernel_epilogue(plan, tables), out.data_ptr(), R, N, seq_len, int(causal),
-            int(window is not None), 0 if window is None else int(window), stream)
+            *kernel_epilogue(plan, tables), mq, out.data_ptr(), R, N, seq_len, int(causal),
+            int(window is not None), 0 if window is None else int(window),
+            _split_plan(R, N).cluster, stream)
     _build.check(err, "pwl_softmax_forward")
     fused_pwl_softmax.launches += 1
     return out
@@ -177,14 +232,15 @@ def _launch_bwd(x2, mask2, g2, plan, tables, seq_len, causal, window):
     dx = torch.empty((R, N), dtype=torch.float32, device=dev)
     if R == 0 or N == 0:
         return dx
+    mq = search_prefix_ptr(plan, tables)
     lib = _build.load("softmax", _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pwl_softmax_backward(
             x2.data_ptr(), None if mask2 is None else mask2.data_ptr(), g2.data_ptr(),
-            *kernel_epilogue(plan, tables), dx.data_ptr(), R, N, seq_len,
+            *kernel_epilogue(plan, tables), mq, dx.data_ptr(), R, N, seq_len,
             int(causal), int(window is not None), 0 if window is None else int(window),
-            stream)
+            _split_plan(R, N).cluster, stream)
     _build.check(err, "pwl_softmax_backward")
     fused_pwl_softmax.bwd_launches += 1
     return dx
@@ -205,6 +261,7 @@ def fused_pwl_softmax_bwd(x2, mask2, g2, plan: EpiloguePlan, tables, seq_len: in
     on CUDA tensors, its plain version on CPU tensors.  ``mask2`` /
     ``causal`` / ``window`` / ``seq_len`` as the forward took them."""
     if x2.device.type == "cpu":
+        refuse_unsorted(plan, tables)
         return fused_pwl_softmax_bwd_plain(
             x2, _plain_mask(x2, mask2, seq_len, causal, window), g2, plan, tables)
     return _launch_bwd(x2, mask2, g2, plan, tables, seq_len, causal, window)
@@ -217,6 +274,7 @@ class _SoftmaxOp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2, mask2, plan, tables, seq_len, causal, window, impl_bwd):
         if x2.device.type == "cpu":
+            refuse_unsorted(plan, tables)
             y = fused_pwl_softmax_plain(
                 x2, _plain_mask(x2, mask2, seq_len, causal, window), plan, tables)
         else:
@@ -265,8 +323,9 @@ def fused_pwl_softmax(x: torch.Tensor, *, table: PWLTable | None = None,
     x2 = x.reshape(-1, N).to(torch.float32)
     mask2 = None
     if mask is not None:
-        # a {0, 1} indicator: a raw float mask selects, it does not weight
-        mask2 = (torch.broadcast_to(mask, x.shape).reshape(-1, N) != 0).to(torch.float32)
+        # a {0, 1} indicator: a raw float mask selects, it does not weight;
+        # formed before the broadcast, so one pass writes the (R, N) mask
+        mask2 = torch.broadcast_to((mask != 0).to(torch.float32), x.shape).reshape(-1, N)
     y = _SoftmaxOp.apply(x2, mask2, plan, tables, seq_len, causal, window,
                          resolve_impl_bwd(impl_bwd))
     return y.reshape(*lead, N).to(x.dtype)

@@ -25,6 +25,7 @@ from repro_torch import sfu
 from repro_torch.core.pwl import PWLTable
 from repro_torch.kernels import fused as tfused
 from repro_torch.kernels.fused import attention as tattn
+from repro_torch.kernels.fused import softmax as tsoftmax
 from repro_torch.kernels.fused.epilogue import (
     EpiloguePlan,
     pack_table,
@@ -207,20 +208,30 @@ def test_flash_wrappers_take_sorted_tables():
     assert out.shape == q.shape and bool(torch.isfinite(out).all())
 
 
-# The GLU family's bf16 kernel decodes by the same search (csrc/glu.cu), so
-# its wrappers refuse unsorted breakpoints too, on the CPU as on the card.
-GLU_FAMILY = ("fused_glu", "fused_glu_bwd", "fused_moe_glu", "fused_linear", "fused_linear_bwd")
+# The GLU family's bf16 kernel (csrc/glu.cu) and the row softmax forward and
+# backward (csrc/softmax.cu) decode by the same search, so their wrappers
+# refuse unsorted breakpoints too, on the CPU as on the card.
+GLU_FAMILY = ("fused_glu", "fused_glu_bwd", "fused_moe_glu", "fused_linear", "fused_linear_bwd",
+              "fused_pwl_softmax", "fused_pwl_softmax_bwd")
 
 
 def _glu_family(wrapper, table):
-    """``wrapper`` on small CPU operands (two experts for the MoE GLU) with
-    ``table``, and its plain version on the table's packed operands."""
+    """``wrapper`` on small CPU operands (two experts for the MoE GLU; 5
+    causal rows of 16 scores for the row softmax) with ``table``, and its
+    plain version on the table's packed operands."""
     rng = np.random.default_rng(3)
     x, wg, wu = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
                  for s in ((2, 5, 16), (2, 16, 8), (2, 16, 8)))
     g = torch.from_numpy(rng.normal(size=(2, 5, 8)).astype(np.float32))
     b = wu[0, 0]
     plan, tabs = plan_and_operands(table)
+    causal = tsoftmax.static_mask(5, 16, 5, True, None)
+    if wrapper == "fused_pwl_softmax":
+        return (tfused.fused_pwl_softmax(x[0], table=table, causal=True),
+                tsoftmax.fused_pwl_softmax_plain(x[0], causal, plan, tabs))
+    if wrapper == "fused_pwl_softmax_bwd":
+        return (tsoftmax.fused_pwl_softmax_bwd(x[0], None, x[1], plan, tabs, 5, True),
+                tsoftmax.fused_pwl_softmax_bwd_plain(x[0], causal, x[1], plan, tabs))
     if wrapper == "fused_glu":
         return (tfused.fused_glu(x[0], wg[0], wu[0], table=table),
                 fused_glu_plain(x[0], wg[0], wu[0], plan, tabs))
@@ -253,8 +264,9 @@ def test_glu_family_wrappers_refuse_unsorted_breakpoints(wrapper, bad):
 @pytest.mark.parametrize("wrapper", GLU_FAMILY)
 def test_glu_family_wrappers_take_shipped_tables(wrapper, fmt):
     """The check passes the shipped (ascending) tables of every format: each
-    wrapper runs on the CPU and gives its plain version's output."""
-    got, want = _glu_family(wrapper, sfu.get_store().get(fn="silu", n_breakpoints=32,
-                                                         dtype=fmt))
+    wrapper runs on the CPU and gives its plain version's output (silu's
+    table; exp's for the row softmax, whose rows silu would zero)."""
+    fn = "exp" if "softmax" in wrapper else "silu"
+    got, want = _glu_family(wrapper, sfu.get_store().get(fn=fn, n_breakpoints=32, dtype=fmt))
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -139,3 +139,29 @@ def test_grad_keeps_the_input_dtype_and_mask_zeros():
     (y.float() * torch.arange(40.0)).sum().backward()
     assert x.grad.dtype == torch.bfloat16
     assert not x.grad[~mask].any()
+
+
+def test_bwd_plain_all_masked_row_matches_jax_backward_kernel():
+    """A row with no kept score: the forward gives zeros, and the VJP's
+    gl * sum(g * u) / L^2 is 0 / 0 there (L = 1e-30, L^2 underflows to 0 in
+    f32), so dx is NaN across the row, in the JAX backward kernel as in the
+    plain version that the CUDA kernel is held to.  The other rows agree at
+    the usual tolerance."""
+    jt, tt = _tables(32)
+    x2 = _igrid(11, (6, 40), span=12)
+    g2 = _igrid(12, (6, 40), span=8)
+    m2 = (_igrid(13, (6, 40)) > 0).astype(np.float32)
+    m2[2] = 0.0
+    jplan, jtabs = jepi.plan_and_operands(jt)
+    want = np.asarray(_softmax_bwd_2d(jnp.asarray(x2), jnp.asarray(m2), jnp.asarray(g2), jtabs,
+                                      plan=jplan, block_rows=8, interpret=True, seq_len=1,
+                                      causal=False, window=None))
+    plan, tabs = plan_and_operands(tt)
+    got = fused_pwl_softmax_bwd_plain(torch.from_numpy(x2), torch.from_numpy(m2),
+                                      torch.from_numpy(g2), plan, tabs).numpy()
+    assert np.isnan(want[2]).all() and np.isnan(got[2]).all()
+    rest = np.arange(6) != 2
+    assert np.isfinite(want[rest]).all()
+    _close(got[rest], want[rest], "rows with a kept score")
+    y = tfused.fused_pwl_softmax(torch.from_numpy(x2), table=tt, mask=torch.from_numpy(m2))
+    assert not y[2].any()

@@ -8,7 +8,7 @@ The first form runs phases of ``chip_smoke.py`` (by default the flash
 phases ``flash_phase``, ``flash_bwd_phase`` and ``dh256_phase``; also
 ``glu_phase``, ``glu_bwd_phase``, ``moe_phase``, ``moe_bwd_phase``,
 ``linear_phase``, ``linear_bwd_phase``, ``decode_phase``, ``softmax_phase``
-and ``softmax_bwd_phase``) from
+``softmax_bwd_phase`` and ``norm_phase``) from
 OTHER_CHECKOUT (A) and from this checkout (B) in the order A, B, B, A, each
 in a process of its own that imports that checkout's ``src`` and
 ``chip_smoke.py`` and builds its kernels into that checkout's
@@ -17,7 +17,9 @@ outputs of fixed inputs that the two checkouts must give bitwise alike:
 the f32 flash forward outputs, row max and gradients; the f32 GLU, MoE GLU
 and linear layer, forward and backward, and the bf16 ones at M <= 4 (the
 CUDA-core kernel); the paged decode's f32 and bf16 outputs; the row
-softmax's f32 forward and backward outputs on rows up to 1024 wide.  Then B runs
+softmax's f32 forward and backward outputs on rows up to 1024 wide; the
+fused RMSNorm's forward output, dx and ds at ``norm_phase``'s shapes under
+each of its epilogues.  Then B runs
 once more for each tensor-core configuration of ``csrc/glu.cu``, forced by
 the compile-time define ``GLU_TC_FORCE`` in a build directory of its own:
 the bf16 GLU-family digests at M > 4 ("tc ..." keys) must be equal in
@@ -250,6 +252,54 @@ def softmax_digests(torch, cs) -> dict:
     return digests
 
 
+# fused RMSNorm cases whose forward output, dx and ds are digested under
+# every epilogue: chip_smoke.norm_phase's shapes (name, M, D, bf16?)
+NORM_CASES = [("4096 x 768 bf16", 4096, 768, True), ("4096 x 2048 bf16", 4096, 2048, True),
+              ("4096 x 5120 bf16", 4096, 5120, True), ("33 x 40 f32", 33, 40, False),
+              ("21 x 48 f32", 21, 48, False), ("37 x 3000 f32", 37, 3000, False)]
+NORM_EPILOGUES = ("identity", "gelu PWL f32", "gelu PWL bf16", "gelu PWL int8", "exact gelu",
+                  "silu PWL f32 64", "exact silu")
+
+
+def _norm_kwargs(ep: str) -> dict:
+    """``table=`` or ``act=`` of a named epilogue: "identity", "exact <fn>" or
+    "<fn> PWL <format> [<breakpoints>]" (32 breakpoints unless named)."""
+    from repro_torch import sfu
+
+    if ep == "identity":
+        return {}
+    if ep.startswith("exact "):
+        return {"act": ep.split()[1]}
+    fn, _, fmt, *n = ep.split()
+    return {"table": sfu.get_store().get(fn=fn, n_breakpoints=int(n[0]) if n else 32,
+                                         dtype=fmt)}
+
+
+def norm_digests(torch) -> dict:
+    """The fused RMSNorm's forward output (``fused_rmsnorm``) and backward
+    ``(dx, ds)`` (``fused_rmsnorm_bwd``) on ``NORM_CASES`` under each of
+    ``NORM_EPILOGUES``."""
+    from repro_torch.kernels.fused import fused_rmsnorm
+    from repro_torch.kernels.fused.epilogue import device_operands
+    from repro_torch.kernels.fused.norm import fused_rmsnorm_bwd
+
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    digests = {}
+    for name, M, D, bf16 in NORM_CASES:
+        dtype = torch.bfloat16 if bf16 else torch.float32
+        x = (torch.randn(M, D, generator=gen, device="cuda") * 3.0).to(dtype)
+        s = torch.randn(D, generator=gen, device="cuda") * 0.3
+        g = torch.randn(M, D, generator=gen, device="cuda").to(dtype)
+        for ep in NORM_EPILOGUES:
+            kw = _norm_kwargs(ep)
+            kplan, ktables = device_operands(kw.get("table"), kw.get("act"), "cuda")
+            y = fused_rmsnorm(x, s, **kw)
+            dx, ds = fused_rmsnorm_bwd(x, s, g, kplan, ktables)
+            torch.cuda.synchronize()
+            digests[f"rmsnorm {name} {ep}"] = _digest([y, dx, ds])
+    return digests
+
+
 def tc_rows(torch, cs) -> dict:
     """Device time (ms a call) of the bf16 GLU family at the model paths'
     shapes above M = 4: the GLU forward at a prefill (M = 32, 128, 512) and
@@ -351,8 +401,10 @@ def worker(tree: pathlib.Path, force: int | None, phases) -> dict:
         out = getattr(cs, ph)(torch)
         rows.update({f"{ph}: {k}": v["ms"] for k, v in out.items()
                      if isinstance(v, dict) and "ms" in v})
+        rows.update({f"{ph}: {k} {part}": v[part]["ms"] for k, v in out.items()  # norm_phase
+                     for part in ("fwd", "bwd") if isinstance(v, dict) and part in v})
     digests = {**flash_digests(torch, cs), **glu_digests(torch), **decode_digests(torch, cs),
-               **softmax_digests(torch, cs)}
+               **softmax_digests(torch, cs), **norm_digests(torch)}
     return {"rows": rows, "digests": digests, "card": cs.card_line()}
 
 
@@ -583,8 +635,9 @@ def main(argv) -> int:
             print(f"[ab] differs: {n}: " + ", ".join(f"{r['tag']} {v}"
                                                      for r, v in zip(among, vals)))
     same = not differ
-    print(f"[ab] f32 flash, f32 GLU family, bf16 GLU family at M <= 4, f32/bf16 decode and "
-          f"f32 row softmax (N <= 1024) outputs bitwise equal across all runs, and bf16 GLU "
+    print(f"[ab] f32 flash, f32 GLU family, bf16 GLU family at M <= 4, f32/bf16 decode, "
+          f"f32 row softmax (N <= 1024) and RMSNorm (forward, dx, ds) outputs bitwise equal "
+          f"across all runs, and bf16 GLU "
           f"family at M > 4 across this checkout's runs and its {N_TC_CONFIGS} forced "
           f"tensor-core configurations: {same}")
     print(json.dumps({"runs": runs, "bitwise_equal": same, "differ": differ}))

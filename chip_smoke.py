@@ -64,14 +64,16 @@
    whisper on the card against the CPU;
 9. slice 7: holds the fused RMSNorm (``csrc/norm.cu``, forward and
    backward) against its plain versions at repro-100m's training rows and
-   olmoe's width in bf16 and at odd widths in f32, with identity, PWL (f32,
-   bf16, int8 tables) and exact epilogues, and drives it once through its
-   autograd (no model calls it); holds every kernel that takes an epilogue
-   plan under exact (``act=``) and identity plans, forward and backward,
-   on grids that hit the kinks, and drives each through its public entry
-   point; holds the flash forward and backward at head dim 256 (gemma3-1b's
-   attention, causal with and without its 512 window) and the split-KV
-   decode at dh 256;
+   olmoe's and qwen2.5-32b's widths in bf16 and at odd widths in f32, with
+   identity, PWL (f32, bf16, int8 tables) and exact epilogues, and drives it
+   once through its autograd (no model calls it; redesigned in slice 12:
+   rows in registers, up to 4096 wide over 1-4 warps forward and 1024 wide
+   backward, the breakpoint search); holds every kernel that takes an
+   epilogue plan under exact (``act=``) and identity plans, forward and
+   backward, on grids that hit the kinks, and drives each through its
+   public entry point; holds the flash forward and backward at head dim
+   256 (gemma3-1b's attention, causal with and without its 512 window) and
+   the split-KV decode at dh 256;
 10. slice 8: prints each kernel's registers and spills and the tensor-core
    (HMMA) instructions of the flash kernels' SASS; holds the flash kernels'
    bf16 tensor-core design against the plain versions on every mask
@@ -125,6 +127,7 @@ PEAK_F32_FLOP_PER_S = 67e12    # H100 SXM f32 outside the tensor cores
 SMS = 132                      # H100 SXM streaming multiprocessors
 SM_CLOCK_HZ = 1.98e9           # H100 SXM boost clock (NVIDIA data sheet)
 SEARCH_SHARED_LOADS = 6        # shared loads of one breakpoint-search decode
+SEARCH_OPS = 9                 # operations of one search decode: 7 compares, a table read, fmaf
 K_DIM, N_DIM = 768, 3072       # repro-100m d_model, d_ff
 HKV, DH, PS = 12, 64, 16       # repro-100m KV heads, head dim; serve page size
 N_LAYERS = 12                  # repro-100m layers
@@ -2672,20 +2675,26 @@ def whisper_reference_phase(torch, plan: str):
 
 
 NORM_EPILOGUES = ("identity", "gelu PWL f32", "gelu PWL bf16", "gelu PWL int8", "exact gelu")
+# also at 4096 x 768 and 4096 x 5120: a 64-breakpoint table and an exact
+# function the kernels call out of line
+NORM_MORE_EPILOGUES = ("silu PWL f32 64", "exact silu")
 NORM_EPS = 1e-6
+QWEN_D = 5120  # qwen2.5-32b's d_model: rows past those the kernels hold in registers
+NORM_MAX_FLIP_SHARE = 1e-6  # dx whose slope is not the plain version's, at 4096 x 5120
 
 
 def _epilogue_kwargs(name: str) -> dict:
     """``table=`` or ``act=`` of a named epilogue: "identity", "exact <fn>" or
-    "<fn> PWL <format>" (32 breakpoints)."""
+    "<fn> PWL <format> [<breakpoints>]" (32 breakpoints unless named)."""
     from repro_torch import sfu
 
     if name == "identity":
         return {}
     if name.startswith("exact "):
         return {"act": name.split()[1]}
-    fn, _, fmt = name.split()
-    return {"table": sfu.get_store().get(fn=fn, n_breakpoints=32, dtype=fmt)}
+    fn, _, fmt, *n = name.split()
+    return {"table": sfu.get_store().get(fn=fn, n_breakpoints=int(n[0]) if n else 32,
+                                         dtype=fmt)}
 
 
 def _epilogue_operands(torch, kw: dict):
@@ -2699,18 +2708,69 @@ def _epilogue_operands(torch, kw: dict):
     return (plan, tuple(t.cuda() for t in tables)), (kplan, ktables)
 
 
-def _norm_bound(M: int, D: int, esize: int, n_bp: int, backward: bool) -> dict:
+def _norm_bound(M: int, D: int, esize: int, n_bp: int, backward: bool,
+                chain: bool = False) -> dict:
     """The fused RMSNorm's least time: x read and y written once (the
     backward: x and g read, dx written in f32, ds written), scale read once;
     against ~4 f32 operations an element for the normalisation (10 for the
-    backward) and ~3 a breakpoint for a PWL decode.  An exact function's
-    libm operations are not counted (at 4096 x 768 they would need over 60
-    an element to pass the bytes)."""
+    backward) and, with a table, the breakpoint search's ``SEARCH_OPS``
+    (``chain``: the linear chain's ~3 a breakpoint, the decode before slice
+    12).  An exact function's libm operations are not counted (at 4096 x 768
+    they would need over 60 an element to pass the bytes)."""
     if backward:
         nbytes = M * D * (2 * esize + 4) + 2 * D * 4
     else:
         nbytes = 2 * M * D * esize + D * 4
-    return _f32_bound(nbytes, M * D * ((10 if backward else 4) + 3 * n_bp))
+    decode = (3 * n_bp if chain else SEARCH_OPS) if n_bp else 0
+    return _f32_bound(nbytes, M * D * ((10 if backward else 4) + decode))
+
+
+def _norm_band(torch, x, s, g, got, want, plan, tables, tol, what):
+    """The RMSNorm backward kernel's dx against the plain version's
+    (``want``), element by element, where a slope may differ: the kernel sums
+    x² in another order and rounds its rsqrt apart, so its pre-activation y
+    lies within ``ORDER_BAND_C`` (D + 10) 2⁻²⁴ |y| of the plain version's,
+    and where that band holds a breakpoint the kernel may take the
+    breakpoint's other segment.  An element is marked where its dx is off
+    by more than ``tol`` of max |want|.  Every marked element must lie
+    within the band of a breakpoint and be within that tolerance of the dx
+    one of the breakpoint's two segments gives (the row's mean term kept);
+    the marked share is bounded by ``NORM_MAX_FLIP_SHARE``.  Returns the max
+    abs error of the unmarked elements and the line to print."""
+    u = 2.0 ** -24
+    D = x.shape[-1]
+    xf, gf = x.float(), g.float()
+    r = torch.rsqrt(xf.square().sum(dim=-1, keepdim=True) / D + NORM_EPS)
+    xh = xf * r
+    w = 1.0 + s.float()
+    y = xh * w
+    du = gf * plan.apply_value_and_slope(y, *tables)[1] * w
+    c = (du * xh).sum(dim=-1, keepdim=True) / D
+    limit = tol * want.abs().max()
+    marked = (got - want).abs() > limit
+    bps = tables[0].reshape(-1).float()
+    dist = torch.full_like(y, math.inf)
+    nearest = torch.zeros_like(y, dtype=torch.long)
+    for i, b in enumerate(bps.tolist()):
+        d = (y - b).abs()
+        closer = d < dist
+        dist = torch.where(closer, d, dist)
+        nearest = torch.where(closer, i, nearest)
+    near = dist <= ORDER_BAND_C * (D + 10) * u * y.abs()
+    b = bps[nearest]
+    explained = torch.zeros_like(marked)
+    for t in (b, torch.nextafter(b, torch.full_like(b, math.inf))):
+        side = r * (gf * plan.apply_value_and_slope(t, *tables)[1] * w - xh * c)
+        explained |= (got - side).abs() <= limit
+    outside, wrong = int((marked & ~near).sum()), int((marked & ~explained).sum())
+    flips, in_band = int(marked.sum()) / marked.numel(), int(near.sum()) / marked.numel()
+    check(outside == 0, f"{what}: {outside} dx differ from the plain version's outside the "
+                        "rounding band of a breakpoint")
+    check(wrong == 0, f"{what}: {wrong} dx are neither segment's at their breakpoint")
+    check(flips <= NORM_MAX_FLIP_SHARE, f"{what}: dx mismatch share {flips:.3g}")
+    err = (got - want).abs().masked_fill(marked, 0.0).max().item()
+    return err, (f"{int(marked.sum())} dx ({flips:.3g}) each within the rounding band of a "
+                 f"breakpoint with a neighbouring segment's slope; the band holds {in_band:.3g}")
 
 
 def norm_phase(torch):
@@ -2718,14 +2778,24 @@ def norm_phase(torch):
     plain versions: the forward through ``fused_rmsnorm`` (its launches
     counted), the backward through autograd under ``impl_bwd="fused"`` (its
     ``bwd_launches`` counted; the gradient of x must be the kernel's dx) and
-    through ``fused_rmsnorm_bwd``; at repro-100m's training rows (4096 x
-    768) and olmoe-1b-7b's width (4096 x 2048) in bf16 (1e-2), and at the
-    JAX tests' odd widths (33 x 40, 21 x 48) in f32 (forward 1e-5, dx and ds
-    1e-4 of each one's max); each with the identity, gelu PWL (f32, bf16 and
-    int8 tables) and exact gelu epilogues.  ds must be bitwise the same from
-    a second backward.  Timed at 4096 x 768 (every epilogue but the bf16 and
-    int8 tables) and at 4096 x 2048 (the f32 table), against
-    ``torch.nn.functional.rms_norm`` (weight 1 + scale) and its autograd."""
+    through ``fused_rmsnorm_bwd``.  Shapes: repro-100m's training rows (4096
+    x 768), olmoe-1b-7b's width (4096 x 2048: the forward's rows over 2
+    warps, the backward's streamed) and qwen2.5-32b's (4096 x 5120, streamed
+    both ways: past the rows the kernels hold in registers) in bf16 (1e-2);
+    the JAX tests' odd widths (33 x 40, 21 x 48) and 37 x 3000 (the
+    forward's rows over 4 warps, the backward's streamed) in f32 (forward
+    1e-5, dx and ds 1e-4 of each one's max).  Each with the identity, gelu
+    PWL (f32, bf16 and int8 tables) and exact gelu epilogues, and at 4096 x
+    768 and 4096 x 5120 also a 64-breakpoint silu table and exact silu
+    (called out of line).  With a table at 4096 x 5120, where the row sums
+    5120 squares, dx is held by ``_norm_band``: a slope may flip at a
+    breakpoint within the rounding band of r.  ds must be bitwise the
+    same from a second backward.  Timed at 4096 x 768 (every epilogue but
+    the bf16 and int8 tables) and at 4096 x 2048 and 4096 x 5120 (the f32
+    table), against ``torch.nn.functional.rms_norm`` (weight 1 + scale) and
+    its autograd; each bound is printed beside the one the linear chain's
+    decode had, each backward beside the time of the ``torch.sum`` of its
+    16-row ds partials alone."""
     import torch.nn.functional as Fn
 
     from repro_torch.kernels.fused import fused_rmsnorm
@@ -2740,8 +2810,10 @@ def norm_phase(torch):
     cases = [  # (name, M, D, dtype)
         (f"{TRAIN_TOKENS} x {K_DIM} bf16", TRAIN_TOKENS, K_DIM, torch.bfloat16),
         (f"{TRAIN_TOKENS} x {MOE_K} bf16", TRAIN_TOKENS, MOE_K, torch.bfloat16),
+        (f"{TRAIN_TOKENS} x {QWEN_D} bf16", TRAIN_TOKENS, QWEN_D, torch.bfloat16),
         ("33 x 40 f32", 33, 40, torch.float32),
         ("21 x 48 f32", 21, 48, torch.float32),
+        ("37 x 3000 f32", 37, 3000, torch.float32),
     ]
     rows = {}
     for name, M, D, dtype in cases:
@@ -2749,7 +2821,8 @@ def norm_phase(torch):
         x = (torch.randn(M, D, generator=gen, device=dev) * 3.0).to(dtype)
         s = torch.randn(D, generator=gen, device=dev) * 0.3
         g = torch.randn(M, D, generator=gen, device=dev).to(dtype)
-        for ep in NORM_EPILOGUES:
+        more = NORM_MORE_EPILOGUES if D in (K_DIM, QWEN_D) else ()
+        for ep in NORM_EPILOGUES + more:
             kw = _epilogue_kwargs(ep)
             (plan, tables), (kplan, ktables) = _epilogue_operands(torch, kw)
             what = f"fused_rmsnorm {name} {ep}"
@@ -2766,23 +2839,31 @@ def norm_phase(torch):
             torch.cuda.synchronize()
             check(y.dtype == dtype, f"{what}: output {y.dtype}")
             err = _compare(torch, y, want, tol, what)
-            errs = [_compare_scaled(torch, dx, wdx, gtol, f"{what} dx"),
-                    _compare_scaled(torch, ds, wds, gtol, f"{what} ds")]
+            band = ""
+            if "PWL" in ep and D == QWEN_D:  # a slope may flip at a breakpoint
+                dx_err, band = _norm_band(torch, x, s, g, dx, wdx, plan, tables, gtol,
+                                          f"{what} dx")
+                band = f"; {band}"
+            else:
+                dx_err = _compare_scaled(torch, dx, wdx, gtol, f"{what} dx")
+            errs = [dx_err, _compare_scaled(torch, ds, wds, gtol, f"{what} ds")]
             check(torch.equal(xr.grad, dx.to(dtype)), f"{what}: autograd's dx is not the kernel's")
             check(torch.equal(ds, ds2), f"{what}: ds differs between two backward calls")
             line = (f"[smoke] fused_rmsnorm {name} {ep}: max_abs_err {err:.3g} (tol {tol}), "
                     f"backward dx {errs[0]:.3g} ds {errs[1]:.3g} (tol {gtol} of each max), ds "
-                    "bitwise repeatable")
+                    f"bitwise repeatable{band}")
             timed = (M == TRAIN_TOKENS and ep in ("identity", "gelu PWL f32", "exact gelu")
                      and (D == K_DIM or ep == "gelu PWL f32"))
             if timed:
-                n_bp = 32 if "PWL" in ep else 0
+                n_bp = kw["table"].bp.numel() if "table" in kw else 0
                 w1 = (1.0 + s).to(dtype)
                 k_ms = time_ms(torch, lambda i: fused_rmsnorm(x, s, **kw))
                 p_ms = time_ms(torch, lambda i: fused_rmsnorm_plain(x, s, plan, tables,
                                                                     NORM_EPS), reps=5, iters=4)
                 l_ms = time_ms(torch, lambda i: Fn.rms_norm(x, (D,), weight=w1, eps=NORM_EPS))
                 kb_ms = time_ms(torch, lambda i: fused_rmsnorm_bwd(x, s, g, kplan, ktables))
+                part = torch.zeros((-(-M // 16), D), device=dev)  # the 16-row ds partials
+                sum_ms = time_ms(torch, lambda i: part.sum(dim=0))
                 pb_ms = time_ms(torch, lambda i: fused_rmsnorm_bwd_plain(
                     x, s, g, plan, tables, NORM_EPS), reps=5, iters=4)
                 xl, wl = x.detach().requires_grad_(True), w1.detach().requires_grad_(True)
@@ -2800,36 +2881,45 @@ def norm_phase(torch):
                             "max_abs_err": max(errs),
                             **_norm_bound(M, D, esize, n_bp, backward=True)}}
                 r = rows[(name, ep)]
+                old = [_norm_bound(M, D, esize, n_bp, backward=b, chain=True)["bound_ms"]
+                       for b in (False, True)]
                 line += (f"; forward kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, "
                          f"F.rms_norm {l_ms * 1e3:.2f} us, bound {r['fwd']['bound_ms'] * 1e3:.2f}"
-                         f" us ({r['fwd']['bound_by']}); backward kernel {kb_ms * 1e3:.2f} us, "
-                         f"plain {pb_ms * 1e3:.2f} us, autograd of F.rms_norm {lb_ms * 1e3:.2f} "
-                         f"us, bound {r['bwd']['bound_ms'] * 1e3:.2f} us ({r['bwd']['bound_by']})")
+                         f" us ({r['fwd']['bound_by']}; the chain's {old[0] * 1e3:.2f}); "
+                         f"backward kernel {kb_ms * 1e3:.2f} us (of it the partials' torch.sum "
+                         f"{sum_ms * 1e3:.2f} us), plain {pb_ms * 1e3:.2f} us, "
+                         f"autograd of F.rms_norm {lb_ms * 1e3:.2f} us, bound "
+                         f"{r['bwd']['bound_ms'] * 1e3:.2f} us ({r['bwd']['bound_by']}; the "
+                         f"chain's {old[1] * 1e3:.2f})")
             print(line)
     return rows
 
 
 def norm_path(torch) -> dict:
     """The slice's own path, the op through its public entry point (no model
-    calls it, in the JAX package or here): counters reset, one forward and
-    one backward of ``fused_rmsnorm`` under autograd at repro-100m's
-    training rows (bf16, the gelu table), counters read."""
+    calls it, in the JAX package or here): at each of repro-100m's training
+    rows (4096 x 768), olmoe's width (4096 x 2048) and qwen2.5-32b's (4096 x
+    5120), in bf16 with the gelu table, counters reset, one forward and one
+    backward of ``fused_rmsnorm`` under autograd, counters read.  Returns
+    the counts by width."""
     from repro_torch.kernels.fused import fused_rmsnorm
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(16)
-    x = torch.randn(TRAIN_TOKENS, K_DIM, generator=gen, device=dev).to(torch.bfloat16)
-    s = (torch.randn(K_DIM, generator=gen, device=dev) * 0.3).requires_grad_(True)
-    xr = x.requires_grad_(True)
-    reset_counters()
-    y = fused_rmsnorm(xr, s, **_epilogue_kwargs("gelu PWL f32"))
-    torch.cos(y.float()).sum().backward()
-    torch.cuda.synchronize()
-    counts = read_counters()
-    check(bool(torch.isfinite(xr.grad.float()).all()) and bool(torch.isfinite(s.grad).all()),
-          "fused_rmsnorm path: non-finite gradients")
-    check(counts["fused_rmsnorm"] == 1 and counts["fused_rmsnorm_bwd"] == 1,
-          f"fused_rmsnorm path: launches {counts}")
+    counts = {}
+    for D in (K_DIM, MOE_K, QWEN_D):
+        x = torch.randn(TRAIN_TOKENS, D, generator=gen, device=dev).to(torch.bfloat16)
+        s = (torch.randn(D, generator=gen, device=dev) * 0.3).requires_grad_(True)
+        xr = x.requires_grad_(True)
+        reset_counters()
+        y = fused_rmsnorm(xr, s, **_epilogue_kwargs("gelu PWL f32"))
+        torch.cos(y.float()).sum().backward()
+        torch.cuda.synchronize()
+        counts[D] = read_counters()
+        check(bool(torch.isfinite(xr.grad.float()).all()) and bool(torch.isfinite(s.grad).all()),
+              f"fused_rmsnorm path D={D}: non-finite gradients")
+        check(counts[D]["fused_rmsnorm"] == 1 and counts[D]["fused_rmsnorm_bwd"] == 1,
+              f"fused_rmsnorm path D={D}: launches {counts[D]}")
     return counts
 
 
@@ -3451,7 +3541,7 @@ def main() -> int:
         path_counts["fused_linear"] = whisper_counts["fused_linear"]
         path_counts["fused_linear_bwd"] = whisper_trained["counts"]["fused_linear_bwd"]
         for name in ("fused_rmsnorm", "fused_rmsnorm_bwd"):
-            path_counts[name] = norm_counts[name]
+            path_counts[name] = norm_counts[K_DIM][name]
         for name, n in exact_counts.items():
             if n:
                 path_counts[f"{name} exact"] = n
@@ -3547,12 +3637,13 @@ def main() -> int:
          **lin_bwd[WHISPER_TRAIN_BATCH * WHISPER_FRAMES]},
     ]
     # slice 7: kernels 17-18 (on no model path: launches from the op's own
-    # path), the exact and identity epilogues (launches of each wrapper in
+    # path at the row's width), the exact and identity epilogues (launches of each wrapper in
     # the exact-epilogue path, both kinds together) and head dim 256
     norm_src, fused_src = "src/repro_torch/csrc/norm.cu", "src/repro/kernels/fused"
     for D, ep, tag in ((K_DIM, "gelu PWL f32", ""), (MOE_K, "gelu PWL f32", "[D=2048]"),
+                       (QWEN_D, "gelu PWL f32", "[D=5120]"),
                        (K_DIM, "identity", "[identity]"), (K_DIM, "exact gelu", "[act=gelu]")):
-        counts = norm_counts if ep == "gelu PWL f32" else exact_counts
+        counts = norm_counts[D] if ep == "gelu PWL f32" else exact_counts
         r = nrm[(f"{TRAIN_TOKENS} x {D} bf16", ep)]
         for bwd, line in ((False, 31), (True, 102)):
             suffix = "_bwd" if bwd else ""
@@ -3560,7 +3651,7 @@ def main() -> int:
                 "name": f"fused_rmsnorm{suffix}{tag}", "route": "cuda", "source": norm_src,
                 "replaces": f"{fused_src}/norm.py:{line}",
                 "shape": f"M={TRAIN_TOKENS} D={D} bf16, {ep} (repro-100m's training rows; "
-                         "olmoe's width at D=2048)",
+                         "olmoe's width at D=2048, qwen2.5-32b's at D=5120)",
                 "launches": counts[f"fused_rmsnorm{suffix}"], **r["bwd" if bwd else "fwd"]})
     variants = [  # (name, source, replaces, shape, counter, row of exact_epilogue_phase)
         ("fused_glu[act=gelu]", "glu.cu", "glu.py:30", f"M={TRAIN_TOKENS} K={K_DIM} N={N_DIM} bf16",

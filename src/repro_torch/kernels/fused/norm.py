@@ -3,32 +3,40 @@ in one pass, and its backward.
 
 Replaces ``repro/kernels/fused/norm.py:_rmsnorm_kernel`` (forward) and
 ``_rmsnorm_bwd_kernel`` (backward).  The CUDA kernels are in
-``csrc/norm.cu``: a block owns 16 rows; its warps reduce each row's sum of
-squares in f32 over the true width D, then every thread walks a column's
-rows applying ``rsqrt``, the ``(1 + scale)`` gain and the epilogue
-(``csrc/epilogue.cuh``: identity, an exact function or the PWL table) before
-the one store in x's dtype.  The backward recomputes ``r``, ``xh`` and ``y``,
-decodes the slope and writes, in f32, the closed-form VJP of the JAX
-module's comment::
+``csrc/norm.cu``.  Lane l of a row owns the row's columns l, l + 32, ...,
+and rows up to 4096 wide (1024 in the backward) live in registers, so x is
+read once: a forward row is one warp's up to 768 columns, a wider one split
+over 2 or 4 warps in column order; a backward row is one warp's
+(:func:`_row_plan`).  A row's sum of squares is reduced in f32 over the
+true width D, then ``rsqrt``, the ``(1 + scale)`` gain and the epilogue
+(``csrc/epilogue.cuh``: identity, an exact function or the PWL table,
+decoded by the breakpoint search from the prefix table
+:func:`.epilogue.search_prefix`) come before the one store in x's dtype.
+The backward gives a block one 16-row tile; it recomputes ``r``, ``xh`` and
+``y``, decodes each element's slope once and writes, in f32, the
+closed-form VJP of the JAX module's comment::
 
     dy = g·act'(y)      du = dy·(1+scale)      dx = r·(du - xh·mean(du·xh))
 
-and one partial of ``ds = Σ dy·xh`` per 16-row tile, which ``torch.sum``
-adds up outside (no atomics: ``ds`` is bitwise the same from run to run).
+and one partial of ``ds = Σ dy·xh`` per 16-row tile, summed in row order,
+which ``torch.sum`` adds up outside (no atomics: ``ds`` is bitwise the same
+from run to run).
 
 What bounds them on an H100: the bytes.  The forward reads x and writes y
-once (~3.8 µs at 4096 × 768 bf16); a 32-breakpoint decode is ~4.5 µs of f32
-operations, so with a table the decode is the larger term.  The backward
-reads x and g and writes dx in f32.
+once (~3.8 µs at 4096 × 768 bf16); the search is ~14 f32 operations an
+element (~0.7 µs there).  The backward reads x and g and writes dx in f32.
 
 No model path calls it, in the JAX package or here (the models compute
 RMSNorm in plain ops).  A CPU tensor takes the plain versions below; a CUDA
-tensor launches the kernels or raises.  ``impl_bwd="recompute"`` keeps the
-forward kernel and takes the backward by autograd through the plain forward.
+tensor launches the kernels or raises.  Both refuse a table whose
+breakpoints do not ascend, on either device.  ``impl_bwd="recompute"`` keeps
+the forward kernel and takes the backward by autograd through the plain
+forward.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -41,18 +49,48 @@ from .epilogue import (
     check_kernel_operands,
     device_operands,
     kernel_epilogue,
+    refuse_unsorted,
+    search_prefix_ptr,
 )
 
 DEFAULT_BLOCK_ROWS = 256  # the JAX kernel's row tile (the TPU's; see fused_rmsnorm)
 
 _SIGNATURES = {
     "rmsnorm_tile_rows": [],
-    "rmsnorm_forward": [ctypes.c_void_p] * 2 + EPILOGUE_ARGTYPES + [ctypes.c_void_p]
-    + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-    "rmsnorm_backward": [ctypes.c_void_p] * 3 + EPILOGUE_ARGTYPES + [ctypes.c_void_p] * 2
-    + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "rmsnorm_forward": [ctypes.c_void_p] * 2 + EPILOGUE_ARGTYPES + [ctypes.c_void_p] * 2
+    + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
+    "rmsnorm_backward": [ctypes.c_void_p] * 3 + EPILOGUE_ARGTYPES + [ctypes.c_void_p] * 3
+    + [ctypes.c_int] * 2 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p],
 }
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The splits csrc/norm.cu builds its row kernels for, (columns a lane, warps),
+# in the order the plan prefers them: the fewest warps, then the fewest
+# registers (24 a lane: the 768-wide rows of repro-100m and whisper-small,
+# which 32 would hold in a third more registers).  A forward row splits over
+# up to 4 warps (4096 columns), a backward row is one warp's (1024 columns).
+FWD_SPLITS = ((4, 1), (8, 1), (16, 1), (24, 1), (16, 2), (24, 2), (32, 2), (24, 4), (32, 4))
+BWD_SPLITS = ((4, 1), (8, 1), (16, 1), (24, 1), (32, 1))
+
+
+class RowPlan(NamedTuple):
+    """How the kernels hold a row of D in registers: over ``warps`` warps,
+    part s holding lane l's columns l + 32 (s ``per_lane`` + j), j <
+    ``per_lane`` (the forward holds x there, the backward dy); ``(0, 0)`` for
+    a row the kernels stream (the forward reads x twice, the backward parks
+    dy in dx's buffer)."""
+
+    per_lane: int
+    warps: int
+
+
+def _row_plan(D: int, backward: bool = False) -> RowPlan:
+    """The plan the kernels run a row of width D with: the first of
+    :data:`FWD_SPLITS` (:data:`BWD_SPLITS`) that holds the row, or streamed.
+    Forward: 40 -> (4, 1), 768 -> (24, 1), 2048 -> (32, 2), past 4096
+    streamed; backward: 768 -> (24, 1), past 1024 streamed."""
+    splits = BWD_SPLITS if backward else FWD_SPLITS
+    return next((RowPlan(*sp) for sp in splits if 32 * sp[0] * sp[1] >= D), RowPlan(0, 0))
 
 
 def fused_rmsnorm_plain(x, scale, plan: EpiloguePlan, tables, eps: float):
@@ -102,12 +140,13 @@ def _launch(x, scale, plan, tables, eps):
     out = torch.empty_like(x)
     if M == 0 or D == 0:
         return out
+    mq = search_prefix_ptr(plan, tables)
     lib = _build.load("norm", _SIGNATURES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.rmsnorm_forward(x.data_ptr(), scale.data_ptr(), *kernel_epilogue(plan, tables),
-                                  out.data_ptr(), M, D, float(eps), _KERNEL_DTYPES[x.dtype],
-                                  stream)
+                                  mq, out.data_ptr(), M, D, float(eps), _KERNEL_DTYPES[x.dtype],
+                                  *_row_plan(D), stream)
     _build.check(err, "rmsnorm_forward")
     return out
 
@@ -127,15 +166,17 @@ def _launch_bwd(x, scale, g, plan, tables, eps):
     dx = torch.empty((M, D), dtype=torch.float32, device=x.device)
     if M == 0 or D == 0:
         return dx, torch.zeros((D,), dtype=torch.float32, device=x.device)
+    mq = search_prefix_ptr(plan, tables)
     lib = _build.load("norm", _SIGNATURES)
     tile = lib.rmsnorm_tile_rows()
     ds_part = torch.empty((-(-M // tile), D), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.rmsnorm_backward(x.data_ptr(), scale.data_ptr(), g.data_ptr(),
-                                   *kernel_epilogue(plan, tables), dx.data_ptr(),
+                                   *kernel_epilogue(plan, tables), mq, dx.data_ptr(),
                                    ds_part.data_ptr(), M, D, float(eps),
-                                   _KERNEL_DTYPES[x.dtype], stream)
+                                   _KERNEL_DTYPES[x.dtype], *_row_plan(D, backward=True),
+                                   stream)
     _build.check(err, "rmsnorm_backward")
     return dx, ds_part.sum(dim=0)
 
@@ -145,6 +186,7 @@ def fused_rmsnorm_bwd(x, scale, g, plan: EpiloguePlan, tables, eps: float = 1e-6
     kernel on CUDA tensors, counted on ``fused_rmsnorm.bwd_launches``, its
     plain version on CPU tensors."""
     if x.device.type == "cpu":
+        refuse_unsorted(plan, tables)
         return fused_rmsnorm_bwd_plain(x, scale, g, plan, tables, eps)
     out = _launch_bwd(x, scale, g, plan, tables, eps)
     fused_rmsnorm.bwd_launches += 1
@@ -158,6 +200,7 @@ class _RMSNormOp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, plan, tables, eps, impl_bwd):
         if x.device.type == "cpu":
+            refuse_unsorted(plan, tables)
             y = fused_rmsnorm_plain(x, scale, plan, tables, eps)
         else:  # the kernel, or its refusals (another device among them)
             y = _launch(x, scale, plan, tables, eps)
@@ -192,8 +235,8 @@ def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
     neither -> identity; on a CUDA tensor each runs the hand-written kernels
     (forward, and backward under ``impl_bwd="fused"``).  ``block_rows`` is
     the JAX signature's TPU row tile: the port's results do not depend on
-    it, and the CUDA kernels tile 16 rows a block.  Returns x's shape and
-    dtype; differentiable in x and scale."""
+    it (the CUDA kernels take one to four warps a row, and sum ds in 16-row
+    tiles).  Returns x's shape and dtype; differentiable in x and scale."""
     plan, tables = device_operands(table, act, x.device)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])

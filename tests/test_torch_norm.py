@@ -1,5 +1,7 @@
 """Port parity: the fused RMSNorm forward (``repro_torch.kernels.fused.norm``)
-against the JAX package.
+against the JAX package, and the host's plan of how the CUDA kernels hold a
+row (``_row_plan``: every column owned once, at every width to 5120, by the
+first of the splits ``csrc/norm.cu`` is built for that holds the row).
 
 On the CPU ``fused_rmsnorm`` takes its plain version; the JAX side runs its
 Pallas kernel in interpret mode, as the JAX suite does, at that suite's
@@ -8,6 +10,8 @@ identity epilogue, 33 x 40 with a 32-breakpoint gelu table and 16-row
 blocks).  Tolerance 1e-5 abs/rel, the JAX suite's: sums are taken in
 another order.  Inputs are numpy draws from a seed.
 """
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -98,3 +102,93 @@ def test_plain_is_the_layer_formula_and_counters_stay_on_cpu():
     torch.testing.assert_close(y, ref, atol=1e-6, rtol=1e-6)
     assert (tfused.fused_rmsnorm.launches, tfused.fused_rmsnorm.bwd_launches) == (n0, b0)
     assert tnorm.fused_rmsnorm_plain is tfused.fused_rmsnorm_plain
+
+
+# The kernels' layout of a row (csrc/norm.cu): part s of the row's warps owns
+# lane l's columns l + 32 (s P + j), j < P; a streamed row's lane owns l + 32 j
+# for every j; the backward's ds stages take 256 columns at a time.  Mirrored
+# here.
+PLAN_WIDTHS = (1, 31, 32, 33, 40, 48, 128, 129, 512, 513, 768, 769, 1024, 1025, 2048, 2049,
+               3000, 4096, 4097, 5120)
+
+
+def _plan_columns(D, backward):
+    """Every column a row's lanes own under ``_row_plan(D, backward)``, with
+    repeats."""
+    plan = tnorm._row_plan(D, backward)
+    if plan.warps == 0:
+        cols = np.arange(32)[:, None] + 32 * np.arange(-(-D // 32))[None, :]
+    else:
+        j = np.arange(plan.warps * plan.per_lane)  # part s holds j in [s P, s P + P)
+        cols = np.arange(32)[:, None] + 32 * j[None, :]
+    cols = cols.ravel()
+    return cols[cols < D]
+
+
+def _check_row_plan(D, backward):
+    plan = tnorm._row_plan(D, backward)
+    assert bool((np.bincount(_plan_columns(D, backward), minlength=D) == 1).all())
+    splits = tnorm.BWD_SPLITS if backward else tnorm.FWD_SPLITS
+    if D > (1024 if backward else 4096):
+        assert plan == (0, 0)  # streamed
+        return
+    # a split the kernels are built for, the first that holds the row
+    assert plan in splits
+    assert all(32 * p * w < D for p, w in splits[:splits.index(plan)])
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
+@pytest.mark.parametrize("D", PLAN_WIDTHS)
+def test_row_plan_owns_every_column_once(D, backward):
+    _check_row_plan(D, backward)
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
+def test_row_plan_at_every_width_to_qwen_d_model(backward):
+    """Every width from 1 to qwen2.5-32b's d_model, 5120 (the JAX tests' 40
+    and 48 among them): each column owned once, by a split the kernels are
+    built for, or streamed."""
+    for D in range(1, 5121):
+        _check_row_plan(D, backward)
+
+
+def test_row_plan_at_the_model_widths():
+    plan = tnorm._row_plan
+    assert plan(40) == (4, 1) and plan(48, True) == (4, 1)
+    assert plan(768) == (24, 1) and plan(768, True) == (24, 1)
+    assert plan(2048) == (32, 2) and plan(1024, True) == (32, 1) and plan(1025, True) == (0, 0)
+    assert plan(3000) == (24, 4) and plan(3000, True) == (0, 0)
+    assert plan(4096) == (32, 4) and plan(4097) == (0, 0) and plan(5120) == (0, 0)
+
+
+def test_row_plan_prefers_fewest_warps_then_fewest_registers():
+    """The split lists' order: the fewest warps first, and within a warp
+    count the fewest columns a lane."""
+    for splits in (tnorm.FWD_SPLITS, tnorm.BWD_SPLITS):
+        assert list(splits) == sorted(splits, key=lambda sp: (sp[1], sp[0]))
+
+
+def test_ds_tiles_stay_16_rows():
+    """The backward's ds partials are summed over 16-row tiles (the JAX
+    suite's 16-row blocks); the wrapper sizes the partials by the kernel's
+    ``rmsnorm_tile_rows``, so the tile is csrc/norm.cu's constant alone."""
+    src = (pathlib.Path(tnorm.__file__).resolve().parents[2] / "csrc" / "norm.cu").read_text()
+    assert "constexpr int TILE_ROWS = 16;" in src
+    assert "extern \"C\" int rmsnorm_tile_rows() { return TILE_ROWS; }" in src
+
+
+@pytest.mark.parametrize("bad", ["descending", "nan"])
+def test_rmsnorm_refuses_unsorted_breakpoints_under_autograd(bad):
+    """The search's refusal holds on the CPU, whichever backward is asked for."""
+    from repro_torch.core.pwl import PWLTable
+
+    t = tsfu.get_store().get(fn="gelu", n_breakpoints=32)
+    bp = t.bp.flip(0) if bad == "descending" else t.bp.clone()
+    if bad == "nan":
+        bp[3] = float("nan")
+    table = PWLTable(bp=bp, m=t.m, q=t.q, name=f"gelu {bad}")
+    x = torch.from_numpy(_rand(10, (5, 40), 2.0)).requires_grad_(True)
+    s = torch.from_numpy(_rand(11, (40,), 0.3))
+    for impl_bwd in ("fused", "recompute"):
+        with pytest.raises(ValueError, match="ascending"):
+            tfused.fused_rmsnorm(x, s, table=table, impl_bwd=impl_bwd)

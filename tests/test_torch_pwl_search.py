@@ -1,4 +1,4 @@
-"""The flash kernels' search decode against the linear delta chain, on the CPU.
+"""The kernels' search decodes against the linear delta chain, on the CPU.
 
 The bf16 flash kernels (``csrc/attention.cu``, ``csrc/attention_bwd.cu``)
 find a score's segment by a branch-free binary search over the breakpoints,
@@ -38,6 +38,11 @@ from repro_torch.kernels.fused.linear import (
     fused_linear_bwd,
     fused_linear_bwd_plain,
     fused_linear_plain,
+)
+from repro_torch.kernels.fused.norm import (
+    fused_rmsnorm_bwd,
+    fused_rmsnorm_bwd_plain,
+    fused_rmsnorm_plain,
 )
 
 PAD = 128  # PWL_SEARCH_PAD: the padded breakpoints
@@ -208,17 +213,21 @@ def test_flash_wrappers_take_sorted_tables():
     assert out.shape == q.shape and bool(torch.isfinite(out).all())
 
 
-# The GLU family's bf16 kernel (csrc/glu.cu) and the row softmax forward and
-# backward (csrc/softmax.cu) decode by the same search, so their wrappers
-# refuse unsorted breakpoints too, on the CPU as on the card.
+# The GLU family's bf16 kernel (csrc/glu.cu), the row softmax forward and
+# backward (csrc/softmax.cu) and the fused RMSNorm forward and backward
+# (csrc/norm.cu) decode by the same search, so their wrappers refuse unsorted
+# breakpoints too, on the CPU as on the card.  "fused_rmsnorm" is the op
+# under autograd with impl_bwd="fused" (its output and both gradients),
+# "fused_rmsnorm_bwd" the backward wrapper alone.
 GLU_FAMILY = ("fused_glu", "fused_glu_bwd", "fused_moe_glu", "fused_linear", "fused_linear_bwd",
-              "fused_pwl_softmax", "fused_pwl_softmax_bwd")
+              "fused_pwl_softmax", "fused_pwl_softmax_bwd", "fused_rmsnorm", "fused_rmsnorm_bwd")
 
 
 def _glu_family(wrapper, table):
     """``wrapper`` on small CPU operands (two experts for the MoE GLU; 5
-    causal rows of 16 scores for the row softmax) with ``table``, and its
-    plain version on the table's packed operands."""
+    causal rows of 16 scores for the row softmax; 5 rows of 16 for the
+    RMSNorm) with ``table``, and its plain version on the table's packed
+    operands."""
     rng = np.random.default_rng(3)
     x, wg, wu = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
                  for s in ((2, 5, 16), (2, 16, 8), (2, 16, 8)))
@@ -232,6 +241,18 @@ def _glu_family(wrapper, table):
     if wrapper == "fused_pwl_softmax_bwd":
         return (tsoftmax.fused_pwl_softmax_bwd(x[0], None, x[1], plan, tabs, 5, True),
                 tsoftmax.fused_pwl_softmax_bwd_plain(x[0], causal, x[1], plan, tabs))
+    if wrapper.startswith("fused_rmsnorm"):
+        s, g = x[1, 0] * 0.3, x[1]
+        dx, ds = fused_rmsnorm_bwd_plain(x[0], s, g, plan, tabs, 1e-6)
+        if wrapper == "fused_rmsnorm_bwd":
+            got = fused_rmsnorm_bwd(x[0], s, g, plan, tabs)
+            return torch.cat([got[0].ravel(), got[1]]), torch.cat([dx.ravel(), ds])
+        xr, sr = x[0].clone().requires_grad_(True), s.clone().requires_grad_(True)
+        y = tfused.fused_rmsnorm(xr, sr, table=table, impl_bwd="fused")
+        y.backward(g)
+        return (torch.cat([y.detach().ravel(), xr.grad.ravel(), sr.grad]),
+                torch.cat([fused_rmsnorm_plain(x[0], s, plan, tabs, 1e-6).ravel(), dx.ravel(),
+                           ds]))
     if wrapper == "fused_glu":
         return (tfused.fused_glu(x[0], wg[0], wu[0], table=table),
                 fused_glu_plain(x[0], wg[0], wu[0], plan, tabs))

@@ -3,29 +3,33 @@ held-out training gate across GLU summation orders.
 
     python3 ab_flash.py OTHER_CHECKOUT [PHASE ...]
     python3 ab_flash.py --gate OTHER_CHECKOUT [RUN ...]
+    python3 ab_flash.py --decode-configs
 
 The first form runs phases of ``chip_smoke.py`` (by default the flash
 phases ``flash_phase``, ``flash_bwd_phase`` and ``dh256_phase``; also
 ``glu_phase``, ``glu_bwd_phase``, ``moe_phase``, ``moe_bwd_phase``,
 ``linear_phase``, ``linear_bwd_phase``, ``decode_phase``, ``softmax_phase``
-``softmax_bwd_phase`` and ``norm_phase``) from
+``softmax_bwd_phase``, ``norm_phase`` and ``pwl_act_phase``; and this
+file's ``decode_rows``, which times the same inputs through the public
+wrappers in both checkouts) from
 OTHER_CHECKOUT (A) and from this checkout (B) in the order A, B, B, A, each
 in a process of its own that imports that checkout's ``src`` and
 ``chip_smoke.py`` and builds its kernels into that checkout's
 ``src/repro_torch/csrc/_build``.  Each run also digests (sha256) the
 outputs of fixed inputs that the two checkouts must give bitwise alike:
 the f32 flash forward outputs, row max and gradients; the f32 GLU, MoE GLU
-and linear layer, forward and backward, and the bf16 ones at M <= 4 (the
-CUDA-core kernel); the paged decode's f32 and bf16 outputs; the row
-softmax's f32 forward and backward outputs on rows up to 1024 wide; the
-fused RMSNorm's forward output, dx and ds at ``norm_phase``'s shapes under
-each of its epilogues.  Then B runs
+and linear layer, forward and backward; the paged decode's f32 and bf16
+outputs; the row softmax's f32 forward and backward outputs on rows up to
+1024 wide; the fused RMSNorm's forward output, dx and ds at
+``norm_phase``'s shapes under each of its epilogues; both standalone PWL
+kernels' outputs.  Then B runs
 once more for each tensor-core configuration of ``csrc/glu.cu``, forced by
 the compile-time define ``GLU_TC_FORCE`` in a build directory of its own:
-the bf16 GLU-family digests at M > 4 ("tc ..." keys) must be equal in
+the bf16 GLU-family digests, at every M ("tc ..." keys), must be equal in
 every B run and every forced configuration (one summation order whatever
-the tile), and each forced run times the bf16 GLU family at the model
-paths' shapes (``tc_rows``).  Prints each run's timed rows (kernel us per
+the tile; where A's differ, the line is printed once, as the intended
+change of an A whose order differs), and each forced run times the bf16
+GLU family at the model paths' shapes (``tc_rows``).  Prints each run's timed rows (kernel us per
 call, as ``chip_smoke.time_ms`` measures them), then one JSON line with
 every run's rows and digests; a run that fails prints the end of its
 output.
@@ -47,7 +51,15 @@ evaluated in bf16 as the run computes and in f32 from the f32 masters as
 ``chip_smoke._held_out_gate`` does; and, on the 1 x 4096 model's 12 GLU
 inputs at init, max |order - plain| / max |plain| per layer of the forward
 output and of dzg, dzu under a fixed g; the last line is all of it as
-JSON.  Needs a GPU.
+JSON.
+
+The third form times this checkout's bf16 GLU family at M <= 16 (the dense
+GLU at M = 4, 8 and 16, the linear layer at M = 4, the MoE GLU at olmoe's
+C = 1, full and with every other bucket empty, and C = 5) under Small and
+each decode configuration of ``csrc/glu.cu`` and the variants of them in
+``DECODE_VARIANTS`` (each forced by ``GLU_TC_FORCE``, a variant by a
+one-line hook of its ``using`` line, all built at once), in one process,
+and holds their outputs bitwise equal.  Needs a GPU.
 """
 from __future__ import annotations
 
@@ -64,7 +76,7 @@ import tempfile
 
 ROOT = pathlib.Path(__file__).resolve().parent
 DEFAULT_PHASES = ("flash_phase", "flash_bwd_phase", "dh256_phase")
-N_TC_CONFIGS = 3  # csrc/glu.cu tc::pick: Wide, Mid, Small
+N_TC_CONFIGS = 5  # csrc/glu.cu tc::pick: Wide, Mid, Small, Decode, DecodeWide
 
 # f32 flash cases whose outputs are digested: (name, B, S, T, H, Hkv, dh, kwargs)
 F32_CASES = [
@@ -82,7 +94,7 @@ F32_CASES = [
 
 # GLU-family shapes whose outputs are digested: (E, M, K, N); E = 0 is the
 # dense GLU.  Every tile configuration of the f32 kernel, ragged edges; in
-# bf16 the CUDA-core kernel (M = 4) and every tensor-core configuration.
+# bf16 every tensor-core configuration (M = 4 the decode configuration).
 GLU_CASES = [(0, 4, 768, 3072), (0, 37, 65, 130), (0, 512, 768, 3072), (3, 37, 65, 130),
              (4, 640, 256, 512)]
 LINEAR_CASES = [(4, 768, 3072), (37, 65, 130), (600, 768, 3072)]
@@ -144,7 +156,7 @@ def flash_digests(torch, cs) -> dict:
 def glu_digests(torch) -> dict:
     """The GLU, MoE GLU and linear layer, forward and backward, through
     their wrappers on fixed normal inputs, in f32 and in bf16.  The bf16
-    digests at M > 4 (the tensor-core kernel) are keyed "tc ..."."""
+    digests (the tensor-core kernel, at every M) are keyed "tc ..."."""
     from repro_torch import sfu
     from repro_torch.kernels.fused import fused_glu, fused_linear, fused_moe_glu
     from repro_torch.kernels.fused.epilogue import plan_and_operands
@@ -160,7 +172,7 @@ def glu_digests(torch) -> dict:
         gen = torch.Generator(device="cuda").manual_seed(4321)
 
         def key(M, name):
-            return f"{'tc ' if tag == 'bf16' and M > 4 else ''}{name}"
+            return f"{'tc ' if tag == 'bf16' else ''}{name}"
 
         for E, M, K, N in GLU_CASES:
             lead = (E,) if E else ()
@@ -209,6 +221,95 @@ def decode_digests(torch, cs) -> dict:
             torch.cuda.synchronize()
             digests[f"decode {name} {tag}"] = _digest([out])
     return digests
+
+
+# standalone PWL cases whose outputs are digested: (name, elements, dtype,
+# offset): the offset view starts one element past a 16-byte boundary
+PWL_CASES = [("4096 x 3072 + 3 bf16", 4096 * 3072 + 3, "bfloat16", 0),
+             ("offset view 4097 bf16", 4097, "bfloat16", 1),
+             ("offset view 4099 f32", 4099, "float32", 1),
+             ("4096 x 768 f16", 4096 * 768, "float16", 0)]
+
+
+def pwl_digests(torch, cs) -> dict:
+    """Both standalone PWL kernels (``ops.pwl_activation`` under the
+    32-breakpoint gelu_tanh table, ``ops.pwl_activation_uniform`` under the
+    32-breakpoint uniform sigmoid table) on ``PWL_CASES``."""
+    from repro_torch import sfu
+    from repro_torch.core import functions as F
+    from repro_torch.core.pwl import make_uniform_table
+    from repro_torch.kernels import ops
+
+    table = sfu.get_store().get(fn="gelu_tanh", n_breakpoints=32)
+    spec = F.get("sigmoid")
+    ut = make_uniform_table(spec, 32)
+    gen = torch.Generator(device="cuda").manual_seed(97)
+    digests = {}
+    for name, n, dtype, offset in PWL_CASES:
+        x = (torch.randn(n + offset, generator=gen, device="cuda") * 5.0).to(
+            getattr(torch, dtype))[offset:]
+        y = ops.pwl_activation(x, table)
+        u = ops.pwl_activation_uniform(x, ut.m, ut.q, *spec.default_range)
+        torch.cuda.synchronize()
+        digests[f"pwl {name}"] = _digest([y, u])
+    return digests
+
+
+def decode_rows(torch, cs) -> dict:
+    """Device time of the shapes this slice redesigned, through the public
+    wrappers, on the same inputs in both checkouts: the bf16 GLU (gelu_tanh)
+    and linear layer (gelu, bias) at M = 4 (K = 768, N = 3072; 8 and 12
+    weight copies in turn, past the L2 cache), the MoE GLU (silu) at olmoe's
+    E = 64, C = 1 with every bucket full and with every other bucket zeroed,
+    and both standalone PWL kernels at 4096 x 3072 bf16.  Returns
+    ``{name: {"ms": ...}}`` as a phase does."""
+    from repro_torch.core import functions as F
+    from repro_torch.core.pwl import make_uniform_table
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fused import fused_glu, fused_linear, fused_moe_glu
+
+    gen = torch.Generator(device="cuda").manual_seed(98)
+
+    def rnd(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    rows = {}
+    K, N = cs.K_DIM, cs.N_DIM
+    glu_t = cs._table(torch, "gelu_tanh")[0]
+    wgs = [rnd(K, N, scale=K ** -0.5) for _ in range(8)]
+    wus = [rnd(K, N, scale=K ** -0.5) for _ in range(8)]
+    x = rnd(4, K)
+    rows["glu M=4"] = cs.time_ms(torch, lambda i: fused_glu(x, wgs[i % 8], wus[i % 8],
+                                                            table=glu_t))
+    del wgs, wus
+    lin_t = cs._table(torch, "gelu")[0]
+    ws = [rnd(K, N, scale=K ** -0.5) for _ in range(12)]
+    b = rnd(N, scale=0.1)
+    rows["linear M=4"] = cs.time_ms(torch, lambda i: fused_linear(x, ws[i % 12], b,
+                                                                  table=lin_t))
+    del ws
+    moe_t = cs._table(torch, "silu")[0]
+    E, K, N = cs.MOE_E, cs.MOE_K, cs.MOE_N
+    wg, wu = rnd(E, K, N, scale=K ** -0.5), rnd(E, K, N, scale=K ** -0.5)
+    xm = rnd(E, 1, K)
+    xz = xm.clone()
+    xz[1::2] = 0.0
+    for name, xx in (("moe C=1 full", xm), ("moe C=1 every other bucket empty", xz)):
+        rows[name] = cs.time_ms(torch, lambda i: fused_moe_glu(xx, wg, wu, table=moe_t),
+                                reps=10, iters=3)
+    del wg, wu
+    table = cs._table(torch, "gelu_tanh")[0]
+    spec = F.get("sigmoid")
+    ut = make_uniform_table(spec, 32)
+    um, uq = ut.m.cuda(), ut.q.cuda()
+    xp = rnd(cs.TRAIN_TOKENS, cs.N_DIM, scale=4.0)
+    rows["pwl non-uniform 4096 x 3072"] = cs.time_ms(torch, lambda i: ops.pwl_activation(xp, table))
+    rows["pwl uniform 4096 x 3072"] = cs.time_ms(
+        torch, lambda i: ops.pwl_activation_uniform(xp, um, uq, *spec.default_range))
+    return {k: {"ms": v} for k, v in rows.items()}
+
+
+LOCAL_PHASES = {"decode_rows": decode_rows}
 
 
 # row-softmax cases whose f32 forward and backward outputs are digested: the
@@ -302,10 +403,11 @@ def norm_digests(torch) -> dict:
 
 def tc_rows(torch, cs) -> dict:
     """Device time (ms a call) of the bf16 GLU family at the model paths'
-    shapes above M = 4: the GLU forward at a prefill (M = 32, 128, 512) and
-    a train step (4096) and its backward there; the linear layer at
-    whisper's prefill (128), encoder (6000) and training encoder backward
-    (12000); the MoE GLU at olmoe's C = 5, 40, 640 and its backward at 640."""
+    shapes: the GLU forward at a decode step (M = 4), a prefill (M = 32,
+    128, 512) and a train step (4096) and its backward there; the linear
+    layer at whisper's decode (4), prefill (128), encoder (6000) and
+    training encoder backward (12000); the MoE GLU at olmoe's C = 1, 5, 40,
+    640 and its backward at 640."""
     from repro_torch.kernels.fused import fused_glu, fused_linear, fused_moe_glu
     from repro_torch.kernels.fused.glu import fused_glu_bwd
     from repro_torch.kernels.fused.linear import fused_linear_bwd
@@ -320,7 +422,7 @@ def tc_rows(torch, cs) -> dict:
     glu_t, glu_plan, glu_tabs = cs._table(torch, "gelu_tanh")
     K, N = cs.K_DIM, cs.N_DIM
     wg, wu = rnd(K, N, scale=K ** -0.5), rnd(K, N, scale=K ** -0.5)
-    for M in (32, 128, 512, cs.TRAIN_TOKENS):
+    for M in (4, 32, 128, 512, cs.TRAIN_TOKENS):
         x = rnd(M, K)
         rows[f"glu fwd M={M}"] = cs.time_ms(torch, lambda i: fused_glu(x, wg, wu, table=glu_t),
                                             reps=5, iters=4)
@@ -329,7 +431,7 @@ def tc_rows(torch, cs) -> dict:
         torch, lambda i: fused_glu_bwd(x, wg, wu, g, glu_plan, glu_tabs), reps=5, iters=4)
     lin_t, lin_plan, lin_tabs = cs._table(torch, "gelu")
     w, b = rnd(K, N, scale=K ** -0.5), rnd(N, scale=0.1)
-    for M in (128, cs.WHISPER_ENC_M):
+    for M in (4, 128, cs.WHISPER_ENC_M):
         x = rnd(M, K)
         rows[f"linear fwd M={M}"] = cs.time_ms(
             torch, lambda i: fused_linear(x, w, b, table=lin_t), reps=5, iters=4)
@@ -340,7 +442,7 @@ def tc_rows(torch, cs) -> dict:
     moe_t, moe_plan, moe_tabs = cs._table(torch, "silu")
     E, K, N = cs.MOE_E, cs.MOE_K, cs.MOE_N
     wg, wu = rnd(E, K, N, scale=K ** -0.5), rnd(E, K, N, scale=K ** -0.5)
-    for C in (5, 40, cs.MOE_TRAIN_C):
+    for C in (1, 5, 40, cs.MOE_TRAIN_C):
         x = rnd(E, C, K)
         rows[f"moe fwd C={C}"] = cs.time_ms(
             torch, lambda i: fused_moe_glu(x, wg, wu, table=moe_t), reps=3, iters=3)
@@ -373,6 +475,110 @@ def forced_build(_build, tree: pathlib.Path, name: str, define: str, hook=None) 
     _build.NVCC_FLAGS = (*_build.NVCC_FLAGS, f"-D{define}")
 
 
+# --decode-configs: the decode configurations' lines in csrc/glu.cu, and
+# variants of them (label, GLU_TC_FORCE value, the configuration's template
+# arguments in place of that line's, or None for the source's own)
+DECODE_LINES = {3: "using Decode = TcCfg<16, 32, 1, 2, 256, 3, NW, true, 8>;",
+                4: "using DecodeWide = TcCfg<16, 128, 1, 4, 128, 3, NW, true, 16>;"}
+DECODE_VARIANTS = [
+    ("Small: 32 x 32, 4 warps, 4 x 64-deep", 2, None),
+    ("16 x 32, 2 warps, 6 x 64-deep", 3, "16, 32, 1, 2, 64, 6, NW, true"),
+    ("16 x 32, 2 warps, 10 x 64-deep", 3, "16, 32, 1, 2, 64, 10, NW, true"),
+    ("16 x 32, 2 warps, 3 x 256-deep", 3, "16, 32, 1, 2, 256, 3, NW, true"),
+    ("Decode: 16 x 32, 8 warps, 3 x 256-deep", 3, None),
+    ("16 x 32, 16 warps, 3 x 256-deep", 3, "16, 32, 1, 2, 256, 3, NW, true, 16"),
+    ("16 x 16, 8 warps, 3 x 256-deep", 3, "16, 16, 1, 1, 256, 3, NW, true, 8"),
+    ("16 x 64, 8 warps, 5 x 128-deep", 3, "16, 64, 1, 4, 128, 5, NW, true, 8"),
+    ("DecodeWide: 16 x 128, 16 warps, 3 x 128-deep", 4, None),
+    ("16 x 128, 16 warps, 3 x 128-deep, no skip", 4, "16, 128, 1, 4, 128, 3, NW, false, 16"),
+    ("16 x 256, 8 warps, 3 x 64-deep", 4, "16, 256, 1, 4, 64, 3, NW, true, 8"),
+]
+
+
+def decode_config_rows(torch, cs):
+    """Device time (ms a call) of the bf16 GLU family at M <= 16, and a
+    digest of its outputs: the dense GLU (gelu_tanh) at M = 4, 8 and 16 (8
+    weight copies in turn), the linear layer (gelu, bias) at M = 4 (12
+    copies), the MoE GLU (silu) at olmoe's C = 1, every bucket full and
+    every other one empty, and C = 5."""
+    from repro_torch.kernels.fused import fused_glu, fused_linear, fused_moe_glu
+
+    gen = torch.Generator(device="cuda").manual_seed(96)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    rows, outs = {}, []
+    K, N = cs.K_DIM, cs.N_DIM
+    glu_t = cs._table(torch, "gelu_tanh")[0]
+    wgs = [rnd(K, N, scale=K ** -0.5) for _ in range(8)]
+    wus = [rnd(K, N, scale=K ** -0.5) for _ in range(8)]
+    for M in (4, 8, 16):
+        x = rnd(M, K)
+        outs.append(fused_glu(x, wgs[0], wus[0], table=glu_t))
+        rows[f"glu M={M}"] = cs.time_ms(torch, lambda i: fused_glu(x, wgs[i % 8], wus[i % 8],
+                                                                   table=glu_t))
+    del wgs, wus
+    lin_t = cs._table(torch, "gelu")[0]
+    ws = [rnd(K, N, scale=K ** -0.5) for _ in range(12)]
+    b, x = rnd(N, scale=0.1), rnd(4, K)
+    outs.append(fused_linear(x, ws[0], b, table=lin_t))
+    rows["linear M=4"] = cs.time_ms(torch, lambda i: fused_linear(x, ws[i % 12], b,
+                                                                  table=lin_t))
+    del ws
+    moe_t = cs._table(torch, "silu")[0]
+    E, K, N = cs.MOE_E, cs.MOE_K, cs.MOE_N
+    wg, wu = rnd(E, K, N, scale=K ** -0.5), rnd(E, K, N, scale=K ** -0.5)
+    x1 = rnd(E, 1, K)
+    xz = x1.clone()
+    xz[1::2] = 0.0
+    for name, xx in (("moe C=1 full", x1), ("moe C=1 every other bucket empty", xz),
+                     ("moe C=5", rnd(E, 5, K))):
+        outs.append(fused_moe_glu(xx, wg, wu, table=moe_t))
+        rows[name] = cs.time_ms(torch, lambda i: fused_moe_glu(xx, wg, wu, table=moe_t),
+                                reps=10, iters=3)
+    torch.cuda.synchronize()
+    return rows, _digest(outs)
+
+
+def decode_configs() -> int:
+    """``decode_config_rows`` under each of ``DECODE_VARIANTS``; prints a row
+    a configuration and the JSON of all; 1 if their outputs differ."""
+    torch, cs, _build = _import_tree(ROOT)
+    flags, builds = _build.NVCC_FLAGS, []
+    for i, (_, force, args) in enumerate(DECODE_VARIANTS):
+        hook = None
+        if args is not None:
+            line = DECODE_LINES[force]
+            hook = (line, f"{line.split(' = ')[0]} = TcCfg<{args}>;")
+        forced_build(_build, ROOT, f"decode{i}", f"GLU_TC_FORCE={force}", hook)
+        out = _build.lib_path("glu")
+        out.parent.mkdir(parents=True, exist_ok=True)
+        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(out),
+               str(_build.CSRC / "glu.cu")]
+        builds.append((_build.CSRC, _build.NVCC_FLAGS,
+                       subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True)))
+        _build.NVCC_FLAGS = flags
+    for _, _, proc in builds:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            print(log[-4000:], file=sys.stderr)
+            return 1
+    results = []
+    for (label, force, _), (csrc, nvcc_flags, _) in zip(DECODE_VARIANTS, builds):
+        _build.CSRC, _build.BUILD_DIR, _build.NVCC_FLAGS = csrc, csrc / "_build", nvcc_flags
+        _build._LOADED.pop("glu", None)
+        _build._SIGNED.difference_update({k for k in _build._SIGNED if k[0] == "glu"})
+        rows, digest = decode_config_rows(torch, cs)
+        results.append({"config": label, "force": force, "rows": rows, "digest": digest})
+        print(f"[decode] {label}: " + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in rows.items()))
+    same = len({r["digest"] for r in results}) == 1
+    print(f"[decode] on {cs.card_line()}; outputs bitwise equal across configurations: {same}")
+    print(json.dumps({"decode_configs": results, "bitwise_equal": same}))
+    return 0 if same else 1
+
+
 def _import_tree(tree: pathlib.Path):
     sys.path.insert(0, str(tree / "src"))
     sys.path.insert(0, str(tree))
@@ -398,13 +604,13 @@ def worker(tree: pathlib.Path, force: int | None, phases) -> dict:
     _build.build()
     rows = {}
     for ph in phases:
-        out = getattr(cs, ph)(torch)
+        out = LOCAL_PHASES[ph](torch, cs) if ph in LOCAL_PHASES else getattr(cs, ph)(torch)
         rows.update({f"{ph}: {k}": v["ms"] for k, v in out.items()
                      if isinstance(v, dict) and "ms" in v})
         rows.update({f"{ph}: {k} {part}": v[part]["ms"] for k, v in out.items()  # norm_phase
                      for part in ("fwd", "bwd") if isinstance(v, dict) and part in v})
     digests = {**flash_digests(torch, cs), **glu_digests(torch), **decode_digests(torch, cs),
-               **softmax_digests(torch, cs), **norm_digests(torch)}
+               **softmax_digests(torch, cs), **norm_digests(torch), **pwl_digests(torch, cs)}
     return {"rows": rows, "digests": digests, "card": cs.card_line()}
 
 
@@ -595,6 +801,8 @@ def main(argv) -> int:
         print("AB_RESULT " + json.dumps(worker(pathlib.Path(argv[1]), force,
                                                [] if force is not None else argv[2:])))
         return 0
+    if argv == ["--decode-configs"]:
+        return decode_configs()
     if argv[:1] == ["--gate-worker"]:
         print("AB_RESULT " + json.dumps(gate_worker(pathlib.Path(argv[1]), argv[2],
                                                     int(argv[3]), argv[4:])))
@@ -634,12 +842,16 @@ def main(argv) -> int:
             differ.append(n)
             print(f"[ab] differs: {n}: " + ", ".join(f"{r['tag']} {v}"
                                                      for r, v in zip(among, vals)))
+        elif n.startswith("tc "):
+            other = {r["digests"].get(n) for r in runs if r["tag"] == "A"}
+            if other != set(vals):
+                print(f"[ab] other order in A (not a failure): {n}: A {sorted(other)}, "
+                      f"B {vals[0]}")
     same = not differ
-    print(f"[ab] f32 flash, f32 GLU family, bf16 GLU family at M <= 4, f32/bf16 decode, "
-          f"f32 row softmax (N <= 1024) and RMSNorm (forward, dx, ds) outputs bitwise equal "
-          f"across all runs, and bf16 GLU "
-          f"family at M > 4 across this checkout's runs and its {N_TC_CONFIGS} forced "
-          f"tensor-core configurations: {same}")
+    print(f"[ab] f32 flash, f32 GLU family, f32/bf16 decode, f32 row softmax (N <= 1024), "
+          f"RMSNorm (forward, dx, ds) and standalone PWL outputs bitwise equal across all "
+          f"runs, and the bf16 GLU family across this checkout's runs and its "
+          f"{N_TC_CONFIGS} forced tensor-core configurations: {same}")
     print(json.dumps({"runs": runs, "bitwise_equal": same, "differ": differ}))
     return 0 if same else 1
 

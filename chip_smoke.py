@@ -100,7 +100,17 @@
    cross-attention (48 rows of 1500, timed), odd widths 1025 and 4097
    under causal + window, and a backward over 48 rows of 32768 with
    three-way ties and wholly masked rows (their dx the plain version's,
-   NaN and all).
+   NaN and all);
+14. slice 13: the bf16 GLU family's decode steps and short prefills (M <=
+   16, the MoE's C <= 16) run the tensor-core kernel's decode
+   configurations, so no bf16 CUDA-core GLU kernel is built (checked in
+   the SASS), and ``glu_decode_phase`` holds the rows of every such launch
+   bitwise the same rows of an M = 32 launch (every epilogue kind, both
+   directions, a ragged shape); ``moe_skip_phase`` holds the empty-bucket
+   skip at olmoe's E = 64, C = 1 and times it; the olmoe default session
+   prints its mean count of non-empty buckets a decode step; the standalone
+   PWL kernels (16-byte vectors, the breakpoint search) stay bitwise their
+   plain versions, ragged and offset inputs included.
 
 Every failed check exits non-zero.  The last two lines of standard output
 are the kernels' JSON line and ``{"ok": true, "device": {...}}``; the card's
@@ -230,8 +240,12 @@ def build_phase():
         funcs = [f.split("\n", 1) for f in sass.split("Function : ")[1:]]
         if name == "glu":  # one line for all of its instantiations
             hmma = sum(body.count('HMMA') for _, body in funcs)
-            print(f"[smoke]   SASS glu: {len(funcs)} kernels, {hmma} HMMA instructions")
+            names = _demangle([f[0].strip() for f in funcs])
+            core_bf16 = [n for n in names if "glu_pwl_kernel" in n and "bfloat16" in n]
+            print(f"[smoke]   SASS glu: {len(funcs)} kernels, {hmma} HMMA instructions, "
+                  f"{len(core_bf16)} bf16 CUDA-core kernels")
             check(hmma > 0, "the GLU library's SASS has no tensor-core (HMMA) instruction")
+            check(not core_bf16, f"bf16 CUDA-core GLU kernels in the library: {core_bf16}")
             continue
         shorts = _demangle([f[0].strip() for f in funcs])
         for short, (_, body) in zip(shorts, funcs):
@@ -482,13 +496,15 @@ def _moe_bytes(E, C, K, N, esize, f32_outputs=0) -> float:
 
 
 # sha256 of the dense GLU's output bytes at glu_digests' inputs, keyed
-# "M dtype": f32, and bf16 at M = 4 (the CUDA-core kernel), as the dense-only
-# GLU kernel of commit 94d8fb7 (before the expert axis went in) computed them;
-# bf16 at M = 32 and 4096 as the tensor-core kernel that replaced the
-# CUDA-core bf16 kernel of 7183c4b computes them (one summation order in
-# every tile configuration); both on an H100 80GB HBM3 (700 W)
+# "M dtype": f32 as the dense-only GLU kernel of commit 94d8fb7 (before the
+# expert axis went in) computed them; bf16 as the tensor-core kernel computes
+# them (one summation order in every tile configuration): at M = 32 and 4096
+# since it replaced the CUDA-core bf16 kernel of 7183c4b, at M = 4 since its
+# decode configuration replaced that kernel's last bf16 use (re-recorded
+# then; glu_decode_phase holds a decode row bitwise the same row of an
+# M = 32 launch); all on an H100 80GB HBM3 (700 W)
 GLU_DIGESTS = {
-    "4 bfloat16": "86f443aed05d36103de67183554a231d5b3116689e239c90d2598ea669f90880",
+    "4 bfloat16": "8305f56977201a4f2f91572b7958034d3107a177866be3e5a996e9e3d3aeadf0",
     "4 float32": "902a6b8c678f99214f4eeaa85a941bba6e252277505b81da7c01b085990443d5",
     "32 bfloat16": "0dd46e0295d575a2be762d3e52f81641c4a25172308b8ad2baa514970d3f8e0a",
     "32 float32": "bed1cd64c059e7917e5d0c667b26db8845e383891dfa03a202c4cc91e0bcf25b",
@@ -603,6 +619,166 @@ def moe_phase(torch):
             print(line)
         del wg, wu, wcat
     return rows
+
+
+DECODE_M = 16  # csrc/glu.cu tc::DECODE_M: the bf16 GLU family's decode configurations
+
+
+def glu_decode_phase(torch):
+    """The bf16 GLU family's decode configurations (M <= DECODE_M) in the
+    tensor-core kernel's one summation order: for the dense GLU (K = 768,
+    N = 3072, gelu_tanh), the MoE GLU at E = 1 and E = 64 (olmoe's K = 2048,
+    N = 1024, silu) and the linear layer (K = 768, N = 3072, gelu, with and
+    without its bias), under the function's 32-breakpoint table, the exact
+    function and the identity, forward and backward (dzg, dzu; dz), the rows
+    of a launch at M rows are bitwise the same rows inside a launch at
+    M = 32 (the Small tile); also on a ragged M = 3, K = 65, N = 130 (the
+    dense GLU and the linear layer)."""
+    from repro_torch.kernels.fused import fused_glu, fused_linear, fused_moe_glu
+    from repro_torch.kernels.fused.epilogue import device_operands
+    from repro_torch.kernels.fused.glu import fused_glu_bwd
+    from repro_torch.kernels.fused.linear import fused_linear_bwd
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+
+    n_checks = 0
+    rows = (1, 2, 3, 4, 5, 8, DECODE_M)
+    cases = [  # (what, fn, lead, K, N, rows)
+        ("fused_glu", "gelu_tanh", (), K_DIM, N_DIM, rows),
+        ("fused_moe_glu E=1", "silu", (1,), MOE_K, MOE_N, rows),
+        ("fused_moe_glu E=64", "silu", (MOE_E,), MOE_K, MOE_N, (1, 5, DECODE_M)),
+        ("fused_linear", "gelu", None, K_DIM, N_DIM, rows),
+        ("fused_glu ragged", "gelu_tanh", (), 65, 130, (3,)),
+        ("fused_linear ragged", "gelu", None, 65, 130, (3,)),
+    ]
+    for what, fn, lead, K, N, rows in cases:
+        x32 = rnd(*(lead or ()), 32, K)
+        g32 = rnd(*(lead or ()), 32, N)
+        if lead is None:
+            w, b = rnd(K, N, scale=K ** -0.5), rnd(N, scale=0.1)
+        else:
+            wg, wu = rnd(*lead, K, N, scale=K ** -0.5), rnd(*lead, K, N, scale=K ** -0.5)
+        for ep in (f"{fn} PWL f32", f"exact {fn}", "identity"):
+            kw = _epilogue_kwargs(ep)
+            plan, tables = device_operands(kw.get("table"), kw.get("act"), "cuda")
+            if lead is None:
+                runs = [(f"{what} {bias}", lambda x, g, bb=bb: [
+                    fused_linear(x, w, bb, **kw), fused_linear_bwd(x, w, bb, g, plan, tables)])
+                    for bias, bb in (("bias", b), ("no bias", None))]
+            else:
+                glu = fused_moe_glu if lead else fused_glu
+                runs = [(what, lambda x, g: [glu(x, wg, wu, **kw),
+                                             *fused_glu_bwd(x, wg, wu, g, plan, tables)])]
+            for name, run in runs:
+                want = run(x32, g32)
+                for M in rows:
+                    got = run(x32[..., :M, :], g32[..., :M, :])
+                    for i, (a, w_) in enumerate(zip(got, want)):
+                        _bitwise(torch, a, w_[..., :M, :].contiguous(),
+                                 f"{name} {ep} M={M} output {i} against the M=32 launch's rows")
+                        n_checks += 1
+    print(f"[smoke] bf16 GLU family at M <= {DECODE_M} (dense GLU, MoE GLU E=1 and E=64, linear "
+          f"with and without bias; table, exact, identity; forward and backward; ragged "
+          f"3 x 65 x 130): {n_checks} outputs bitwise the same rows of an M=32 launch")
+
+
+def moe_skip_phase(torch):
+    """The decode configuration's empty-bucket skip at olmoe's widths (E = 64,
+    C = 1, K = 2048, N = 1024, bf16): every other bucket zeroed (bucket 1 in
+    -0), under the silu table, exact silu and the identity, forward and
+    backward: every non-empty bucket is bitwise the same expert's output from
+    a launch with no bucket zeroed, and every empty one bitwise what the
+    host's epilogue gives on +0 accumulators (act(+0)·(+0); dzg = g·0·act'(0),
+    dzu = g·act(0)); the forward output is within 1e-2 of the plain version
+    (of its max).  Under the table the forward is timed beside its bound (the
+    non-empty experts' weights), the plain version and ``torch.bmm``."""
+    from repro_torch.kernels.fused import fused_moe_glu
+    from repro_torch.kernels.fused.glu import fused_glu_bwd, fused_glu_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(24)
+    E, K, N, bf = MOE_E, MOE_K, MOE_N, torch.bfloat16
+    wg, wu = ((torch.randn(E, K, N, generator=gen, device=dev) / math.sqrt(K)).to(bf)
+              for _ in range(2))
+    x = torch.randn(E, 1, K, generator=gen, device=dev).to(bf)
+    g = torch.randn(E, 1, N, generator=gen, device=dev).to(bf)
+    xz = x.clone()
+    xz[1::2] = 0.0
+    xz[1] = -0.0
+    check(bool(torch.signbit(xz[1].float()).all()), "bucket 1 must hold -0")
+    live = torch.arange(E, device=dev) % 2 == 0
+    n_live = int(live.sum())
+    rows = {}
+    for ep in ("silu PWL f32", "exact silu", "identity"):
+        kw = _epilogue_kwargs(ep)
+        (pplan, ptables), (plan, tables) = _epilogue_operands(torch, kw)
+
+        def run(xx):
+            return [fused_moe_glu(xx, wg, wu, **kw),
+                    *fused_glu_bwd(xx, wg, wu, g, plan, tables, counter=fused_moe_glu)]
+
+        n0 = fused_moe_glu.launches
+        full, part = run(x), run(xz)
+        check(fused_moe_glu.launches == n0 + 2, f"fused_moe_glu {ep}: kernel not launched")
+        zero = torch.zeros(E - n_live, 1, N, device=dev)
+        act, slope = pplan.apply_value_and_slope(zero, *ptables)
+        gd = g[~live].float()
+        host = [(act * zero).to(bf), gd * zero * slope, gd * act]
+        for i, (p_, f_, h_) in enumerate(zip(part, full, host)):
+            what = f"fused_moe_glu skip E={E} C=1 {ep} output {i}"
+            _bitwise(torch, p_[live], f_[live], f"{what}: non-empty buckets")
+            _bitwise(torch, p_[~live], h_, f"{what}: empty buckets")
+        err = _compare_scaled(torch, part[0], fused_glu_plain(xz, wg, wu, pplan, ptables), 1e-2,
+                              f"fused_moe_glu skip {ep} against the plain version")
+        line = (f"[smoke] fused_moe_glu E={E} C=1 {ep}, {n_live} of {E} buckets non-empty (one "
+                f"in -0): non-empty buckets bitwise the full launch's, empty ones bitwise "
+                f"act(+0)*(+0) and (g*0*act'(0), g*act(0)); forward max_abs_err {err:.3g}")
+        if ep == "silu PWL f32":
+            wcat = torch.cat([wg, wu], dim=2)
+            k_ms = time_ms(torch, lambda i: fused_moe_glu(xz, wg, wu, **kw), reps=10, iters=3)
+            f_ms = time_ms(torch, lambda i: fused_moe_glu(x, wg, wu, **kw), reps=10, iters=3)
+            p_ms = time_ms(torch, lambda i: fused_glu_plain(xz, wg, wu, pplan, ptables),
+                           reps=2, iters=2)
+            l_ms = time_ms(torch, lambda i: torch.bmm(xz, wcat), reps=10, iters=3)
+            nbytes = (E * K + 2 * n_live * K * N + E * N) * 2  # x read, live weights, output
+            rows[f"C=1, {n_live} of {E} buckets non-empty"] = {
+                "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "max_abs_err": err,
+                "full_ms": f_ms, **_bound(nbytes, 4.0 * n_live * K * N)}
+            r = rows[f"C=1, {n_live} of {E} buckets non-empty"]
+            line += (f"; kernel {k_ms * 1e3:.1f} us (every bucket full: {f_ms * 1e3:.1f} us), "
+                     f"plain {p_ms * 1e3:.1f} us, torch.bmm(x, [Wg|Wu]) {l_ms * 1e3:.1f} us, "
+                     f"bound {r['bound_ms'] * 1e3:.1f} us ({r['bound_by']})")
+            del wcat
+        print(line)
+    return rows
+
+
+@contextlib.contextmanager
+def _bucket_census(torch):
+    """While the block runs, counts on the card the non-empty buckets (a row
+    not all +-0) of every MoE GLU forward launch at bucket capacity 1
+    (olmoe's decode steps of up to 12 slots): yields a dict whose "calls" and
+    "live" (a device tensor, or None) the caller reads after it."""
+    from repro_torch.kernels.fused import glu as G
+
+    launch, seen = G._launch_forward, {"calls": 0, "live": None}
+
+    def census(what, x, wg, wu, plan, tables):
+        if what == "fused_moe_glu" and x.shape[1] == 1:
+            n = (x != 0).flatten(1).any(dim=1).sum()
+            seen["live"] = n if seen["live"] is None else seen["live"] + n
+            seen["calls"] += 1
+        return launch(what, x, wg, wu, plan, tables)
+
+    G._launch_forward = census
+    try:
+        yield seen
+    finally:
+        G._launch_forward = launch
 
 
 def moe_bwd_phase(torch):
@@ -2195,7 +2371,7 @@ def _f32_bound(nbytes: float, f32_ops: float) -> dict:
 
 def _elementwise_bound(n: int, esize: int, ops_per_elem: float) -> dict:
     """x read once, y written once, against the decode's f32 operations on
-    the CUDA cores (~3 a breakpoint)."""
+    the CUDA cores (``ops_per_elem`` an element)."""
     return _f32_bound(2.0 * n * esize, n * ops_per_elem)
 
 
@@ -2215,7 +2391,12 @@ def pwl_act_phase(torch):
     prefill 32 x 3072, bf16; gelu_tanh, 32 breakpoints), at 4096 x 3072 in
     bf16, f16 and f32, and with bf16 and f16 tables (the plain version on
     the native operands); kernel 20 at tests/test_kernels.py's shape (32 x
-    384 f32, sigmoid, 32 breakpoints, uniform) and at 4096 x 3072 bf16."""
+    384 f32, sigmoid, 32 breakpoints, uniform) and at 4096 x 3072 bf16.
+    Both also at 4096 x 3072 + 3 elements and on views that start one
+    element past a 16-byte boundary (bf16, f16, f32), so the 16-byte
+    vectors, the elements before the first boundary and the ragged tail all
+    run.  The 4096 x 3072 bf16 shapes and the decode gate are timed beside
+    their byte bound and the plain version."""
     from repro_torch import sfu
     from repro_torch.core import functions as F
     from repro_torch.core.pwl import make_uniform_table
@@ -2225,19 +2406,40 @@ def pwl_act_phase(torch):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
     rows = {}
+    big = TRAIN_TOKENS * N_DIM
+
+    def offset_view(n, dtype, scale):
+        """n elements one element past a 16-byte boundary (a view of n + 1)."""
+        base = (torch.randn(n + 1, generator=gen, device=dev) * scale).to(dtype)
+        view = base[1:]
+        check(view.data_ptr() % 16 != 0, "the offset view must start off a 16-byte boundary")
+        return view
+
+    def rnd(shape, dtype, scale):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
     table = sfu.get_store().get(fn="gelu_tanh", n_breakpoints=32)
-    cases = [  # (name, shape, dtype, table format, timed)
-        ("decode 4 x 3072 bf16", (4, 1, N_DIM), torch.bfloat16, "f32", True),
-        ("prefill 32 x 3072 bf16", (1, 32, N_DIM), torch.bfloat16, "f32", False),
-        ("4096 x 3072 bf16", (TRAIN_TOKENS, N_DIM), torch.bfloat16, "f32", True),
-        ("4096 x 3072 f16", (TRAIN_TOKENS, N_DIM), torch.float16, "f32", False),
-        ("4096 x 3072 f32", (TRAIN_TOKENS, N_DIM), torch.float32, "f32", False),
-        ("4096 x 3072 bf16, bf16 table", (TRAIN_TOKENS, N_DIM), torch.bfloat16, "bf16", False),
-        ("4096 x 3072 f32, f16 table", (TRAIN_TOKENS, N_DIM), torch.float32, "f16", False),
+    cases = [  # (name, x, table format, timed)
+        ("decode 4 x 3072 bf16", rnd((4, 1, N_DIM), torch.bfloat16, 4.0), "f32", True),
+        ("prefill 32 x 3072 bf16", rnd((1, 32, N_DIM), torch.bfloat16, 4.0), "f32", False),
+        ("4096 x 3072 bf16", rnd((TRAIN_TOKENS, N_DIM), torch.bfloat16, 4.0), "f32", True),
+        ("4096 x 3072 f16", rnd((TRAIN_TOKENS, N_DIM), torch.float16, 4.0), "f32", False),
+        ("4096 x 3072 f32", rnd((TRAIN_TOKENS, N_DIM), torch.float32, 4.0), "f32", False),
+        ("4096 x 3072 bf16, bf16 table", rnd((TRAIN_TOKENS, N_DIM), torch.bfloat16, 4.0), "bf16",
+         False),
+        ("4096 x 3072 f32, f16 table", rnd((TRAIN_TOKENS, N_DIM), torch.float32, 4.0), "f16",
+         False),
+        ("4096 x 3072 + 3 bf16", rnd((big + 3,), torch.bfloat16, 4.0), "f32", False),
+        ("offset view 4096 x 3072 + 3 bf16", offset_view(big + 3, torch.bfloat16, 4.0), "f32",
+         False),
+        ("offset view 4096 x 3072 + 1 f16", offset_view(big + 1, torch.float16, 4.0), "f32",
+         False),
+        ("offset view 4096 x 3072 + 3 f32", offset_view(big + 3, torch.float32, 4.0), "f32",
+         False),
+        ("offset view 5 bf16", offset_view(5, torch.bfloat16, 4.0), "f32", False),
     ]
-    for name, shape, dtype, fmt, timed in cases:
+    for name, x, fmt, timed in cases:
         t = sfu.get_store().get(fn="gelu_tanh", n_breakpoints=32, dtype=fmt)
-        x = (torch.randn(shape, generator=gen, device=dev) * 4.0).to(dtype)
         n0 = ops.pwl_activation.launches
         got = ops.pwl_activation(x, t)
         check(ops.pwl_activation.launches == n0 + 1, f"pwl_activation {name}: not launched")
@@ -2252,7 +2454,7 @@ def pwl_act_phase(torch):
             p_ms = time_ms(torch, lambda i: pwl_act.pwl_nonuniform_plain(x, bp, dmq),
                            reps=3, iters=3)
             rows[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": None, "max_abs_err": 0.0,
-                          **_elementwise_bound(x.numel(), x.element_size(), 3 * 32)}
+                          **_elementwise_bound(x.numel(), x.element_size(), SEARCH_OPS + 2)}
             line += (f", kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, bound "
                      f"{rows[name]['bound_ms'] * 1e3:.2f} us ({rows[name]['bound_by']})")
         print(line)
@@ -2262,9 +2464,13 @@ def pwl_act_phase(torch):
     um, uq = ut.m.to(dev), ut.q.to(dev)  # on the card: a graph capture copies nothing
     lo, hi = spec.default_range
     mq = ops.pack_uniform(um, uq)
-    for name, shape, dtype in (("32 x 384 f32", (32, 384), torch.float32),
-                               ("4096 x 3072 bf16", (TRAIN_TOKENS, N_DIM), torch.bfloat16)):
-        x = (torch.randn(shape, generator=gen, device=dev) * 6.0).to(dtype)
+    for name, x, timed in (
+            ("32 x 384 f32", rnd((32, 384), torch.float32, 6.0), True),
+            ("4096 x 3072 bf16", rnd((TRAIN_TOKENS, N_DIM), torch.bfloat16, 6.0), True),
+            ("4096 x 3072 + 3 bf16", rnd((big + 3,), torch.bfloat16, 6.0), False),
+            ("offset view 4096 x 3072 + 3 bf16", offset_view(big + 3, torch.bfloat16, 6.0),
+             False),
+            ("offset view 4096 x 3072 + 3 f32", offset_view(big + 3, torch.float32, 6.0), False)):
         n0 = ops.pwl_activation_uniform.launches
         got = ops.pwl_activation_uniform(x, um, uq, lo, hi)
         check(ops.pwl_activation_uniform.launches == n0 + 1,
@@ -2272,17 +2478,18 @@ def pwl_act_phase(torch):
         want = pwl_act.pwl_uniform_plain(x, mq, lo, hi)
         torch.cuda.synchronize()
         _bitwise(torch, got, want, f"pwl_activation_uniform {name}")
-        k_ms = time_ms(torch, lambda i: ops.pwl_activation_uniform(x, um, uq, lo, hi))
-        p_ms = time_ms(torch, lambda i: pwl_act.pwl_uniform_plain(x, mq, lo, hi), reps=3,
-                       iters=3)
-        # the affine index (~6 operations) and the 32 delta steps (3 each)
-        rows[f"uniform {name}"] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": None,
-                                   "max_abs_err": 0.0,
-                                   **_elementwise_bound(x.numel(), x.element_size(), 6 + 3 * 32)}
-        r = rows[f"uniform {name}"]
-        print(f"[smoke] pwl_activation_uniform {name}: bitwise its plain version, kernel "
-              f"{k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.2f} "
-              f"us ({r['bound_by']})")
+        line = f"[smoke] pwl_activation_uniform {name}: bitwise its plain version"
+        if timed:
+            k_ms = time_ms(torch, lambda i: ops.pwl_activation_uniform(x, um, uq, lo, hi))
+            p_ms = time_ms(torch, lambda i: pwl_act.pwl_uniform_plain(x, mq, lo, hi), reps=3,
+                           iters=3)
+            # the affine index and the clip (~8 operations), the fetch, m * x + q
+            r = rows[f"uniform {name}"] = {
+                "ms": k_ms, "plain_ms": p_ms, "library_ms": None, "max_abs_err": 0.0,
+                **_elementwise_bound(x.numel(), x.element_size(), 11)}
+            line += (f", kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, bound "
+                     f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
+        print(line)
     return rows
 
 
@@ -3461,6 +3668,8 @@ def main() -> int:
         build_s = build_phase()
         glu = glu_phase(torch)
         moe = moe_phase(torch)
+        glu_decode_phase(torch)
+        moe_skip = moe_skip_phase(torch)
         kv = kv_phase(torch)
         sm = softmax_phase(torch)
         dec = decode_phase(torch)
@@ -3499,7 +3708,13 @@ def main() -> int:
             serve_phase(torch, ["--plan", bf16_plan], short_prompt_attention)
             mark("repro-100m serve phases")
             olmoe = ["--arch", "olmoe-1b-7b"]
-            moe_counts = serve_phase(torch, olmoe, no_attention_kernels)
+            with _bucket_census(torch) as census:
+                moe_counts = serve_phase(torch, olmoe, no_attention_kernels)
+            check(census["calls"] > 0, "the olmoe session made no MoE GLU call at C = 1")
+            live_mean = float(census["live"]) / census["calls"]
+            print(f"[smoke] olmoe default session: {live_mean:.2f} of {MOE_E} buckets "
+                  f"non-empty on average over its {census['calls']} MoE GLU calls at C = 1 "
+                  f"(its decode steps)")
             serve_phase(torch, olmoe + ["--batch", "8", "--prompt-len", "256", "--max-new", "32"],
                         no_attention_kernels)
             moe_softmax_plan = dump_plan(pathlib.Path(tmp) / "olmoe_fused_softmax_plan.json",
@@ -3562,8 +3777,15 @@ def main() -> int:
          "launches": path_counts["fused_glu"], **g},
         {"name": "fused_moe_glu", "route": "cuda", "source": "src/repro_torch/csrc/glu.cu",
          "replaces": "src/repro/kernels/fused/moe.py:41",
-         "shape": f"E={MOE_E} C=1 K={MOE_K} N={MOE_N} bf16 (olmoe-1b-7b decode step)",
+         "shape": f"E={MOE_E} C=1 K={MOE_K} N={MOE_N} bf16 (olmoe-1b-7b decode step), every "
+                  "bucket full",
          "launches": path_counts["fused_moe_glu"], **moe[1]},
+        {"name": "fused_moe_glu[decode occupancy]", "route": "cuda",
+         "source": "src/repro_torch/csrc/glu.cu", "replaces": "src/repro/kernels/fused/moe.py:41",
+         "shape": f"E={MOE_E} C=1 K={MOE_K} N={MOE_N} bf16, every other bucket empty (the "
+                  f"olmoe default session's decode calls: {live_mean:.2f} of {MOE_E} non-empty "
+                  f"on average); launches: that session's MoE GLU calls at C = 1",
+         "launches": census["calls"], **next(iter(moe_skip.values()))},
         {"name": "write_prompt_pages_", "route": "cuda",
          "source": "src/repro_torch/csrc/kv_cache.cu",
          "replaces": "src/repro/serving/kv_cache.py:129",
@@ -3619,12 +3841,23 @@ def main() -> int:
          "replaces": "src/repro/kernels/pwl_act.py:40",
          "shape": f"4 x {N_DIM} bf16, gelu_tanh 32 breakpoints (impl='kernel' decode step)",
          "launches": path_counts["pwl_activation"], **pwl["decode 4 x 3072 bf16"]},
+        {"name": "pwl_activation[4096x3072]", "route": "cuda",
+         "source": "src/repro_torch/csrc/pwl_act.cu",
+         "replaces": "src/repro/kernels/pwl_act.py:40",
+         "shape": f"{TRAIN_TOKENS} x {N_DIM} bf16, gelu_tanh 32 breakpoints; launches: the "
+                  "impl='kernel' session's",
+         "launches": path_counts["pwl_activation"], **pwl["4096 x 3072 bf16"]},
         {"name": "pwl_activation_uniform", "route": "cuda",
          "source": "src/repro_torch/csrc/pwl_act.cu",
          "replaces": "src/repro/kernels/pwl_act.py:52",
          "shape": "32 x 384 f32, sigmoid 32 breakpoints (the paper's uniform baseline; on no "
                   "model path)",
          "launches": 0, **pwl["uniform 32 x 384 f32"]},
+        {"name": "pwl_activation_uniform[4096x3072]", "route": "cuda",
+         "source": "src/repro_torch/csrc/pwl_act.cu",
+         "replaces": "src/repro/kernels/pwl_act.py:52",
+         "shape": f"{TRAIN_TOKENS} x {N_DIM} bf16, sigmoid 32 breakpoints (on no model path)",
+         "launches": 0, **pwl["uniform 4096 x 3072 bf16"]},
         {"name": "fused_linear", "route": "cuda", "source": "src/repro_torch/csrc/glu.cu",
          "replaces": "src/repro/kernels/fused/linear.py:54",
          "shape": f"M=4 K={K_DIM} N={N_DIM} bf16 with bias (whisper-small decode step)",

@@ -15,7 +15,7 @@ engine's session alone, not the weights' random init before it, and prints:
   ``cuLaunchKernel*`` calls) per model call;
 * the top operators by host (self CPU) time and by device time;
 * the port's own kernels by name (the dense GLU's and the MoE experts'
-  alike: ``glu_pwl_kernel`` at M <= 4, ``glu_tc_kernel`` above;
+  alike: ``glu_tc_kernel`` in bf16, ``glu_pwl_kernel`` in f32;
   ``prompt_write_kernel``, ``append_kernel``, and
   under a plan with the softmax site fused ``softmax_narrow_kernel`` and
   ``softmax_wide_kernel`` (rows up to 1024 wide, and wider), the paged

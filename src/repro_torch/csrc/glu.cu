@@ -26,8 +26,15 @@
 // expert is blockIdx.z: each slice of the grid is the dense kernel on its
 // expert's x bucket and weights, so E = 1 is the dense GLU, launch for launch.
 // For the MoE, M is the bucket capacity C (1 at a 4-slot decode step of
-// olmoe-1b-7b, 5 for a 32-token prefill, 640 for 8 x 512 training tokens) and
-// every bucket is computed, empty or not, as the JAX kernel computes it.
+// olmoe-1b-7b, 5 for a 32-token prefill, 640 for 8 x 512 training tokens).
+// In the bf16 decode configurations, in a launch of several experts, a block
+// whose x rows are all +-0 (its expert's whole bucket, of at most 16 rows: a
+// 4-slot decode step routes 32 pairs into 64 buckets of one row, so half of
+// them or more are empty) reads none of its weights and writes what its
+// epilogue gives on +0 accumulators, as the sum of a zero row from +0 gives
+// them: act(+0) * (+0) forward, (g * 0 * act'(0), g * act(0)) backward.
+// That differs from the JAX kernel, which computes every bucket, only where
+// the weights hold inf or NaN (0 * inf is NaN there).
 //
 // What bounds it on an H100, and what the design does about it:
 //   * Training and long prefills (M = 4096 at 8 x 512 tokens of repro-100m,
@@ -54,15 +61,21 @@
 //   * The tile follows M and the grid (tc::pick): 128 x 128 blocks of 8 warps
 //     for the training shapes, 64 x 64 or 32 x 32 where fewer rows or a
 //     narrow grid would leave SMs idle (prefills, whisper's M = 128, the
-//     MoE's C = 5 and 40).
-//   * Serving's decode steps (M <= 4: a decode step, an MoE bucket at C = 1)
+//     MoE's C = 40).
+//   * Serving's decode steps and short prefills (M <= DECODE_M = 16: a
+//     decode step, an MoE bucket at C = 1 or at a 32-token prefill's C = 5)
 //     are bound by reading the weights once (9.4 MB of bf16 at K = 768,
 //     N = 3072: ~2.8 us at 3.35 TB/s; olmoe's 537 MB of expert weights,
-//     ~160 us).  They keep the CUDA-core kernel (glu_pwl_kernel, Tiny): 4 x 16
-//     output tiles, 192 blocks at N = 3072, each K tile split over 4 groups of
-//     threads whose partial sums meet in shared memory in a fixed order.
-//   * f32 keeps the CUDA-core kernel at every M (Tiny, Small, Large; f32
-//     FMAs, the chain decode), bit for bit as before.
+//     ~160 us, or the non-empty buckets' share of it).  They run the same
+//     kernel in a decode configuration (tc::Decode, tc::DecodeWide): one m16
+//     row tile (rows >= M zero-filled in shared memory, not read), more warps
+//     copying than multiplying (on an H100 the copies in flight a warp, not
+//     the ring's depth, held the rate), 32-column strips where the grid is
+//     narrow (96 blocks at N = 3072) and 128-column strips (256-byte rows)
+//     across many experts; and the empty-bucket skip above.  So a decode
+//     row is bitwise the same row of a prefill's launch.
+//   * f32 keeps the CUDA-core kernel at every M (glu_pwl_kernel: Tiny,
+//     Small, Large; f32 FMAs, the chain decode), bit for bit as before.
 //   * Ragged M, N and K edges are masked (zero-filled) in the kernel; nothing
 //     is padded or copied.
 #include <cuda_bf16.h>
@@ -100,9 +113,9 @@ __device__ __forceinline__ void load_vec(T* dst, const T* __restrict__ base, int
 }
 
 // The decode of an epilogue, as the kernels hand it to the epilogue functors:
-// value(x) for the forward, value_and_slope(x) for the backward.  The
+// value(x) for the forward, value_and_slope(x) for the backward.  The f32
 // CUDA-core kernel decodes by the linear chain over its shared-memory copy of
-// the table; the tensor-core kernel by the search over the prefix table
+// the table; the bf16 tensor-core kernel by the search over the prefix table
 // (pwl_decode.cuh), which gives the same bits for ascending breakpoints.
 template <bool TABLE>
 struct ChainDecode {
@@ -205,7 +218,7 @@ struct LinearBackwardEpi {
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
 // ---------------------------------------------------------------------------
-// The CUDA-core kernel: f32 at every M, bf16 at M <= 4.
+// The CUDA-core kernel: f32 at every M.
 
 template <typename T, int BM_, int BN_, int BK_, int TM_, int TN_, int STAGES_, int KS_,
           int NW_>
@@ -387,10 +400,10 @@ int launch(const void* x, const void* wg, const void* wu, const void* bp, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-// M <= 4 (a decode step; an MoE bucket at decode holds one row): 4 x 16 output tiles, 4 K groups of 64 threads,
-// 4-deep ring of 64-deep K tiles
-template <typename T, int NW>
-using Tiny = Cfg<T, 4, 16, 64, 1, 1, 4, 4, NW>;
+// f32, M <= 4 (a decode step; an MoE bucket at decode holds one row): 4 x 16
+// output tiles, 4 K groups of 64 threads, 4-deep ring of 64-deep K tiles
+template <int NW>
+using Tiny = Cfg<float, 4, 16, 64, 1, 1, 4, 4, NW>;
 // f32, M <= 64: 8 x 16 output tiles, otherwise as Tiny
 template <int NW>
 using Small = Cfg<float, 8, 16, 64, 2, 1, 4, 4, NW>;
@@ -400,7 +413,7 @@ using Large = Cfg<float, 64, 64, 32, 4, 4, 3, 1, NW>;
 constexpr int TINY_M = 4, SMALL_M = 64;
 
 // ---------------------------------------------------------------------------
-// The tensor-core kernel: bf16 at M > 4.
+// The tensor-core kernel: bf16 at every M.
 
 namespace tc {
 
@@ -409,12 +422,18 @@ using bf16 = __nv_bfloat16;
 // A BM x BN output tile of WM x WN warps, each warp a (BM / WM) x (BN / WN)
 // block of 16 x 8 mma tiles, over a STAGES-deep ring of BK-deep K tiles.
 // Shared-memory rows are padded by 8 elements (16 bytes), so the eight rows
-// an ldmatrix reads fall in eight different bank groups.
-template <int BM_, int BN_, int WM_, int WN_, int BK_, int STAGES_, int NW_>
+// an ldmatrix reads fall in eight different bank groups.  SKIP: in a launch
+// of several experts, a block whose x rows are all +-0 reads no weights (the
+// decode configurations).  WARPS warps issue the ring's copies, the first
+// WM x WN of them also multiply.
+template <int BM_, int BN_, int WM_, int WN_, int BK_, int STAGES_, int NW_, bool SKIP_ = false,
+          int WARPS_ = WM_ * WN_>
 struct TcCfg {
   static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_, BK = BK_, STAGES = STAGES_;
   static constexpr int NW = NW_;
-  static constexpr int THREADS = 32 * WM * WN;
+  static constexpr bool SKIP = SKIP_;
+  static constexpr int WARPS = WARPS_;
+  static constexpr int THREADS = 32 * WARPS;
   static constexpr int WTM = BM / WM, WTN = BN / WN;  // a warp's rows and columns
   static constexpr int MI = WTM / 16, NI = WTN / 8;    // its mma tiles
   static constexpr int XS = BK + 8, WS = BN + 8;       // padded rows (elements)
@@ -423,6 +442,7 @@ struct TcCfg {
   static constexpr size_t SMEM = (size_t)STAGES * STAGE_ELEMS * sizeof(bf16);
   static_assert(NW == 1 || NW == 2, "one or two weight matrices");
   static_assert(WTM % 16 == 0 && WTN % 16 == 0 && BK % 16 == 0, "whole 16-wide fragments");
+  static_assert(WARPS >= WM * WN, "every multiplying warp also copies");
   static_assert(SMEM <= 227 * 1024, "the ring must fit in shared memory");
 };
 
@@ -449,9 +469,33 @@ glu_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
   const int wc = (warp % C::WN) * C::WTN;
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
-  const int nk = (K + BK - 1) / BK;
 
   epi_load_search<Epi::kTable>(&s_tab, bp, mq, ep);
+  // With SKIP, in a launch of several experts, the bits of this block's x
+  // rows (sign bits masked), read while the table loads: if all are 0 no K
+  // tile is summed and the epilogue sees the +0 accumulators a zero row sums
+  // to.  Rows m0 .. m0 + BM of the bucket are contiguous; vec_x: K % 8 == 0
+  // and x 16-byte aligned.  (One expert, the dense GLU or the linear layer,
+  // does not check: its rows are tokens, and the check's read would delay
+  // every weight request by one round trip.)
+  int nk = (K + BK - 1) / BK;
+  if (C::SKIP && gridDim.z > 1) {
+    const size_t n = (size_t)min(BM, M - m0) * K;
+    const bf16* xb = x + (size_t)m0 * K;
+    uint32_t bits = 0;
+    if (vec_x) {
+      const uint4* v = reinterpret_cast<const uint4*>(xb);
+#pragma unroll 4
+      for (size_t i = tid; i < n / 8; i += C::THREADS) {
+        const uint4 a = v[i];
+        bits |= a.x | a.y | a.z | a.w;
+      }
+    } else {
+      const uint16_t* h = reinterpret_cast<const uint16_t*>(xb);
+      for (size_t i = tid; i < n; i += C::THREADS) bits |= h[i];
+    }
+    if (!__syncthreads_or((bits & 0x7fff7fffu) != 0)) nk = 0;
+  }
 
   auto load_stage = [&](int stage, int k0) {
     bf16* xs = ring + stage * C::STAGE_ELEMS;
@@ -521,6 +565,9 @@ glu_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
       }
     };
     const int left = (K - kt * BK + 15) / 16;  // chunks of this tile inside K
+    if constexpr (C::WARPS > C::WM * C::WN) {
+      if (warp >= C::WM * C::WN) continue;  // a copying warp only
+    }
     if (left >= BK / 16) {
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) chunk(kk);
@@ -529,6 +576,9 @@ glu_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
     }
   }
   cp_async_wait<0>();
+  if constexpr (C::WARPS > C::WM * C::WN) {
+    if (warp >= C::WM * C::WN) return;
+  }
 
   // epilogue: each thread's C-fragment elements (rows g and g + 8 of a tile,
   // columns 2c and 2c + 1), decoded and stored where they lie in the output
@@ -557,13 +607,26 @@ glu_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
 // warp) for the training shapes, 64-deep K tiles in a 3-deep ring (on an
 // H100, the GLU forward at M = 4096 took 218.6 us so against 237.9 with
 // 32-deep tiles in a 4-deep ring, 223.6 with 64-deep in a 4-deep ring); 64 x
-// 64 of 4 warps; 32 x 32 of 4 warps.
+// 64 of 4 warps; 32 x 32 of 4 warps; and the two decode configurations, one
+// m16 row tile that skips blocks of zero rows: 16 x 32 tiles (96 blocks at
+// N = 3072) multiplied by 2 warps and copied by 8, over a 3-deep ring of
+// 256-deep K tiles (64 KB of a GLU's weights in flight a block); 16 x 128
+// tiles (256-byte rows, for grids of many experts) multiplied by 4 warps and
+// copied by 16, over a 3-deep ring of 128-deep tiles (222 KB of shared
+// memory, one block an SM).  `ab_flash.py --decode-configs` times both
+// against Small and against other strips, depths and counts of copying
+// warps (PERF.md, PR 23).
 template <int NW>
 using Wide = TcCfg<128, 128, 2, 4, 64, 3, NW>;
 template <int NW>
 using Mid = TcCfg<64, 64, 2, 2, 32, 4, NW>;
 template <int NW>
 using Small = TcCfg<32, 32, 2, 2, 64, 4, NW>;
+template <int NW>
+using Decode = TcCfg<16, 32, 1, 2, 256, 3, NW, true, 8>;
+template <int NW>
+using DecodeWide = TcCfg<16, 128, 1, 4, 128, 3, NW, true, 16>;
+constexpr int DECODE_M = 16;
 
 template <class C>
 long blocks(int E, int M, int N) {
@@ -572,21 +635,24 @@ long blocks(int E, int M, int N) {
 
 constexpr long SMS = 132;  // H100 SXM
 
-// The configuration for (E, M, N): 0 (Wide) when M > 64 and it gives two
-// blocks an SM, 1 (Mid) when M > 32 and it gives one, else 2 (Small).  On an
-// H100 (NVIDIA H100 80GB HBM3, 700 W), of the four shapes of the model
-// paths that Wide does not take, this picks the fastest but at olmoe's
-// C = 5 (Small 228 us, Mid 221); a 32 x 16 tile of 2 warps, which gives a
-// dense prefill at M = 32 192 blocks where Small gives 96, took 18.1 us
-// there against Small's 13.5, and is gone.  GLU_TC_FORCE (a compile-time
-// define) forces one, for timing and for holding every configuration's bits
-// equal; the library's build defines none.
+// The configuration for (E, M, N): at M <= DECODE_M (one m16 tile) 4
+// (DecodeWide) when it gives two blocks an SM, else 3 (Decode); above it 0
+// (Wide) when M > 64 and it gives two blocks an SM, 1 (Mid) when M > 32 and
+// it gives one, else 2 (Small).  On an H100 (NVIDIA H100 80GB HBM3, 700 W)
+// the decode configurations beat Small at each M <= 16 timed (the dense GLU
+// at M = 4, 8 and 16, olmoe's C = 1 and 5; `ab_flash.py --decode-configs`).
+// A 32 x 16 tile of 2 warps, which gives a dense prefill at M = 32 192
+// blocks where Small gives 96, took 18.1 us there against Small's 13.5, and
+// is gone.  GLU_TC_FORCE (a compile-time define) forces one, for timing and
+// for holding every configuration's bits equal; the library's build defines
+// none.
 template <int NW>
 int pick(int E, int M, int N) {
 #ifdef GLU_TC_FORCE
   (void)E, (void)M, (void)N;
   return GLU_TC_FORCE;
 #else
+  if (M <= DECODE_M) return blocks<DecodeWide<NW>>(E, M, N) >= 2 * SMS ? 4 : 3;
   if (M > 64 && blocks<Wide<NW>>(E, M, N) >= 2 * SMS) return 0;
   if (M > 32 && blocks<Mid<NW>>(E, M, N) >= SMS) return 1;
   return 2;
@@ -622,6 +688,10 @@ int dispatch(const void* x, const void* wg, const void* wu, const void* bp, cons
       return launch<Wide<NW>>(x, wg, wu, bp, mq, ep, epi, E, M, N, K, s);
     case 1:
       return launch<Mid<NW>>(x, wg, wu, bp, mq, ep, epi, E, M, N, K, s);
+    case 3:
+      return launch<Decode<NW>>(x, wg, wu, bp, mq, ep, epi, E, M, N, K, s);
+    case 4:
+      return launch<DecodeWide<NW>>(x, wg, wu, bp, mq, ep, epi, E, M, N, K, s);
     default:
       return launch<Small<NW>>(x, wg, wu, bp, mq, ep, epi, E, M, N, K, s);
   }
@@ -634,9 +704,8 @@ int dispatch(const void* x, const void* wg, const void* wu, const void* bp, cons
 template <typename T, int NW, class Epi>
 int dispatch(const void* x, const void* wg, const void* wu, const void* bp, const void* dmq,
              const void* mq, Epilogue ep, Epi epi, int E, int M, int N, int K, cudaStream_t s) {
-  if (M <= TINY_M)
-    return launch<T, Tiny<T, NW>>(x, wg, wu, bp, dmq, ep, epi, E, M, N, K, s);
   if constexpr (std::is_same<T, float>::value) {
+    if (M <= TINY_M) return launch<T, Tiny<NW>>(x, wg, wu, bp, dmq, ep, epi, E, M, N, K, s);
     if (M <= SMALL_M) return launch<T, Small<NW>>(x, wg, wu, bp, dmq, ep, epi, E, M, N, K, s);
     return launch<T, Large<NW>>(x, wg, wu, bp, dmq, ep, epi, E, M, N, K, s);
   } else {

@@ -20,8 +20,10 @@
 // memory once, and every thread reads it from there (a broadcast read).
 //
 // pwl_search_value_and_slope is the same function by a search over the
-// breakpoints (the paper's binary-tree address decoder), for the flash
-// kernels' bf16 design: ~7 steps and one table read a score, not n_bp.
+// breakpoints (the paper's binary-tree address decoder), for the bf16
+// tensor-core kernels and the standalone activation (pwl_search_mq, the
+// value then rounded as pwl_value rounds it): ~7 steps and one table read a
+// score, not n_bp.
 //
 // Also here: the element conversions every kernel shares and the JAX
 // package's masking constants.  epilogue.cuh selects between this decode, an
@@ -115,16 +117,20 @@ __device__ __forceinline__ float3 pwl_search_pivots(const PwlSearch& t) {
   return make_float3(t.bp[63], t.bp[31], t.bp[95]);
 }
 
-// k is kept as the byte offset 4 k, so each step's read is one shared load
-// at a register plus a constant.
-__device__ __forceinline__ float2 pwl_search_value_and_slope(float x, const PwlSearch& t,
-                                                             float3 piv) {
+// The chain's (m, q) for x.  k is kept as the byte offset 4 k, so each
+// step's read is one shared load at a register plus a constant.
+__device__ __forceinline__ float2 pwl_search_mq(float x, const PwlSearch& t, float3 piv) {
   const char* bp = reinterpret_cast<const char*>(t.bp);
   int k4 = x > piv.x ? 4 * 64 : 0;
   k4 += x > (k4 ? piv.z : piv.y) ? 4 * 32 : 0;
 #pragma unroll
   for (int h = 16; h > 0; h >>= 1)
     k4 += x > *reinterpret_cast<const float*>(bp + k4 + 4 * (h - 1)) ? 4 * h : 0;
-  const float2 mq = *reinterpret_cast<const float2*>(reinterpret_cast<const char*>(t.mq) + 2 * k4);
+  return *reinterpret_cast<const float2*>(reinterpret_cast<const char*>(t.mq) + 2 * k4);
+}
+
+__device__ __forceinline__ float2 pwl_search_value_and_slope(float x, const PwlSearch& t,
+                                                             float3 piv) {
+  const float2 mq = pwl_search_mq(x, t, piv);
   return make_float2(fmaf(mq.x, x, mq.y), mq.x);
 }

@@ -9,8 +9,8 @@ passes it to a kernel (``csrc/epilogue.cuh`` selects identity, an exact
 function or the table), and :func:`pwl_value_and_slope` is the plain version
 of the device decode in ``csrc/pwl_decode.cuh``, accumulating the deltas in
 the same order.  :func:`prefix_table` builds the table of that chain's
-partial sums which the breakpoint search of the flash kernels and of the GLU
-family's bf16 kernel reads.
+partial sums which the breakpoint search of the bf16 tensor-core kernels,
+the row softmax, the RMSNorm and the standalone activation reads.
 """
 from __future__ import annotations
 
@@ -238,14 +238,20 @@ _PREFIX: dict[int, tuple] = {}
 
 
 def search_prefix(plan: EpiloguePlan, tables):
-    """The search decode's prefix table (:func:`prefix_table`) for f32
-    delta-layout operands ``(bp, dmq)``, built once per operand tensor and
-    kept on its device while that tensor lives; None for a plan without a
-    table.  Raises on breakpoints that are not ascending
-    (:func:`check_ascending`)."""
+    """:func:`prefix_for` of a plan's table operands; None for a plan
+    without a table."""
     if plan.kind != "pwl":
         return None
-    bp, dmq = tables
+    return prefix_for(*tables)
+
+
+def prefix_for(bp, dmq):
+    """The search decode's prefix table (:func:`prefix_table`) for f32
+    delta-layout operands ``(bp, dmq)``, built once per operand tensor and
+    kept on its device while that tensor lives (so a call that finds it
+    reads nothing back from the device, and a CUDA graph can capture it).
+    Raises on breakpoints that are not ascending (:func:`check_ascending`)
+    when it builds."""
     key = id(dmq)
     hit = _PREFIX.get(key)
     if hit is None or hit[0]() is not dmq:

@@ -15,11 +15,13 @@ N = 3072) the products, 38.7 GFLOP a pass, 39 us on bf16 tensor cores;
 bf16 runs them as ``mma.sync`` bf16 products with f32 accumulation, each
 output summed over K in 16-wide chunks from 0 whatever the tile, and
 decodes by a binary search over the breakpoints from a host-built prefix
-table (:func:`.epilogue.search_prefix`).  At a decode step (M <= 4) the
+table (:func:`.epilogue.search_prefix`).  At a decode step (M <= 16) the
 forward reads 9.4 MB of bf16 weights for ~0.1 GFLOP, bound by weight bytes
-(~2.8 us at 3.35 TB/s): that shape, and f32 at every M, keep the CUDA-core
-kernel, narrow output tiles streaming every weight once through a ring of
-16-byte ``cp.async`` copies.
+(~2.8 us at 3.35 TB/s): bf16 runs the same kernel there in a decode
+configuration (one 16-row tile, more warps copying weights by 16-byte
+``cp.async`` than multiplying), in the same summation order, so a decode
+step's row is bitwise the same row of a prefill.  f32 keeps the CUDA-core
+kernel at every M.
 
 A CPU tensor takes the plain versions below (same decode order); a CUDA
 tensor launches the kernels or raises.  Both refuse a table whose

@@ -14,9 +14,9 @@ XLA) and ``db = Σ dz`` follow.
 What bounds them on an H100: at whisper's decode and prefill shapes (K =
 768, N = 3072, M = 4 or 128) the 4.7 MB of bf16 weights (~1.4 us at
 3.35 TB/s); at the encoder's M = 6000 (4 x 1500 frames) the 28 GFLOP of
-the product, which bf16 runs on the tensor cores and decodes by the
-breakpoint search, as the GLU's (f32, and bf16 at M <= 4, keep the
-CUDA-core kernel).
+the product.  bf16 runs on the tensor cores at every M and decodes by the
+breakpoint search, as the GLU's, a decode step in the GLU's decode
+configuration (f32 keeps the CUDA-core kernel).
 
 A CPU tensor takes the plain versions below; a CUDA tensor launches the
 kernels or raises.  ``impl_bwd="recompute"`` keeps the forward kernel and

@@ -19,8 +19,15 @@ N = 1024): the gate and up weights are 537 MB of bf16, read once per call,
 ~160 us at 3.35 TB/s for the bucket capacities of serving (C = 1 at a
 4-slot decode step, 5 for a 32-token prefill, 40 for 256 tokens); at
 C = 640 (8 x 512 training tokens) the 344 GFLOP of the two products bound
-it, which bf16 runs on the tensor cores above C = 4 (``csrc/glu.cu``).
-Every bucket is computed, empty or not, as the JAX kernel computes it.
+it.  bf16 runs on the tensor cores at every C (``csrc/glu.cu``), in one
+summation order.  At C <= 16 (its decode configurations) an expert whose
+bucket is all ±0 reads none of its weights: a 4-slot decode step routes 32
+pairs into 64 buckets of one row, so half of them or more are empty, and
+the bytes follow the non-empty buckets.  Such a bucket's rows get what the
+epilogue gives on +0 accumulators, ``act(+0)·(+0)`` forward and
+``(g·0·act'(0), g·act(0))`` backward, which is what the JAX kernel computes
+for them, every bucket computed, unless the expert's weights hold inf or
+NaN (``0·inf`` is NaN there).
 
 A CPU tensor takes the plain versions; a CUDA tensor launches the kernels
 or raises.  ``impl_bwd="recompute"`` keeps the forward kernel and

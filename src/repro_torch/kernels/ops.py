@@ -5,7 +5,9 @@ packed here.
 On a CPU tensor each wrapper runs its kernel's plain version; on a CUDA
 tensor it launches the kernel (``csrc/pwl_act.cu``) and counts the launch on
 ``.launches``, or raises.  Neither has a backward, as the JAX kernel has no
-VJP: an input that requires grad is refused on any device.
+VJP: an input that requires grad is refused on any device.  The non-uniform
+kernel decodes by the breakpoint search, so a table whose breakpoints do
+not ascend is refused on any device too.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import torch
 from repro_torch.core.pwl import PWLTable
 
 from . import pwl_act
-from .fused.epilogue import device_operands, pack_for, pack_table
+from .fused.epilogue import check_ascending, device_operands, pack_for, pack_table
 
 
 def pack_nonuniform(table: PWLTable, dtype: str | None = None):
@@ -47,6 +49,7 @@ def pwl_activation(x: torch.Tensor, table: PWLTable, *,
     else:
         bp, dmq = pack_for(table, x.device, table_dtype)
     if x.device.type == "cpu":
+        check_ascending(bp)  # as the kernel refuses them
         return pwl_act.pwl_nonuniform_plain(x, bp, dmq)
     y = pwl_act.launch_nonuniform(x, bp, dmq)
     pwl_activation.launches += 1

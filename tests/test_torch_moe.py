@@ -13,6 +13,13 @@ against the JAX package.
 * The port's autograd ``(dx, dWg, dWu)`` against ``jax.grad`` of the JAX
   op with the JAX suite's cos-sum loss (``test_moe_grad_parity``'s grid), at
   1e-4 of each gradient's max, under both backward implementations.
+* Buckets whose rows are all ±0 (one in +0, one in -0, one mixed): the JAX
+  forward and backward kernels in interpret mode and the port's plain
+  versions give there bitwise what the epilogue gives on +0 accumulators,
+  ``act(+0)·(+0)`` and ``(g·0·act'(0), g·act(0))``, which is what the CUDA
+  kernel's decode configuration writes for such a bucket without reading
+  its weights; under the silu and gelu_tanh tables, exact silu and the
+  identity, in f32 and bf16.
 """
 import jax
 import jax.numpy as jnp
@@ -27,7 +34,7 @@ from repro.kernels import fused as jfused
 from repro.kernels.fused import epilogue as jepi
 from repro.kernels.fused.moe import _moe_dz_3d
 from repro_torch.kernels import fused as tfused
-from repro_torch.kernels.fused.epilogue import plan_and_operands
+from repro_torch.kernels.fused.epilogue import exact_plan, plan_and_operands
 
 BLK = (16, 32, 16)  # the JAX suite's blocks: every grid axis takes several steps
 
@@ -142,3 +149,49 @@ def test_launch_counters_do_not_move_on_cpu():
     x = torch.ones(2, 3, 8, requires_grad=True)
     tfused.fused_moe_glu(x, torch.ones(2, 8, 4), torch.ones(2, 8, 4), table=t).sum().backward()
     assert (tfused.fused_moe_glu.launches, tfused.fused_moe_glu.bwd_launches) == before
+
+
+def _bits(a):
+    return np.asarray(a, np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("epilogue", ["silu", "gelu_tanh", "exact silu", "identity"])
+def test_empty_buckets_give_the_epilogue_on_zero_accumulators(epilogue, dtype):
+    E, C, D, F = 4, 3, 48, 40
+    x = _rand(11, (E, C, D), 2.0)
+    x[1] = 0.0
+    x[2] = -0.0
+    x[3] = np.where(np.arange(D) % 2 == 0, np.float32(-0.0), np.float32(0.0))
+    assert np.signbit(x[2]).all() and not np.signbit(x[1]).any()
+    wg, wu, g = _rand(12, (E, D, F), 0.3), _rand(13, (E, D, F), 0.3), _rand(14, (E, C, F))
+    if epilogue in ("silu", "gelu_tanh"):
+        jt, tt = _tables(fn=epilogue)
+        jkw, tkw = {"table": jt}, {"table": tt}
+        plan, tabs = plan_and_operands(tt)
+    elif epilogue == "exact silu":
+        jkw = tkw = {"act": "silu"}
+        plan, tabs = exact_plan("silu"), ()
+    else:
+        jkw = tkw = {}
+        plan, tabs = plan_and_operands(None)
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    jx, jwg, jwu = (jnp.asarray(a).astype(jdt) for a in (x, wg, wu))
+    tx, twg, twu = (torch.from_numpy(a).to(tdt) for a in (x, wg, wu))
+    fwd = {"jax": jfused.fused_moe_glu(jx, jwg, jwu, block=BLK, **jkw).astype(jnp.float32),
+           "port": tfused.fused_moe_glu(tx, twg, twu, **tkw).float()}
+    jplan, jtabs = jepi.plan_and_operands(jkw.get("table"), jkw.get("act"))
+    bwd = {"jax": _moe_dz_3d(jx, jwg, jwu, jnp.asarray(g), jtabs, plan=jplan, block=BLK,
+                             interpret=True),
+           "port": tfused.fused_glu_bwd_plain(tx, twg, twu, torch.from_numpy(g), plan, tabs)}
+    zero = torch.zeros((C, F))
+    act, slope = plan.apply_value_and_slope(zero, *tabs)
+    want_fwd = (act * zero).to(tdt).float()
+    for e in (1, 2, 3):
+        ge = torch.from_numpy(g[e])
+        want = [want_fwd, ge * zero * slope, ge * act]
+        for side in ("jax", "port"):
+            got = [fwd[side][e], *(d[e] for d in bwd[side])]
+            for name, a, b in zip(("out", "dzg", "dzu"), got, want):
+                np.testing.assert_array_equal(_bits(a), _bits(b), err_msg=f"{side} {name} {e}")

@@ -20,6 +20,12 @@ its Pallas kernels in interpret mode, as the JAX suite does.
   reads decode bitwise alike, breakpoints included.
 * Neither wrapper takes a gradient (the JAX kernel has no VJP), and the
   train launcher refuses an ``impl="kernel"`` plan.
+* The uniform CUDA kernel's per-block table (each segment's (m, q) by the
+  delta loop, once a block; mirrored here in numpy) is bitwise the plain
+  version's per-element delta accumulation at every index, signed zeros
+  included; the non-uniform kernel's launcher refuses descending and NaN
+  breakpoints before it builds anything, and the public wrapper on the CPU
+  too (the kernel decodes by the breakpoint search).
 * Reduced repro-100m under the ``impl="kernel"`` plan against JAX's logits
   at 1e-4, and the serve launcher on the CPU under that plan.
 """
@@ -45,7 +51,7 @@ from repro_torch.core import functions as TF
 from repro_torch.core import pwl as tpwl
 from repro_torch.core.pwl import PWLTable
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels import pwl_act
+from repro_torch.kernels import _build, pwl_act
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.fused import epilogue as tepi
 from repro_torch.models import Model, params_from_numpy
@@ -308,3 +314,68 @@ def test_serve_on_cpu_under_the_kernel_plan(tmp_path, capsys):
                       "--prompt-len", "12", "--max-new", "3"])
     assert rc == 0
     assert "'mlp:gelu_tanh': 'kernel'" in capsys.readouterr().out
+
+
+def _uniform_block_table(mq):
+    """Mirror of ``csrc/pwl_act.cu``'s ``Uniform::load``: the deltas once
+    (row 0 = (m_0, q_0), row i = row i minus row i - 1, in f32), then for
+    each segment k the delta loop ``fmaf(k > j, d_j, m)`` over j = 0..n-2 (c
+    in {0, 1}, so c·d is exact and the fmaf is one f32 add)."""
+    mq = np.asarray(mq, np.float32)
+    n = mq.shape[0]
+    d = mq.copy()
+    d[1:] = mq[1:] - mq[:-1]
+    out = np.empty_like(mq)
+    for k in range(n):
+        m, q = d[0, 0], d[0, 1]
+        for j in range(n - 1):
+            c = np.float32(1.0 if k > j else 0.0)
+            m = np.float32(c * d[j + 1, 0] + m)
+            q = np.float32(c * d[j + 1, 1] + q)
+        out[k] = (m, q)
+    return out
+
+
+def _shipped_uniform(fn, n_bp):
+    t = tpwl.make_uniform_table(TF.get(fn), n_bp)
+    return np.stack([t.m.numpy(), t.q.numpy()], axis=1)
+
+
+_SIGNED_ZEROS = np.float32([[-0.0, 0.0], [0.0, -0.0], [0.0, -0.0], [1.0, -0.0], [1.0, 0.0],
+                            [-0.0, 2.5], [2.0, 2.5], [2.0, -0.0], [0.0, -1.0], [-0.0, -1.0],
+                            [-0.0, 0.0]])
+
+
+@pytest.mark.parametrize("case", [*(f"{fn} {n}" for fn in TF.REGISTRY for n in (8, 32, 63)),
+                                  "signed zeros"])
+def test_uniform_block_table_is_the_per_element_accumulation(case):
+    if case == "signed zeros":
+        mq = _SIGNED_ZEROS
+    else:
+        fn, n = case.split()
+        mq = _shipped_uniform(fn, int(n))
+    want = _uniform_block_table(mq)
+    m, q = pwl_act.uniform_segment_mq(torch.from_numpy(mq), torch.arange(mq.shape[0]))
+    got = np.stack([m.numpy(), q.numpy()], axis=1)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    if case == "signed zeros":  # the chain's adds turn a leading -0 into +0
+        assert not np.signbit(got[0, 0]) and np.signbit(mq[0, 0])
+
+
+@pytest.mark.parametrize("bad", ["descending", "nan"])
+def test_nonuniform_launcher_refuses_unsorted_breakpoints_before_building(bad, monkeypatch):
+    t = tsfu.get_store().get(fn="gelu_tanh", n_breakpoints=32)
+    bp, dmq = tepi.pack_table(t)
+    bp = bp.flip(0).contiguous() if bad == "descending" else bp.clone()
+    if bad == "nan":
+        bp[3, 0] = float("nan")
+
+    def no_build(*a, **kw):
+        raise AssertionError("the launcher built a kernel before refusing the table")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    monkeypatch.setattr(pwl_act, "_flat", lambda what, x: x)  # as if x lay on the card
+    with pytest.raises(ValueError, match="ascending"):
+        pwl_act.launch_nonuniform(torch.zeros(4, 8), bp, dmq)
+    with pytest.raises(ValueError, match="ascending"):
+        tops.pwl_activation(torch.zeros(4, 8), PWLTable(bp=bp.reshape(-1), m=t.m, q=t.q))

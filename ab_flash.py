@@ -1,7 +1,7 @@
 """Time the kernels of two checkouts in turns on one card, and diagnose the
 held-out training gate across GLU summation orders.
 
-    python3 ab_flash.py OTHER_CHECKOUT [PHASE ...]
+    python3 ab_flash.py [--no-tc] OTHER_CHECKOUT [PHASE ...]
     python3 ab_flash.py --gate OTHER_CHECKOUT [RUN ...]
     python3 ab_flash.py --decode-configs
 
@@ -11,7 +11,9 @@ phases ``flash_phase``, ``flash_bwd_phase`` and ``dh256_phase``; also
 ``linear_phase``, ``linear_bwd_phase``, ``decode_phase``, ``softmax_phase``
 ``softmax_bwd_phase``, ``norm_phase`` and ``pwl_act_phase``; and this
 file's ``decode_rows``, which times the same inputs through the public
-wrappers in both checkouts) from
+wrappers in both checkouts, and ``session_digests``, which digests
+full-width paged prefill and decode calls of repro-100m and olmoe-1b-7b
+under two plans: logits, tokens and pools) from
 OTHER_CHECKOUT (A) and from this checkout (B) in the order A, B, B, A, each
 in a process of its own that imports that checkout's ``src`` and
 ``chip_smoke.py`` and builds its kernels into that checkout's
@@ -29,7 +31,8 @@ the bf16 GLU-family digests, at every M ("tc ..." keys), must be equal in
 every B run and every forced configuration (one summation order whatever
 the tile; where A's differ, the line is printed once, as the intended
 change of an A whose order differs), and each forced run times the bf16
-GLU family at the model paths' shapes (``tc_rows``).  Prints each run's timed rows (kernel us per
+GLU family at the model paths' shapes (``tc_rows``); ``--no-tc`` leaves
+the forced runs out, for a change that does not touch ``csrc/glu.cu``.  Prints each run's timed rows (kernel us per
 call, as ``chip_smoke.time_ms`` measures them), then one JSON line with
 every run's rows and digests; a run that fails prints the end of its
 output.
@@ -309,7 +312,67 @@ def decode_rows(torch, cs) -> dict:
     return {k: {"ms": v} for k, v in rows.items()}
 
 
-LOCAL_PHASES = {"decode_rows": decode_rows}
+SESSION_ARCHS = ("repro-100m", "olmoe-1b-7b")
+SESSION_REQUESTS, SESSION_PROMPT, SESSION_STEPS = 4, 32, 8
+
+
+def session_digests(torch, cs) -> dict:
+    """Digests of full-width paged model calls, which the page writes and the
+    rotation of q and k run in: for repro-100m and olmoe-1b-7b (seed-0
+    weights) under the default plan and the plan with the softmax site
+    fused, 4 requests of 32 prompt tokens (numpy seed 1), each prefilled on
+    its own as the engine does, then 8 batched decode steps of the greedy
+    tokens.  One digest of every call's f32 logits, the tokens and every
+    layer's pools after the last step; through ``Model`` alone, so the
+    parent checkout runs it as it is.  Returns ``{name: {"digest": ...}}``."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+
+    dev = torch.device("cuda")
+    ps, pages_each = cs.PS, -(-(SESSION_PROMPT + SESSION_STEPS) // cs.PS)
+    out = {}
+    for arch in SESSION_ARCHS:
+        params = None
+        for plan, pwl_softmax in (("default", False), ("fused softmax", True)):
+            model = Model(get_config(arch, act_impl="fused", pwl_softmax=pwl_softmax),
+                          device=dev)
+            params = params if params is not None else model.init(seed=0)
+            prompts = np.random.default_rng(1).integers(
+                0, model.cfg.vocab_size, (SESSION_REQUESTS, SESSION_PROMPT)).astype(np.int32)
+            cache = model.make_paged_cache(1 + SESSION_REQUESTS * pages_each, ps)
+            table = 1 + np.arange(SESSION_REQUESTS * pages_each, dtype=np.int32).reshape(
+                SESSION_REQUESTS, pages_each)[:, ::-1].copy()  # each row's pages descending
+
+            def t(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+            logits, tokens = [], []
+            with torch.no_grad():
+                for b in range(SESSION_REQUESTS):
+                    logits.append(model.prefill_paged(
+                        params, t(prompts[b:b + 1]), cache,
+                        t(table[b:b + 1, :SESSION_PROMPT // ps]),
+                        t(np.asarray([SESSION_PROMPT], np.int32))))
+                cur = torch.cat([lg[:, 0].argmax(-1) for lg in logits]).to(torch.int32)
+                kv_len = np.full(SESSION_REQUESTS, SESSION_PROMPT, np.int32)
+                for _ in range(SESSION_STEPS):
+                    tokens.append(cur)
+                    logits.append(model.decode_step_paged(params, cur[:, None], cache, t(table),
+                                                          t(kv_len)))
+                    cur = logits[-1][:, 0].argmax(-1).to(torch.int32)
+                    kv_len += 1
+            torch.cuda.synchronize()
+            pools = [c[k] for c in cache for k in ("k_pages", "v_pages")]
+            out[f"{arch} {plan}"] = {"digest": _digest([*logits, *tokens, cur, *pools])}
+            del model, cache, pools, logits
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+LOCAL_PHASES = {"decode_rows": decode_rows, "session_digests": session_digests}
 
 
 # row-softmax cases whose f32 forward and backward outputs are digested: the
@@ -602,15 +665,18 @@ def worker(tree: pathlib.Path, force: int | None, phases) -> dict:
         rows = {f"tc: {k}": v for k, v in tc_rows(torch, cs).items()}
         return {"rows": rows, "digests": glu_digests(torch), "card": cs.card_line()}
     _build.build()
-    rows = {}
+    rows, phase_digests = {}, {}
     for ph in phases:
         out = LOCAL_PHASES[ph](torch, cs) if ph in LOCAL_PHASES else getattr(cs, ph)(torch)
         rows.update({f"{ph}: {k}": v["ms"] for k, v in out.items()
                      if isinstance(v, dict) and "ms" in v})
         rows.update({f"{ph}: {k} {part}": v[part]["ms"] for k, v in out.items()  # norm_phase
                      for part in ("fwd", "bwd") if isinstance(v, dict) and part in v})
+        phase_digests.update({f"{ph}: {k}": v["digest"] for k, v in out.items()
+                              if isinstance(v, dict) and "digest" in v})
     digests = {**flash_digests(torch, cs), **glu_digests(torch), **decode_digests(torch, cs),
-               **softmax_digests(torch, cs), **norm_digests(torch), **pwl_digests(torch, cs)}
+               **softmax_digests(torch, cs), **norm_digests(torch), **pwl_digests(torch, cs),
+               **phase_digests}
     return {"rows": rows, "digests": digests, "card": cs.card_line()}
 
 
@@ -814,6 +880,8 @@ def main(argv) -> int:
             print(f"unknown runs {unknown}; known: {list(GATE_RUNS)}", file=sys.stderr)
             return 2
         return gate_main(pathlib.Path(argv[1]).resolve(), runs)
+    no_tc = argv[:1] == ["--no-tc"]
+    argv = argv[1:] if no_tc else argv
     if not argv or argv[0].startswith("--"):
         print(__doc__, file=sys.stderr)
         return 2
@@ -821,7 +889,7 @@ def main(argv) -> int:
     phases = argv[1:] or list(DEFAULT_PHASES)
     runs = []
     plan = [("A", other, None), ("B", ROOT, None), ("B", ROOT, None), ("A", other, None)]
-    plan += [(f"B tc{i}", ROOT, i) for i in range(N_TC_CONFIGS)]
+    plan += [] if no_tc else [(f"B tc{i}", ROOT, i) for i in range(N_TC_CONFIGS)]
     for i, (tag, tree, force) in enumerate(plan):
         argv_w = ["--worker", str(tree), *(["--force-tc", str(force)] if force is not None
                                            else phases)]
@@ -849,9 +917,10 @@ def main(argv) -> int:
                       f"B {vals[0]}")
     same = not differ
     print(f"[ab] f32 flash, f32 GLU family, f32/bf16 decode, f32 row softmax (N <= 1024), "
-          f"RMSNorm (forward, dx, ds) and standalone PWL outputs bitwise equal across all "
-          f"runs, and the bf16 GLU family across this checkout's runs and its "
-          f"{N_TC_CONFIGS} forced tensor-core configurations: {same}")
+          f"RMSNorm (forward, dx, ds), standalone PWL outputs and the phases' digests bitwise "
+          f"equal across all runs, and the bf16 GLU family across this checkout's runs"
+          + ("" if no_tc else f" and its {N_TC_CONFIGS} forced tensor-core configurations")
+          + f": {same}")
     print(json.dumps({"runs": runs, "bitwise_equal": same, "differ": differ}))
     return 0 if same else 1
 

@@ -110,7 +110,16 @@
    skip at olmoe's E = 64, C = 1 and times it; the olmoe default session
    prints its mean count of non-empty buckets a decode step; the standalone
    PWL kernels (16-byte vectors, the breakpoint search) stay bitwise their
-   plain versions, ragged and offset inputs included.
+   plain versions, ragged and offset inputs included;
+15. slice 14: the paged model calls rotate q and k in their page writes
+   (``rope_write_prompt_pages_``, ``rope_append_kv_``: one launch a layer,
+   the rotary tables computed once a call); ``kv_phase`` holds them bitwise
+   against their plain versions and against the chain they replaced (q,
+   the prefill's k, the pools outside page 0) at repro-100m's and olmoe's
+   decode and 32-token prefill and at a 2 x 4096 prefill, timed beside that
+   chain, and untimed with GQA at head dim 256, f32 pools, strided q/k/v and
+   misaligned rows; every paged session launches them once a layer a call
+   and the writes without the rotation never.
 
 Every failed check exits non-zero.  The last two lines of standard output
 are the kernels' JSON line and ``{"ok": true, "device": {...}}``; the card's
@@ -990,12 +999,26 @@ def _fragmented_table(n_rows, n_cols, num_pages):
 
 
 def kv_phase(torch):
-    """Both page-write kernels vs their plain versions, bitwise outside the
-    sentinel page, at the serve shapes (bf16 pools of one layer):
-    repro-100m's 12 KV heads of dim 64 and olmoe-1b-7b's 16 of dim 128.
-    Returns repro-100m's rows."""
-    out = _kv_case(torch, HKV, DH)
-    _kv_case(torch, MOE_HKV, MOE_DH)
+    """The page-write kernel (``csrc/kv_cache.cu``) against its plain
+    versions, bitwise outside the sentinel page, at the serve shapes (bf16
+    pools of one layer): the writes alone at repro-100m's 12 KV heads of dim
+    64 and olmoe-1b-7b's 16 of dim 128; the writes that rotate q and k (the
+    paged model calls' path) there too, decode B = 4 and prefill 1 x 32, and
+    the 2 x 4096 prefill, each timed beside the chain it replaced (the
+    positions, two ``rope`` calls and the write alone); and, untimed, GQA at
+    head dim 256, f32 pools, q/k/v as strided views of one projection, and
+    rows one element past a 16-byte boundary (the scalar instantiation).
+    Returns the rows of the kernels line, by name."""
+    out = {name: row for name, row in _kv_case(torch, HKV, DH).items()}
+    out.update({f"{name}[olmoe]": row for name, row in _kv_case(torch, MOE_HKV, MOE_DH).items()})
+    for arch, tag in (("repro-100m", ""), ("olmoe-1b-7b", "[olmoe]")):
+        out[f"rope_append_kv_{tag}"] = _rope_case(torch, arch, B=4, S=1)
+        out[f"rope_write_prompt_pages_{tag}"] = _rope_case(torch, arch, B=1, S=32)
+    out["rope_write_prompt_pages_[2x4096]"] = _rope_case(torch, "repro-100m", B=2, S=4096)
+    for kw in ({"H": 4, "hkv": 1, "dh": 256}, {"dtype": torch.float32},
+               {"layout": "strided"}, {"layout": "offset"}):
+        for B, S in ((4, 1), (1, 32)):
+            _rope_case(torch, "repro-100m", B=B, S=S, timed=False, **kw)
     return out
 
 
@@ -1078,6 +1101,132 @@ def _kv_case(torch, hkv: int, dh: int) -> dict:
           f"{k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, index_copy_ "
           f"{l_ms * 1e3:.2f} us, bound {out['append_kv_']['bound_ms'] * 1e3:.4f} us")
     return out
+
+
+def _same_bits(torch, a, b) -> bool:
+    """Equal bit for bit (NaN payloads and the sign of zero included)."""
+    ints = {2: torch.int16, 4: torch.int32}
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(ints[a.element_size()]),
+                            b.contiguous().view(ints[b.element_size()])))
+
+
+def _rope_case(torch, arch: str, B: int, S: int, timed: bool = True, H=None, hkv=None,
+               dh=None, dtype=None, layout: str = "contiguous") -> dict | None:
+    """``rope_append_kv_`` (S = 1) or ``rope_write_prompt_pages_`` against its
+    plain version on the card (torch's rotation on the same tables, then the
+    plain write): q, the prefill's k and the pools outside page 0 bitwise,
+    and the same as the chain of the paged calls before the fusion (the
+    positions, ``rope`` of q and of k, then the write alone).  ``layout``
+    "strided" takes q, k, v as views of one (B, S, H + 2 Hkv, dh) projection,
+    "offset" as rows one element past a 16-byte boundary.  Timed: kernel,
+    plain version and chain, with the byte bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.serving import kv_cache as KV
+
+    cfg = get_config(arch)
+    H, hkv, dh = H or cfg.n_heads, hkv or cfg.n_kv_heads, dh or cfg.resolved_head_dim
+    dt = dtype or torch.bfloat16
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2 + S)
+    decode = S == 1
+    # decode: 4 slots, the last inactive (all-sentinel row, kv_len 0), one
+    # append at a page boundary; prefill: S / 16 pages a request.  Tables
+    # fragmented by LIFO reuse.
+    check(not decode or B == 4, "the decode case has 4 slots")
+    n_cols = 4 if decode else S // PS
+    P = (B + 1) * n_cols + 1
+    rows = _fragmented_table(3, 3, P) if decode else _fragmented_table(max(B, 2), n_cols, P)
+    tab = torch.zeros((B, n_cols), dtype=torch.int32)
+    for b in range(B - 1 if decode else B):
+        tab[b, :len(rows[b])] = torch.tensor(rows[b])
+    tab = tab.to(dev)
+    kv_len = torch.tensor([PS + 3, 2 * PS, PS - 1, 0], dtype=torch.int32, device=dev)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(dt)
+
+    if layout == "strided":
+        qkv = rnd(B, S, H + 2 * hkv, dh)
+        q, k, v = qkv[:, :, :H], qkv[:, :, H:H + hkv], qkv[:, :, H + hkv:]
+    elif layout == "offset":
+        q, k, v = (rnd(B * S * n * dh + 1)[1:].view(B, S, n, dh) for n in (H, hkv, hkv))
+    else:
+        q, k, v = rnd(B, S, H, dh), rnd(B, S, hkv, dh), rnd(B, S, hkv, dh)
+    base_k, base_v = rnd(hkv, P, PS, dh), rnd(hkv, P, PS, dh)
+    positions = (kv_len[:, None] if decode
+                 else torch.arange(S, device=dev)[None, :].expand(B, S))
+    cos, sin = L.rope_tables(positions, dh, cfg.rope_theta)
+    ka, va, kb, vb = base_k.clone(), base_v.clone(), base_k.clone(), base_v.clone()
+    what = (f"rope_{'append_kv_' if decode else 'write_prompt_pages_'} B={B} S={S} H={H} "
+            f"Hkv={hkv} dh={dh} {str(dt).split('.')[-1]} {layout}")
+    if decode:
+        def kernel(i):
+            return (KV.rope_append_kv_(q, k, v, ka, va, tab, kv_len, cos, sin),)
+
+        def plain(i):
+            return (KV.rope_append_kv_plain(q, k, v, kb, vb, tab, kv_len, cos, sin),)
+
+        def chain(i):  # the paged decode before the fusion: positions, rope, rope, append
+            pos = (kv_len[:, None] + torch.arange(1, device=dev)[None, :]).expand(B, 1)
+            qr, kr = L.rope(q, pos, cfg.rope_theta), L.rope(k, pos, cfg.rope_theta)
+            KV.append_kv_(kb, vb, kr, v, tab, kv_len)
+            return (qr,)
+        counter = KV.rope_append_kv_
+    else:
+        def kernel(i):
+            return KV.rope_write_prompt_pages_(q, k, v, ka, va, tab, cos, sin)
+
+        def plain(i):
+            return KV.rope_write_prompt_pages_plain(q, k, v, kb, vb, tab, cos, sin)
+
+        def chain(i):  # the paged prefill before the fusion
+            pos = (torch.arange(S, device=dev)[None, :] + 0).expand(B, S)
+            qr, kr = L.rope(q, pos, cfg.rope_theta), L.rope(k, pos, cfg.rope_theta)
+            KV.write_prompt_pages_(kb, vb, kr, v, tab)
+            return qr, kr
+        counter = KV.rope_write_prompt_pages_
+    n0 = counter.launches
+    got = kernel(0)
+    check(counter.launches == n0 + 1, f"{what}: not launched")
+    want = plain(0)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("q", "k")):
+        check(g.shape == w.shape and g.is_contiguous(), f"{what}: rotated {name} layout")
+        check(_same_bits(torch, g, w), f"{what}: rotated {name} differs from the plain version")
+    check(_same_bits(torch, ka[:, 1:], kb[:, 1:]) and _same_bits(torch, va[:, 1:], vb[:, 1:]),
+          f"{what}: pools differ from the plain version outside page 0")
+    check(not torch.equal(ka[:, 1:], base_k[:, 1:]), f"{what}: wrote nothing")
+    if decode:
+        changed = (ka != base_k).any(dim=3).any(dim=0)[1:]
+        check(int(changed.sum()) == B - 1, f"{what}: changed {int(changed.sum())} rows, "
+                                           f"want {B - 1}")
+    kb.copy_(base_k), vb.copy_(base_v)
+    for g, w in zip(chain(0), got):
+        check(_same_bits(torch, g, w), f"{what}: differs from the chain it replaced")
+    check(_same_bits(torch, ka[:, 1:], kb[:, 1:]) and _same_bits(torch, va[:, 1:], vb[:, 1:]),
+          f"{what}: pools differ from the chain it replaced outside page 0")
+    if not timed:
+        print(f"[smoke] {what}: bitwise the plain version and the chain")
+        return None
+    k_ms = time_ms(torch, kernel)
+    p_ms = time_ms(torch, plain)
+    c_ms = time_ms(torch, chain)
+    esize = q.element_size()
+    n_tok = B * S
+    nbytes = (n_tok * (H + 2 * hkv) * dh * esize            # q, k, v read
+              + n_tok * (H + (0 if decode else hkv)) * dh * esize  # rotated q (and k) written
+              + n_tok * 2 * hkv * dh * esize                # pool rows written
+              + 2 * n_tok * (dh // 2) * 4                   # cos, sin read
+              + tab.numel() * 4 + (B * 4 if decode else 0))
+    row = {"ms": k_ms, "plain_ms": p_ms, "library_ms": None, "max_abs_err": 0.0,
+           "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes", "chain_ms": c_ms,
+           "shape": f"B={B} S={S} H={H} Hkv={hkv} dh={dh} bf16"}
+    print(f"[smoke] {what}: bitwise the plain version and the chain, kernel "
+          f"{k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, chain it replaced "
+          f"{c_ms * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.4f} us (bytes)")
+    return row
 
 
 def _exp_table(torch):
@@ -1575,7 +1724,12 @@ def _counters() -> dict:
     """Each kernel's launch counter: (wrapper, attribute).  The backward
     kernels count on their forward's wrapper."""
     from repro_torch.kernels import fused, ops
-    from repro_torch.serving.kv_cache import append_kv_, write_prompt_pages_
+    from repro_torch.serving.kv_cache import (
+        append_kv_,
+        rope_append_kv_,
+        rope_write_prompt_pages_,
+        write_prompt_pages_,
+    )
 
     return {"fused_glu": (fused.fused_glu, "launches"),
             "fused_linear": (fused.fused_linear, "launches"),
@@ -1584,6 +1738,8 @@ def _counters() -> dict:
             "fused_moe_glu": (fused.fused_moe_glu, "launches"),
             "write_prompt_pages_": (write_prompt_pages_, "launches"),
             "append_kv_": (append_kv_, "launches"),
+            "rope_write_prompt_pages_": (rope_write_prompt_pages_, "launches"),
+            "rope_append_kv_": (rope_append_kv_, "launches"),
             "fused_pwl_softmax": (fused.fused_pwl_softmax, "launches"),
             "paged_flash_decode": (fused.paged_flash_decode, "launches"),
             "fused_flash_attention": (fused.fused_flash_attention, "launches"),
@@ -1605,6 +1761,8 @@ def read_counters() -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
 
 
+PAGE_WRITES = ("write_prompt_pages_", "append_kv_", "rope_write_prompt_pages_",
+               "rope_append_kv_")
 FULL_WIDTH = {  # arch: (d_model, layers, experts) of its published config
     "repro-100m": (768, N_LAYERS, 0),
     "olmoe-1b-7b": (MOE_K, MOE_LAYERS, MOE_E),
@@ -1641,8 +1799,7 @@ def serve_phase(torch, argv: list[str], attention, ffn: str | None = None) -> di
         for row in summary["results"]:
             check(len(row) == args.max_new, f"dense row of {len(row)} tokens")
         pf, ds = 1, args.max_new
-        check(counts["write_prompt_pages_"] == 0 and counts["append_kv_"] == 0,
-              "the dense loop wrote pages")
+        check(all(counts[n] == 0 for n in PAGE_WRITES), "the dense loop wrote pages")
     else:
         eng = summary["engine"]
         for r in summary["results"]:
@@ -1650,10 +1807,14 @@ def serve_phase(torch, argv: list[str], attention, ffn: str | None = None) -> di
                   f"{r.request_id}: {len(r.tokens)} tokens ({r.finish_reason})")
         check(eng.health_summary()["nonfinite_logits"] == 0, "non-finite logits")
         pf, ds = summary["prefills"], summary["decode_steps"]
-        check(counts["write_prompt_pages_"] == L * pf,
-              f"write_prompt_pages_ launches {counts['write_prompt_pages_']} != {L} x {pf}")
-        check(counts["append_kv_"] == L * ds,
-              f"append_kv_ launches {counts['append_kv_']} != {L} x {ds}")
+        # every layer of every call rotates q and k in its page write
+        check(counts["rope_write_prompt_pages_"] == L * pf,
+              f"rope_write_prompt_pages_ launches {counts['rope_write_prompt_pages_']} != "
+              f"{L} x {pf}")
+        check(counts["rope_append_kv_"] == L * ds,
+              f"rope_append_kv_ launches {counts['rope_append_kv_']} != {L} x {ds}")
+        check(counts["write_prompt_pages_"] == 0 and counts["append_kv_"] == 0,
+              "a paged session ran a page write without the rotation")
     ffn = ffn or ("fused_moe_glu" if cfg.n_experts else "fused_glu")
     check(counts[ffn] == L * (pf + ds), f"{ffn} launches {counts[ffn]} != {L} x ({pf} + {ds})")
     for other in ("fused_glu", "fused_moe_glu", "fused_linear", "pwl_activation",
@@ -3742,7 +3903,7 @@ def main() -> int:
         reference_phase(torch)
         # the launches of each kernel on the path that runs it
         path_counts = {name: main_counts[name]
-                       for name in ("fused_glu", "write_prompt_pages_", "append_kv_")}
+                       for name in ("fused_glu", "rope_write_prompt_pages_", "rope_append_kv_")}
         path_counts["fused_moe_glu"] = moe_counts["fused_moe_glu"]
         path_counts["fused_moe_glu_bwd"] = moe_trained["fused_moe_glu_bwd"]
         path_counts["fused_pwl_softmax"] = short["fused_pwl_softmax"]
@@ -3786,15 +3947,38 @@ def main() -> int:
                   f"olmoe default session's decode calls: {live_mean:.2f} of {MOE_E} non-empty "
                   f"on average); launches: that session's MoE GLU calls at C = 1",
          "launches": census["calls"], **next(iter(moe_skip.values()))},
+        *({"name": f"rope_write_prompt_pages_{tag}", "route": "cuda",
+           "source": "src/repro_torch/csrc/kv_cache.cu",
+           "replaces": "src/repro/serving/kv_cache.py:129",
+           "launches": n, **kv[f"rope_write_prompt_pages_{tag}"],
+           "shape": kv[f"rope_write_prompt_pages_{tag}"]["shape"] + note}
+          for tag, n, note in (
+              ("", path_counts["rope_write_prompt_pages_"],
+               " (prefill; rotates q and k, writes K/V)"),
+              ("[olmoe]", moe_counts["rope_write_prompt_pages_"],
+               " (olmoe-1b-7b prefill); launches: the olmoe default session"),
+              ("[2x4096]", long["rope_write_prompt_pages_"],
+               " (largest prefill); launches: the 4096-token session"))),
+        *({"name": f"rope_append_kv_{tag}", "route": "cuda",
+           "source": "src/repro_torch/csrc/kv_cache.cu",
+           "replaces": "src/repro/serving/kv_cache.py:212",
+           "launches": n, **kv[f"rope_append_kv_{tag}"],
+           "shape": kv[f"rope_append_kv_{tag}"]["shape"] + note}
+          for tag, n, note in (
+              ("", path_counts["rope_append_kv_"], " (decode step; rotates q and k)"),
+              ("[olmoe]", moe_counts["rope_append_kv_"],
+               " (olmoe-1b-7b decode step); launches: the olmoe default session"))),
         {"name": "write_prompt_pages_", "route": "cuda",
          "source": "src/repro_torch/csrc/kv_cache.cu",
          "replaces": "src/repro/serving/kv_cache.py:129",
-         "shape": f"B=1 S=32 Hkv={HKV} dh={DH} bf16",
-         "launches": path_counts["write_prompt_pages_"], **kv["write_prompt_pages_"]},
+         "shape": f"B=1 S=32 Hkv={HKV} dh={DH} bf16, the write alone (on no model path: the "
+                  "paged calls rotate in rope_write_prompt_pages_)",
+         "launches": main_counts["write_prompt_pages_"], **kv["write_prompt_pages_"]},
         {"name": "append_kv_", "route": "cuda", "source": "src/repro_torch/csrc/kv_cache.cu",
          "replaces": "src/repro/serving/kv_cache.py:212",
-         "shape": f"B=4 Hkv={HKV} dh={DH} bf16",
-         "launches": path_counts["append_kv_"], **kv["append_kv_"]},
+         "shape": f"B=4 Hkv={HKV} dh={DH} bf16, the write alone (on no model path: the paged "
+                  "calls rotate in rope_append_kv_)",
+         "launches": main_counts["append_kv_"], **kv["append_kv_"]},
         {"name": "fused_pwl_softmax", "route": "cuda",
          "source": "src/repro_torch/csrc/softmax.cu",
          "replaces": "src/repro/kernels/fused/softmax.py:69",

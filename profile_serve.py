@@ -16,7 +16,7 @@ engine's session alone, not the weights' random init before it, and prints:
 * the top operators by host (self CPU) time and by device time;
 * the port's own kernels by name (the dense GLU's and the MoE experts'
   alike: ``glu_tc_kernel`` in bf16, ``glu_pwl_kernel`` in f32;
-  ``prompt_write_kernel``, ``append_kernel``, and
+  ``page_write_kernel`` (the page writes, which rotate q and k), and
   under a plan with the softmax site fused ``softmax_narrow_kernel`` and
   ``softmax_wide_kernel`` (rows up to 1024 wide, and wider), the paged
   decode's ``split_kernel``, ``page_scores_kernel``, ``page_pv_kernel``,
@@ -94,7 +94,7 @@ def main(argv=None) -> int:
         print(f"[profile]   {e.key[:60]} | {e.count} | {d / 1e3:.3f} | "
               f"{d / max(e.count, 1):.2f}")
     print("[profile] serving-path kernels: name | calls | mean device us")
-    for frag in ("glu_pwl_kernel", "glu_tc_kernel", "prompt_write_kernel", "append_kernel",
+    for frag in ("glu_pwl_kernel", "glu_tc_kernel", "page_write_kernel",
                  "softmax_narrow_kernel", "softmax_wide_kernel",
                  "split_kernel", "page_scores_kernel", "page_pv_kernel", "recurrence_kernel",
                  "merge_kernel", "flash_kernel"):

@@ -58,20 +58,33 @@ def apply_norm(cfg: ModelConfig, params, x):
     raise NotImplementedError(f"norm_type {cfg.norm_type!r} is not ported yet")
 
 
-def rope(x, positions, theta: float):
-    """x: (..., S, H, dh), positions: broadcastable to (..., S)."""
-    dh = x.shape[-1]
-    half = dh // 2
+def rope_tables(positions, head_dim: int, theta: float):
+    """(cos, sin) of the rotary angles, f32 (..., S, head_dim // 2), for
+    positions (..., S).  A paged model call computes them once for all its
+    layers."""
+    half = head_dim // 2
     freqs = torch.exp(
         -math.log(theta)
-        * torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+        * torch.arange(0, half, dtype=torch.float32, device=positions.device) / half)
     angles = positions[..., None].to(torch.float32) * freqs  # (..., S, half)
-    sin = torch.sin(angles)[..., None, :]
-    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)
+    cos = torch.cos(angles)
+    return cos, sin
+
+
+def apply_rope(x, cos, sin):
+    """x: (..., S, H, dh) rotated by :func:`rope_tables`' (..., S, dh // 2)."""
+    half = x.shape[-1] // 2
+    cos, sin = cos[..., None, :], sin[..., None, :]
     x1, x2 = x[..., :half], x[..., half:]
     y1 = x1 * cos - x2 * sin
     y2 = x2 * cos + x1 * sin
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def rope(x, positions, theta: float):
+    """x: (..., S, H, dh), positions: broadcastable to (..., S)."""
+    return apply_rope(x, *rope_tables(positions, x.shape[-1], theta))
 
 
 def sinusoidal_positions(seq_len: int, d_model: int, device=None):
@@ -351,7 +364,10 @@ def attention_layer(cfg: ModelConfig, params, x, *, cache=None, cache_pos=None,
     Hkv, dh) or a paged {k_pages, v_pages} layer pool (Hkv, P, ps, dh); both
     are written in place.  ``cache_pos`` is the write offset: an int, or (B,)
     per-request depths (continuous batching).  ``paged`` holds the shared
-    ``page_table`` (and ``kv_len`` when decoding).  ``cross_kv`` = (k, v)
+    ``page_table`` (and ``kv_len`` when decoding), and may hold the call's
+    ``rope`` = :func:`rope_tables` at its positions: then the page write
+    rotates q and k in the same launch (``rope_write_prompt_pages_``,
+    ``rope_append_kv_``).  ``cross_kv`` = (k, v)
     attends x's queries to given keys and values, unmasked and with no cache
     write (the encoder-decoder's cross-attention, and its encoder's
     bidirectional self-attention); ``use_rope=False`` leaves positions out."""
@@ -368,7 +384,8 @@ def attention_layer(cfg: ModelConfig, params, x, *, cache=None, cache_pos=None,
         k, v = cross_kv
 
     off = 0 if cache_pos is None else cache_pos
-    if use_rope and cross_kv is None:
+    paged_rope = cache is not None and "k_pages" in cache and "rope" in paged
+    if use_rope and cross_kv is None and not paged_rope:
         ar = torch.arange(S, device=x.device)
         if torch.is_tensor(off) and off.dim() == 1:  # per-request depths (serving)
             positions = off[:, None] + ar[None, :]
@@ -379,17 +396,25 @@ def attention_layer(cfg: ModelConfig, params, x, *, cache=None, cache_pos=None,
         k = rope(k, positions, cfg.rope_theta)
 
     if cache is not None and "k_pages" in cache:
+        pools = (cache["k_pages"], cache["v_pages"])
         page_table = paged["page_table"]
         if S == 1:
-            # decode: append at kv_len, then attend the kv_len+1 prefix
+            # decode: append at kv_len (rotating q and k with the call's
+            # tables), then attend the kv_len+1 prefix
             kv_len = paged["kv_len"]
-            _pg.append_kv_(cache["k_pages"], cache["v_pages"], k, v, page_table, kv_len)
-            y = paged_decode_attention(q, cache["k_pages"], cache["v_pages"],
-                                       page_table, kv_len + 1, exp_fn,
+            if paged_rope:
+                q = _pg.rope_append_kv_(q, k, v, *pools, page_table, kv_len, *paged["rope"])
+            else:
+                _pg.append_kv_(*pools, k, v, page_table, kv_len)
+            y = paged_decode_attention(q, *pools, page_table, kv_len + 1, exp_fn,
                                        softmax_table=softmax_table)
         else:
             # prefill: write the prompt's pages, attend causally in flight
-            _pg.write_prompt_pages_(cache["k_pages"], cache["v_pages"], k, v, page_table)
+            if paged_rope:
+                q, k = _pg.rope_write_prompt_pages_(q, k, v, *pools, page_table,
+                                                    *paged["rope"])
+            else:
+                _pg.write_prompt_pages_(*pools, k, v, page_table)
             y = _attn_softmax_dispatch(q, k, v, causal=True, exp_fn=exp_fn,
                                        table=softmax_table)
     elif cache is not None and cross_kv is None:

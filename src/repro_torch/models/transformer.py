@@ -298,8 +298,10 @@ def prefill_paged(cfg: ModelConfig, params, tokens, cache, page_table, lengths):
     with S a multiple of the page size; rows past ``lengths`` are pads.
     Returns the logits at position lengths-1, (B, 1, V)."""
     h = embed_tokens(cfg, params, tokens)
+    B, S = tokens.shape
+    positions = torch.arange(S, device=h.device)[None, :].expand(B, S)
     h, _ = _run_layers(cfg, params, h, cache=cache, pos=0,
-                       paged={"page_table": page_table})
+                       paged={"page_table": page_table, "rope": _rope(cfg, positions)})
     logits = unembed(cfg, params, L.apply_norm(cfg, params["final_norm"], h))
     idx = torch.clamp(lengths.long() - 1, 0, logits.shape[1] - 1)
     return logits[torch.arange(logits.shape[0], device=logits.device), idx][:, None]
@@ -310,5 +312,12 @@ def decode_step_paged(cfg: ModelConfig, params, tokens, cache, page_table, kv_le
     per-request depths (the new token's position).  Returns (B, 1, V)."""
     h = embed_tokens(cfg, params, tokens)
     h, _ = _run_layers(cfg, params, h, cache=cache, pos=kv_len,
-                       paged={"page_table": page_table, "kv_len": kv_len})
+                       paged={"page_table": page_table, "kv_len": kv_len,
+                              "rope": _rope(cfg, kv_len[:, None])})
     return unembed(cfg, params, L.apply_norm(cfg, params["final_norm"], h))
+
+
+def _rope(cfg: ModelConfig, positions):
+    """The rotary tables of a paged call's (B, S) positions, once for all
+    its layers, which rotate q and k in their page writes."""
+    return L.rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)

@@ -9,20 +9,27 @@ tensor.  **Page 0 is the sentinel**: unallocated table entries are 0, so
 inactive batch slots and prompt pad positions write into a page that is
 never handed out and never read as valid.
 
-The two writes update the pools **in place** (the JAX package aliases its
+The writes update the pools **in place** (the JAX package aliases its
 outputs to its inputs with ``input_output_aliases``; here the tensors passed
-in are modified and nothing is returned):
+in are modified):
 
 * :func:`write_prompt_pages_` — prefill: (B, S, Hkv, dh) K/V into the pages
   the table names.  Replaces ``repro/serving/kv_cache.py:_prompt_write_kernel``.
 * :func:`append_kv_` — decode: one token per request into row
   ``kv_len % ps`` of page ``page_table[b, kv_len // ps]``.  Replaces
   ``repro/serving/kv_cache.py:_append_kernel``.
+* :func:`rope_write_prompt_pages_` and :func:`rope_append_kv_` — the same
+  writes of the rotated K and the plain V, which also rotate q (and return
+  it, with the prefill's rotated K): the paged model calls' path, one launch
+  a layer where the rotation was 32 launches before the write.  Each is
+  ``models/layers.py apply_rope`` on the ``rope_tables`` the model call
+  computed once, then the write.
 
-Both CUDA kernels (``csrc/kv_cache.cu``) are bound by launch latency on an
-H100 (a 32-token prefill moves ~98 KB per layer, a decode step ~12 KB per
-layer), so each is one launch for K and V together that reads the page index
-on the device.  A CPU tensor takes the plain version (index assignment); a
+All of them launch one CUDA kernel (``csrc/kv_cache.cu``, one template) that
+reads the page index on the device.  A decode step's or a short prefill's
+write is bound by launch latency on an H100 (~38 KB a layer at a
+repro-100m decode step with the rotation), a 2 x 4096 prefill by bytes
+(~90 MB), so the kernel moves 16-byte vectors.  A CPU tensor takes the plain version (index assignment); a
 CUDA tensor launches the kernel or raises.
 
 A write target outside the pools (a page id outside ``[0, P)``, or an
@@ -44,11 +51,17 @@ from .resilience import PagePoolExhausted
 
 SENTINEL_PAGE = 0
 
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
-    "kv_write_prompt": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "kv_write_prompt": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     "kv_append": [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
-    + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "kv_rope_write_prompt": [ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+    + [_STRIDES] + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    "kv_rope_append": [ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+    + [_STRIDES] + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 }
+_ROPE_FMT = {torch.bfloat16: 1, torch.float16: 2, torch.float32: 3}
 
 
 @dataclasses.dataclass
@@ -126,6 +139,16 @@ def _kernel_args(k_pages, v_pages, k_new, v_new, page_table):
     return kn, vn, pt
 
 
+def _vec(elem_size: int, span: int, tensors, strides) -> int:
+    """Elements a kernel work item moves: 16 bytes of them when every piece
+    of ``span`` elements' rows starts 16 bytes aligned (the tensors' data and
+    their row ``strides``, in elements), else 1."""
+    w = 16 // elem_size
+    if span % w or any(t.data_ptr() % 16 for t in tensors) or any(st % w for st in strides):
+        return 1
+    return w
+
+
 # ---------------------------------------------------------------------------
 # prompt write
 
@@ -163,10 +186,11 @@ def write_prompt_pages_(k_pages, v_pages, k_new, v_new, page_table) -> None:
     kn, vn, pt = _kernel_args(k_pages, v_pages, k_new, v_new, page_table)
     lib = _build.load("kv_cache", _SIGNATURES)
     dev = k_pages.device
+    vec = _vec(k_pages.element_size(), dh, [kn, vn, k_pages, v_pages], [])
     with torch.cuda.device(dev):
         err = lib.kv_write_prompt(
             kn.data_ptr(), vn.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            pt.data_ptr(), pt.shape[1], B, S, Hkv, dh, P, ps, k_pages.element_size(),
+            pt.data_ptr(), pt.shape[1], B, S, Hkv, dh, P, ps, k_pages.element_size(), vec,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "kv_write_prompt")
     write_prompt_pages_.launches += 1
@@ -213,16 +237,146 @@ def append_kv_(k_pages, v_pages, k_new, v_new, page_table, kv_len) -> None:
     lens = kv_len.to(torch.int32).contiguous()
     lib = _build.load("kv_cache", _SIGNATURES)
     dev = k_pages.device
+    vec = _vec(k_pages.element_size(), dh, [kn, vn, k_pages, v_pages], [])
     with torch.cuda.device(dev):
         err = lib.kv_append(
             kn.data_ptr(), vn.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             pt.data_ptr(), pt.shape[1], lens.data_ptr(), B, Hkv, dh, P, ps,
-            k_pages.element_size(), torch.cuda.current_stream(dev).cuda_stream)
+            k_pages.element_size(), vec, torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "kv_append")
     append_kv_.launches += 1
 
 
 append_kv_.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the writes with the rotation of q and k
+
+
+def _check_rope(q, k, v, k_pages, v_pages, page_table, cos, sin):
+    """Shapes and types of a rotating write; returns (B, S, H, Hkv, P, ps, dh)."""
+    Hkv, P, ps, dh = _check_pools(k_pages, v_pages, k, v, page_table)
+    B, S = k.shape[:2]
+    if q.dim() != 4 or q.shape[:2] != (B, S) or q.shape[3] != dh:
+        raise ValueError(f"q must be (B, S, H, dh) = ({B}, {S}, H, {dh}), got {tuple(q.shape)}")
+    if dh % 2:
+        raise ValueError(f"the rotation needs an even head dim, got {dh}")
+    if cos.shape != (B, S, dh // 2) or sin.shape != cos.shape:
+        raise ValueError(f"cos and sin must be ({B}, {S}, {dh // 2}), got "
+                         f"{tuple(cos.shape)} and {tuple(sin.shape)}")
+    if cos.dtype != torch.float32 or sin.dtype != torch.float32:
+        raise TypeError("cos and sin must be float32 (rope_tables)")
+    if not (q.dtype == k.dtype == v.dtype == k_pages.dtype) or k_pages.dtype not in _ROPE_FMT:
+        raise TypeError(f"q, k, v and the pools must share one of {list(_ROPE_FMT)}, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}, {k_pages.dtype}")
+    dev = k_pages.device
+    if any(t.device != dev for t in (v_pages, q, k, v, page_table, cos, sin)):
+        raise ValueError("all tensors must be on the pools' device")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"pools must be on cpu or cuda, got {dev}")
+    return B, S, q.shape[2], Hkv, P, ps, dh
+
+
+def _rope_launch(fn: str, q, k, v, k_pages, v_pages, page_table, cos, sin, outs, kv_len=None):
+    """Launch ``kv_rope_write_prompt`` or ``kv_rope_append``: q, k, v at
+    their own strides (the projections' outputs, read in place), the tables
+    at theirs, ``outs`` allocated by the caller."""
+    from repro_torch.kernels import _build
+
+    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
+        raise ValueError("pools must be contiguous (they are written in place)")
+    if any(t.stride(-1) != 1 for t in (q, k, v, cos, sin)) or cos.stride() != sin.stride():
+        raise ValueError("q, k, v, cos and sin need a contiguous last dim, cos and sin one "
+                         "stride")
+    B, S, H, dh = q.shape
+    Hkv, P, ps, _ = k_pages.shape
+    strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *cos.stride()[:2]]
+    vec = _vec(q.element_size(), dh // 2, [q, k, v, k_pages, v_pages, *outs], strides[:9])
+    if _vec(4, dh // 2, [cos, sin], strides[9:]) == 1:  # the tables' f32 pieces
+        vec = 1
+    pt = page_table.to(torch.int32).contiguous()
+    lib = _build.load("kv_cache", _SIGNATURES)
+    dev = k_pages.device
+    c_strides = (ctypes.c_longlong * len(strides))(*strides)
+    ptrs = [t.data_ptr() for t in (q, k, v, *outs, k_pages, v_pages, pt)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if kv_len is None:
+            err = lib.kv_rope_write_prompt(
+                *ptrs, pt.shape[1], cos.data_ptr(), sin.data_ptr(), c_strides, B, S, H, Hkv,
+                dh, P, ps, _ROPE_FMT[q.dtype], vec, stream)
+        else:
+            err = lib.kv_rope_append(
+                *ptrs, pt.shape[1], kv_len.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+                c_strides, B, H, Hkv, dh, P, ps, _ROPE_FMT[q.dtype], vec, stream)
+    _build.check(err, fn)
+
+
+def rope_write_prompt_pages_plain(q, k, v, k_pages, v_pages, page_table, cos, sin):
+    from repro_torch.models.layers import apply_rope
+
+    q_rot, k_rot = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    write_prompt_pages_plain(k_pages, v_pages, k_rot, v, page_table)
+    return q_rot, k_rot
+
+
+def rope_write_prompt_pages_(q, k, v, k_pages, v_pages, page_table, cos, sin):
+    """Rotate a prompt's q and k and write its K/V into the table's pages,
+    **in place**: :func:`write_prompt_pages_` of ``apply_rope(k, cos, sin)``
+    and ``v``.  q: (B, S, H, dh); k, v: (B, S, Hkv, dh); cos, sin: f32
+    (B, S, dh // 2) from ``rope_tables``; one dtype for q, k, v and the
+    pools.  Returns (rotated q, rotated k), which the in-flight attention
+    reads."""
+    B, S, H, Hkv, P, ps, dh = _check_rope(q, k, v, k_pages, v_pages, page_table, cos, sin)
+    if S % ps:
+        raise ValueError(f"prompt length {S} not a multiple of page_size {ps}")
+    if page_table.shape[1] < S // ps:
+        raise ValueError("page table too narrow for this prompt")
+    if k_pages.device.type == "cpu":
+        check_targets(page_table[:, :S // ps], P, ps)
+        return rope_write_prompt_pages_plain(q, k, v, k_pages, v_pages, page_table, cos, sin)
+    q_rot = torch.empty_like(q, memory_format=torch.contiguous_format)
+    k_rot = torch.empty_like(k, memory_format=torch.contiguous_format)
+    _rope_launch("kv_rope_write_prompt", q, k, v, k_pages, v_pages, page_table, cos, sin,
+                 (q_rot, k_rot))
+    rope_write_prompt_pages_.launches += 1
+    return q_rot, k_rot
+
+
+rope_write_prompt_pages_.launches = 0
+
+
+def rope_append_kv_plain(q, k, v, k_pages, v_pages, page_table, kv_len, cos, sin):
+    from repro_torch.models.layers import apply_rope
+
+    q_rot, k_rot = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    append_kv_plain(k_pages, v_pages, k_rot, v, page_table, kv_len)
+    return q_rot
+
+
+def rope_append_kv_(q, k, v, k_pages, v_pages, page_table, kv_len, cos, sin):
+    """Rotate one decode token's q and k per request and append its K/V,
+    **in place**: :func:`append_kv_` of ``apply_rope(k, cos, sin)`` and
+    ``v``.  q: (B, 1, H, dh); k, v: (B, 1, Hkv, dh); ``kv_len`` (B,), the
+    token's position; cos, sin: f32 (B, 1, dh // 2) from ``rope_tables`` at
+    ``kv_len``.  Returns the rotated q."""
+    B, S, H, Hkv, P, ps, dh = _check_rope(q, k, v, k_pages, v_pages, page_table, cos, sin)
+    if S != 1 or kv_len.shape != (B,):
+        raise ValueError("rope_append_kv_ takes one token per request and (B,) kv_len")
+    if kv_len.device != k_pages.device:
+        raise ValueError("kv_len must be on the pools' device")
+    if k_pages.device.type == "cpu":
+        check_targets(page_table, P, ps, kv_len)
+        return rope_append_kv_plain(q, k, v, k_pages, v_pages, page_table, kv_len, cos, sin)
+    q_rot = torch.empty_like(q, memory_format=torch.contiguous_format)
+    _rope_launch("kv_rope_append", q, k, v, k_pages, v_pages, page_table, cos, sin, (q_rot,),
+                 kv_len=kv_len.to(torch.int32).contiguous())
+    rope_append_kv_.launches += 1
+    return q_rot
+
+
+rope_append_kv_.launches = 0
 
 
 # ---------------------------------------------------------------------------

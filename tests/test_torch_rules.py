@@ -116,11 +116,17 @@ def test_kernel_wrappers_carry_launch_counters():
         paged_flash_decode,
     )
     from repro_torch.kernels.ops import pwl_activation, pwl_activation_uniform
-    from repro_torch.serving.kv_cache import append_kv_, write_prompt_pages_
+    from repro_torch.serving.kv_cache import (
+        append_kv_,
+        rope_append_kv_,
+        rope_write_prompt_pages_,
+        write_prompt_pages_,
+    )
 
-    for fn in (fused_glu, write_prompt_pages_, append_kv_, fused_pwl_softmax,
-               paged_flash_decode, fused_flash_attention, fused_moe_glu, fused_linear,
-               fused_rmsnorm, pwl_activation, pwl_activation_uniform):
+    for fn in (fused_glu, write_prompt_pages_, append_kv_, rope_write_prompt_pages_,
+               rope_append_kv_, fused_pwl_softmax, paged_flash_decode, fused_flash_attention,
+               fused_moe_glu, fused_linear, fused_rmsnorm, pwl_activation,
+               pwl_activation_uniform):
         assert isinstance(fn.launches, int)
     for fn in (fused_glu, fused_pwl_softmax, fused_flash_attention, fused_moe_glu,
                fused_linear, fused_rmsnorm):

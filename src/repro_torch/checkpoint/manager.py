@@ -9,6 +9,8 @@ state machine:
   * Self-describing: ``manifest.json`` lists every leaf's key path (dict
     keys as strings, list indices as ints), dtype and shape, in place of the
     JAX package's treedef proto; leaves are ``leaf_%05d.npy`` in that order.
+    Its ``empty`` lists the paths of subtrees with no leaves (olmo's
+    parameter-free norms), which a restore puts back.
   * The data iterator's state rides along in the manifest's ``extra``.
   * Retention: only the newest ``keep_last`` checkpoints are kept.
   * Preemption hook: :func:`install_sigterm_save` saves on SIGTERM.
@@ -64,6 +66,7 @@ class CheckpointManager:
             "leaves": [{"path": list(p), "dtype": str(t.dtype).removeprefix("torch."),
                         "shape": list(t.shape)} for p, t in flat],
             "n_leaves": len(flat),
+            "empty": [list(p) for p in tree.empty_paths(state)],
             "extra": extra or {},
             "time": time.time(),
         }
@@ -115,7 +118,8 @@ class CheckpointManager:
         dev = torch.device(device)
         leaves = [_from_numpy(np.load(path / f"leaf_{i:05d}.npy"), m["dtype"], dev)
                   for i, m in enumerate(metas)]
-        return tree.from_paths(paths, leaves), manifest["extra"]
+        empties = [tuple(p) for p in manifest.get("empty", [])]
+        return tree.from_paths(paths, leaves, empties), manifest["extra"]
 
 
 def install_sigterm_save(save_fn: Callable[[], None]):

@@ -8,7 +8,10 @@ prompts are admitted into fixed batch slots between decode steps, every
 layer's GLU runs the fused PWL kernel, K/V go into the paged pools through
 the in-place page-write kernels, and finished requests release their pages
 at once.  ``--mode dense`` is the reference loop over a dense per-request
-cache: one prefill, then one append + attend per token.
+cache: one prefill, then one append + attend per token.  A config whose
+layers have no paged layout (gemma3's sliding-window rings) makes the
+paged cache raise ``UnsupportedCacheError``; the launcher then says so on
+stderr and runs the dense loop, as the JAX launcher does.
 
 The device defaults to ``cuda``.  Without a GPU the launcher raises; it runs
 on the CPU (the kernels' plain versions) only with ``--device cpu``.
@@ -116,7 +119,8 @@ def run(args: argparse.Namespace, session=contextlib.nullcontext) -> dict:
     """One serving session as ``args`` describe it.  Returns a summary:
     ``results`` (paged: GenResults; dense: token rows), ``tokens``,
     ``seconds``, ``tok_per_s``, ``peak_bytes`` (the session's peak of
-    allocated device memory, weights included; None on the CPU), plus
+    allocated device memory, weights included; None on the CPU), ``mode``
+    (the mode that ran: ``dense`` after a fallback from paged), plus
     ``engine`` and ``prefills`` / ``decode_steps`` for the paged mode.
     ``session()`` is a context entered around the session alone, after the
     model's init (a profiler, say)."""
@@ -147,25 +151,17 @@ def run(args: argparse.Namespace, session=contextlib.nullcontext) -> dict:
           f"{args.max_new} new ({args.mode} mode)")
 
     if args.mode == "dense":
-        with session():
-            _start_session(device)
-            t0 = time.perf_counter()
-            toks = generate(model, params, torch.from_numpy(prompts).to(device), args.max_new)
-            rows = toks.cpu().tolist()
-            dt = time.perf_counter() - t0
-        peak = _session_peak(device)
-        n = len(rows) * args.max_new
-        print(f"[serve] generated {n} tokens in {dt:.3f}s ({n / dt:.1f} tok/s"
-              + (f", peak device memory {peak / 1e9:.2f} GB)" if peak is not None else ")"))
-        print("[serve] sample:", rows[0][:12])
-        return {"results": rows, "tokens": n, "seconds": dt, "tok_per_s": n / dt,
-                "peak_bytes": peak}
+        return _serve_dense(model, params, prompts, args, device, session)
 
-    from repro_torch.serving import GenRequest, PagedServingEngine
+    from repro_torch.serving import GenRequest, PagedServingEngine, UnsupportedCacheError
 
-    engine = PagedServingEngine(
-        model, params, max_slots=args.max_slots, page_size=args.page_size,
-        max_context=args.prompt_len + args.max_new + args.page_size, policy=args.policy)
+    try:
+        engine = PagedServingEngine(
+            model, params, max_slots=args.max_slots, page_size=args.page_size,
+            max_context=args.prompt_len + args.max_new + args.page_size, policy=args.policy)
+    except UnsupportedCacheError as e:
+        print(f"[serve] paged cache unsupported ({e}); running dense mode", file=sys.stderr)
+        return _serve_dense(model, params, prompts, args, device, session)
     requests = [GenRequest(request_id=f"req{i}", prompt=prompts[i].tolist(),
                            max_new_tokens=args.max_new, deadline_ticks=args.deadline_ticks)
                 for i in range(len(prompts))]
@@ -194,13 +190,30 @@ def run(args: argparse.Namespace, session=contextlib.nullcontext) -> dict:
     return {"results": results, "tokens": engine.generated, "seconds": dt,
             "tok_per_s": engine.generated / dt, "engine": engine,
             "prefills": engine.prefills, "decode_steps": engine.decode_steps,
-            "peak_bytes": peak}
+            "peak_bytes": peak, "mode": "paged"}
+
+
+def _serve_dense(model: Model, params, prompts: np.ndarray, args, device, session) -> dict:
+    """The dense reference loop over ``prompts`` (:func:`generate`)."""
+    with session():
+        _start_session(device)
+        t0 = time.perf_counter()
+        toks = generate(model, params, torch.from_numpy(prompts).to(device), args.max_new)
+        rows = toks.cpu().tolist()
+        dt = time.perf_counter() - t0
+    peak = _session_peak(device)
+    n = len(rows) * args.max_new
+    print(f"[serve] mode: dense; generated {n} tokens in {dt:.3f}s ({n / dt:.1f} tok/s"
+          + (f", peak device memory {peak / 1e9:.2f} GB)" if peak is not None else ")"))
+    print("[serve] sample:", rows[0][:12])
+    return {"results": rows, "tokens": n, "seconds": dt, "tok_per_s": n / dt,
+            "peak_bytes": peak, "mode": "dense"}
 
 
 def serve(argv=None) -> int:
     args = build_parser().parse_args(argv)
     summary = run(args)
-    if args.mode == "paged":
+    if summary["mode"] == "paged":
         health = summary["engine"].health_summary()
         if health["nonfinite_logits"]:
             print(f"[serve] {health['nonfinite_logits']} steps sampled non-finite "

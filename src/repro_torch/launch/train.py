@@ -104,7 +104,8 @@ def resolve_config(args: argparse.Namespace):
 def run(args: argparse.Namespace) -> dict:
     """One training run as ``args`` describe it.  Returns ``rc`` (the exit
     code), ``losses`` (this run's steps), ``step_seconds`` (host time per
-    step, each ended by reading the loss) and ``tokens_per_step``.
+    step, each ended by reading the loss), ``tokens_per_step`` and ``state``
+    (the AdamW state after the last step).
 
     A checkpoint is labelled with the number of steps done, and a resume
     starts at that step, so it redoes none (the JAX launcher labels its
@@ -180,7 +181,7 @@ def run(args: argparse.Namespace) -> dict:
                       flush=True)
                 emergency_save()
                 return {"rc": 17, "losses": losses, "step_seconds": step_seconds,
-                        "tokens_per_step": args.batch * args.seq}
+                        "tokens_per_step": args.batch * args.seq, "state": live["state"]}
         if ckpt:
             save(args.steps)
     finally:
@@ -191,7 +192,7 @@ def run(args: argparse.Namespace) -> dict:
               flush=True)
     rc = 0 if losses and losses[-1] < losses[0] else 2
     return {"rc": rc, "losses": losses, "step_seconds": step_seconds,
-            "tokens_per_step": args.batch * args.seq}
+            "tokens_per_step": args.batch * args.seq, "state": live["state"]}
 
 
 def train(argv=None) -> int:

@@ -59,6 +59,7 @@ class ModelConfig:
     is_encoder_decoder: bool = False
     n_encoder_layers: int = 0
     encoder_seq: int = 1500           # stub frame-embedding length
+    n_vision_tokens: int = 0          # stub patch-embedding prefix length
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True                # recompute each layer in the backward
     tie_embeddings: bool = False
@@ -108,6 +109,12 @@ class ModelConfig:
         return len(kinds)
 
 
+# The largest leaf drawn whole: olmoe-1b-7b's stacked expert matrices, 2^31
+# elements.  The draw of every leaf up to it is the one its weights were
+# first made with; a larger leaf is drawn a slice at a time.
+DRAW_WHOLE_MAX = 1 << 31
+
+
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: tuple[int, ...]
@@ -115,7 +122,13 @@ class ParamDef:
     matrix: bool = True       # held in cfg.dtype (else f32)
 
     def materialize(self, gen: torch.Generator, device, dtype) -> torch.Tensor:
-        """The parameter in ``dtype`` if it is a matrix, else in f32."""
+        """The parameter in ``dtype`` if it is a matrix, else in f32.
+
+        A leaf of at most ``DRAW_WHOLE_MAX`` elements is drawn whole in f32
+        and scaled in place; a larger one (qwen2.5-32b's stacked FFN
+        matrices, 9.06e9 elements) one slice of its first axis at a time
+        into the tensor it returns, so the f32 draw never holds more than a
+        slice (a whole draw, and its scaled copy, would be 36 GB each)."""
         dt = dtype if self.matrix else torch.float32
         if self.init == "zeros":
             return torch.zeros(self.shape, dtype=dt, device=device)
@@ -125,8 +138,14 @@ class ParamDef:
         # vector), with a stacked layer axis in front
         fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[0]
         scale = 0.02 if self.init == "small_normal" else 1.0 / math.sqrt(fan_in)
-        w = torch.randn(self.shape, generator=gen, device=device, dtype=torch.float32)
-        return (w * scale).to(dt)
+        if math.prod(self.shape) <= DRAW_WHOLE_MAX:
+            w = torch.randn(self.shape, generator=gen, device=device, dtype=torch.float32)
+            return w.mul_(scale).to(dt)
+        out = torch.empty(self.shape, dtype=dt, device=device)
+        for i in range(self.shape[0]):
+            w = torch.randn(self.shape[1:], generator=gen, device=device, dtype=torch.float32)
+            out[i] = w.mul_(scale)
+        return out
 
 
 def _map_defs(fn, defs):

@@ -1,5 +1,6 @@
-"""Model layers (torch): RMSNorm, LayerNorm, RoPE, sinusoidal positions,
-attention (self and cross), GLU and plain MLPs.
+"""Model layers (torch): RMSNorm, LayerNorm (with or without parameters),
+RoPE, sinusoidal positions, attention (self, sliding-window and cross),
+GLU and plain MLPs.
 
 The subset of ``repro/models/layers.py`` that the dense decoders and the
 encoder-decoder run.  Every nonlinearity resolves through the compiled
@@ -50,12 +51,22 @@ def layer_norm(x, scale, bias, eps=1e-5):
     return (y * scale + bias).to(x.dtype)
 
 
+def nonparam_ln(x, eps=1e-5):
+    """OLMo's non-parametric LayerNorm (no scale, no bias)."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
 def apply_norm(cfg: ModelConfig, params, x):
     if cfg.norm_type == "rmsnorm":
         return rms_norm(x, params["scale"])
     if cfg.norm_type == "layernorm":
         return layer_norm(x, params["scale"], params["bias"])
-    raise NotImplementedError(f"norm_type {cfg.norm_type!r} is not ported yet")
+    if cfg.norm_type == "nonparam_ln":
+        return nonparam_ln(x)
+    raise ValueError(f"norm_type {cfg.norm_type!r}")
 
 
 def rope_tables(positions, head_dim: int, theta: float):
@@ -169,17 +180,22 @@ def _chunk_attn_block(q, k, v, mask, exp_fn, m_prev, l_prev, acc_prev, scale):
     return m_new, l_new, acc_new
 
 
-def flash_attention(q, k, v, *, causal: bool = True, exp_fn: Callable = torch.exp,
-                    q_chunk: int = 256, kv_chunk: int = 2048, kv_valid_len=None):
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    exp_fn: Callable = torch.exp, q_chunk: int = 256, kv_chunk: int = 2048,
+                    kv_valid_len=None):
     """Chunked online-softmax attention in f32, the JAX package's chunking.
 
     q: (B, S, H, dh); k/v: (B, T, Hkv, dh); ``kv_valid_len``: None or (B,)
-    valid key prefix per row.  Causal self-attention with S == T takes one
-    block per q chunk over its causal prefix (q chunks sized so there are at
-    most 16); everything else walks ``kv_chunk``-key blocks with ``exp_fn``
-    applied to the running-max correction at each block boundary, which
-    changes the numbers under a PWL exp.  GQA folds heads as (Hkv major, G
-    minor).  Returns (B, S, H, dh) in q's dtype."""
+    valid key prefix per row.  A sliding ``window`` narrower than T takes
+    one block per q chunk over the band of keys it can reach, ``[clip(q0 -
+    window + 1, 0, T - band), +band)`` with ``band = min(window + q_chunk,
+    T)``, masked causally and to ``qpos - kpos < window``.  Otherwise causal
+    self-attention with S == T takes one block per q chunk over its causal
+    prefix (q chunks sized so there are at most 16); everything else walks
+    ``kv_chunk``-key blocks with ``exp_fn`` applied to the running-max
+    correction at each block boundary, which changes the numbers under a
+    PWL exp.  GQA folds heads as (Hkv major, G minor).  Returns (B, S, H,
+    dh) in q's dtype."""
     B, S, H, dh = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -192,6 +208,8 @@ def flash_attention(q, k, v, *, causal: bool = True, exp_fn: Callable = torch.ex
     kv_chunk = min(kv_chunk, T)
     n_q = -(-S // q_chunk)
     unroll = self_causal and n_q <= 16 and S % q_chunk == 0
+    banded = window is not None and window < T
+    band = min(window + q_chunk, T) if banded else 0
     kf = k.to(torch.float32).permute(0, 2, 1, 3)  # (B, Hkv, T, dh)
     vf = v.to(torch.float32).permute(0, 2, 1, 3)
     outs = []
@@ -200,9 +218,13 @@ def flash_attention(q, k, v, *, causal: bool = True, exp_fn: Callable = torch.ex
         Sc = qc.shape[1]
         qc = qc.reshape(B, Sc, Hkv, G, dh).permute(0, 3, 2, 1, 4)  # (B, G, Hkv, Sc, dh)
         qpos = s0 + torch.arange(Sc, device=dev)
-        # the causal unroll: one block over the chunk's causal prefix
-        blocks = [(0, s0 + q_chunk)] if unroll else [
-            (j0, min(j0 + kv_chunk, T)) for j0 in range(0, T, kv_chunk)]
+        if banded:  # one block over the band of keys the chunk reaches
+            b0 = min(max(s0 - window + 1, 0), T - band)
+            blocks = [(b0, b0 + band)]
+        elif unroll:  # the causal unroll: one block over the chunk's causal prefix
+            blocks = [(0, s0 + q_chunk)]
+        else:
+            blocks = [(j0, min(j0 + kv_chunk, T)) for j0 in range(0, T, kv_chunk)]
         m = torch.full((B, G, Hkv, Sc), -1e30, device=dev)
         l = torch.zeros((B, G, Hkv, Sc), device=dev)
         acc = torch.zeros((B, G, Hkv, Sc, dh), device=dev)
@@ -211,6 +233,8 @@ def flash_attention(q, k, v, *, causal: bool = True, exp_fn: Callable = torch.ex
             mask = torch.ones((Sc, j1 - j0), dtype=torch.bool, device=dev)
             if causal:
                 mask = kpos[None, :] <= qpos[:, None]
+            if banded:
+                mask = mask & ((qpos[:, None] - kpos[None, :]) < window)
             if kv_valid_len is not None:
                 mask = mask[None] & (kpos[None, None, :] < kv_valid_len[:, None, None])
                 mask = mask[:, None, None]
@@ -223,13 +247,13 @@ def flash_attention(q, k, v, *, causal: bool = True, exp_fn: Callable = torch.ex
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
-def dense_pwl_attention(q, k, v, *, table, causal: bool = True):
+def dense_pwl_attention(q, k, v, *, table, causal: bool = True, window=None):
     """Dense attention with the fused PWL-exp softmax kernel (Sec. V-B).
 
     q: (B, S, H, dh); k/v: (B, T, Hkv, dh).  The scores and the product with
     V are ``torch.einsum`` (the JAX package leaves them to XLA); the softmax
-    runs as one kernel over the score rows, with the causal mask made inside
-    it from positions."""
+    runs as one kernel over the score rows, with the causal and window masks
+    made inside it from positions."""
     B, S, H, dh = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -238,24 +262,25 @@ def dense_pwl_attention(q, k, v, *, table, causal: bool = True):
     kf = k.to(torch.float32).permute(0, 2, 1, 3)  # (B, Hkv, T, dh)
     vf = v.to(torch.float32).permute(0, 2, 1, 3)
     s = torch.einsum("bghqd,bhkd->bghqk", qf, kf) * scale
-    p = fused.fused_pwl_softmax(s, table=table, causal=causal)
+    p = fused.fused_pwl_softmax(s, table=table, causal=causal, window=window)
     out = torch.einsum("bghqk,bhkd->bghqd", p, vf)
     return out.permute(0, 3, 2, 1, 4).reshape(B, S, H, dh).to(q.dtype)
 
 
-def _attn_softmax_dispatch(q, k, v, *, causal: bool, exp_fn: Callable, table):
+def _attn_softmax_dispatch(q, k, v, *, causal: bool, exp_fn: Callable, table, window=None):
     """Attention for prefill and training.  With a fused softmax ``table`` it
     always runs fused: the dense PWL-exp softmax kernel while the scores fit
-    its caps, the fused flash kernel past them (long-context prefill and
-    training; both take gradients, each the JAX package's).  Otherwise
-    :func:`flash_attention` with the (possibly PWL) elementwise ``exp_fn``."""
+    its caps and any ``window`` covers half the keys, the fused flash kernel
+    otherwise (long-context prefill and training, narrow windows; both take
+    gradients, each the JAX package's).  Otherwise :func:`flash_attention`
+    with the (possibly PWL) elementwise ``exp_fn``."""
     if table is None:
-        return flash_attention(q, k, v, causal=causal, exp_fn=exp_fn)
+        return flash_attention(q, k, v, causal=causal, window=window, exp_fn=exp_fn)
     B, S, H = q.shape[:3]
     T = k.shape[1]
-    if _dense_softmax_preferred(B * H * S * T, T, None, T):
-        return dense_pwl_attention(q, k, v, table=table, causal=causal)
-    return fused.fused_flash_attention(q, k, v, table=table, causal=causal)
+    if _dense_softmax_preferred(B * H * S * T, T, window, T):
+        return dense_pwl_attention(q, k, v, table=table, causal=causal, window=window)
+    return fused.fused_flash_attention(q, k, v, table=table, causal=causal, window=window)
 
 
 def _decode_attention_fused(q, k_cache, v_cache, valid, table):
@@ -358,12 +383,17 @@ def mlp(cfg: ModelConfig, params, x, plan=None):
 # attention layer
 
 
-def attention_layer(cfg: ModelConfig, params, x, *, cache=None, cache_pos=None,
-                    plan=None, paged=None, cross_kv=None, use_rope: bool = True):
-    """Returns (y, cache).  ``cache`` is a dense {k, v} layer cache (B, T,
-    Hkv, dh) or a paged {k_pages, v_pages} layer pool (Hkv, P, ps, dh); both
-    are written in place.  ``cache_pos`` is the write offset: an int, or (B,)
-    per-request depths (continuous batching).  ``paged`` holds the shared
+def attention_layer(cfg: ModelConfig, params, x, *, kind: str = "attn", cache=None,
+                    cache_pos=None, plan=None, paged=None, cross_kv=None,
+                    use_rope: bool = True):
+    """Returns (y, cache).  ``kind`` ``attn_local`` attends over
+    ``cfg.sliding_window`` keys.  ``cache`` is a dense {k, v} layer cache
+    (B, T, Hkv, dh) or a paged {k_pages, v_pages} layer pool (Hkv, P, ps,
+    dh); both are written in place.  A local layer's dense cache of T ==
+    window slots is a ring: position p sits in slot p % T, a decode attends
+    over every slot once the ring is full, and a prefill of S >= T keeps its
+    last T tokens at their slots.  ``cache_pos`` is the write offset: an
+    int, or (B,) per-request depths (continuous batching).  ``paged`` holds the shared
     ``page_table`` (and ``kv_len`` when decoding), and may hold the call's
     ``rope`` = :func:`rope_tables` at its positions: then the page write
     rotates q and k in the same launch (``rope_write_prompt_pages_``,
@@ -375,11 +405,18 @@ def attention_layer(cfg: ModelConfig, params, x, *, cache=None, cache_pos=None,
     plan = plan if plan is not None else sfu.plan_for(cfg)
     exp_fn = resolve_exp(cfg, plan)
     softmax_table = _softmax_fused_table(plan)
+    window = cfg.sliding_window if kind == "attn_local" else None
 
+    # qwen2.5's biases go on before the rotation (in the paged page write too)
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    if "bq" in params:
+        q = q + params["bq"]
     if cross_kv is None:
         k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
         v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+        if "bk" in params:
+            k = k + params["bk"]
+            v = v + params["bv"]
     else:
         k, v = cross_kv
 
@@ -416,22 +453,31 @@ def attention_layer(cfg: ModelConfig, params, x, *, cache=None, cache_pos=None,
             else:
                 _pg.write_prompt_pages_(*pools, k, v, page_table)
             y = _attn_softmax_dispatch(q, k, v, causal=True, exp_fn=exp_fn,
-                                       table=softmax_table)
+                                       table=softmax_table, window=window)
     elif cache is not None and cross_kv is None:
         T = cache["k"].shape[1]
+        ring = window is not None and T == window
         pos0 = int(off)
-        cache["k"][:, pos0:pos0 + S] = k.to(cache["k"].dtype)
-        cache["v"][:, pos0:pos0 + S] = v.to(cache["v"].dtype)
+        for name, new in (("k", k), ("v", v)):
+            buf = cache[name]
+            new = new.to(buf.dtype)
+            if S == 1 and ring:
+                buf[:, pos0 % T:pos0 % T + 1] = new
+            elif ring and S >= T:  # the last T tokens, token p at slot p % T
+                buf.copy_(torch.roll(new[:, S - T:], S % T, dims=1))
+            else:
+                buf[:, pos0:pos0 + S] = new
         if S == 1:
-            valid = (torch.arange(T, device=x.device)[None, :] <= pos0).expand(B, T)
-            y = decode_attention(q, cache["k"], cache["v"], valid, exp_fn,
+            t = torch.arange(T, device=x.device)[None, :]
+            valid = ((t <= pos0) | (pos0 >= T)) if ring else t <= pos0
+            y = decode_attention(q, cache["k"], cache["v"], valid.expand(B, T), exp_fn,
                                  softmax_table=softmax_table)
         else:
             y = _attn_softmax_dispatch(q, k, v, causal=True, exp_fn=exp_fn,
-                                       table=softmax_table)
+                                       table=softmax_table, window=window)
     else:
         y = _attn_softmax_dispatch(q, k, v, causal=cross_kv is None, exp_fn=exp_fn,
-                                   table=softmax_table)
+                                   table=softmax_table, window=window)
 
     out = torch.einsum("bshk,hkd->bsd", y, params["wo"])
     return out, cache

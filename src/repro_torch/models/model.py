@@ -3,16 +3,21 @@
     model = Model(cfg, device="cuda")
     params = model.init(seed=0)                     # random weights on device
     masters = model.init(seed=0, master=True)       # f32 training masters
-    logits = model.forward(params, tokens)          # + frames= for an encoder-decoder
+    logits = model.forward(params, tokens)          # + frames= for an encoder-decoder,
+                                                    #   vision_embeds= for a VLM prefix
     loss, metrics = model.loss(masters, {"tokens": ..., "targets": ...})
-    logits = model.prefill(params, tokens, cache)   # + frames= for an encoder-decoder
+    logits = model.prefill(params, tokens, cache)   # + frames= / vision_embeds= as above
     logits = model.prefill_paged(params, tokens, cache, page_table, lengths)
     logits = model.decode_step_paged(params, tokens, cache, page_table, kv_len)
 
 Decoder-only configs run ``transformer``; encoder-decoder configs
 (whisper) run ``encdec``, whose batches and prefills carry the stub frame
 embeddings, and which has the dense cache only (no paged serving, as in the
-JAX package).  The device is explicit and defaults to ``cuda``; pass
+JAX package).  A VLM (internvl2) takes its stub patch embeddings as
+``vision_embeds`` (B, n_vision_tokens, d_model), a prefix in front of the
+tokens, through ``forward``, ``loss`` (the batch's ``vision_embeds``) and
+the dense ``prefill``; paged serving is tokens only, as in the JAX
+package.  The device is explicit and defaults to ``cuda``; pass
 ``device="cpu"`` to run the plain PyTorch versions of the kernels.
 """
 from __future__ import annotations
@@ -45,10 +50,10 @@ class Model:
         return init_params(self.param_defs(), seed, self.device, self.cfg.dtype,
                            master=master)
 
-    def forward(self, params, tokens, frames=None):
+    def forward(self, params, tokens, frames=None, vision_embeds=None):
         if self.cfg.is_encoder_decoder:
             return encdec.forward(self.cfg, params, tokens, frames)
-        return transformer.forward(self.cfg, params, tokens)
+        return transformer.forward(self.cfg, params, tokens, vision_embeds)
 
     def loss(self, params, batch):
         return self._impl.loss_fn(self.cfg, params, batch)
@@ -56,10 +61,10 @@ class Model:
     def make_cache(self, batch: int, max_len: int):
         return self._impl.make_cache(self.cfg, batch, max_len, self.device)
 
-    def prefill(self, params, tokens, cache, frames=None):
+    def prefill(self, params, tokens, cache, frames=None, vision_embeds=None):
         if self.cfg.is_encoder_decoder:
             return encdec.prefill(self.cfg, params, tokens, cache, frames)
-        return transformer.prefill(self.cfg, params, tokens, cache)
+        return transformer.prefill(self.cfg, params, tokens, cache, vision_embeds)
 
     def decode_step(self, params, tokens, cache, pos: int):
         return self._impl.decode_step(self.cfg, params, tokens, cache, pos)

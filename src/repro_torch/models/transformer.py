@@ -1,5 +1,7 @@
-"""Decoder LM over a periodic layer pattern (torch): global attention with a
-dense GLU or an MoE FFN per layer.
+"""Decoder LM over a periodic layer pattern (torch): attention (global, or
+gemma3's sliding-window local layers beside its global ones) with a dense
+FFN or an MoE FFN per layer, and an optional prefix of vision embeddings
+in front of the tokens (internvl2's stub patch embeddings).
 
 Counterpart of ``repro/models/transformer.py``.  Parameters keep the JAX
 package's tree: ``{"embed", "final_norm", "layers", "unembed"}`` where
@@ -12,10 +14,11 @@ with ``nothing_saveable``).
 
 API (functions over a params tree):
   model_defs(cfg)                                   -> ParamDef tree
-  forward(cfg, params, tokens)                      -> logits
-  forward_with_aux(cfg, params, tokens)             -> (logits, MoE aux loss)
+  forward(cfg, params, tokens, vision_embeds=None) -> logits
+  forward_with_aux(cfg, params, tokens, ...)        -> (logits, MoE aux loss)
   loss_fn(cfg, params, batch)                       -> (loss, metrics)
-  make_cache / prefill / decode_step                 (dense cache)
+  make_cache / prefill / decode_step                 (dense cache; local
+                                                     layers hold a ring)
   make_paged_cache / prefill_paged / decode_step_paged   (paged serving)
 """
 from __future__ import annotations
@@ -53,24 +56,34 @@ def moe_defs(cfg: ModelConfig) -> dict:
 
 
 def norm_defs(cfg: ModelConfig) -> dict:
-    """A norm's parameters, f32 (the JAX package reads them in f32)."""
+    """A norm's parameters, f32 (the JAX package reads them in f32); none
+    for olmo's non-parametric LayerNorm, an empty subtree as in JAX."""
     D = cfg.d_model
     if cfg.norm_type == "rmsnorm":
         return {"scale": ParamDef((D,), init="zeros", matrix=False)}
     if cfg.norm_type == "layernorm":
         return {"scale": ParamDef((D,), init="ones", matrix=False),
                 "bias": ParamDef((D,), init="zeros", matrix=False)}
-    raise NotImplementedError(f"norm_type {cfg.norm_type!r} is not ported yet")
+    if cfg.norm_type == "nonparam_ln":
+        return {}
+    raise ValueError(f"norm_type {cfg.norm_type!r}")
 
 
 def attn_defs(cfg: ModelConfig) -> dict:
+    """The projections, and qwen2.5's QKV biases (zeros at init, held in
+    the model dtype: the JAX package casts them to it at each use)."""
     D, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    return {
+    defs = {
         "wq": ParamDef((D, H, dh)),
         "wk": ParamDef((D, Hkv, dh)),
         "wv": ParamDef((D, Hkv, dh)),
         "wo": ParamDef((H, dh, D)),
     }
+    if cfg.qkv_bias:
+        defs["bq"] = ParamDef((H, dh), init="zeros")
+        defs["bk"] = ParamDef((Hkv, dh), init="zeros")
+        defs["bv"] = ParamDef((Hkv, dh), init="zeros")
+    return defs
 
 
 def mlp_defs(cfg: ModelConfig) -> dict:
@@ -86,11 +99,9 @@ def mlp_defs(cfg: ModelConfig) -> dict:
 
 
 def block_defs(cfg: ModelConfig, mixer: str, ffn: str) -> dict:
-    if mixer != "attn" or ffn not in ("dense", "moe"):
+    if mixer not in ("attn", "attn_local", "attn_global") or ffn not in ("dense", "moe"):
         raise NotImplementedError(
-            f"layer kind ({mixer}, {ffn}) is not ported yet (global attention only)")
-    if cfg.qkv_bias:
-        raise NotImplementedError(f"config {cfg.name!r} needs qkv biases, not ported yet")
+            f"layer kind ({mixer}, {ffn}) is not ported yet (attention layers only)")
     return {
         "ln1": norm_defs(cfg),
         "ln2": norm_defs(cfg),
@@ -135,14 +146,16 @@ def _unbind(tree, n: int) -> list:
 # blocks / embeddings
 
 
-def block_apply(cfg: ModelConfig, p, h, ffn: str, cache=None, pos=None, plan=None,
-                paged=None):
-    """Pre-norm residual block.  Returns (h, cache, aux): ``aux`` is the MoE
-    layer's load-balancing loss, None for a dense FFN (which adds 0)."""
+def block_apply(cfg: ModelConfig, p, h, mixer: str, ffn: str, cache=None, pos=None,
+                plan=None, paged=None):
+    """Pre-norm residual block.  ``mixer`` is the layer's attention kind
+    (``attn_local`` attends over ``cfg.sliding_window``).  Returns (h,
+    cache, aux): ``aux`` is the MoE layer's load-balancing loss, None for a
+    dense FFN (which adds 0)."""
     plan = plan if plan is not None else sfu.plan_for(cfg)
     hn = L.apply_norm(cfg, p["ln1"], h)
-    y, cache = L.attention_layer(cfg, p["mixer"], hn, cache=cache, cache_pos=pos,
-                                 plan=plan, paged=paged)
+    y, cache = L.attention_layer(cfg, p["mixer"], hn, kind=mixer, cache=cache,
+                                 cache_pos=pos, plan=plan, paged=paged)
     h = h + y
     hn2 = L.apply_norm(cfg, p["ln2"], h)
     if ffn == "moe":
@@ -152,10 +165,15 @@ def block_apply(cfg: ModelConfig, p, h, ffn: str, cache=None, pos=None, plan=Non
     return h + y2, cache, aux
 
 
-def embed_tokens(cfg: ModelConfig, params, tokens):
+def embed_tokens(cfg: ModelConfig, params, tokens, vision_embeds=None):
     """(B, S) int tokens -> (B, S, D) in cfg.dtype (an index gather; the JAX
-    package's one-hot contraction for short inputs gives the same values)."""
-    return params["embed"][tokens.long()].to(cfg.dtype)
+    package's one-hot contraction for short inputs gives the same values),
+    behind ``vision_embeds`` (B, n_vision, D) when given: (B, n_vision + S,
+    D)."""
+    h = params["embed"][tokens.long()].to(cfg.dtype)
+    if vision_embeds is not None:
+        h = torch.cat([vision_embeds.to(cfg.dtype), h], dim=1)
+    return h
 
 
 def unembed(cfg: ModelConfig, params, h):
@@ -186,7 +204,7 @@ def _run_layers(cfg: ModelConfig, params, h, cache=None, pos=None, paged=None,
         def period_fn(h, aux, i=i):
             for j in range(period):
                 c = _layer(cache[j], i) if cache is not None else None
-                h, _, a = block_apply(cfg, stacks[j][i], h, kinds[j][1], cache=c, pos=pos,
+                h, _, a = block_apply(cfg, stacks[j][i], h, *kinds[j], cache=c, pos=pos,
                                       plan=plan, paged=paged)
                 if a is not None:
                     aux = aux + a
@@ -197,23 +215,25 @@ def _run_layers(cfg: ModelConfig, params, h, cache=None, pos=None, paged=None,
     return h, aux
 
 
-def forward_with_aux(cfg: ModelConfig, params, tokens):
-    """Teacher-forcing forward -> ((B, S, padded_vocab) f32 logits, the f32
-    MoE aux loss summed over layers).
+def forward_with_aux(cfg: ModelConfig, params, tokens, vision_embeds=None):
+    """Teacher-forcing forward -> ((B, S', padded_vocab) f32 logits, the f32
+    MoE aux loss summed over layers); S' = S, or n_vision + S behind a
+    ``vision_embeds`` prefix.
 
     ``params`` may be the serving tree or the f32 training masters: every
     matrix is cast to ``cfg.dtype`` first (differentiably).  Under
     ``cfg.remat`` with grad enabled, each period is recomputed in the
     backward."""
     params = compute_params(model_defs(cfg), params, cfg.dtype)
-    h = embed_tokens(cfg, params, tokens)
+    h = embed_tokens(cfg, params, tokens, vision_embeds)
     h, aux = _run_layers(cfg, params, h, remat=cfg.remat and torch.is_grad_enabled())
     return unembed(cfg, params, L.apply_norm(cfg, params["final_norm"], h)), aux
 
 
-def forward(cfg: ModelConfig, params, tokens):
-    """Teacher-forcing forward -> (B, S, padded_vocab) f32 logits."""
-    return forward_with_aux(cfg, params, tokens)[0]
+def forward(cfg: ModelConfig, params, tokens, vision_embeds=None):
+    """Teacher-forcing forward -> (B, S', padded_vocab) f32 logits (the
+    prefix's positions included, as in JAX)."""
+    return forward_with_aux(cfg, params, tokens, vision_embeds)[0]
 
 
 def sharded_cross_entropy(logits, targets, mask=None):
@@ -233,10 +253,14 @@ def sharded_cross_entropy(logits, targets, mask=None):
 
 def loss_fn(cfg: ModelConfig, params, batch):
     """Next-token cross entropy plus 0.01 x the MoE aux loss.  batch:
-    ``tokens``, ``targets`` (B, S) int, optional ``mask``.  Returns
+    ``tokens``, ``targets`` (B, S) int, optional ``mask`` and
+    ``vision_embeds`` (whose positions the loss leaves out).  Returns
     ``(loss, {"nll", "aux"})``; a dense model's ``aux`` is 0 and its loss
     the nll."""
-    logits, aux = forward_with_aux(cfg, params, batch["tokens"])
+    vision = batch.get("vision_embeds")
+    logits, aux = forward_with_aux(cfg, params, batch["tokens"], vision)
+    if vision is not None:
+        logits = logits[:, vision.shape[1]:]
     nll = sharded_cross_entropy(logits, batch["targets"].long(), batch.get("mask"))
     return nll + 0.01 * aux, {"nll": nll, "aux": aux}
 
@@ -245,19 +269,33 @@ def loss_fn(cfg: ModelConfig, params, batch):
 # dense cache
 
 
+def cache_len(cfg: ModelConfig, mixer: str, max_len: int) -> int:
+    """The dense cache's slots for a layer of kind ``mixer``: ``max_len``,
+    or for a local layer at most its window (a ring of ``sliding_window``
+    slots once ``max_len`` reaches it)."""
+    if mixer == "attn_local" and cfg.sliding_window:
+        return min(cfg.sliding_window, max_len)
+    return max_len
+
+
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, device):
-    """Dense KV cache: per period slot {k, v} of (n_periods, B, T, Hkv, dh)."""
+    """Dense KV cache: per period slot {k, v} of (n_periods, B, T, Hkv, dh),
+    T = :func:`cache_len` of the slot's layer kind."""
     n_periods = cfg.n_layers // cfg.period
-    shape = (n_periods, batch, max_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-    return [{"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-             "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
-            for _ in range(cfg.period)]
+    cache = []
+    for mixer, _ in cfg.layer_kinds[:cfg.period]:
+        shape = (n_periods, batch, cache_len(cfg, mixer, max_len), cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        cache.append({"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                      "v": torch.zeros(shape, dtype=cfg.dtype, device=device)})
+    return cache
 
 
-def prefill(cfg: ModelConfig, params, tokens, cache):
-    """Prompt through the model, filling ``cache`` in place.  Returns the
+def prefill(cfg: ModelConfig, params, tokens, cache, vision_embeds=None):
+    """Prompt (behind an optional ``vision_embeds`` prefix) through the
+    model, filling ``cache`` in place from position 0.  Returns the
     last-position logits (B, 1, V)."""
-    h = embed_tokens(cfg, params, tokens)
+    h = embed_tokens(cfg, params, tokens, vision_embeds)
     h, _ = _run_layers(cfg, params, h, cache=cache, pos=0)
     return unembed(cfg, params, L.apply_norm(cfg, params["final_norm"], h[:, -1:]))
 
@@ -276,7 +314,9 @@ def decode_step(cfg: ModelConfig, params, tokens, cache, pos: int):
 def make_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, device):
     """Per-layer paged KV pools: per period slot {k_pages, v_pages} of
     (n_periods, Hkv, num_pages, page_size, dh), shared across requests
-    through a page table.  Global-attention stacks only."""
+    through a page table.  Global-attention stacks only: local layers' rings
+    have no paged layout, and raise :class:`UnsupportedCacheError`, on
+    which the serve launcher runs its dense loop."""
     from repro_torch.serving.resilience import UnsupportedCacheError
 
     for mixer, _ in cfg.layer_kinds:

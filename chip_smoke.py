@@ -4147,6 +4147,7 @@ def internvl_vision_phase(torch) -> dict:
     L = cfg.n_layers
     reset_counters()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     cache = model.make_cache(B, nv + S + n_new)
     logits = model.prefill(params, toks[:, :S], cache, vision_embeds=vision)
@@ -4159,6 +4160,7 @@ def internvl_vision_phase(torch) -> dict:
         check(bool(torch.isfinite(logits).all()), f"internvl decode step {i}: non-finite")
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     counts = read_counters()
     check(counts["fused_glu"] == L * (1 + n_new),
           f"internvl vision session: fused_glu launches {counts['fused_glu']} != {L} x 17")
@@ -4178,7 +4180,8 @@ def internvl_vision_phase(torch) -> dict:
           f"internvl loss {float(loss)} != {float(want)}")
     tok_s = B * n_new / secs
     print(f"[smoke] internvl2-1b prefill(vision_embeds=) 4 x ({nv} + {S}) then {n_new} decode "
-          f"steps: {tok_s:.1f} tok/s ({secs * 1e3:.1f} ms), tokens {torch.cat(out, 1)[0].tolist()}"
+          f"steps: {tok_s:.1f} tok/s ({secs * 1e3:.1f} ms), peak allocated {peak / 1e9:.2f} GB, "
+          f"tokens {torch.cat(out, 1)[0].tolist()}"
           f"; loss with the prefix {float(loss):.4f} (ln V = {math.log(cfg.vocab_size):.4f}), "
           f"launches {counts}")
     del params, cache

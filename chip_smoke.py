@@ -137,7 +137,20 @@
    ``Model.prefill``, ``decode_step`` and ``Model.loss``; trains olmo-1b
    at 8 x 512 and resumes it (losses bit for bit the straight run's) and
    gemma3-1b at 1 x 4096 (held by the held-out gate); and holds the
-   reduced archs on the card against the CPU.
+   reduced archs on the card against the CPU;
+17. slice 16, the Mamba2 SSM layer (no new kernel; ``models/ssm.py`` is
+   PyTorch ops, as the JAX block is ``jnp``): holds the standalone PWL
+   kernel at mamba2-2.7b's dt shapes (softplus, f32, 4 x 32 / 1 / 300 x
+   80) and on an empty tensor (no launch counted); serves full-width
+   mamba2-2.7b three times (paged asked for: serve falls back to its dense
+   loop; the defaults and a 300-token prompt with no kernel launched, the
+   empty FFN's GLU launching nothing, and the defaults with ``ssm:softplus``
+   on the standalone kernel, 64 launches a model call); trains it at 8 x
+   512 (every gradient norm finite) and, cut to 2 layers at full width so
+   that the script writes under 45 GiB to disk, resumes it (losses bit for
+   bit);
+   and holds reduced mamba2-2.7b and jamba-v0.1-52b on the card against the
+   CPU (jamba's dense loop: 4 GLUs, 4 MoE GLUs and one row softmax a call).
 
 Every failed check exits non-zero.  The last two lines of standard output
 are the kernels' JSON line and ``{"ok": true, "device": {...}}``; the card's
@@ -1868,11 +1881,12 @@ FULL_WIDTH = {  # arch: (d_model, layers, experts) of its published config
     "qwen2.5-32b": (5120, 64, 0),
     "gemma3-1b": (1152, 26, 0),
     "internvl2-1b": (896, 24, 0),
+    "mamba2-2.7b": (2560, 64, 0),
 }
 
 
 def serve_phase(torch, argv: list[str], attention, ffn: str | None = None,
-                fallback: bool = False) -> dict:
+                fallback: bool = False, ffn_layers: int | None = None) -> dict:
     """One full-width session through the serve entry point; returns the
     launch counts of exactly that session.  ``attention(steps)`` gives the
     expected softmax / paged-decode / flash launches from the session's
@@ -1880,7 +1894,9 @@ def serve_phase(torch, argv: list[str], attention, ffn: str | None = None,
     and ``max_new`` decode steps).  Every layer of every model call runs its
     FFN's kernel: the GLU for repro-100m, the MoE GLU (and no GLU) for an
     MoE arch, or ``ffn`` (the standalone PWL kernel under an
-    ``impl="kernel"`` plan), and no other FFN kernel.  Prints tok/s, the
+    ``impl="kernel"`` plan), and no other FFN kernel; ``ffn_layers``, when
+    given, is the number of a model call's layers that launch ``ffn`` (0
+    for mamba2's empty FFN, whose GLU launches nothing).  Prints tok/s, the
     mean time of a model call and the session's peak of allocated device
     memory (weights included), as serve measures it.  ``fallback``: the
     session asks for the paged cache, which the arch has no layout for, so
@@ -1934,7 +1950,9 @@ def serve_phase(torch, argv: list[str], attention, ffn: str | None = None,
         check(counts["write_prompt_pages_"] == 0 and counts["append_kv_"] == 0,
               "a paged session ran a page write without the rotation")
     ffn = ffn or ("fused_moe_glu" if cfg.n_experts else "fused_glu")
-    check(counts[ffn] == L * (pf + ds), f"{ffn} launches {counts[ffn]} != {L} x ({pf} + {ds})")
+    n_ffn = L if ffn_layers is None else ffn_layers
+    check(counts[ffn] == n_ffn * (pf + ds),
+          f"{ffn} launches {counts[ffn]} != {n_ffn} x ({pf} + {ds})")
     for other in ("fused_glu", "fused_moe_glu", "fused_linear", "pwl_activation",
                   "pwl_activation_uniform"):
         check(other == ffn or counts[other] == 0,
@@ -2664,6 +2682,12 @@ def _bitwise(torch, got, want, what) -> None:
           f"{what}: not bitwise, max err {(got.float() - want.float()).abs().max().item()}")
 
 
+MAMBA_H = 80  # mamba2-2.7b's SSM heads: dt's softplus runs on (B, L, 80) f32
+MAMBA_DT = {"dt prefill 4 x 32 x 80 f32": (4, 32, MAMBA_H),
+            "dt decode 4 x 1 x 80 f32": (4, 1, MAMBA_H),
+            "dt 4 x 300 x 80 f32": (4, 300, MAMBA_H)}
+
+
 def pwl_act_phase(torch):
     """The standalone PWL kernels (TPU kernels 19 and 20) through their
     wrappers ``ops.pwl_activation`` / ``ops.pwl_activation_uniform`` on CUDA
@@ -2677,7 +2701,9 @@ def pwl_act_phase(torch):
     element past a 16-byte boundary (bf16, f16, f32), so the 16-byte
     vectors, the elements before the first boundary and the ragged tail all
     run.  The 4096 x 3072 bf16 shapes and the decode gate are timed beside
-    their byte bound and the plain version."""
+    their byte bound and the plain version.  Kernel 19 also at mamba2-2.7b's
+    dt shapes (``MAMBA_DT``: softplus, 32 breakpoints, f32), bitwise and
+    timed, and on an empty tensor, which launches and counts nothing."""
     from repro_torch import sfu
     from repro_torch.core import functions as F
     from repro_torch.core.pwl import make_uniform_table
@@ -2739,6 +2765,28 @@ def pwl_act_phase(torch):
             line += (f", kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, bound "
                      f"{rows[name]['bound_ms'] * 1e3:.2f} us ({rows[name]['bound_by']})")
         print(line)
+
+    # mamba2-2.7b's dt softplus under an impl="kernel" plan: f32 (B, L, 80)
+    sp = sfu.get_store().get(fn="softplus", n_breakpoints=32)
+    sp_bp, sp_dmq = (a.to(dev) for a in pack_table(sp))
+    for name, shape in MAMBA_DT.items():
+        x = rnd(shape, torch.float32, 2.0)  # x @ in_dt + dt_bias at init: ~N(0, 1)
+        n0 = ops.pwl_activation.launches
+        got = ops.pwl_activation(x, sp)
+        check(ops.pwl_activation.launches == n0 + 1, f"pwl_activation {name}: not launched")
+        _bitwise(torch, got, pwl_act.pwl_nonuniform_plain(x, sp_bp, sp_dmq),
+                 f"pwl_activation {name}")
+        k_ms = time_ms(torch, lambda i: ops.pwl_activation(x, sp))
+        p_ms = time_ms(torch, lambda i: pwl_act.pwl_nonuniform_plain(x, sp_bp, sp_dmq))
+        r = rows[name] = {"ms": k_ms, "plain_ms": p_ms, "library_ms": None, "max_abs_err": 0.0,
+                          **_elementwise_bound(x.numel(), x.element_size(), SEARCH_OPS + 2)}
+        print(f"[smoke] pwl_activation {name} (softplus, 32 breakpoints): bitwise its plain "
+              f"version, kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us, bound "
+              f"{r['bound_ms'] * 1e3:.2f} us ({r['bound_by']})")
+    n0 = ops.pwl_activation.launches
+    empty = ops.pwl_activation(torch.empty((4, 0, MAMBA_H), device=dev), sp)
+    check(empty.shape == (4, 0, MAMBA_H) and ops.pwl_activation.launches == n0,
+          "pwl_activation on an empty tensor counted a launch")
 
     spec = F.get("sigmoid")
     ut = make_uniform_table(spec, 32)
@@ -4205,11 +4253,13 @@ def _arch_train_counts(arch: str, steps: int) -> dict:
     """Per step under remat: each layer's forward twice, its backward once;
     the GLU in every layer, the flash kernels in gemma3's local layers and
     the row softmax in its global layers (in every layer for a model whose
-    8 x 512 scores fit the dense cap)."""
+    8 x 512 scores fit the dense cap); no kernel for mamba2."""
     from repro_torch.configs import get_config
 
     cfg = get_config(arch)
     L = cfg.n_layers
+    if cfg.d_ff == 0:  # mamba2: the empty FFN's GLU and the SSM layers launch nothing
+        return {}
     if arch == "gemma3-1b":
         n_local, n_global = _gemma_layers()
     else:
@@ -4399,6 +4449,208 @@ def arch_reference_phase(torch):
         print(line)
 
 
+# ---------------------------------------------------------------------------
+# slice 16: the Mamba2 SSM layer (mamba2-2.7b at full width, reduced jamba)
+
+MAMBA = "mamba2-2.7b"
+MAMBA_STEPS = 4
+MAMBA_RESUME_LAYERS = 2  # the resume's depth: its two saves write 2 x 2.5 GB
+
+
+def mamba2_plan(path: pathlib.Path, softplus_kernel: bool = False) -> str:
+    """mamba2-2.7b's fused plan (``mlp:silu`` fused, ``ssm:silu`` pinned
+    exact, ``ssm:softplus`` the plain PWL evaluation), or with
+    ``ssm:softplus`` on the standalone PWL kernel (``impl="kernel"``)."""
+    import dataclasses
+
+    from repro_torch import sfu
+    from repro_torch.configs import get_config
+
+    plan = sfu.compile_plan(get_config(MAMBA, act_impl="fused"))
+    if softplus_kernel:
+        plan = sfu.ActivationPlan(sites=tuple(
+            (k, dataclasses.replace(s, impl="kernel") if k == "ssm:softplus" else s)
+            for k, s in plan.items()))
+    impls = {k: s.impl for k, s in plan.items()}
+    check(impls == {"mlp:silu": "fused", "ssm:silu": "exact",
+                    "ssm:softplus": "kernel" if softplus_kernel else "jnp"},
+          f"{MAMBA} plan {impls}")
+    return str(sfu.dump_plan(plan, path))
+
+
+def mamba2_serve_phases(torch, tmp: pathlib.Path) -> dict:
+    """Full-width mamba2-2.7b (64 SSM layers, d_model 2560, 80 heads of 64,
+    state 128, the empty FFN) through the serve entry point, paged asked
+    for each time, so serve says on stderr that SSM states have no paged
+    layout and runs its dense loop: the defaults (no kernel: the empty FFN's
+    GLU launches nothing), ``--prompt-len 300 --max-new 16`` (chunk 128 pads
+    300 to 384: two chunk boundaries and a padded last chunk), and the
+    defaults under a plan with ``ssm:softplus`` on the standalone PWL kernel
+    (64 launches a model call, no other FFN kernel)."""
+    out = {}
+    out["defaults"] = serve_phase(torch, ["--arch", MAMBA], no_attention_kernels,
+                                  fallback=True, ffn_layers=0)
+    _release(torch)
+    out["300"] = serve_phase(torch, ["--arch", MAMBA, "--prompt-len", "300", "--max-new", "16"],
+                             no_attention_kernels, fallback=True, ffn_layers=0)
+    _release(torch)
+    plan = mamba2_plan(tmp / "mamba2_softplus_kernel_plan.json", softplus_kernel=True)
+    out["kernel"] = serve_phase(torch, ["--arch", MAMBA, "--plan", plan], no_attention_kernels,
+                                ffn="pwl_activation", fallback=True)
+    _release(torch)
+    return out
+
+
+@contextlib.contextmanager
+def _train_depth(n_layers: int):
+    """The train launcher's configs cut to ``n_layers`` layers (full width)."""
+    import dataclasses
+
+    from repro_torch.launch import train
+
+    full = train.get_config
+    train.get_config = lambda arch, **kw: dataclasses.replace(full(arch, **kw),
+                                                              n_layers=n_layers)
+    try:
+        yield
+    finally:
+        train.get_config = full
+
+
+def mamba2_train_phase(torch, tmp: pathlib.Path) -> dict:
+    """Full-width mamba2-2.7b through the train entry point under its fused
+    plan at the launcher's 8 x 512, remat on (the AdamW state of 2.70 B
+    parameters, 43 GB, updated in place): ``MAMBA_STEPS`` steps, every loss
+    and every step's gradient norm finite, no kernel launched (the plan's
+    one fused site is the empty FFN).  Then, at full width cut to
+    ``MAMBA_RESUME_LAYERS`` layers, the same steps straight and as half, a
+    checkpoint and a resume from it, the resumed run's losses bit for bit
+    the straight run's: a checkpoint of the 64-layer state is 32.4 GB, and
+    the script keeps its disk writes, olmo-1b's two 14 GB checkpoints among
+    them, under 45 GiB."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+
+    plan = mamba2_plan(tmp / "mamba2_fused_plan.json")
+    torch.cuda.reset_peak_memory_stats()
+    what = f"{MAMBA} train 8 x 512, {MAMBA_STEPS} steps"
+    full = _run_train(torch, _train_args(MAMBA, plan, 8, 512, MAMBA_STEPS), what)
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(g) for g in full["grad_norms"]),
+          f"{what}: gradient norms {full['grad_norms']}")
+    print(f"[smoke] {what}: rc {full['rc']}, gradient norms {full['grad_norms']}")
+    del full["state"]
+    _release(torch)
+    L = MAMBA_RESUME_LAYERS
+    ckpt = str(tmp / "mamba2_ckpt")
+    half = MAMBA_STEPS // 2
+    with _train_depth(L):
+        straight = _run_train(torch, _train_args(MAMBA, plan, 8, 512, MAMBA_STEPS),
+                              f"{MAMBA} ({L} layers) train, {MAMBA_STEPS} steps")
+        del straight["state"]
+        first = _run_train(torch, _train_args(MAMBA, plan, 8, 512, half, ckpt),
+                           f"{MAMBA} ({L} layers) train, first {half} steps")
+        del first["state"]
+        second = _run_train(torch, _train_args(MAMBA, plan, 8, 512, MAMBA_STEPS, ckpt),
+                            f"{MAMBA} ({L} layers) train resumed at step {half}")
+        del second["state"]
+    check(CheckpointManager(ckpt).latest_step() == MAMBA_STEPS, f"{MAMBA}: no final checkpoint")
+    import shutil
+
+    shutil.rmtree(ckpt)
+    resumed = first["losses"] + second["losses"]
+    check(resumed == straight["losses"],
+          f"{MAMBA} resumed losses {resumed} != straight {straight['losses']}")
+    check(all(math.isfinite(g) for g in straight["grad_norms"] + first["grad_norms"]
+              + second["grad_norms"]), f"{MAMBA} ({L} layers): gradient norms")
+    print(f"[smoke] {MAMBA} ({L} layers) resume: losses {resumed} equal the straight run's "
+          "bit for bit")
+    _release(torch)
+    return {**full, "peak_bytes": peak}
+
+
+def _redraw_ssm_vectors(torch, params) -> None:
+    """The SSM layers' ``A_log``, ``dt_bias``, ``D``, ``conv_b`` and
+    ``norm_scale`` drawn afresh in place from a seeded generator (the init
+    makes them zeros and ones, which would hide a mix-up of heads)."""
+    gen = torch.Generator().manual_seed(7)
+    draws = {"A_log": (-0.25, 0.75), "dt_bias": (-1.0, 0.5), "D": (1.0, 0.3),
+             "conv_b": (0.0, 0.1), "norm_scale": (0.0, 0.1)}
+    for slot in params["layers"]:
+        for name, (loc, scale) in draws.items():
+            if name in slot["mixer"]:
+                t = slot["mixer"][name]
+                t.copy_(loc + scale * torch.randn(t.shape, generator=gen))
+
+
+def ssm_reference_phase(torch) -> dict:
+    """Reduced mamba2-2.7b and jamba-v0.1-52b in f32 on the card against the
+    port's plain path on the CPU (TF32 off), their SSM vectors redrawn:
+    logits of 2 x 40 tokens at ``_nudge_tol`` (mamba2 under its fused plan,
+    jamba under the fused-softmax plan); mamba2 with ``ssm_chunk=16``, a
+    prefill of 40 (three chunks, the last padded) then 10 decode steps; and
+    jamba's dense loop (a prefill of 20, then 8 decode steps) step by step,
+    its launches following its layer kinds: a model call runs 4 dense GLUs,
+    4 MoE GLUs and one row softmax (its one attention layer).  Returns
+    jamba's dense-loop launch counts."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.models import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    toks = torch.randint(0, 512, (2, 40), generator=torch.Generator().manual_seed(2))
+    out = {}
+    for arch, kw in ((MAMBA, dict(act_impl="fused", ssm_chunk=16)),
+                     ("jamba-v0.1-52b", dict(act_impl="fused", pwl_softmax=True))):
+        cfg = get_reduced_config(arch, dtype=torch.float32, **kw)
+        cpu, gpu = Model(cfg, device="cpu"), Model(cfg, device="cuda")
+        params = cpu.init(seed=0)
+        _redraw_ssm_vectors(torch, params)
+        gparams = _to_cuda(torch, params)
+
+        def fwd(dev, p):
+            return (cpu if dev == "cpu" else gpu).forward(p, toks.to(dev)).cpu()
+
+        want = fwd("cpu", params)
+        got = fwd("cuda", gparams)
+        tol = _nudge_tol(torch, params, lambda p: fwd("cpu", p))
+        err = (got - want).abs().max().item()
+        check(bool(torch.isfinite(got).all()) and torch.allclose(got, want, atol=tol, rtol=1e-4),
+              f"reduced {arch} logits err {err} > {tol}")
+        n = 40 if arch == MAMBA else 20
+        steps = 10 if arch == MAMBA else 8
+        caches = [m.make_cache(2, n + steps) for m in (cpu, gpu)]
+        reset_counters()
+        logits = [m.prefill(p, toks[:, :n].to(m.device), c)
+                  for m, p, c in zip((cpu, gpu), (params, gparams), caches)]
+        worst = (logits[1].cpu() - logits[0]).abs().max().item()
+        for i in range(steps):
+            tok = logits[0][:, -1].argmax(-1)[:, None]
+            logits = [m.decode_step(p, tok.to(m.device), c, n + i)
+                      for m, p, c in zip((cpu, gpu), (params, gparams), caches)]
+            worst = max(worst, (logits[1].cpu() - logits[0]).abs().max().item())
+        torch.cuda.synchronize()
+        counts = read_counters()
+        check(worst <= tol, f"reduced {arch} prefill {n} + {steps} decode steps: err {worst}")
+        calls = 1 + steps
+        if arch == MAMBA:
+            want_counts = {}  # the empty FFN and the SSM layers launch nothing
+        else:
+            kinds = cfg.layer_kinds
+            want_counts = {"fused_glu": calls * sum(f == "dense" for _, f in kinds),
+                           "fused_moe_glu": calls * sum(f == "moe" for _, f in kinds),
+                           "fused_pwl_softmax": calls * sum(m == "attn" for m, _ in kinds)}
+            check(want_counts == {"fused_glu": 4 * calls, "fused_moe_glu": 4 * calls,
+                                  "fused_pwl_softmax": calls}, f"jamba kinds {kinds}")
+        for name, k in counts.items():
+            check(k == want_counts.get(name, 0),
+                  f"reduced {arch} dense loop: {name} launches {k} != {want_counts.get(name, 0)}")
+        out[arch] = counts
+        print(f"[smoke] reduced {arch} f32 ({'fused-softmax' if cfg.pwl_softmax else 'fused'} "
+              f"plan): cuda vs cpu logits {err:.3g} (tol {tol:.3g}); prefill of {n} then "
+              f"{steps} decode steps {worst:.3g}; dense-loop launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4504,7 +4756,11 @@ def main() -> int:
             olmo_trained = olmo_train_phase(torch, pathlib.Path(tmp))
             gemma_trained = gemma_train_phase(torch, gemma_plan)
             mark("slice 15 train phases (olmo-1b 8 x 512 with a resume, gemma3-1b 1 x 4096)")
+            mamba_serve = mamba2_serve_phases(torch, pathlib.Path(tmp))
+            mamba_trained = mamba2_train_phase(torch, pathlib.Path(tmp))
+            mark("slice 16 phases (mamba2-2.7b serve, and train 8 x 512 with a resume)")
             arch_reference_phase(torch)
+            ssm_ref = ssm_reference_phase(torch)
         reference_phase(torch)
         # the launches of each kernel on the path that runs it
         path_counts = {name: main_counts[name]
@@ -4545,6 +4801,9 @@ def main() -> int:
         dense2048 = arch["gemma3-1b dense 2048"]
         for name in ("fused_pwl_softmax", "fused_flash_attention"):
             path_counts[f"{name} gemma3-1b dense 2048"] = dense2048[name]
+        path_counts["pwl_activation mamba2-2.7b"] = mamba_serve["kernel"]["pwl_activation"]
+        for name in ("fused_glu", "fused_moe_glu", "fused_pwl_softmax"):
+            path_counts[f"{name} reduced jamba"] = ssm_ref["jamba-v0.1-52b"][name]
         for name, n in path_counts.items():
             check(n > 0, f"{name} never launched on its serving or training path")
     except SmokeFailure as e:
@@ -4806,6 +5065,16 @@ def main() -> int:
                                          "; on no model path of this script: a local layer "
                                          "takes it when its window covers half the keys"),
                 "launches": launches, **rows_[key]})
+    # slice 16: kernel 19 at mamba2-2.7b's dt shapes, launches from the
+    # session under the plan with ssm:softplus on the standalone kernel
+    for name in MAMBA_DT:
+        kernels.append({"name": f"pwl_activation[mamba2 {name.removesuffix(' f32')}]",
+                        "route": "cuda", "source": "src/repro_torch/csrc/pwl_act.cu",
+                        "replaces": "src/repro/kernels/pwl_act.py:40",
+                        "shape": f"{name.removeprefix('dt ')}, softplus 32 breakpoints "
+                                 "(mamba2-2.7b's dt, impl='kernel' plan); launches: that "
+                                 "serve session's",
+                        "launches": mamba_serve["kernel"]["pwl_activation"], **pwl[name]})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     print(f"[smoke] whisper-small train step {whisper_trained['step_ms']:.1f} ms median, "
@@ -4823,6 +5092,13 @@ def main() -> int:
     print(f"[smoke] olmo-1b train step {olmo_trained['step_ms']:.1f} ms median, "
           f"{olmo_trained['tokens_per_s']:.0f} tokens/s; gemma3-1b (1 x {GEMMA_TRAIN_SEQ}) "
           f"{gemma_trained['step_ms']:.1f} ms median, {gemma_trained['tokens_per_s']:.0f} tokens/s")
+    for tag, ses in mamba_serve.items():
+        ses = ses["session"]
+        print(f"[smoke] {MAMBA} {tag} session: {ses['tok_per_s']:.1f} tok/s, "
+              f"{ses['ms_per_call']:.2f} ms a model call, peak {ses['peak_bytes'] / 1e9:.2f} GB")
+    print(f"[smoke] {MAMBA} train step (8 x 512) {mamba_trained['step_ms']:.1f} ms median, "
+          f"{mamba_trained['tokens_per_s']:.0f} tokens/s, peak "
+          f"{mamba_trained['peak_bytes'] / 1e9:.2f} GB")
     print(f"[smoke] total {time.perf_counter() - t_start:.1f}s (build {build_s:.1f}s)")
     print(card_line())
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))

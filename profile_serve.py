@@ -5,7 +5,9 @@
 
 A helper beside ``chip_smoke.py``, not part of the package.  Runs a warm-up
 session of :mod:`repro_torch.launch.serve` (the same arguments, e.g.
-``--arch olmoe-1b-7b``), the same session again for its wall time, then
+``--arch olmoe-1b-7b``; a session in the dense loop too, asked for with
+``--mode dense`` or taken by serve's fallback, as for ``--arch
+mamba2-2.7b``), the same session again for its wall time, then
 once more with ``torch.profiler`` (CPU and CUDA activity) recording the
 engine's session alone, not the weights' random init before it, and prints:
 
@@ -56,8 +58,8 @@ def _device_us(evt) -> float:
 
 def main(argv=None) -> int:
     args = serve.build_parser().parse_args(argv)
-    if args.mode != "paged" or args.device != "cuda":
-        raise SystemExit("profile_serve.py profiles the paged session on cuda")
+    if args.device != "cuda":
+        raise SystemExit("profile_serve.py profiles a session on cuda")
     serve.run(args)  # warm-up: kernel builds, cuBLAS handles, allocator
     plain_wall = serve.run(args)["seconds"]  # the same session, no profiler
     torch.cuda.synchronize()
@@ -66,7 +68,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     summary = serve.run(args, session=lambda: prof)  # the profiler on for the session only
     wall = time.perf_counter() - t0
-    calls = summary["prefills"] + summary["decode_steps"]
+    if summary["mode"] == "paged":
+        calls = summary["prefills"] + summary["decode_steps"]
+    else:  # the dense loop (asked for, or serve's fallback): one prefill, then the steps
+        calls = 1 + args.max_new
     events = prof.key_averages()
     kernels = [e for e in events if _is_kernel(e)]
     device_total = sum(_device_us(e) for e in kernels)

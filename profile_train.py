@@ -86,7 +86,9 @@ def main(argv=None) -> int:
         raise SystemExit("profile_train.py profiles the train step on cuda")
     device = train.resolve_device(args.device)
     cfg = train.resolve_config(args)
-    step_fn = build_train_step(cfg, device, opt_cfg=adamw.AdamWConfig(lr=args.lr))
+    # the launcher's in-place update: full-width mamba2-2.7b holds one state only
+    step_fn = build_train_step(cfg, device, opt_cfg=adamw.AdamWConfig(lr=args.lr),
+                               in_place=True)
     state = adamw.init_state(Model(cfg, device=device).init(seed=0, master=True))
     data = SyntheticLMData(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                                       global_batch=args.batch))

@@ -171,13 +171,15 @@ def fused_glu_bwd(x, w_gate, w_up, g, plan: EpiloguePlan, tables, counter=None):
     """``(dzg, dzu)`` of the GLU (x (M, K)) or of the per-expert GLU (x
     (E, M, K)): the backward kernel on CUDA tensors, counted on
     ``counter.bwd_launches`` (``fused_glu``'s unless the caller passes its
-    own wrapper), its plain version on CPU tensors."""
+    own wrapper) unless the problem is empty, its plain version on CPU
+    tensors."""
     if x.device.type == "cpu":
         refuse_unsorted(plan, tables)
         return fused_glu_bwd_plain(x, w_gate, w_up, g, plan, tables)
     counter = counter or fused_glu
     out = _launch_backward(counter.__name__, x, w_gate, w_up, g, plan, tables)
-    counter.bwd_launches += 1
+    if out[0].numel():  # an empty problem launches nothing
+        counter.bwd_launches += 1
     return out
 
 
@@ -193,7 +195,8 @@ class _GLUOp(torch.autograd.Function):
             y = fused_glu_plain(x, w_gate, w_up, plan, tables)
         else:  # the kernel, or its refusals (another device among them)
             y = _launch_forward(counter.__name__, x, w_gate, w_up, plan, tables)
-            counter.launches += 1
+            if y.numel():  # an empty problem launches nothing
+                counter.launches += 1
         ctx.save_for_backward(x, w_gate, w_up)
         ctx.plan, ctx.tables, ctx.impl_bwd, ctx.counter = plan, tables, impl_bwd, counter
         return y

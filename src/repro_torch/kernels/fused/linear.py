@@ -127,7 +127,8 @@ def fused_linear_bwd(x, w, b, g, plan: EpiloguePlan, tables):
         refuse_unsorted(plan, tables)
         return fused_linear_bwd_plain(x, w, b, g, plan, tables)
     dz = _launch("fused_linear", x, w, b, plan, tables, g=g)
-    fused_linear.bwd_launches += 1
+    if dz.numel():  # an empty problem launches nothing
+        fused_linear.bwd_launches += 1
     return dz
 
 
@@ -142,7 +143,8 @@ class _LinearOp(torch.autograd.Function):
             y = fused_linear_plain(x, w, b, plan, tables)
         else:  # the kernel, or its refusals (another device among them)
             y = _launch("fused_linear", x, w, b, plan, tables)
-            fused_linear.launches += 1
+            if y.numel():  # an empty problem launches nothing
+                fused_linear.launches += 1
         ctx.save_for_backward(x, w, b)
         ctx.plan, ctx.tables, ctx.impl_bwd = plan, tables, impl_bwd
         return y

@@ -189,7 +189,8 @@ def fused_rmsnorm_bwd(x, scale, g, plan: EpiloguePlan, tables, eps: float = 1e-6
         refuse_unsorted(plan, tables)
         return fused_rmsnorm_bwd_plain(x, scale, g, plan, tables, eps)
     out = _launch_bwd(x, scale, g, plan, tables, eps)
-    fused_rmsnorm.bwd_launches += 1
+    if out[0].numel():  # an empty problem launches nothing
+        fused_rmsnorm.bwd_launches += 1
     return out
 
 
@@ -204,7 +205,8 @@ class _RMSNormOp(torch.autograd.Function):
             y = fused_rmsnorm_plain(x, scale, plan, tables, eps)
         else:  # the kernel, or its refusals (another device among them)
             y = _launch(x, scale, plan, tables, eps)
-            fused_rmsnorm.launches += 1
+            if y.numel():  # an empty problem launches nothing
+                fused_rmsnorm.launches += 1
         ctx.save_for_backward(x, scale)
         ctx.plan, ctx.tables, ctx.eps, ctx.impl_bwd = plan, tables, eps, impl_bwd
         return y

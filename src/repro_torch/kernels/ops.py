@@ -4,7 +4,8 @@ packed here.
 
 On a CPU tensor each wrapper runs its kernel's plain version; on a CUDA
 tensor it launches the kernel (``csrc/pwl_act.cu``) and counts the launch on
-``.launches``, or raises.  Neither has a backward, as the JAX kernel has no
+``.launches`` (an empty tensor launches nothing and counts nothing), or
+raises.  Neither has a backward, as the JAX kernel has no
 VJP: an input that requires grad is refused on any device.  The non-uniform
 kernel decodes by the breakpoint search, so a table whose breakpoints do
 not ascend is refused on any device too.
@@ -52,7 +53,8 @@ def pwl_activation(x: torch.Tensor, table: PWLTable, *,
         check_ascending(bp)  # as the kernel refuses them
         return pwl_act.pwl_nonuniform_plain(x, bp, dmq)
     y = pwl_act.launch_nonuniform(x, bp, dmq)
-    pwl_activation.launches += 1
+    if y.numel():  # an empty tensor launches nothing
+        pwl_activation.launches += 1
     return y
 
 
@@ -65,7 +67,8 @@ def pwl_activation_uniform(x: torch.Tensor, m, q, lo: float, hi: float) -> torch
     if x.device.type == "cpu":
         return pwl_act.pwl_uniform_plain(x, mq, lo, hi)
     y = pwl_act.launch_uniform(x, mq, lo, hi)
-    pwl_activation_uniform.launches += 1
+    if y.numel():  # an empty tensor launches nothing
+        pwl_activation_uniform.launches += 1
     return y
 
 

@@ -9,9 +9,9 @@ layer's GLU runs the fused PWL kernel, K/V go into the paged pools through
 the in-place page-write kernels, and finished requests release their pages
 at once.  ``--mode dense`` is the reference loop over a dense per-request
 cache: one prefill, then one append + attend per token.  A config whose
-layers have no paged layout (gemma3's sliding-window rings) makes the
-paged cache raise ``UnsupportedCacheError``; the launcher then says so on
-stderr and runs the dense loop, as the JAX launcher does.
+layers have no paged layout (gemma3's sliding-window rings, mamba2's SSM
+states) makes the paged cache raise ``UnsupportedCacheError``; the launcher
+then says so on stderr and runs the dense loop, as the JAX launcher does.
 
 The device defaults to ``cuda``.  Without a GPU the launcher raises; it runs
 on the CPU (the kernels' plain versions) only with ``--device cpu``.

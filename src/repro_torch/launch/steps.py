@@ -6,7 +6,9 @@ autograd (with K > 1 microbatches, f32 gradients summed over the K slices
 of the batch and divided by K, as the JAX package's scan does), then one
 AdamW update.  ``cfg.act_impl_bwd`` pins the backward of every fused site
 for the whole step (forward, the backward and the recomputation of
-``cfg.remat`` inside it); None keeps the ambient default.
+``cfg.remat`` inside it); None keeps the ambient default.  ``in_place``
+updates the state's own tensors (``adamw.apply_updates``), as the train
+launcher does.
 
 One device, no mesh: the sharding rules and ``auto_microbatches`` wait for
 the distribution entry of the ROADMAP.
@@ -34,7 +36,7 @@ def _split(batch: dict, k: int) -> list[dict]:
 
 
 def build_train_step(cfg, device, opt_cfg: Optional[adamw.AdamWConfig] = None,
-                     microbatches: int = 1):
+                     microbatches: int = 1, in_place: bool = False):
     model = Model(cfg, device=device)
     opt_cfg = opt_cfg or adamw.AdamWConfig()
     impl_bwd = cfg.act_impl_bwd
@@ -64,7 +66,7 @@ def build_train_step(cfg, device, opt_cfg: Optional[adamw.AdamWConfig] = None,
                 loss = loss / microbatches
             with torch.no_grad():
                 new_state, opt_metrics = adamw.apply_updates(
-                    state, tree.unflatten(state["params"], grads), opt_cfg)
+                    state, tree.unflatten(state["params"], grads), opt_cfg, in_place=in_place)
         return new_state, dict(metrics, loss=loss, **opt_metrics)
 
     return train_step

@@ -6,6 +6,7 @@ preemption handling and straggler monitoring, on one device.
     python -m repro_torch.launch.train --plan plan.json --batch 1 --seq 4096
     python -m repro_torch.launch.train --reduced --device cpu --steps 4
     python -m repro_torch.launch.train --arch olmoe-1b-7b --reduced --plan plan.json
+    python -m repro_torch.launch.train --arch mamba2-2.7b --plan plan.json   # 2.70 B, on cuda
 
 The flags are the JAX launcher's (``repro/launch/train.py``), plus
 ``--device``: ``cuda`` by default, which raises without a GPU; ``cpu`` runs
@@ -20,12 +21,17 @@ per-expert GLU kernels, and the log adds the load-balancing loss, of which
 ``torch.Generator`` seeded 0; batches come from the seeded synthetic stream
 of :mod:`repro_torch.data.pipeline`.
 
+The AdamW update writes into the state's own tensors (one copy of the
+state: f32 masters, two moments and the gradients of mamba2-2.7b's 2.70 B
+parameters take 43 GB), and a SIGTERM waits for the step to end.
+
 Exit code: 0 when the last loss is below the first, 2 otherwise, 17 after
 a checkpoint-and-exit for a persistent straggler.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import signal
 import sys
@@ -101,9 +107,24 @@ def resolve_config(args: argparse.Namespace):
     return cfg
 
 
+@contextlib.contextmanager
+def _sigterm_deferred():
+    """A SIGTERM that arrives while the state is half updated is held, and
+    raised again (to the save handler) once the step is whole."""
+    caught = []
+    prev = signal.signal(signal.SIGTERM, lambda signum, frame: caught.append(signum))
+    try:
+        yield
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+        if caught:
+            signal.raise_signal(signal.SIGTERM)
+
+
 def run(args: argparse.Namespace) -> dict:
     """One training run as ``args`` describe it.  Returns ``rc`` (the exit
-    code), ``losses`` (this run's steps), ``step_seconds`` (host time per
+    code), ``losses`` and ``grad_norms`` (this run's steps, the gradient's
+    global norm before clipping), ``step_seconds`` (host time per
     step, each ended by reading the loss), ``tokens_per_step`` and ``state``
     (the AdamW state after the last step).
 
@@ -127,7 +148,9 @@ def run(args: argparse.Namespace) -> dict:
           f"batch {args.batch} x seq {args.seq}, remat {cfg.remat}", flush=True)
     opt_cfg = adamw.AdamWConfig(lr=args.lr, total_steps=args.steps,
                                 warmup_steps=max(args.steps // 20, 5))
-    step_fn = build_train_step(cfg, device, opt_cfg=opt_cfg, microbatches=1)
+    # the update writes into the state's tensors (one copy of the state),
+    # so SIGTERM waits for the step to end (below): its save sees one state
+    step_fn = build_train_step(cfg, device, opt_cfg=opt_cfg, microbatches=1, in_place=True)
 
     model = Model(cfg, device=device)
     data = SyntheticLMData(
@@ -158,18 +181,20 @@ def run(args: argparse.Namespace) -> dict:
 
     prev_handler = install_sigterm_save(emergency_save)
 
-    losses, step_seconds = [], []
+    losses, grad_norms, step_seconds = [], [], []
     try:
         for step in range(start_step, args.steps):
             batch = {k: torch.from_numpy(v).to(device) for k, v in next(it).items()}
             t0 = time.perf_counter()
             monitor.start_step()
-            live["state"], metrics = step_fn(live["state"], batch)
+            with _sigterm_deferred():
+                live["state"], metrics = step_fn(live["state"], batch)
+                live["step"] = step + 1
             loss = float(metrics["loss"])  # waits for the step
             monitor.end_step(step)
             step_seconds.append(time.perf_counter() - t0)
-            live["step"] = step + 1
             losses.append(loss)
+            grad_norms.append(float(metrics["grad_norm"]))
             if step % args.log_every == 0 or step == args.steps - 1:
                 aux = f" aux={float(metrics['aux']):.4f}" if cfg.n_experts else ""
                 print(f"[train] step={step} loss={loss:.4f}{aux} lr={float(metrics['lr']):.2e} "
@@ -180,7 +205,8 @@ def run(args: argparse.Namespace) -> dict:
                 print("[train] persistent straggler: checkpoint + exit for reschedule",
                       flush=True)
                 emergency_save()
-                return {"rc": 17, "losses": losses, "step_seconds": step_seconds,
+                return {"rc": 17, "losses": losses, "grad_norms": grad_norms,
+                        "step_seconds": step_seconds,
                         "tokens_per_step": args.batch * args.seq, "state": live["state"]}
         if ckpt:
             save(args.steps)
@@ -191,7 +217,7 @@ def run(args: argparse.Namespace) -> dict:
         print(f"[train] done. first loss {losses[0]:.4f} -> last {losses[-1]:.4f}",
               flush=True)
     rc = 0 if losses and losses[-1] < losses[0] else 2
-    return {"rc": rc, "losses": losses, "step_seconds": step_seconds,
+    return {"rc": rc, "losses": losses, "grad_norms": grad_norms, "step_seconds": step_seconds,
             "tokens_per_step": args.batch * args.seq, "state": live["state"]}
 
 

@@ -54,8 +54,13 @@ class ModelConfig:
     n_active_experts: int = 0
     moe_d_ff: int = 0
     capacity_factor: float = 1.25
-    attn_every: Optional[int] = None
-    moe_every: Optional[int] = None
+    ssm_state: int = 0                # mamba2: state size N, head dim P, expand,
+    ssm_head_dim: int = 64            # causal conv width, SSD chunk length
+    ssm_expand: int = 2
+    ssm_conv_dim: int = 4
+    ssm_chunk: int = 128
+    attn_every: Optional[int] = None  # jamba: 1 attention layer per N (else SSM)
+    moe_every: Optional[int] = None   # jamba: MoE FFN every N layers
     is_encoder_decoder: bool = False
     n_encoder_layers: int = 0
     encoder_seq: int = 1500           # stub frame-embedding length
@@ -134,6 +139,8 @@ class ParamDef:
             return torch.zeros(self.shape, dtype=dt, device=device)
         if self.init == "ones":
             return torch.ones(self.shape, dtype=dt, device=device)
+        if math.prod(self.shape) == 0:  # mamba2's (D, 0) / (0, D) FFN: nothing to draw
+            return torch.empty(self.shape, dtype=dt, device=device)
         # the JAX package's fan-in is the second-to-last dim (first dim of a
         # vector), with a stacked layer axis in front
         fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[0]

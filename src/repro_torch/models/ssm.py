@@ -1,0 +1,195 @@
+"""Mamba2 (state-space duality) block (torch): chunked SSD for training and
+prefill, the exact one-step recurrence for decode.
+
+Counterpart of ``repro/models/ssm.py``.  Per head h with state size N and
+head dim P:
+
+    h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t        (N-dim state per (h, p))
+    y_t = C_t . h_t + D x_t
+
+A training forward or a prefill runs the chunked block-matrix algorithm:
+within a chunk an attention-like quadratic term, across chunks the state
+recurrence, a Python loop over chunks where JAX has its ``lax.scan``.  The
+JAX package's three-operand einsums are written as batched products in an
+order that never builds a (b, z, c, s, h, p) intermediate.
+
+One deliberate difference from the reference: :func:`_segsum_exp` masks the
+upper triangle before the exponential.  The forward values are the same
+(a masked entry is 0 either way), but JAX's ``where(tri, exp(diff), 0)``
+overflows to inf above the diagonal once a chunk's Σ|dt·A| passes ~88.7, and
+its gradient is then 0·inf = NaN; here the gradient stays finite, and equals
+JAX's wherever JAX's is finite.
+
+SiLU and dt's softplus resolve through the activation plan's ``ssm:*``
+sites: under an ``impl="kernel"`` plan the softplus runs the standalone PWL
+kernel (``kernels/ops.py``).  The block has no kernel of its own, as the
+JAX block has no Pallas kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import sfu
+
+from .common import ModelConfig
+from .layers import rms_norm
+
+
+def ssm_dims(cfg: ModelConfig):
+    """(d_inner, n_heads, d_state, conv_channels, d_in_proj); one group."""
+    d_inner = cfg.ssm_expand * cfg.d_model
+    n_heads = d_inner // cfg.ssm_head_dim
+    d_state = cfg.ssm_state
+    conv_channels = d_inner + 2 * d_state
+    d_in_proj = 2 * d_inner + 2 * d_state + n_heads
+    return d_inner, n_heads, d_state, conv_channels, d_in_proj
+
+
+def _causal_conv(x, w, b):
+    """Depthwise causal conv1d by kernel-size shifts, in x's dtype and the
+    JAX package's order: from zeros, the K shifted terms in order, then the
+    bias.  x: (B, L, C), w: (K, C), b: (C,)."""
+    K = w.shape[0]
+    L = x.shape[1]
+    out = torch.zeros_like(x)
+    for i in range(K):
+        shift = K - 1 - i
+        xi = torch.nn.functional.pad(x, (0, 0, shift, 0))[:, :L]
+        out = out + xi * w[i]
+    return out + b
+
+
+def _segsum_exp(a):
+    """exp(segsum): a (..., s) -> lower-triangular (..., s, s) with
+    L[i, j] = exp(sum_{k=j+1..i} a_k) for i >= j, else 0.  The upper
+    triangle is masked to -inf before the exponential (see the module
+    docstring)."""
+    cum = torch.cumsum(a, dim=-1)
+    diff = cum[..., :, None] - cum[..., None, :]  # (..., i, j)
+    s = a.shape[-1]
+    tri = torch.tril(torch.ones((s, s), dtype=torch.bool, device=a.device))
+    return torch.exp(torch.where(tri, diff, float("-inf")))
+
+
+def ssd_chunked(xdt, a, Bmat, Cmat, chunk: int, h_init=None):
+    """Chunked SSD, all f32.
+
+    xdt: (b, l, h, p) dt-scaled inputs; a: (b, l, h) dt·A (negative);
+    Bmat, Cmat: (b, l, n) (one group, broadcast over heads).  Returns
+    (y (b, l, h, p), h_last (b, h, p, n))."""
+    b, l, h, p = xdt.shape
+    n = Bmat.shape[-1]
+    if l % chunk:  # pad to a chunk multiple: a = 0 (decay 1), B = 0 (no update)
+        pad = chunk - l % chunk
+        F = torch.nn.functional
+        y, h_last = ssd_chunked(F.pad(xdt, (0, 0, 0, 0, 0, pad)), F.pad(a, (0, 0, 0, pad)),
+                                F.pad(Bmat, (0, 0, 0, pad)), F.pad(Cmat, (0, 0, 0, pad)),
+                                chunk, h_init)
+        return y[:, :l], h_last
+    nc = l // chunk
+    xdt = xdt.reshape(b, nc, chunk, h, p)
+    a = a.reshape(b, nc, chunk, h)
+    Bc = Bmat.reshape(b, nc, chunk, n)
+    Cc = Cmat.reshape(b, nc, chunk, n)
+    xdt_h = xdt.permute(0, 1, 3, 2, 4)                  # (b, z, h, s, p)
+
+    a_cum = torch.cumsum(a, dim=2)                      # (b, z, s, h)
+    Lmat = _segsum_exp(a.permute(0, 1, 3, 2))           # (b, z, h, c, s)
+
+    # intra-chunk (diagonal blocks): (scores ∘ L) @ x per head
+    scores = Cc @ Bc.transpose(-1, -2)                  # (b, z, c, s)
+    y_diag = (scores[:, :, None] * Lmat) @ xdt_h        # (b, z, h, c, p)
+    y_diag = y_diag.permute(0, 1, 3, 2, 4)              # (b, z, c, h, p)
+
+    # chunk states: inputs decayed to the chunk's end, contracted with B
+    decay_out = torch.exp(a_cum[:, :, -1:, :] - a_cum)  # (b, z, s, h)
+    xw = (xdt * decay_out[..., None]).reshape(b, nc, chunk, h * p)
+    states = (xw.transpose(-1, -2) @ Bc).reshape(b, nc, h, p, n)
+
+    # inter-chunk recurrence over z
+    chunk_decay = torch.exp(a_cum[:, :, -1, :])         # (b, z, h)
+    hprev = (torch.zeros((b, h, p, n), dtype=torch.float32, device=xdt.device)
+             if h_init is None else h_init)
+    h_prevs = []
+    for z in range(nc):
+        h_prevs.append(hprev)
+        hprev = hprev * chunk_decay[:, z, :, None, None] + states[:, z]
+    h_prevs = torch.stack(h_prevs, dim=1)               # (b, z, h, p, n)
+
+    # inter-chunk output: C against the state entering the chunk, decayed
+    # from the chunk's start to position c
+    decay_in = torch.exp(a_cum)                         # (b, z, c, h)
+    y_off = Cc @ h_prevs.reshape(b, nc, h * p, n).transpose(-1, -2)  # (b, z, c, h*p)
+    y_off = y_off.reshape(b, nc, chunk, h, p) * decay_in[..., None]
+
+    y = (y_diag + y_off).reshape(b, l, h, p)
+    return y, hprev
+
+
+def mamba2_layer(cfg: ModelConfig, params, x, cache=None, plan=None):
+    """Mamba2 block.  x: (B, L, D) -> (y (B, L, D), cache).
+
+    ``cache`` is the layer's {"conv": (B, K-1, C), "ssm": (B, H, P, N)},
+    both in ``cfg.dtype``, written in place: with L == 1 the exact one-step
+    recurrence over the window of the conv cache and this step; otherwise a
+    prefill from position 0, which stores the conv tail (left-padded when
+    L < K - 1) and the final state."""
+    B, L, D = x.shape
+    d_inner, n_heads, d_state, conv_ch, _ = ssm_dims(cfg)
+    P = cfg.ssm_head_dim
+    dtype = x.dtype
+    f32 = torch.float32
+    plan = plan if plan is not None else sfu.plan_for(cfg)
+    silu = plan.act(sfu.site_key(sfu.SITE_SSM, "silu"))
+    softplus = plan.act(sfu.site_key(sfu.SITE_SSM, "softplus"))
+
+    z = x @ params["in_z"]                               # (B, L, d_inner)
+    x_in = x @ params["in_x"]                            # (B, L, d_inner)
+    bc_in = x @ params["in_bc"]                          # (B, L, 2N)
+    dt_raw = x @ params["in_dt"]                         # (B, L, H)
+    xBC = torch.cat([x_in, bc_in], dim=-1)               # the conv runs over x|B|C
+
+    conv_w, conv_b = params["conv_w"], params["conv_b"]  # (K, C), (C,)
+    K = conv_w.shape[0]
+    decode = cache is not None and L == 1
+    new_conv = None
+    if decode:
+        # the exact causal conv at one step, over [cache window, current]
+        win = torch.cat([cache["conv"].to(dtype), xBC], dim=1)  # (B, K, C)
+        conv_out = (torch.einsum("bkc,kc->bc", win, conv_w) + conv_b)[:, None, :]
+        new_conv = win[:, 1:]
+    else:
+        conv_out = _causal_conv(xBC, conv_w, conv_b)
+        if cache is not None:  # prefill: stash the tail for decode
+            tail = torch.nn.functional.pad(xBC, (0, 0, max(0, K - 1 - L), 0))
+            new_conv = tail[:, tail.shape[1] - (K - 1):]
+
+    conv_out = silu(conv_out)
+    x_ssm = conv_out[..., :d_inner]
+    Bmat = conv_out[..., d_inner:d_inner + d_state].to(f32)
+    Cmat = conv_out[..., d_inner + d_state:].to(f32)
+
+    dt = softplus(dt_raw.to(f32) + params["dt_bias"].to(f32))
+    A = -torch.exp(params["A_log"].to(f32))             # (H,)
+    xh = x_ssm.to(f32).reshape(B, L, n_heads, P)
+    xdt = xh * dt[..., None]
+    a = dt * A                                           # (B, L, H)
+
+    if decode:
+        h_prev = cache["ssm"].to(f32)                    # read before the write below
+        dec = torch.exp(a[:, 0])                         # (B, H)
+        upd = xdt[:, 0, :, :, None] * Bmat[:, 0, None, None, :]  # (B, H, P, N)
+        h_new = h_prev * dec[:, :, None, None] + upd
+        y = (h_new @ Cmat[:, 0, None, :, None])[..., 0][:, None]  # (B, 1, H, P)
+    else:
+        y, h_new = ssd_chunked(xdt, a, Bmat, Cmat, chunk=min(cfg.ssm_chunk, L))
+    if cache is not None:
+        cache["conv"].copy_(new_conv.to(cache["conv"].dtype))
+        cache["ssm"].copy_(h_new.to(cache["ssm"].dtype))
+
+    y = y + params["D"].to(f32)[None, None, :, None] * xh
+    y = y.reshape(B, L, d_inner).to(dtype)
+
+    # gated RMSNorm, then the out projection
+    y = rms_norm(y * silu(z), params["norm_scale"])
+    return y @ params["out_proj"], cache

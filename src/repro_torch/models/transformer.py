@@ -1,7 +1,8 @@
 """Decoder LM over a periodic layer pattern (torch): attention (global, or
-gemma3's sliding-window local layers beside its global ones) with a dense
-FFN or an MoE FFN per layer, and an optional prefix of vision embeddings
-in front of the tokens (internvl2's stub patch embeddings).
+gemma3's sliding-window local layers beside its global ones) or a Mamba2
+SSM block (mamba2, and jamba's hybrid stack) with a dense FFN or an MoE FFN
+per layer, and an optional prefix of vision embeddings in front of the
+tokens (internvl2's stub patch embeddings).
 
 Counterpart of ``repro/models/transformer.py``.  Parameters keep the JAX
 package's tree: ``{"embed", "final_norm", "layers", "unembed"}`` where
@@ -18,7 +19,9 @@ API (functions over a params tree):
   forward_with_aux(cfg, params, tokens, ...)        -> (logits, MoE aux loss)
   loss_fn(cfg, params, batch)                       -> (loss, metrics)
   make_cache / prefill / decode_step                 (dense cache; local
-                                                     layers hold a ring)
+                                                     layers hold a ring, SSM
+                                                     layers their conv tail
+                                                     and state)
   make_paged_cache / prefill_paged / decode_step_paged   (paged serving)
 """
 from __future__ import annotations
@@ -30,6 +33,7 @@ from repro_torch import sfu
 
 from . import layers as L
 from . import moe as MOE
+from . import ssm as SSM
 from .common import ModelConfig, ParamDef, compute_params
 
 # ---------------------------------------------------------------------------
@@ -98,14 +102,36 @@ def mlp_defs(cfg: ModelConfig) -> dict:
             "w_down": ParamDef((F, D)), "b_down": ParamDef((D,), init="zeros")}
 
 
+def ssm_defs(cfg: ModelConfig) -> dict:
+    """The Mamba2 block, with the JAX package's inits: the projections, the
+    conv weights and bias in the model dtype (JAX casts each one at its
+    use), ``A_log``, ``D``, ``dt_bias`` and ``norm_scale`` in f32 (JAX
+    reads them in f32)."""
+    D = cfg.d_model
+    d_inner, n_heads, d_state, conv_ch, _ = SSM.ssm_dims(cfg)
+    vec = dict(matrix=False)
+    return {
+        "in_z": ParamDef((D, d_inner)),
+        "in_x": ParamDef((D, d_inner)),
+        "in_bc": ParamDef((D, 2 * d_state)),
+        "in_dt": ParamDef((D, n_heads)),
+        "conv_w": ParamDef((cfg.ssm_conv_dim, conv_ch), init="small_normal"),
+        "conv_b": ParamDef((conv_ch,), init="zeros"),
+        "A_log": ParamDef((n_heads,), init="zeros", **vec),
+        "D": ParamDef((n_heads,), init="ones", **vec),
+        "dt_bias": ParamDef((n_heads,), init="zeros", **vec),
+        "norm_scale": ParamDef((d_inner,), init="zeros", **vec),
+        "out_proj": ParamDef((d_inner, D)),
+    }
+
+
 def block_defs(cfg: ModelConfig, mixer: str, ffn: str) -> dict:
-    if mixer not in ("attn", "attn_local", "attn_global") or ffn not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"layer kind ({mixer}, {ffn}) is not ported yet (attention layers only)")
+    if mixer not in ("attn", "attn_local", "attn_global", "ssm") or ffn not in ("dense", "moe"):
+        raise NotImplementedError(f"layer kind ({mixer}, {ffn}) is not ported")
     return {
         "ln1": norm_defs(cfg),
         "ln2": norm_defs(cfg),
-        "mixer": attn_defs(cfg),
+        "mixer": ssm_defs(cfg) if mixer == "ssm" else attn_defs(cfg),
         "ffn": moe_defs(cfg) if ffn == "moe" else mlp_defs(cfg),
     }
 
@@ -148,14 +174,17 @@ def _unbind(tree, n: int) -> list:
 
 def block_apply(cfg: ModelConfig, p, h, mixer: str, ffn: str, cache=None, pos=None,
                 plan=None, paged=None):
-    """Pre-norm residual block.  ``mixer`` is the layer's attention kind
-    (``attn_local`` attends over ``cfg.sliding_window``).  Returns (h,
-    cache, aux): ``aux`` is the MoE layer's load-balancing loss, None for a
-    dense FFN (which adds 0)."""
+    """Pre-norm residual block.  ``mixer`` is the layer's kind: ``ssm``
+    (the Mamba2 block), or attention (``attn_local`` attends over
+    ``cfg.sliding_window``).  Returns (h, cache, aux): ``aux`` is the MoE
+    layer's load-balancing loss, None for a dense FFN (which adds 0)."""
     plan = plan if plan is not None else sfu.plan_for(cfg)
     hn = L.apply_norm(cfg, p["ln1"], h)
-    y, cache = L.attention_layer(cfg, p["mixer"], hn, kind=mixer, cache=cache,
-                                 cache_pos=pos, plan=plan, paged=paged)
+    if mixer == "ssm":
+        y, cache = SSM.mamba2_layer(cfg, p["mixer"], hn, cache, plan=plan)
+    else:
+        y, cache = L.attention_layer(cfg, p["mixer"], hn, kind=mixer, cache=cache,
+                                     cache_pos=pos, plan=plan, paged=paged)
     h = h + y
     hn2 = L.apply_norm(cfg, p["ln2"], h)
     if ffn == "moe":
@@ -279,15 +308,24 @@ def cache_len(cfg: ModelConfig, mixer: str, max_len: int) -> int:
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, device):
-    """Dense KV cache: per period slot {k, v} of (n_periods, B, T, Hkv, dh),
-    T = :func:`cache_len` of the slot's layer kind."""
+    """Dense cache, per period slot by its layer kind, every leaf in
+    ``cfg.dtype`` and stacked (n_periods, ...): an attention slot's {k, v}
+    of (B, T, Hkv, dh), T = :func:`cache_len` of its kind; an SSM slot's
+    {conv (B, K-1, C), ssm (B, H, P, N)}."""
     n_periods = cfg.n_layers // cfg.period
+
+    def zeros(*shape):
+        return torch.zeros((n_periods,) + shape, dtype=cfg.dtype, device=device)
+
     cache = []
     for mixer, _ in cfg.layer_kinds[:cfg.period]:
-        shape = (n_periods, batch, cache_len(cfg, mixer, max_len), cfg.n_kv_heads,
-                 cfg.resolved_head_dim)
-        cache.append({"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
-                      "v": torch.zeros(shape, dtype=cfg.dtype, device=device)})
+        if mixer == "ssm":
+            _, n_heads, d_state, conv_ch, _ = SSM.ssm_dims(cfg)
+            cache.append({"conv": zeros(batch, cfg.ssm_conv_dim - 1, conv_ch),
+                          "ssm": zeros(batch, n_heads, cfg.ssm_head_dim, d_state)})
+            continue
+        shape = (batch, cache_len(cfg, mixer, max_len), cfg.n_kv_heads, cfg.resolved_head_dim)
+        cache.append({"k": zeros(*shape), "v": zeros(*shape)})
     return cache
 
 
@@ -315,8 +353,9 @@ def make_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int, device):
     """Per-layer paged KV pools: per period slot {k_pages, v_pages} of
     (n_periods, Hkv, num_pages, page_size, dh), shared across requests
     through a page table.  Global-attention stacks only: local layers' rings
-    have no paged layout, and raise :class:`UnsupportedCacheError`, on
-    which the serve launcher runs its dense loop."""
+    and SSM layers' states have no paged layout, and raise
+    :class:`UnsupportedCacheError`, on which the serve launcher runs its
+    dense loop."""
     from repro_torch.serving.resilience import UnsupportedCacheError
 
     for mixer, _ in cfg.layer_kinds:

@@ -5,8 +5,8 @@ vision prefix) of ``repro_torch`` against the JAX ``Model`` on converted
 parameters, in float32, on the CPU, under the fused plan (the ``mlp`` site
 on the GLU's plain version and its backward).
 
-* Each config's fields are the JAX config's; the three architectures still
-  refused say what they wait on.
+* Each config's fields are the JAX config's; the two architectures whose
+  full width is still refused say what they wait on.
 * Logits through ``forward``, the loss and every gradient leaf of
   ``Model.loss``, the dense ``prefill`` then ``decode_step``, and the paged
   ``prefill_paged`` / ``decode_step_paged`` at 1e-4 (sums in another
@@ -92,20 +92,28 @@ def _batch(tcfg, seed):
     return batch
 
 
+def _field(cfg, name):
+    """A config field, its site pins as JSON (each package has its own
+    ``ApproxSpec`` class)."""
+    value = getattr(cfg, name)
+    if name == "act_site_specs":
+        return [(k, s.to_json()) for k, s in value]
+    return value
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_config_is_the_jax_config(arch):
     t, j = get_config(arch), j_get_config(arch)
     names = [f.name for f in dataclasses.fields(t) if f.name not in ("dtype", "act_plan")]
     for name in names:
-        assert getattr(t, name) == getattr(j, name), name
+        assert _field(t, name) == _field(j, name), name
     assert t.layer_kinds == j.layer_kinds and t.period == j.period
     tr, jr = get_reduced_config(arch), j_get_reduced_config(arch)
     for name in names:
-        assert getattr(tr, name) == getattr(jr, name), name
+        assert _field(tr, name) == _field(jr, name), name
 
 
-@pytest.mark.parametrize("arch, waits_on", [("mamba2-2.7b", "SSM layers"),
-                                            ("jamba-v0.1-52b", "SSM layers"),
+@pytest.mark.parametrize("arch, waits_on", [("jamba-v0.1-52b", "distribution"),
                                             ("phi3.5-moe-42b-a6.6b", "distribution")])
 def test_unported_archs_say_what_they_wait_on(arch, waits_on):
     with pytest.raises(ValueError, match=waits_on):

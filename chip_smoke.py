@@ -150,7 +150,16 @@
    that the script writes under 45 GiB to disk, resumes it (losses bit for
    bit);
    and holds reduced mamba2-2.7b and jamba-v0.1-52b on the card against the
-   CPU (jamba's dense loop: 4 GLUs, 4 MoE GLUs and one row softmax a call).
+   CPU (jamba's dense loop: 4 GLUs, 4 MoE GLUs and one row softmax a call);
+18. slice 17, the paper's SGD table fit (``core/fit.py``, no new kernel):
+   runs the Fig. 2 fit (gelu, 5 breakpoints on [-2, 2]) twice on the card,
+   bitwise alike and within 5% of the CPU's MSE, and prints its time and
+   Adam steps; re-fits four shipped pairs through ``gen_tables --fast
+   --device cuda --root DIR`` to at most 1.1x their MSE; fits gelu_tanh at
+   24 breakpoints on a store's miss and holds that table through the fused
+   GLU kernel at M = 4 and 4096; and serves repro-100m under a plan with a
+   uniform table and under one at 25 segments (the store's uniform
+   fallback, one warning), every GLU on the kernel.
 
 Every failed check exits non-zero.  The last two lines of standard output
 are the kernels' JSON line and ``{"ok": true, "device": {...}}``; the card's
@@ -4651,6 +4660,277 @@ def ssm_reference_phase(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 17: the paper's SGD table fit on the card
+
+FIT_FIG2 = ("gelu", 5, -2.0, 2.0)  # the paper's Fig. 2 fit
+FIT_REFITS = (("gelu", 16), ("exp", 32), ("silu", 32), ("gelu_tanh", 8))  # gen_tables --fast
+FIT_MISS_BP = 24  # gelu_tanh at 24 breakpoints: no shipped artifact
+UNIFORM_FALLBACK = "uniform-breakpoint"  # the store's missing-artifact warning
+
+
+@contextlib.contextmanager
+def _counting_adam_steps():
+    """Counts the Adam steps of the fits run inside (``fit._adam_chunk``
+    wrapped)."""
+    from repro_torch.core import fit as fitlib
+
+    real, counted = fitlib._adam_chunk, {"steps": 0}
+
+    def chunk(spec, steps, *args, **kwargs):
+        counted["steps"] += steps
+        return real(spec, steps, *args, **kwargs)
+
+    fitlib._adam_chunk = chunk
+    try:
+        yield counted
+    finally:
+        fitlib._adam_chunk = real
+
+
+def _timed(torch, run):
+    """``run()``'s result, its wall seconds (the device synchronized) and
+    the Adam steps it took."""
+    with _counting_adam_steps() as counted:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return out, secs, counted["steps"]
+
+
+def _fit_chunk_profile(torch) -> dict:
+    """One 50-step Adam chunk of the Fig. 2 fit on the card: its kernels,
+    memsets, copies on the device and copies to or from the host a step
+    under ``torch.profiler`` (eager: a graph replays the same kernels; None
+    where the profiler saw no device activity), and its wall time a step
+    eager and as a CUDA graph replay (the median of 5 chunks each)."""
+    from repro_torch.core import fit as fitlib
+    from repro_torch.core import functions as F
+    from repro_torch.core import pwl
+
+    spec, n, lo, hi = F.get(FIT_FIG2[0]), *FIT_FIG2[1:]
+    x = pwl.linspace_f32(lo, hi, 8192, device="cuda")
+    fx, w = spec.fn(x), fitlib._trapezoid_weights(x)
+    p = pwl.linspace_f32(lo, hi, n, device="cuda")
+    v = spec.fn(p)
+    m_l, m_r = pwl.boundary_slopes(spec, p)
+    state = tuple(torch.zeros_like(p) for _ in range(4)) + (0,)
+    lr = torch.tensor(0.1, device="cuda")
+    graph = fitlib.ChunkGraph()
+
+    def chunk(g=None):
+        out = fitlib._adam_chunk(spec, 50, p, v, state, lr, x, fx, w, m_l, m_r, graph=g)
+        return float(out[3])
+
+    def per_step_ms(g=None) -> float:
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            chunk(g)
+            walls.append((time.perf_counter() - t0) * 1e3 / 50)
+        return sorted(walls)[2]
+
+    check(chunk() == chunk(graph) == chunk(graph),
+          "a graphed Adam chunk's loss differs from the eager chunk's")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        chunk()
+        torch.cuda.synchronize()
+    counts = {"kernels": 0, "memsets": 0, "device_copies": 0, "host_copies": 0}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.lower()
+            kind = ("memsets" if "memset" in name else
+                    "device_copies" if "dtod" in name else
+                    "host_copies" if "memcpy" in name else "kernels")
+            counts[kind] += 1
+    per = {k: (c / 50 if counts["kernels"] else None) for k, c in counts.items()}
+    return {**per, "eager_ms": per_step_ms(), "graph_ms": per_step_ms(graph)}
+
+
+def _edited_plan(tmp: pathlib.Path, name: str, **spec) -> str:
+    """The default fused plan of repro-100m, dumped, with its
+    ``mlp:gelu_tanh`` spec edited as a user would edit the JSON."""
+    path = pathlib.Path(dump_plan(tmp / name, pwl_softmax=False))
+    plan = json.loads(path.read_text())
+    sites = dict((k, v) for k, v in plan["sites"])
+    check(set(sites) == {"mlp:gelu_tanh"}, f"repro-100m's sites: {sorted(sites)}")
+    sites["mlp:gelu_tanh"].update(spec)
+    path.write_text(json.dumps(plan, indent=2))
+    return str(path)
+
+
+def fit_phase(torch, tmp: pathlib.Path, default_counts: dict) -> dict:
+    """The paper's SGD fit (``core/fit.py``) on the card, then its tables
+    through the model path.
+
+    (a) the Fig. 2 fit (gelu, 5 breakpoints on [-2, 2], 1200 steps, 2
+        rounds) twice on ``cuda``: the tables bitwise equal, the MSE within
+        5% of the same call on the CPU and at least 7x below the uniform
+        table's; one Adam chunk's kernels a step, and its time eager and
+        as the CUDA graph the fit replays;
+    (b) ``gen_tables --fast --device cuda --root DIR`` re-fits four shipped
+        pairs, each to at most 1.1x the shipped artifact's MSE with its
+        provenance whole (the shipped artifacts untouched);
+    (c) a fit-on-miss store (gelu_tanh, 24 breakpoints, ``gen_tables``'
+        fast config) fits on the card; its table through the fused GLU
+        kernel at repro-100m's decode (M = 4) and training (M = 4096) rows
+        against the plain version (bf16 1e-2, f32 1e-4), one launch each;
+    (d) two full-width repro-100m serve sessions at the defaults: a dumped
+        plan with ``"fit": "uniform"`` at ``mlp:gelu_tanh`` (no warning),
+        and one at 25 segments, which has no artifact (exactly one uniform-
+        fallback warning); both launch the GLU kernel as often as the
+        default session does.
+    """
+    import hashlib
+    import warnings
+
+    import numpy as np
+
+    from repro_torch import sfu
+    from repro_torch.core import fit as fitlib
+    from repro_torch.core import functions as F
+    from repro_torch.core import gen_tables, pwl
+    from repro_torch.kernels.fused import fused_glu
+    from repro_torch.kernels.fused.epilogue import plan_and_operands
+    from repro_torch.kernels.fused.glu import fused_glu_plain
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    out = {}
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    # (a) the Fig. 2 fit, twice on the card, once on the CPU
+    fn, n, lo, hi = FIT_FIG2
+    cfg = fitlib.FitConfig(max_steps=1200, max_rounds=2)
+    runs = [_timed(torch, lambda: fitlib.fit(fn, n, lo, hi, cfg, device="cuda"))
+            for _ in range(2)]
+    (r1, s1, steps1), (r2, s2, steps2) = runs
+    for f in ("bp", "m", "q"):
+        check(torch.equal(bits(getattr(r1.table, f)), bits(getattr(r2.table, f))),
+              f"fig2 fit: two runs on the card differ in {f}")
+    check(steps1 == steps2 and r1.history == r2.history, "fig2 fit: the runs' histories differ")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # thousands of small ops: threads only slow them
+    try:
+        t0 = time.perf_counter()
+        rc = fitlib.fit(fn, n, lo, hi, cfg, device="cpu")
+        cpu_s = time.perf_counter() - t0
+    finally:
+        torch.set_num_threads(threads)
+    uniform = pwl.mse(pwl.make_uniform_table(F.get(fn), n, lo, hi), F.get(fn), lo, hi)
+    check(abs(r1.mse - rc.mse) <= 0.05 * rc.mse,
+          f"fig2 fit: card MSE {r1.mse:.6g} vs CPU {rc.mse:.6g}")
+    check(uniform / r1.mse >= 7.0, f"fig2 fit: only {uniform / r1.mse:.2f}x below uniform")
+    check(bool(torch.all(r1.table.bp[1:] > r1.table.bp[:-1])), "fig2 fit: bp not increasing")
+    prof = _fit_chunk_profile(torch)
+    out["fig2"] = {"seconds": [s1, s2], "steps": steps1, "mse": r1.mse, "cpu_mse": rc.mse,
+                   "cpu_seconds": cpu_s, "uniform_ratio": uniform / r1.mse, **prof}
+    print(f"[smoke] fit fig2 (gelu 5 bp on [-2, 2], 1200 steps, 2 rounds) on {card}: "
+          f"{s1:.2f} s and {s2:.2f} s, {steps1} Adam steps, "
+          f"{s1 * 1e3 / steps1:.3f} / {s2 * 1e3 / steps2:.3f} ms a step; bitwise equal; "
+          f"MSE {r1.mse:.6g} (CPU {rc.mse:.6g} in {cpu_s:.2f} s, one thread; uniform / fit "
+          f"{uniform / r1.mse:.2f}); history {[h[0] for h in r1.history]}")
+    print(f"[smoke] fit fig2 Adam step: {prof['kernels']} kernels, {prof['memsets']} memsets, "
+          f"{prof['device_copies']} copies on the device, {prof['host_copies']} to or from "
+          f"the host (torch.profiler, eager); {prof['eager_ms']:.3f} ms eager, "
+          f"{prof['graph_ms']:.3f} ms as a CUDA graph replay (median of 5 chunks of 50)")
+
+    # (b) gen_tables --fast on the card re-fits shipped pairs
+    shipped = {(f, b): sfu.TABLE_DIR / f"{f}_{b}bp.npz" for f, b in FIT_REFITS}
+    digests = {k: hashlib.sha256(p.read_bytes()).hexdigest() for k, p in shipped.items()}
+    root = tmp / "refit"
+    store = sfu.TableStore(root=root)
+    for f, b in FIT_REFITS:
+        argv = ["--fast", "--device", "cuda", "--root", str(root), "--functions", f,
+                "--breakpoints", str(b)]
+        _, secs, steps = _timed(torch, lambda: gen_tables.main(argv))
+        prov = store.provenance(f, b)
+        check(prov is not None, f"gen_tables wrote no {f} {b}bp artifact")
+        missing = {"schema", "fn", "n_breakpoints", "n_segments", "fit", "repro_version",
+                   "created_unix", "mse", "mae", "range", "fit_config", "generator"} - set(prov)
+        check(not missing and prov["generator"] == "repro_torch.core.gen_tables"
+              and prov["fit_config"]["init"] == "curvature",
+              f"{f} {b}bp provenance incomplete: {missing}")
+        with np.load(shipped[(f, b)]) as data:
+            ship_mse = float(data["mse"])
+        ratio = prov["mse"] / ship_mse
+        check(ratio <= 1.1, f"re-fit {f} {b}bp: MSE {prov['mse']:.4g} is {ratio:.3f}x the "
+                            f"shipped {ship_mse:.4g}")
+        out[f"refit {f} {b}"] = {"seconds": secs, "steps": steps, "ratio": ratio}
+        print(f"[smoke] fit gen_tables --fast {f} {b} bp on the card: {secs:.2f} s, {steps} "
+              f"Adam steps, {secs * 1e3 / steps:.3f} ms a step; MSE {prov['mse']:.4g} = "
+              f"{ratio:.3f}x the shipped {ship_mse:.4g}")
+    for k, p in shipped.items():
+        check(hashlib.sha256(p.read_bytes()).hexdigest() == digests[k],
+              f"the shipped artifact {p.name} changed")
+
+    # (c) fit-on-miss on the card, its table through the GLU kernel
+    miss = sfu.TableStore(root=tmp / "miss", fit_on_miss=True,
+                          fit_config=gen_tables.fit_config(fast=True))
+    check(miss.fit_device == "cuda", "fit-on-miss must default to the card")
+    table, secs, steps = _timed(torch, lambda: miss.get(fn="gelu_tanh",
+                                                        n_breakpoints=FIT_MISS_BP))
+    prov = miss.provenance("gelu_tanh", FIT_MISS_BP)
+    check(prov is not None and prov["trigger"] == "fit-on-miss", "fit-on-miss provenance")
+    check(table.n_breakpoints == FIT_MISS_BP and bool(torch.all(table.bp[1:] > table.bp[:-1])),
+          "fit-on-miss table")
+    spec = F.get("gelu_tanh")
+    uniform = pwl.mse(pwl.make_uniform_table(spec, FIT_MISS_BP), spec, *spec.default_range)
+    check(prov["mse"] < uniform, f"fit-on-miss MSE {prov['mse']:.4g} >= uniform {uniform:.4g}")
+    out["miss"] = {"seconds": secs, "steps": steps, "mse": prov["mse"]}
+    print(f"[smoke] fit-on-miss gelu_tanh {FIT_MISS_BP} bp on the card: {secs:.2f} s, {steps} "
+          f"Adam steps, {secs * 1e3 / steps:.3f} ms a step; MSE {prov['mse']:.4g} (uniform "
+          f"{uniform:.4g})")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plan, tables = plan_and_operands(table)
+    tables = tuple(t.cuda() for t in tables)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    scale = 1.0 / math.sqrt(K_DIM)
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+        wg = (torch.randn(K_DIM, N_DIM, generator=gen, device="cuda") * scale).to(dtype)
+        wu = (torch.randn(K_DIM, N_DIM, generator=gen, device="cuda") * scale).to(dtype)
+        for M in (4, TRAIN_TOKENS):
+            x = torch.randn(M, K_DIM, generator=gen, device="cuda").to(dtype)
+            n0 = fused_glu.launches
+            got = fused_glu(x, wg, wu, table=table)
+            check(fused_glu.launches == n0 + 1, f"fit-on-miss GLU M={M} {dtype}: no launch")
+            want = fused_glu_plain(x, wg, wu, plan, tables)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            check(bool(torch.isfinite(got).all()) and torch.allclose(
+                got.float(), want.float(), atol=tol, rtol=tol),
+                f"fit-on-miss GLU M={M} {dtype}: max err {err} > {tol}")
+            k_ms = time_ms(torch, lambda i: fused_glu(x, wg, wu, table=table))
+            p_ms = time_ms(torch, lambda i: fused_glu_plain(x, wg, wu, plan, tables), reps=5)
+            out[f"glu {M} {dtype}"] = {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": err}
+            print(f"[smoke] fused_glu with the fit-on-miss table (gelu_tanh {FIT_MISS_BP} bp) "
+                  f"M={M} K={K_DIM} N={N_DIM} {dtype}: max_abs_err {err:.3g} (tol {tol}), "
+                  f"kernel {k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us")
+
+    # (d) the model path under a uniform table and under the fallback
+    for tag, changes, n_warn in (("uniform", {"fit": sfu.FIT_UNIFORM}, 0),
+                                 ("fallback", {"n_segments": FIT_MISS_BP + 1}, 1)):
+        path = _edited_plan(tmp, f"{tag}_plan.json", **changes)
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            counts = serve_phase(torch, ["--plan", path], no_attention_kernels)
+        got = [str(w.message) for w in rec if UNIFORM_FALLBACK in str(w.message)]
+        check(len(got) == n_warn, f"{tag} plan: {len(got)} uniform-fallback warnings, "
+                                  f"not {n_warn}: {got}")
+        for name in ("fused_glu", "rope_write_prompt_pages_", "rope_append_kv_"):
+            check(counts[name] == default_counts[name],
+                  f"{tag} plan: {name} launches {counts[name]} != the default session's "
+                  f"{default_counts[name]}")
+        out[f"serve {tag}"] = counts
+    print(f"[smoke] fitting phase {time.perf_counter() - t_phase:.1f} s on {card}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4715,6 +4995,8 @@ def main() -> int:
             bf16_plan = dump_plan(pathlib.Path(tmp) / "bf16_table_plan.json", table_dtype="bf16")
             serve_phase(torch, ["--plan", bf16_plan], short_prompt_attention)
             mark("repro-100m serve phases")
+            fitted = fit_phase(torch, pathlib.Path(tmp), main_counts)
+            mark("slice 17 fitting phase (fits on the card, fit-on-miss, uniform tables)")
             olmoe = ["--arch", "olmoe-1b-7b"]
             with _bucket_census(torch) as census:
                 moe_counts = serve_phase(torch, olmoe, no_attention_kernels)
@@ -4804,6 +5086,8 @@ def main() -> int:
         path_counts["pwl_activation mamba2-2.7b"] = mamba_serve["kernel"]["pwl_activation"]
         for name in ("fused_glu", "fused_moe_glu", "fused_pwl_softmax"):
             path_counts[f"{name} reduced jamba"] = ssm_ref["jamba-v0.1-52b"][name]
+        for tag in ("uniform", "fallback"):
+            path_counts[f"fused_glu {tag} table"] = fitted[f"serve {tag}"]["fused_glu"]
         for name, n in path_counts.items():
             check(n > 0, f"{name} never launched on its serving or training path")
     except SmokeFailure as e:

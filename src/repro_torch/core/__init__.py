@@ -1,1 +1,1 @@
-"""Function specs, PWL tables and table quantization (torch)."""
+"""Function specs, PWL tables, table quantization and the SGD table fit (torch)."""

@@ -71,14 +71,43 @@ def params_to_coeffs(p, v, m_l, m_r, name: str = "?") -> PWLTable:
     return PWLTable(bp=p, m=m, q=q, name=name)
 
 
+def segment_sum(vals: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
+    """``out[j] = Σ vals[seg == j]`` for j in [0, n), the same bits from run to
+    run: a serial ``index_add_`` on the CPU, and on CUDA (where
+    ``index_add_`` accumulates with atomics, in an order that changes from
+    run to run) a reduction over a one-hot mask."""
+    vals, seg = vals.reshape(-1), seg.reshape(-1)
+    if vals.device.type == "cpu":
+        return torch.zeros(n, dtype=vals.dtype).index_add_(0, seg, vals)
+    hot = seg[:, None] == torch.arange(n, device=seg.device)
+    return torch.where(hot, vals[:, None], 0.0).sum(dim=0)
+
+
+class _Take(torch.autograd.Function):
+    """``a[idx]`` for a 1-D ``a``, whose backward is :func:`segment_sum`."""
+
+    @staticmethod
+    def forward(ctx, a, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = a.shape[0]
+        return a[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return segment_sum(g, idx, ctx.n), None
+
+
 def eval_interp(x, p, v, m_l, m_r):
-    """The interpolation form evaluated directly (differentiable in p and
-    v): the inner segment through its two end points, the outer lines
-    beyond p_0 and p_{n-1}."""
+    """The interpolation form evaluated directly at sorted breakpoints p
+    (differentiable in p and v, with a backward that repeats bit for bit):
+    the inner segment through its two end points, the outer lines beyond
+    p_0 and p_{n-1}."""
     n = p.shape[0]
-    idx = (x[..., None] > p).sum(dim=-1)
+    idx = torch.searchsorted(p, x)  # Σ (x > p_i) for sorted p
     im = torch.clamp(idx, 1, n - 1)  # inner segment's right end point
-    p0, p1, v0, v1 = p[im - 1], p[im], v[im - 1], v[im]
+    p0, p1 = _Take.apply(p, im - 1), _Take.apply(p, im)
+    v0, v1 = _Take.apply(v, im - 1), _Take.apply(v, im)
     y_in = (v1 - v0) / (p1 - p0) * (x - p0) + v0
     y_l = m_l * (x - p[0]) + v[0]
     y_r = m_r * (x - p[-1]) + v[-1]
@@ -111,14 +140,34 @@ def _apply_boundary_values(spec: F.FunctionSpec, p, v):
     return v
 
 
+def linspace_f32(lo: float, hi: float, n: int, device=None) -> torch.Tensor:
+    """``n`` evenly spaced f32 points from ``lo`` to ``hi``, both included:
+    the grid of the fit, the uniform tables and the error metrics.
+
+    It is ``jnp.linspace(lo, hi, n, dtype=float32)`` as XLA compiles it,
+    ``lo·(1 - i·r) + i·(hi·r)`` with ``r = 1/(n-1)`` in f32, each product
+    rounded.  XLA on a CPU contracts the products into fused multiply-adds
+    where it vectorizes, so JAX's points depend on the host; these are
+    within one ulp of max(|lo|, |hi|) of them, and computed on the host, the
+    same for every device.
+    """
+    if n < 2:
+        return torch.full((n,), lo, dtype=torch.float32, device=device)
+    i = np.arange(n - 1, dtype=np.float32)
+    r = np.float32(1) / np.float32(n - 1)
+    lo32, hi32 = np.float32(lo), np.float32(hi)
+    out = lo32 * (np.float32(1) - i * r) + i * (hi32 * r)
+    return torch.from_numpy(np.append(out, hi32).astype(np.float32)).to(device)
+
+
 def make_uniform_table(spec: F.FunctionSpec, n_breakpoints: int, lo: Optional[float] = None,
                        hi: Optional[float] = None, dtype=torch.float32) -> PWLTable:
     """Uniform-breakpoint table with exact function values (the fit's init
-    and the prior-work baseline: uniform segments, O(1) addressing).  The
-    breakpoints are the f32 roundings of the evenly spaced points."""
+    and the prior-work baseline: uniform segments, O(1) addressing), on
+    :func:`linspace_f32`'s breakpoints."""
     if lo is None or hi is None:
         lo, hi = spec.default_range
-    p = torch.from_numpy(np.linspace(lo, hi, n_breakpoints).astype(np.float32))
+    p = linspace_f32(lo, hi, n_breakpoints)
     v = _apply_boundary_values(spec, p, spec.fn(p))
     m_l, m_r = boundary_slopes(spec, p)
     t = params_to_coeffs(p, v, m_l, m_r, name=spec.name)
@@ -132,12 +181,12 @@ def _on_grid(table_or_fn, x):
 def mse(table_or_fn, spec: F.FunctionSpec, lo: float, hi: float, n_grid: int = 8192) -> float:
     """Continuous MSE 1/(b-a) ∫ (f̂-f)² dx by the trapezoid rule on an f32
     grid."""
-    x = torch.linspace(lo, hi, n_grid, dtype=torch.float32)
+    x = linspace_f32(lo, hi, n_grid)
     err = (_on_grid(table_or_fn, x) - spec.fn(x)) ** 2
     return float(torch.trapezoid(err, x) / (hi - lo))
 
 
 def mae(table_or_fn, spec: F.FunctionSpec, lo: float, hi: float, n_grid: int = 8192) -> float:
     """Max absolute error on an f32 grid of ``n_grid`` points."""
-    x = torch.linspace(lo, hi, n_grid, dtype=torch.float32)
+    x = linspace_f32(lo, hi, n_grid)
     return float((_on_grid(table_or_fn, x) - spec.fn(x)).abs().max())

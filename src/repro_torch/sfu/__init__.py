@@ -3,8 +3,9 @@
   * :class:`ApproxSpec` — how one activation site is approximated;
   * :class:`ActivationPlan` + :func:`compile_plan` — per-site plans compiled
     once per model config, JSON-compatible with the JAX package's plans;
-  * :class:`TableStore` + :func:`get_store` — the shipped table artifacts,
-    quantized to f32 / bf16 / f16 / int8 on request.
+  * :class:`TableStore` + :func:`get_store` — provenance-aware table
+    artifacts keyed by (fn, n_breakpoints, dtype, fit), with the uniform
+    fallback, fit-on-miss and f32 / bf16 / f16 / int8 quantization.
 """
 from .plan import (
     FUSED_SITES,

@@ -181,10 +181,13 @@ def test_uniform_constants_are_the_f32_roundings():
 def test_make_uniform_table_matches_jax(fn, n_bp):
     jt = jpwl.make_uniform_table(JF.get(fn), n_bp)
     tt = tpwl.make_uniform_table(TF.get(fn), n_bp)
-    # the port's breakpoints are the f32 roundings of the evenly spaced
-    # points (jnp.linspace is up to ~5e-7 off them): absolute 1e-5 on
-    # values up to 8
-    for a, b in ((tt.bp, jt.bp), (tt.m, jt.m), (tt.q, jt.q)):
+    # the port's breakpoints are pwl.linspace_f32's, within one ulp of
+    # max(|lo|, |hi|) of jnp.linspace's (XLA's FMAs); the coefficients
+    # follow at absolute 1e-5 on values up to 8
+    lo, hi = TF.get(fn).default_range
+    ulp = float(np.spacing(np.float32(max(abs(lo), abs(hi)))))
+    assert np.max(np.abs(tt.bp.numpy().astype(np.float64) - _np(jt.bp))) <= ulp
+    for a, b in ((tt.m, jt.m), (tt.q, jt.q)):
         np.testing.assert_allclose(a.numpy(), _np(b), rtol=1e-5, atol=1e-5)
     assert tt.name == fn
     spec_j, spec_t = JF.get(fn), TF.get(fn)

@@ -65,12 +65,6 @@ def test_store_tables_bitwise(fmt, n_bp):
                                           err_msg=f"{fn} {n_bp}bp {fmt} {f}")
 
 
-def test_store_missing_artifact_raises(tmp_path):
-    store = tsfu.TableStore(root=tmp_path)
-    with pytest.raises(FileNotFoundError):
-        store.get(fn="gelu", n_breakpoints=32)
-
-
 @pytest.mark.parametrize("n_bp", BREAKPOINTS)
 @pytest.mark.parametrize("fmt", FORMATS)
 def test_eval_coeff_bitwise_on_breakpoint_grid(n_bp, fmt):

@@ -159,7 +159,22 @@
    24 breakpoints on a store's miss and holds that table through the fused
    GLU kernel at M = 4 and 4096; and serves repro-100m under a plan with a
    uniform table and under one at 25 segments (the store's uniform
-   fallback, one warning), every GLU on the kernel.
+   fallback, one warning), every GLU on the kernel;
+19. slice 18, tables past 64 breakpoints and the guard: every table
+   kernel's wide instantiation (tables read from device memory, the search
+   over padded breakpoints; the same library as the shared-memory one);
+   ``wide_table_phase`` holds every kernel family at 65 and 128
+   breakpoints against its plain version, the wide instantiation bitwise
+   the shared-memory one at 32, and the GLU digests again; serves
+   repro-100m under a 129-segment plan (``mlp`` and ``attn.softmax``
+   fused, on the wide kernels); ``guard_phase`` profiles the default
+   session guard off (launches a call and tokens the parent's) and on,
+   runs ``serve --guard`` and ``serve --chaos 0`` (rc 0, tokens those of
+   the fault-free run), and injects a NaN at repro-100m's MLP site and at
+   olmoe-1b-7b's expert site (with a kernel failure and a dropped tick),
+   each recovered by the degraded re-run, whose GLU is held within
+   rounding of the kernel's and whose token changes to the band that one
+   ulp at the site opens.
 
 Every failed check exits non-zero.  The last two lines of standard output
 are the kernels' JSON line and ``{"ok": true, "device": {...}}``; the card's
@@ -4931,6 +4946,738 @@ def fit_phase(torch, tmp: pathlib.Path, default_counts: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# slice 18: tables above 64 breakpoints (the wide instantiation of every table kernel)
+
+WIDE_BPS = (65, 128)  # past the 64 breakpoints of the shared-memory build
+WIDE_SEGMENTS = 129   # the wide serve session's plan: 128 breakpoints
+
+
+def _wide_table(fn: str, n_bp: int):
+    """A uniform table of ``fn`` (``fit="uniform"``: no fit, any size)."""
+    from repro_torch import sfu
+
+    return sfu.get_store().get(fn=fn, n_breakpoints=n_bp, fit="uniform")
+
+
+@contextlib.contextmanager
+def _all_wide():
+    """Every table through the kernels' wide instantiation, however few its
+    breakpoints (the shared-memory cap set to 0 in ``epilogue.is_wide``)."""
+    from repro_torch.kernels.fused import epilogue
+
+    prev, epilogue.PWL_MAX_BP = epilogue.PWL_MAX_BP, 0
+    try:
+        yield
+    finally:
+        epilogue.PWL_MAX_BP = prev
+
+
+def _wide_families(torch) -> list[dict]:
+    """Every kernel family at one shape: ``run(table, plain)`` gives its
+    outputs on the card, through the kernel wrappers (their launches
+    counted) or through the plain versions on the same tensors; ``fwd``
+    times the forward kernel; ``bound`` is the forward's least time (the
+    bytes it must move against its products' or decodes' operations);
+    ``on_path`` marks the family and shape a served model's 129-segment
+    session runs.
+    Integer-grid inputs (``_igrid``) wherever a product feeds the decode, so
+    every pre-activation is an exact f32 sum in any order and the kernel
+    decodes the plain version's segment."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pwl_act as P
+    from repro_torch.kernels.fused import (
+        fused_flash_attention,
+        fused_glu,
+        fused_linear,
+        fused_moe_glu,
+        fused_pwl_softmax,
+        fused_rmsnorm,
+        paged_flash_decode,
+    )
+    from repro_torch.kernels.fused import attention as A
+    from repro_torch.kernels.fused import glu as G
+    from repro_torch.kernels.fused import linear as L
+    from repro_torch.kernels.fused import norm as N
+    from repro_torch.kernels.fused import softmax as S
+    from repro_torch.kernels.fused.decoding import paged_flash_decode_plain
+    from repro_torch.kernels.fused.epilogue import device_operands
+
+    gen = torch.Generator(device="cuda").manual_seed(28)
+
+    def grid(*shape, dtype=torch.bfloat16, span=4, step=1 / 16):
+        return _igrid(torch, gen, shape, dtype, span=span, step=step)
+
+    def ops_of(table):
+        return device_operands(table, None, "cuda")
+
+    fams = []
+
+    def glu_family(dtype, M):
+        x, g = grid(M, K_DIM, dtype=dtype), grid(M, N_DIM, dtype=dtype)
+        wg, wu = grid(K_DIM, N_DIM, dtype=dtype), grid(K_DIM, N_DIM, dtype=dtype)
+
+        def run(table, plain):
+            plan, tabs = ops_of(table)
+            if plain:
+                return (G.fused_glu_plain(x, wg, wu, plan, tabs),
+                        *G.fused_glu_bwd_plain(x, wg, wu, g, plan, tabs))
+            return (fused_glu(x, wg, wu, table=table), *G.fused_glu_bwd(x, wg, wu, g, plan, tabs))
+
+        esize, bf16 = x.element_size(), dtype == torch.bfloat16
+        return {"name": "fused_glu", "lib": "glu", "fn": "gelu_tanh", "run": run,
+                "shape": f"M={M} K={K_DIM} N={N_DIM} {str(dtype).split('.')[-1]}",
+                "fwd": lambda table: fused_glu(x, wg, wu, table=table),
+                "plain": lambda table: G.fused_glu_plain(x, wg, wu, *ops_of(table)),
+                "bound": (_bound if bf16 else _f32_bound)(
+                    (M * K_DIM + 2 * K_DIM * N_DIM + M * N_DIM) * esize, 4.0 * M * K_DIM * N_DIM),
+                "on_path": bf16, "tol": 1e-2 if bf16 else 1e-4, "replaces": "glu.py:30"}
+
+    fams.append(glu_family(torch.bfloat16, 512))
+    fams.append(glu_family(torch.float32, 32))
+
+    C = 40  # olmoe's bucket capacity at a 256-token prefill
+    xb, gb = grid(MOE_E, C, MOE_K), grid(MOE_E, C, MOE_N)
+    wgm, wum = grid(MOE_E, MOE_K, MOE_N), grid(MOE_E, MOE_K, MOE_N)
+
+    def moe_run(table, plain):
+        plan, tabs = ops_of(table)
+        if plain:
+            return (G.fused_glu_plain(xb, wgm, wum, plan, tabs),
+                    *G.fused_glu_bwd_plain(xb, wgm, wum, gb, plan, tabs))
+        return (fused_moe_glu(xb, wgm, wum, table=table),
+                *G.fused_glu_bwd(xb, wgm, wum, gb, plan, tabs, fused_moe_glu))
+
+    fams.append({"name": "fused_moe_glu", "lib": "glu", "fn": "silu", "run": moe_run,
+                 "shape": f"E={MOE_E} C={C} K={MOE_K} N={MOE_N} bf16",
+                 "fwd": lambda table: fused_moe_glu(xb, wgm, wum, table=table),
+                 "plain": lambda table: G.fused_glu_plain(xb, wgm, wum, *ops_of(table)),
+                 "bound": _bound((MOE_E * C * (MOE_K + MOE_N) + 2 * MOE_E * MOE_K * MOE_N) * 2,
+                                 4.0 * MOE_E * C * MOE_K * MOE_N),
+                 "tol": 1e-2, "replaces": "moe.py:41"})
+
+    def linear_family(dtype, M):
+        x, g = grid(M, K_DIM, dtype=dtype), grid(M, N_DIM, dtype=dtype)
+        w, b = grid(K_DIM, N_DIM, dtype=dtype), grid(N_DIM, dtype=dtype)
+
+        def run(table, plain):
+            plan, tabs = ops_of(table)
+            if plain:
+                return (L.fused_linear_plain(x, w, b, plan, tabs),
+                        L.fused_linear_bwd_plain(x, w, b, g, plan, tabs))
+            return fused_linear(x, w, b, table=table), L.fused_linear_bwd(x, w, b, g, plan, tabs)
+
+        return {"name": "fused_linear", "lib": "glu", "fn": "gelu", "run": run,
+                "shape": f"M={M} K={K_DIM} N={N_DIM} {str(dtype).split('.')[-1]}, bias",
+                "fwd": lambda table: fused_linear(x, w, b, table=table),
+                "plain": lambda table: L.fused_linear_plain(x, w, b, *ops_of(table)),
+                "bound": (_bound if dtype == torch.bfloat16 else _f32_bound)(
+                    (M * K_DIM + K_DIM * N_DIM + N_DIM + M * N_DIM) * x.element_size(),
+                    2.0 * M * K_DIM * N_DIM),
+                "tol": 1e-2 if dtype == torch.bfloat16 else 1e-4, "replaces": "linear.py:54"}
+
+    fams.append(linear_family(torch.bfloat16, 512))
+    fams.append(linear_family(torch.float32, 32))
+
+    def softmax_family(B, H, Sq, T, causal):
+        x = torch.randn(B, H, Sq, T, generator=gen, device="cuda") * 3
+        g = torch.randn(B, H, Sq, T, generator=gen, device="cuda")
+        x2, g2 = x.reshape(-1, T), g.reshape(-1, T)
+        mask = S.static_mask(x2.shape[0], T, Sq, causal, None, device="cuda") if causal else None
+
+        def run(table, plain):
+            plan, tabs = ops_of(table)
+            if plain:
+                return (S.fused_pwl_softmax_plain(x2, mask, plan, tabs),
+                        S.fused_pwl_softmax_bwd_plain(x2, mask, g2, plan, tabs))
+            return (fused_pwl_softmax(x, table=table, causal=causal).reshape(-1, T),
+                    S.fused_pwl_softmax_bwd(x2, None, g2, plan, tabs, Sq, causal))
+
+        return {"name": "fused_pwl_softmax", "lib": "softmax", "fn": "exp", "run": run,
+                "shape": f"{B * H}x{Sq} rows x {T}{' causal' if causal else ''} f32",
+                "fwd": lambda table: fused_pwl_softmax(x, table=table, causal=causal),
+                "plain": lambda table: S.fused_pwl_softmax_plain(x2, mask, *ops_of(table)),
+                "bound": _elementwise_bound(x.numel(), 4, SEARCH_OPS), "on_path": causal,
+                "tol": 1e-4, "replaces": "softmax.py:69"}
+
+    fams.append(softmax_family(1, HKV, 32, 32, True))
+    fams.append(softmax_family(4, HKV, 1, WHISPER_FRAMES, False))
+
+    kv_len = [19, 32, 15, 0]
+    n_cols, pages = 4, 17
+    rows = _fragmented_table(len(kv_len), n_cols, pages)
+    tab = torch.zeros((len(kv_len), n_cols), dtype=torch.int32)
+    for b, r in enumerate(rows):
+        tab[b, :len(r)] = torch.tensor(r)
+    tab = tab.cuda()
+    lens = torch.tensor(kv_len, dtype=torch.int32, device="cuda")
+    q1 = grid(len(kv_len), 1, HKV, DH, span=8, step=0.125)
+    kp, vp = grid(HKV, pages, PS, DH, span=8, step=0.125), grid(HKV, pages, PS, DH, span=8,
+                                                                 step=0.125)
+
+    def decode_run(table, plain):
+        if plain:
+            return (paged_flash_decode_plain(q1, kp, vp, tab, lens, *ops_of(table), n_cols),)
+        return (paged_flash_decode(q1, kp, vp, tab, lens, table=table),)
+
+    fams.append({"name": "paged_flash_decode", "lib": "decoding", "fn": "exp", "run": decode_run,
+                 "shape": f"B=4 Hkv={HKV} dh={DH} ps={PS} bf16 pools, kv_len 19/32/15/0",
+                 "fwd": lambda table: paged_flash_decode(q1, kp, vp, tab, lens, table=table),
+                 "plain": lambda table: paged_flash_decode_plain(q1, kp, vp, tab, lens,
+                                                                 *ops_of(table), n_cols),
+                 "bound": _f32_bound(2 * (q1.numel() * 2 + sum(kv_len) * HKV * DH * 2),
+                                     sum(kv_len) * HKV * (4.0 * DH + SEARCH_OPS)),
+                 "on_path": True, "tol": 1e-2, "replaces": "decoding.py:72"})
+
+    def flash_family(dtype, Sq):
+        q = grid(1, Sq, HKV, DH, dtype=dtype, span=8, step=0.125)
+        k = grid(1, Sq, HKV, DH, dtype=dtype, span=8, step=0.125)
+        v = grid(1, Sq, HKV, DH, dtype=dtype, span=8, step=0.125)
+        dout = grid(1, Sq, HKV, DH, dtype=dtype, span=8, step=0.125)
+        kw = {"causal": True, "window": None, "q_offset": 0, "kv_valid_len": None}
+
+        def run(table, plain):
+            plan, tabs = ops_of(table)
+            if plain:
+                out, m = A.fused_flash_attention_plain(q, k, v, plan, tabs, **kw)
+                return (out, m, *A.fused_flash_attention_bwd_plain(q, k, v, dout, m, plan, tabs,
+                                                                   **kw))
+            out = fused_flash_attention(q, k, v, table=table, causal=True)
+            m = A._launch(q, k, v, plan, tabs, True, None, 0, None, True)[1]  # the saved row max
+            return (out, m, *A.fused_flash_attention_bwd(q, k, v, dout, m, plan, tabs, **kw))
+
+        return {"name": "fused_flash_attention", "lib": "attention", "fn": "exp", "run": run,
+                "shape": f"S=T={Sq} causal H={HKV} dh={DH} {str(dtype).split('.')[-1]}",
+                "fwd": lambda table: fused_flash_attention(q, k, v, table=table, causal=True),
+                "plain": lambda table: A.fused_flash_attention_plain(q, k, v, *ops_of(table),
+                                                                     **kw)[0],
+                "bound": (_bound if dtype == torch.bfloat16 else _f32_bound)(
+                    4 * q.numel() * q.element_size(), 2.0 * HKV * Sq * Sq * DH),
+                "tol": 1e-2 if dtype == torch.bfloat16 else 1e-4, "replaces": "attention.py:100"}
+
+    fams.append(flash_family(torch.bfloat16, 1024))
+    fams.append(flash_family(torch.float32, 256))
+
+    xn = torch.randn(TRAIN_TOKENS, K_DIM, generator=gen, device="cuda").to(torch.bfloat16)
+    sn = torch.randn(K_DIM, generator=gen, device="cuda") * 0.1
+    gn = torch.randn(TRAIN_TOKENS, K_DIM, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def norm_run(table, plain):
+        plan, tabs = ops_of(table)
+        if plain:
+            return (N.fused_rmsnorm_plain(xn, sn, plan, tabs, NORM_EPS),
+                    *N.fused_rmsnorm_bwd_plain(xn, sn, gn, plan, tabs, NORM_EPS))
+        return (fused_rmsnorm(xn, sn, table=table),
+                *N.fused_rmsnorm_bwd(xn, sn, gn, plan, tabs, NORM_EPS))
+
+    fams.append({"name": "fused_rmsnorm", "lib": "norm", "fn": "gelu", "run": norm_run,
+                 "shape": f"M={TRAIN_TOKENS} D={K_DIM} bf16", "norm": (xn, sn, gn),
+                 "fwd": lambda table: fused_rmsnorm(xn, sn, table=table),
+                 "plain": lambda table: N.fused_rmsnorm_plain(xn, sn, *ops_of(table), NORM_EPS),
+                 "bound": _norm_bound(TRAIN_TOKENS, K_DIM, 2, 128, False), "tol": 1e-2,
+                 "replaces": "norm.py:31"})
+
+    xa = torch.randn(TRAIN_TOKENS, N_DIM, generator=gen, device="cuda").to(torch.bfloat16) * 3
+
+    def act_run(table, plain):
+        plan, tabs = ops_of(table)
+        if plain:
+            return (P.pwl_nonuniform_plain(xa, *tabs),)
+        return (ops.pwl_activation(xa, table),)
+
+    fams.append({"name": "pwl_activation", "lib": "pwl_act", "fn": "gelu_tanh", "run": act_run,
+                 "shape": f"{TRAIN_TOKENS} x {N_DIM} bf16", "bitwise": True,
+                 "fwd": lambda table: ops.pwl_activation(xa, table),
+                 "plain": lambda table: P.pwl_nonuniform_plain(xa, *ops_of(table)[1]),
+                 "bound": _elementwise_bound(xa.numel(), 2, SEARCH_OPS), "tol": 0.0,
+                 "replaces": "pwl_act.py:40"})
+
+    xu = torch.randn(TRAIN_TOKENS, N_DIM, generator=gen, device="cuda").to(torch.bfloat16) * 6
+
+    on_card = {}
+
+    def uniform_args(table):
+        """The uniform baseline's (m, q, lo, hi) from a uniform table, m and
+        q copied to the card once (a graph capture copies nothing): its
+        inner segments span [bp_0, bp_-1] in equal widths."""
+        if id(table) not in on_card:
+            on_card[id(table)] = (table, table.m.cuda(), table.q.cuda())
+        _, m, q = on_card[id(table)]
+        return m, q, float(table.bp[0]), float(table.bp[-1])
+
+    def uni_plain(table):
+        m, q, lo, hi = uniform_args(table)
+        return P.pwl_uniform_plain(xu, ops.pack_uniform(m, q), lo, hi)
+
+    def uni_run(table, plain):
+        return (uni_plain(table) if plain
+                else ops.pwl_activation_uniform(xu, *uniform_args(table)),)
+
+    fams.append({"name": "pwl_activation_uniform", "lib": "pwl_act", "fn": "sigmoid",
+                 "run": uni_run, "shape": f"{TRAIN_TOKENS} x {N_DIM} bf16", "bitwise": True,
+                 "fwd": lambda table: ops.pwl_activation_uniform(xu, *uniform_args(table)),
+                 "plain": uni_plain,
+                 "bound": _elementwise_bound(xu.numel(), 2, SEARCH_OPS), "tol": 0.0,
+                 "replaces": "pwl_act.py:52"})
+    return fams
+
+
+def wide_table_phase(torch) -> dict:
+    """Tables above 64 breakpoints through every kernel family (the wide
+    instantiation, ``csrc/pwl_decode.cuh``), forward and backward where the
+    family has one, each at one shape:
+
+    (a) at 32 breakpoints, the wide instantiations (every table sent there)
+        give bitwise the outputs of the shared-memory ones: the two decodes
+        are one function;
+    (b) at 65 and 128 breakpoints (uniform tables) each family's outputs
+        against its plain version on the same tensors, with today's
+        tolerances (bf16 1e-2, f32 1e-4 of each output's max; the
+        standalone kernels bitwise; the RMSNorm's dx by ``_norm_band``),
+        each launch counted (the shared-memory instantiation refuses more
+        than 64 breakpoints, so a launch that runs took the wide one);
+    (c) the GLU's recorded digests (``GLU_DIGESTS``) once more, and every
+        forward timed at 32 (shared memory) and 128 breakpoints (wide),
+        with the plain version at 128.
+
+    Returns the 128-breakpoint row of each family for the kernels line."""
+    t0 = time.perf_counter()
+    fams = _wide_families(torch)
+    rows = {}
+    for fam in fams:
+        what = f"wide {fam['name']} {fam['shape']}"
+        t32 = _wide_table(fam["fn"], 32)
+        narrow = fam["run"](t32, False)
+        with _all_wide():
+            wide = fam["run"](t32, False)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(narrow, wide)):
+            _bitwise(torch, b, a, f"{what} output {i}: wide vs shared-memory instantiation")
+        errs = {}
+        for n_bp in WIDE_BPS:
+            table = _wide_table(fam["fn"], n_bp)
+            before = read_counters()
+            got = fam["run"](table, False)
+            launched = {k: v - before[k] for k, v in read_counters().items() if v != before[k]}
+            want = fam["run"](table, True)
+            torch.cuda.synchronize()
+            check(launched, f"{what} at {n_bp}: no launch counted")
+            err = 0.0
+            for i, (a, b) in enumerate(zip(got, want)):
+                tag = f"{what} at {n_bp} breakpoints, output {i}"
+                if fam.get("bitwise"):
+                    _bitwise(torch, a, b, tag)
+                elif "norm" in fam and i == 1:  # dx: a slope may flip in the rounding band
+                    xn, sn, gn = fam["norm"]
+                    plan, tabs = _epilogue_operands(torch, {"table": table})[1]
+                    e, line = _norm_band(torch, xn, sn, gn, a, b, plan, tabs, fam["tol"], tag)
+                    print(f"[smoke]   {tag}: {line}")
+                    err = max(err, e)
+                    continue
+                else:
+                    err = max(err, _compare_scaled(torch, a, b, fam["tol"], tag))
+            errs[n_bp] = err
+        ms32 = time_ms(torch, lambda i: fam["fwd"](t32))
+        table = _wide_table(fam["fn"], 128)
+        ms128 = time_ms(torch, lambda i: fam["fwd"](table))
+        plain_ms = time_ms(torch, lambda i: fam["plain"](table), reps=3, iters=3)
+        bound = fam["bound"]
+        print(f"[smoke] {what}: wide instantiation bitwise the shared-memory one at 32 "
+              "breakpoints; "
+              f"max_abs_err {errs[65]:.3g} (65), {errs[128]:.3g} (128) against the plain version; "
+              f"forward {ms32 * 1e3:.2f} us at 32 (shared memory), {ms128 * 1e3:.2f} us at 128 "
+              f"(wide), plain {plain_ms * 1e3:.2f} us, bound {bound['bound_ms'] * 1e3:.2f} us "
+              f"({bound['bound_by']})")
+        rows.setdefault(fam["name"], []).append({
+            "shape": fam["shape"], "replaces": fam["replaces"], "max_abs_err": errs[128],
+            "ms": ms128, "ms32": ms32, "plain_ms": plain_ms, **bound, "library_ms": None,
+            "on_path": fam.get("on_path", False)})
+    digests = glu_digests(torch)
+    check(digests == GLU_DIGESTS, f"GLU digests changed: {digests}")
+    secs = time.perf_counter() - t0
+    print(f"[smoke] wide_table_phase: {len(fams)} families at {WIDE_BPS} breakpoints, GLU "
+          f"digests unchanged, {secs:.1f}s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# slice 18: the guard and the faults on the paged serving path
+
+# The default repro-100m session (serve's defaults, guard off, 19 model
+# calls) on the parent commit b6acc86: its kernel launches (profile_serve.py's
+# count, 695.95 a call) and the sha256 of its requests' tokens
+# (``_tokens_digest``), alike in both trees' runs of the A/B call that
+# measured them on one card (NVIDIA H100 80GB HBM3, 700 W).
+PARENT_SESSION_LAUNCHES = 13223
+PARENT_TOKENS_SHA256 = "ff65805755f5019e68dd4e728ad569c79559239c57f7cf067c5c3aaaf2f683b0"
+GUARD_NAN_STEP = 2  # the decode step whose model call takes the injected NaN
+
+
+def _tokens_digest(results) -> str:
+    """sha256 of a session's tokens, request by request in id order."""
+    import hashlib
+
+    rows = sorted((r.request_id, list(r.tokens)) for r in results)
+    return hashlib.sha256(json.dumps(rows).encode()).hexdigest()
+
+
+def _profiled_session(torch, argv: list[str]) -> dict:
+    """A full-width serve session under ``torch.profiler`` (the session
+    alone), after the same session once unprofiled, as ``profile_serve.py``
+    warms up: its kernel launches (``cudaLaunchKernel`` / ``cuLaunchKernel``
+    calls, as that script counts them), model calls and tokens' digest."""
+    from repro_torch.launch import serve
+
+    args = serve.build_parser().parse_args(argv)
+    serve.run(args)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    prof = torch.profiler.profile(activities=acts)
+    summary = serve.run(args, session=lambda: prof)
+    torch.cuda.synchronize()
+    calls = summary["prefills"] + summary["decode_steps"]
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel")))
+    return {"launches": launches, "launches_per_call": launches / calls, "calls": calls,
+            "tokens_sha256": _tokens_digest(summary["results"]),
+            "engine": summary["engine"], "results": summary["results"]}
+
+
+def _timed_session(torch, model, params, requests, degrade_at=None, witness=None,
+                   max_slots=4, **engine_kw) -> dict:
+    """One engine session over ``requests`` with every model call timed
+    (synchronized before and after: the guard's copy to the host
+    synchronizes anyway), and each decode step's logits, active slots and
+    their requests kept.  ``degrade_at`` = (step, sites): that decode step
+    runs the engine's degraded model (the sites at ``impl="jnp"``) with no
+    fault, the reference a faulted session's re-run must reproduce bit for
+    bit.  ``witness`` = site: before decode step ``GUARD_NAN_STEP`` runs,
+    the same step runs on the same state twice more, on the degraded model
+    (the ladder's first rung) and on the fused model with every element of
+    the site's kernel output (the GLU hidden the rung replaces) moved one
+    ulp up or down at random: what rounding differences of one ulp there
+    do to the logits.  Their logits are kept, and layer 0's kernel call of
+    the second with its inputs.  Each of those calls writes the rows the
+    step writes, and the step itself rewrites them after."""
+    from repro_torch.kernels import fused
+    from repro_torch.serving import PagedServingEngine
+
+    longest = max(len(r.prompt) + r.max_new_tokens for r in requests)
+    eng = PagedServingEngine(model, params, max_slots=max_slots, page_size=PS,
+                             max_context=longest + PS, **engine_kw)
+    calls = []
+    kept = {"logits": {}, "active": {}, "requests": {}}
+    device_call, exec_ = eng._device_call, eng._exec
+
+    def timed(fn, args, phase):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = device_call(fn, args, phase)
+        torch.cuda.synchronize()
+        calls.append((fn, phase, (time.perf_counter() - t) * 1e3))
+        return out
+
+    def witnessed(args):
+        name = "fused_moe_glu" if witness.startswith("moe.expert:") else "fused_glu"
+        glu = getattr(fused, name)
+        first = []
+        gen = torch.Generator(device="cuda").manual_seed(0)
+
+        def one_ulp_off(*a, **k):
+            out = glu(*a, **k)
+            if not first:
+                first.append((a, k, out))
+            bits = {2: torch.int16, 4: torch.int32}[out.element_size()]
+            step = torch.randint(0, 2, out.shape, generator=gen, device=out.device,
+                                 dtype=bits).mul_(2).sub_(1)
+            step = torch.where(out == 0, torch.ones_like(step), step)  # never -0 - 1 (a NaN)
+            return (out.view(bits) + step).view(out.dtype)
+
+        rung = eng._degraded_fns((witness,), "jnp")["decode"](eng.params, *args)[0]
+        setattr(fused, name, one_ulp_off)
+        try:
+            ulp = eng._fns["decode"](eng.params, *args)[0]
+        finally:
+            setattr(fused, name, glu)
+        kept["witness"] = {"rung": rung[:, 0].float().clone(), "ulp": ulp[:, 0].float().clone()}
+        kept["glu"] = first[0]
+
+    def keeping(phase, args):
+        step = eng.decode_steps
+        if phase == "decode" and witness is not None and step == GUARD_NAN_STEP:
+            witnessed(args)
+        logits = exec_(phase, args)
+        if phase == "decode":
+            active = list(eng.sched.active_slots())
+            kept["logits"][step] = logits[:, 0].float().clone()
+            kept["active"][step] = active
+            kept["requests"][step] = {eng.sched.slot(i).request.request_id: i for i in active}
+        return logits
+
+    eng._device_call, eng._exec = timed, keeping
+    if degrade_at is not None:
+        step, sites = degrade_at
+        primary = eng._fns["decode"]
+
+        def decode(*args):
+            if eng.decode_steps == step:
+                return eng._degraded_fns(sites, "jnp")["decode"](*args)
+            return primary(*args)
+
+        eng._fns = {**eng._fns, "decode": decode}
+    res = {r.request_id: list(r.tokens) for r in eng.run(requests)}
+    degraded = {id(f) for fns in eng._degraded_cache.values() for f in fns.values()}
+    return {"engine": eng, "tokens": res, "kept": kept,
+            "call_ms": [ms for f, _, ms in calls if id(f) not in degraded],
+            "degraded_ms": [ms for f, _, ms in calls if id(f) in degraded]}
+
+
+def _rung_within_rounding(torch, site: str, plan, kept_glu) -> str:
+    """The degrade ladder's first rung (``layers.plain_glu``, the site's
+    table at ``impl="jnp"``) against the fused kernel's output on the
+    kernel's own inputs at the model's shape (layer 0 at the NaN step):
+    every element within one ulp of the kernel's plus the f32 summation
+    order's bound, 2.4·(K + 2)·2⁻²⁴·(|x|@|w_gate|)·(|x|@|w_up|) (each f32
+    product reordered by at most (K + 2)·2⁻²⁴ of its magnitudes, through an
+    activation and a slope of at most 1.2).  Returns the line to print."""
+    import dataclasses
+
+    from repro_torch import sfu
+    from repro_torch.models import layers
+
+    (x, wg, wu), kw, kernel = kept_glu
+    spec = dataclasses.replace(plan.spec(site), impl="jnp")
+    act = sfu.ActivationPlan(sites=((site, spec),)).act(site)
+    got = layers.plain_glu(act, x, wg, wu)
+    xa = x.float().abs()
+    bound = 2.4 * (x.shape[-1] + 2) * 2.0 ** -24 * (xa @ wg.float().abs()) * (xa @ wu.float().abs())
+    ulp = torch.finfo(kernel.dtype).eps * kernel.float().abs()
+    err = (got.float() - kernel.float()).abs()
+    check(bool((err <= ulp + bound + torch.finfo(torch.float32).tiny).all()),
+          f"{site}: the unfused rung is not within rounding of the fused kernel "
+          f"(largest difference {float(err.max()):.4g})")
+    differ = int((err > 0).sum())
+    return (f"the first rung's GLU hidden against the kernel's (layer 0, {tuple(kernel.shape)}): "
+            f"{differ} of {kernel.numel()} elements differ, by at most "
+            f"{float((err / ulp.clamp_min(1e-30)).max()):.3g} ulp")
+
+
+def _token_gate(torch, site: str, clean, faulted) -> str:
+    """The faulted session's tokens against the fault-free session's: a
+    request may change its tokens only from the NaN step on, and only at a
+    step where the fault-free top-2 logit margin of its row lies within the
+    band that rounding alone opens: the largest logit change a row that
+    one-ulp differences in the site's kernel output made at the NaN step
+    (``_timed_session``'s witness).  The first rung's own change there is
+    held to 4 times that band, the factor of the repo's nudge rule
+    (``_nudge_tol``).  Returns the line to print."""
+    kc = clean["kept"]
+    rows = kc["active"][GUARD_NAN_STEP]
+    lc = kc["logits"][GUARD_NAN_STEP][rows]
+    change = {k: (v[rows] - lc).abs().amax(dim=-1) for k, v in kc["witness"].items()}
+    band = float(change["ulp"].max())
+
+    def margin(step, slot):
+        top2 = torch.topk(kc["logits"][step][slot], 2).values
+        return float(top2[0] - top2[1])
+
+    check(float(change["rung"].max()) <= 4 * band,
+          f"{site}: the first rung moves the logits by {float(change['rung'].max()):.4g}, "
+          f"more than 4 x the one-ulp band {band:.4g}")
+    flips = {}
+    for rid, got in faulted["tokens"].items():
+        want = clean["tokens"][rid]
+        if got == want:
+            continue
+        i = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), min(len(got), len(want)))
+        step = i - 1  # token 0 comes from the prefill, token i from decode step i - 1
+        check(step >= GUARD_NAN_STEP, f"{site}: {rid} changes its token {i}, before the NaN step")
+        check(rid in kc["requests"].get(step, {}), f"{site}: {rid} changes its token {i}, "
+              "past the fault-free session's end")
+        m = margin(step, kc["requests"][step][rid])
+        check(m <= band, f"{site}: {rid} changes its token {i} at decode step {step}, where the "
+              f"fault-free top-2 margin {m:.4g} is outside the one-ulp band {band:.4g}")
+        flips[rid] = (step, m)
+    fmt = lambda t: ", ".join(f"{float(v):.4g}" for v in t)  # noqa: E731
+    return (f"fault-free top-2 margins at step {GUARD_NAN_STEP}: "
+            f"{fmt(margin(GUARD_NAN_STEP, r) for r in rows)}; the largest logit change a row "
+            f"there of the first rung: {fmt(change['rung'])}, of one ulp at the site: "
+            f"{fmt(change['ulp'])} (band {band:.4g}); {len(flips)} of {len(clean['tokens'])} "
+            "requests change tokens"
+            + "".join(f", {rid} from step {st} (margin {m:.4g})" for rid, (st, m) in flips.items()))
+
+
+def _chaos_requests(cfg, with_deadline: bool):
+    """``serve --chaos``'s requests at CI's shape (3 x 30 + 8), prompts as
+    serve draws them; the last request's deadline 2 ticks when asked."""
+    import numpy as np
+
+    from repro_torch.serving import GenRequest
+
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, size=(3, 30),
+                                                dtype=np.int64).astype(np.int32)
+    return [GenRequest(request_id=f"req{i}", prompt=prompts[i].tolist(), max_new_tokens=8,
+                       deadline_ticks=2 if (with_deadline and i == 2) else None)
+            for i in range(3)]
+
+
+def guard_phase(torch) -> dict:
+    """``sfu.guard`` and ``serving.faults`` at full width (slice 18):
+
+    (a) the default repro-100m session with the guard off under the
+        profiler: its launches and tokens bitwise the parent's
+        (``PARENT_*``); the same session with ``--guard``: the same tokens,
+        its extra launches printed;
+    (b) ``serve --guard`` and ``serve --chaos 0`` at CI's chaos shape
+        (``--max-slots 2 --batch 3 --prompt-len 30 --max-new 8``) through
+        ``serve.serve``: rc 0 each (no fused fallback; the chaos session's
+        requests token-identical to its fault-free run, as JAX's rule
+        demands), and the same chaos session replayed through the engine
+        with req0 and req1 token-identical to a fault-free session that
+        runs the NaN step degraded;
+    (c) repro-100m and (d) olmoe-1b-7b (4 x 32 + 16) under the guard with a
+        NaN at ``mlp:gelu_tanh`` / ``moe.expert:silu`` at decode step
+        ``GUARD_NAN_STEP`` (olmoe also a kernel failure and a dropped tick):
+        recovered once; tokens bitwise those of the fault-free session that
+        runs that step degraded; the first rung's GLU hidden within
+        rounding of the kernel's (``_rung_within_rounding``); tokens against
+        the fault-free session changed only where rounding alone could
+        change them (``_token_gate``); the degraded re-run's ms beside a
+        call's.
+    """
+    import io
+
+    import numpy as np
+
+    from repro_torch import sfu
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import Model
+    from repro_torch.serving import FaultInjector, FaultSpec, GenRequest, chaos_specs
+
+    t0 = time.perf_counter()
+    off = _profiled_session(torch, [])
+    on = _profiled_session(torch, ["--guard"])
+    print(f"[smoke] guard off: {off['launches']} launches in {off['calls']} model calls "
+          f"({off['launches_per_call']:.2f} a call; the parent {PARENT_SESSION_LAUNCHES}), tokens "
+          f"sha256 {off['tokens_sha256']}; guard on: {on['launches']} "
+          f"({on['launches_per_call'] - off['launches_per_call']:.2f} more a call), clamped "
+          f"{on['engine'].health_summary()['clamped']}")
+    check(off["launches"] == PARENT_SESSION_LAUNCHES,
+          f"guard off: {off['launches']} launches, the parent {PARENT_SESSION_LAUNCHES}")
+    check(off["tokens_sha256"] == PARENT_TOKENS_SHA256,
+          "guard off: the tokens are not bitwise the parent's")
+    check(on["tokens_sha256"] == off["tokens_sha256"], "guard on: the tokens changed")
+    check(not off["engine"].health_summary()["clamped"], "guard off: clamp counts kept")
+
+    chaos_argv = ["--chaos", "0", "--max-slots", "2", "--batch", "3", "--prompt-len", "30",
+                  "--max-new", "8"]
+    rcs = {}
+    for name, argv in (("--guard", ["--guard"]), ("--chaos 0", chaos_argv)):
+        out, err = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rcs[name] = serve.serve(argv)
+        text = out.getvalue() + err.getvalue()
+        for ln in text.splitlines():
+            if any(w in ln for w in ("health", "chaos", "fallbacks", "CHAOS")):
+                print(f"[smoke]   serve {name}: {ln}")
+        failures = [ln for ln in text.splitlines() if "CHAOS FAILURE" in ln]
+        check(rcs[name] == 0 and not failures, f"serve {name} at full width: rc {rcs[name]}, "
+              f"{failures}")
+        if name == "--chaos 0":
+            check("chaos session OK" in text, "serve --chaos 0 did not finish")
+        print(f"[smoke] serve {name} at full width: rc {rcs[name]}")
+
+    results = {}
+    cfg = get_config("repro-100m", act_impl="fused")
+    model = Model(cfg, device="cuda")
+    params = model.init(seed=0)
+    site = sfu.site_key(sfu.SITE_MLP, cfg.activation)
+    specs = chaos_specs(0, site, max_step=7)
+    nan_step = next(s.step for s in specs if s.kind == "nan")
+    alloc = [s for s in specs if s.kind == "alloc_exhaust"]
+    kw = dict(max_slots=2, guard=True, policy="optimistic")
+    chaos = _timed_session(torch, model, params, _chaos_requests(cfg, True),
+                           faults=FaultInjector(specs), **kw)
+    ref = _timed_session(torch, model, params, _chaos_requests(cfg, True),
+                         faults=FaultInjector(alloc), degrade_at=(nan_step, (site,)), **kw)
+    h = chaos["engine"].health_summary()
+    check(h["nonfinite_recoveries"] == {site: 1} and h["preemptions"] >= 1 and h["timeouts"] >= 1,
+          f"chaos replay: {h['nonfinite_recoveries']}, {h['preemptions']} preemptions, "
+          f"{h['timeouts']} timeouts")
+    for rid in ("req0", "req1"):
+        check(chaos["tokens"][rid] == ref["tokens"][rid],
+              f"chaos replay {rid}: {chaos['tokens'][rid]} != the degraded-step reference's "
+              f"{ref['tokens'][rid]}")
+    print(f"[smoke] chaos 0 replayed (NaN at step {nan_step}, a grow-scoped allocator fault at "
+          f"step {alloc[0].step}, req2's deadline): req0, req1 token-identical to the fault-free "
+          f"session that runs step {nan_step} degraded")
+    del chaos, ref
+
+    for arch, site in (("repro-100m", "mlp:gelu_tanh"), ("olmoe-1b-7b", "moe.expert:silu")):
+        if arch != "repro-100m":
+            cfg = get_config(arch, act_impl="fused")
+            model = Model(cfg, device="cuda")
+            params = model.init(seed=0)
+        check(sfu.plan_for(cfg).spec(site).impl == "fused", f"{arch}: {site} is not fused")
+        prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, size=(4, 32),
+                                                    dtype=np.int64).astype(np.int32)
+
+        def reqs():
+            return [GenRequest(request_id=f"req{i}", prompt=prompts[i].tolist(),
+                               max_new_tokens=16) for i in range(4)]
+
+        specs = [FaultSpec("nan", GUARD_NAN_STEP, site)]
+        if arch == "olmoe-1b-7b":
+            specs += [FaultSpec("kernel_fail", 1), FaultSpec("drop_tick", 4)]
+        clean = _timed_session(torch, model, params, reqs(), witness=site, guard=True)
+        faulted = _timed_session(torch, model, params, reqs(), guard=True,
+                                 faults=FaultInjector(specs))
+        ref = _timed_session(torch, model, params, reqs(), guard=True,
+                             degrade_at=(GUARD_NAN_STEP, (site,)))
+        h = faulted["engine"].health_summary()
+        kinds = [i["kind"] for i in h["incidents"]]
+        check(h["nonfinite_recoveries"] == {site: 1}, f"{arch}: recoveries {h['nonfinite_recoveries']}")
+        check("nonfinite_unrecovered" not in kinds, f"{arch}: unrecovered {kinds}")
+        check({f["kind"] for f in h["faults_fired"]} == {s.kind for s in specs},
+              f"{arch}: fired {h['faults_fired']}")
+        check(faulted["tokens"] == ref["tokens"],
+              f"{arch}: the faulted session's tokens are not those of the fault-free session that "
+              "runs the NaN step degraded")
+        rung = _rung_within_rounding(torch, site, sfu.plan_for(cfg), clean["kept"]["glu"])
+        tokens = _token_gate(torch, site, clean, faulted)
+        call_ms = float(np.median(clean["call_ms"]))
+        results[arch] = {"call_ms": call_ms, "degraded_ms": faulted["degraded_ms"],
+                         "incidents": kinds}
+        print(f"[smoke] {arch} guard session, NaN at {site} step {GUARD_NAN_STEP}: incidents "
+              f"{kinds}, recoveries {h['nonfinite_recoveries']}, clamped {h['clamped']}; tokens "
+              f"bitwise the degraded-step reference's; a guarded call {call_ms:.2f} ms median, the "
+              f"degraded re-run {', '.join(f'{ms:.2f}' for ms in faulted['degraded_ms'])} ms; "
+              f"{rung}; {tokens}")
+        del model, params, clean, faulted, ref
+        _release(torch)
+    secs = time.perf_counter() - t0
+    print(f"[smoke] guard_phase: {secs:.1f}s")
+    return {"off": off["launches_per_call"], "on": on["launches_per_call"], "chaos_rc": rcs,
+            **results, "seconds": secs}
+
+
+def wide_serve_phase(torch, tmp: pathlib.Path) -> dict:
+    """Full-width repro-100m served under a dumped plan whose ``mlp`` and
+    ``attn.softmax`` sites are fused at ``WIDE_SEGMENTS`` uniform segments
+    (128 breakpoints): every GLU, row softmax and paged decode of the
+    session on the kernels' wide instantiation (the shared-memory one
+    refuses such a table, so every counted launch took the wide one)."""
+    from repro_torch.kernels.fused import epilogue
+
+    path = pathlib.Path(dump_plan(tmp / "wide_plan.json"))
+    plan = json.loads(path.read_text())
+    for _, spec in plan["sites"]:
+        spec.update(n_segments=WIDE_SEGMENTS, fit="uniform")
+    path.write_text(json.dumps(plan, indent=2))
+    check(epilogue.is_wide(WIDE_SEGMENTS - 1), f"{WIDE_SEGMENTS} segments fit shared memory")
+    return serve_phase(torch, ["--plan", str(path)], short_prompt_attention)
+
+
 def main() -> int:
     try:
         import torch
@@ -4962,6 +5709,7 @@ def main() -> int:
         pwl = pwl_act_phase(torch)
         lin = linear_phase(torch)
         bf16_table_phase(torch)
+        wide = wide_table_phase(torch)
         mark("forward kernel phases")
         glu_bwd = glu_bwd_phase(torch)
         moe_bwd = moe_bwd_phase(torch)
@@ -4997,6 +5745,11 @@ def main() -> int:
             mark("repro-100m serve phases")
             fitted = fit_phase(torch, pathlib.Path(tmp), main_counts)
             mark("slice 17 fitting phase (fits on the card, fit-on-miss, uniform tables)")
+            t18 = time.perf_counter()
+            wide_counts = wide_serve_phase(torch, pathlib.Path(tmp))
+            guard = guard_phase(torch)
+            mark(f"slice 18 phases (the 129-segment session, guard and faults; "
+                 f"{time.perf_counter() - t18:.1f}s)")
             olmoe = ["--arch", "olmoe-1b-7b"]
             with _bucket_census(torch) as census:
                 moe_counts = serve_phase(torch, olmoe, no_attention_kernels)
@@ -5088,6 +5841,8 @@ def main() -> int:
             path_counts[f"{name} reduced jamba"] = ssm_ref["jamba-v0.1-52b"][name]
         for tag in ("uniform", "fallback"):
             path_counts[f"fused_glu {tag} table"] = fitted[f"serve {tag}"]["fused_glu"]
+        for name in ("fused_glu", "fused_pwl_softmax", "paged_flash_decode"):
+            path_counts[f"{name} 128 breakpoints"] = wide_counts[name]
         for name, n in path_counts.items():
             check(n > 0, f"{name} never launched on its serving or training path")
     except SmokeFailure as e:
@@ -5359,6 +6114,24 @@ def main() -> int:
                                  "(mamba2-2.7b's dt, impl='kernel' plan); launches: that "
                                  "serve session's",
                         "launches": mamba_serve["kernel"]["pwl_activation"], **pwl[name]})
+    # slice 18: every family at 128 breakpoints on its wide instantiation, launches
+    # from the 129-segment session where it is on that session's path
+    src_of = {"fused_glu": "glu.cu", "fused_moe_glu": "glu.cu", "fused_linear": "glu.cu",
+              "fused_pwl_softmax": "softmax.cu", "paged_flash_decode": "decoding.cu",
+              "fused_flash_attention": "attention.cu", "fused_rmsnorm": "norm.cu",
+              "pwl_activation": "pwl_act.cu", "pwl_activation_uniform": "pwl_act.cu"}
+    for name, rows in wide.items():
+        for r in rows:
+            kernels.append({
+                "name": f"{name}[128 breakpoints, wide, {r['shape']}]", "route": "cuda",
+                "source": f"src/repro_torch/csrc/{src_of[name]}",
+                "replaces": f"{fused_src}/{r['replaces']}".replace(
+                    "fused/pwl_act.py", "pwl_act.py"),
+                "shape": f"{r['shape']}, a uniform table of 128 breakpoints (the wide "
+                         "instantiation); "
+                         + ("launches: the 129-segment session's" if r["on_path"]
+                            else "on no model path at this shape"),
+                "launches": wide_counts[name] if r["on_path"] else 0, **r})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     print(f"[smoke] whisper-small train step {whisper_trained['step_ms']:.1f} ms median, "
@@ -5383,6 +6156,11 @@ def main() -> int:
     print(f"[smoke] {MAMBA} train step (8 x 512) {mamba_trained['step_ms']:.1f} ms median, "
           f"{mamba_trained['tokens_per_s']:.0f} tokens/s, peak "
           f"{mamba_trained['peak_bytes'] / 1e9:.2f} GB")
+    print(f"[smoke] guard: {guard['off']:.2f} launches a call off, {guard['on']:.2f} on; "
+          f"repro-100m call {guard['repro-100m']['call_ms']:.2f} ms, degraded re-run "
+          f"{guard['repro-100m']['degraded_ms']} ms; olmoe call "
+          f"{guard['olmoe-1b-7b']['call_ms']:.2f} ms, degraded re-run "
+          f"{guard['olmoe-1b-7b']['degraded_ms']} ms")
     print(f"[smoke] total {time.perf_counter() - t_start:.1f}s (build {build_s:.1f}s)")
     print(card_line())
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))

@@ -14,7 +14,8 @@ engine's session alone, not the weights' random init before it, and prints:
 * the kernels' summed device time against the session's wall time without
   the profiler (the same work), so the device's busy share is visible;
 * the kernel launches of the session (``cudaLaunchKernel*`` and
-  ``cuLaunchKernel*`` calls) per model call;
+  ``cuLaunchKernel*`` calls) per model call, and the sha256 of its tokens
+  (request by request in id order), to hold two trees' sessions alike;
 * the top operators by host (self CPU) time and by device time;
 * the port's own kernels by name (the dense GLU's and the MoE experts'
   alike: ``glu_tc_kernel`` in bf16, ``glu_pwl_kernel`` in f32;
@@ -29,6 +30,8 @@ It needs a CUDA GPU.
 """
 from __future__ import annotations
 
+import hashlib
+import json
 import pathlib
 import sys
 import time
@@ -86,6 +89,9 @@ def main(argv=None) -> int:
     n_launch = sum(launches.values())
     print(f"[profile] launches {launches}: {n_launch} in all, {n_launch / calls:.0f} per model "
           "call")
+    rows = (sorted((r.request_id, list(r.tokens)) for r in summary["results"])
+            if summary["mode"] == "paged" else summary["results"])
+    print(f"[profile] tokens sha256 {hashlib.sha256(json.dumps(rows).encode()).hexdigest()}")
     by_cpu = sorted(ops, key=lambda e: e.self_cpu_time_total, reverse=True)[:TOP]
     print("[profile] top host operators by self CPU time: name | calls | self CPU ms | "
           "device ms of its kernels")

@@ -90,7 +90,7 @@ size_t smem_bytes(int bq, int dh) {
   return ((size_t)bq * (dh + 1) + (size_t)KC * (dh + 1) + (size_t)bq * SST) * sizeof(float);
 }
 
-template <typename T, int BQ, int MAX_NJ, bool TABLE>
+template <typename T, int BQ, int MAX_NJ, int TABLE>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
              const float* __restrict__ valid_len, const float* __restrict__ bp,
@@ -101,8 +101,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   constexpr int RI = BQ / 16;        // query rows per thread in the products
   constexpr int LPR = THREADS / BQ;  // lanes per row in the row statistics
   extern __shared__ __align__(16) float smem[];
-  __shared__ float s_bp[PWL_MAX_BP];
-  __shared__ float s_dmq[2 * (PWL_MAX_BP + 1)];
+  __shared__ ChainTable<TABLE> chain;
+  float* const s_bp = chain.bp(bp);
+  float* const s_dmq = chain.dmq(dmq);
   __shared__ float s_corr[BQ];
   __shared__ float s_l[BQ];
   const int DS = dh + 1;
@@ -268,7 +269,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
   }
 }
 
-template <typename T, int BQ, int MAX_NJ, bool TABLE>
+template <typename T, int BQ, int MAX_NJ, int TABLE>
 int launch(const void* q, const void* k, const void* v, const float* valid_len,
            const float* bp, const float* dmq, Epilogue ep, void* out, float* m_out, int B,
            int S, int Tk, int H, int Hkv, int dh, int causal, int has_window, int window,
@@ -318,7 +319,7 @@ struct Fwd {
   }
 };
 
-template <int DHM, bool TABLE>
+template <int DHM, int TABLE>
 __global__ void __launch_bounds__(NTHR)
 flash_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
              const __nv_bfloat16* __restrict__ v, const float* __restrict__ valid_len,
@@ -329,7 +330,7 @@ flash_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
   using C = Fwd<DHM>;
   constexpr int KC = C::KC, NT = C::NT, NO = C::NO;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ PwlSearch tab;
+  __shared__ SearchTable<TABLE> tab;
   constexpr int ld = DHM + 8;  // row stride of the operand tiles
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sStage = sQ + BQ * ld;  // stage s: K at sStage + 2 s KC ld, V after it
@@ -537,7 +538,7 @@ flash_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restric
   }
 }
 
-template <int DHM, bool TABLE>
+template <int DHM, int TABLE>
 int launch(const void* q, const void* k, const void* v, const float* valid_len, const float* bp,
            const float* mq, Epilogue ep, void* out, float* m_out, int B, int S, int Tk, int H,
            int Hkv, int dh, int causal, int has_window, int window, int q_offset,
@@ -569,7 +570,7 @@ int dispatch(const void* q, const void* k, const void* v, const float* valid_len
              int S, int Tk, int H, int Hkv, int dh, int causal, int has_window, int window,
              int q_offset, cudaStream_t stream) {
   return with_table(ep, [&](auto table) {
-    constexpr bool TB = decltype(table)::value;
+    constexpr int TB = decltype(table)::value;
     if (dh <= 64)
       return launch<64, TB>(q, k, v, valid_len, bp, mq, ep, out, m_out, B, S, Tk, H, Hkv, dh,
                             causal, has_window, window, q_offset, stream);
@@ -589,7 +590,7 @@ int dispatch(const void* q, const void* k, const void* v, const float* valid_len
              int S, int Tk, int H, int Hkv, int dh, int causal, int has_window, int window,
              int q_offset, cudaStream_t stream) {
   return with_table(ep, [&](auto table) {
-    constexpr bool TB = decltype(table)::value;
+    constexpr int TB = decltype(table)::value;
     if (dh <= SMALL_DH)
       return launch<T, 64, SMALL_DH / 16, TB>(q, k, v, valid_len, bp, dmq, ep, out, m_out, B, S,
                                               Tk, H, Hkv, dh, causal, has_window, window,
@@ -619,7 +620,7 @@ extern "C" int flash_pwl_forward(const void* q, const void* k, const void* v,
                                  void* stream) {
   const Epilogue ep{kind, fn, n_bp};
   if (!epilogue_ok(ep) || B < 0 || S < 0 || T < 1 || Hkv < 1 || H % Hkv != 0 || dh < 16 ||
-      dh > MAX_DH || dh % 16 != 0 || (dtype == 1 && kind == EPI_PWL && mq == nullptr))
+      dh > MAX_DH || dh % 16 != 0 || (dtype == 1 && is_table(kind) && mq == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || S == 0 || H == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

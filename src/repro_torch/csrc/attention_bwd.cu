@@ -134,7 +134,7 @@ struct Terms {
 
 // The per-pair recompute of the JAX package's _bwd_keep_terms.  acc is the
 // unscaled q . k, summed as the forward sums it.
-template <bool TABLE>
+template <int TABLE>
 __device__ __forceinline__ Terms pair_terms(float acc, bool kp, float m, float scale,
                                             const float* s_bp, const float* s_dmq,
                                             const Epilogue& ep) {
@@ -209,7 +209,7 @@ __device__ __forceinline__ void patch_products(const float* sA, const float* sB,
 }
 
 // flash_bwd_stats_kernel: l, delta, ntie and dm of BT query rows.
-template <typename T, class TL, bool TABLE>
+template <typename T, class TL, int TABLE>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_stats_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                        const T* __restrict__ dout, const float* __restrict__ m,
@@ -217,8 +217,9 @@ flash_bwd_stats_kernel(const T* __restrict__ q, const T* __restrict__ k, const T
                        float* __restrict__ stats, int B, Problem p) {
   constexpr int BQ = TL::B, BK = TL::B, RI = TL::RI, TS = TL::TS, MAX_NJ = TL::MAX_NJ;
   extern __shared__ __align__(16) float smem[];
-  __shared__ float s_bp[PWL_MAX_BP];
-  __shared__ float s_dmq[2 * (PWL_MAX_BP + 1)];
+  __shared__ ChainTable<TABLE> chain;
+  float* const s_bp = chain.bp(bp);
+  float* const s_dmq = chain.dmq(dmq);
   __shared__ float s_m[BQ];
   const int dh = p.dh, DS = dh + 1, nj = dh / 16;
   float* sQ = smem;
@@ -346,7 +347,7 @@ __device__ __forceinline__ float pair_ds(const Terms& tm, float dp, bool kp, flo
 }
 
 // flash_bwd_dq_kernel: dq of BT query rows, walking the key tiles.
-template <typename T, class TL, bool TABLE>
+template <typename T, class TL, int TABLE>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const T* __restrict__ dout, const float* __restrict__ m,
@@ -354,8 +355,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     const float* __restrict__ stats, T* __restrict__ dq, int B, Problem p) {
   constexpr int BQ = TL::B, BK = TL::B, RI = TL::RI, TS = TL::TS, MAX_NJ = TL::MAX_NJ;
   extern __shared__ __align__(16) float smem[];
-  __shared__ float s_bp[PWL_MAX_BP];
-  __shared__ float s_dmq[2 * (PWL_MAX_BP + 1)];
+  __shared__ ChainTable<TABLE> chain;
+  float* const s_bp = chain.bp(bp);
+  float* const s_dmq = chain.dmq(dmq);
   __shared__ RowStats s_row[BQ];
   const int dh = p.dh, DS = dh + 1, nj = dh / 16;
   float* sQ = smem;
@@ -441,7 +443,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
 // flash_bwd_dkv_kernel: dk and dv of BT keys of one KV head, walking the
 // query tiles of each query head of its group.
-template <typename T, class TL, bool TABLE>
+template <typename T, class TL, int TABLE>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ m,
@@ -450,8 +452,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      int B, Problem p) {
   constexpr int BQ = TL::B, BK = TL::B, RI = TL::RI, TS = TL::TS, MAX_NJ = TL::MAX_NJ;
   extern __shared__ __align__(16) float smem[];
-  __shared__ float s_bp[PWL_MAX_BP];
-  __shared__ float s_dmq[2 * (PWL_MAX_BP + 1)];
+  __shared__ ChainTable<TABLE> chain;
+  float* const s_bp = chain.bp(bp);
+  float* const s_dmq = chain.dmq(dmq);
   __shared__ RowStats s_row[BQ];
   const int dh = p.dh, DS = dh + 1, nj = dh / 16;
   float* sQ = smem;
@@ -564,7 +567,7 @@ cudaError_t allow_smem(K kern, size_t bytes, size_t* allowed) {
   return e;
 }
 
-template <typename T, class TL, bool TABLE>
+template <typename T, class TL, int TABLE>
 int launch(const void* q, const void* k, const void* v, const void* dout, const float* m,
            const float* bp, const float* dmq, Epilogue ep, float* stats, void* dq, void* dk,
            void* dv, int B, const Problem& p, cudaStream_t stream) {
@@ -682,9 +685,9 @@ __device__ __forceinline__ float pair_ds_tc(const Terms& tm, float dp, bool kp,
 }
 
 // pair_terms with the search decode.
-template <bool TABLE>
+template <int TABLE>
 __device__ __forceinline__ Terms pair_terms_tc(float acc, bool kp, float m, float scale,
-                                               const PwlSearch& tab, float3 piv,
+                                               const SearchTable<TABLE>& tab, float3 piv,
                                                const Epilogue& ep) {
   const float s = kp ? __fmul_rn(acc, scale) : NEG_FILL;
   const float t = __fsub_rn(s, m);
@@ -733,7 +736,7 @@ __device__ __forceinline__ void warp_products(const __nv_bfloat16* sA, const __n
 // live key tiles.  delta = dout . (sum u v) / L is summed as sum u dp / L
 // (dp = dout . v, already at hand): the same sum in another order, and no
 // u . v product.
-template <int DHM, bool TABLE>
+template <int DHM, int TABLE>
 __global__ void __launch_bounds__(128)
 flash_bwd_stats_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
@@ -743,7 +746,7 @@ flash_bwd_stats_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   using C = Bwd<DHM>;
   constexpr int BK = C::BK, NT = C::NTK;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ PwlSearch tab;
+  __shared__ SearchTable<TABLE> tab;
   constexpr int ld = DHM + 8;
   const int dh = p.dh, nk = dh / 16;
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -835,7 +838,7 @@ flash_bwd_stats_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
 
 // dq of 64 query rows, walking the live key tiles: dq += ds . k, ds split
 // into two bf16 products (hi and lo) straight from the accumulators.
-template <int DHM, bool TABLE>
+template <int DHM, int TABLE>
 __global__ void __launch_bounds__(128, Bwd<DHM>::MIN_BLOCKS_DQ)
 flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
@@ -845,7 +848,7 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   using C = Bwd<DHM>;
   constexpr int BK = C::BK, NT = C::NTK, NO = C::NO;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ PwlSearch tab;
+  __shared__ SearchTable<TABLE> tab;
   constexpr int ld = DHM + 8;
   const int dh = p.dh, nk = dh / 16;
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -948,7 +951,7 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 // The scores are computed as everywhere (Q as A, K as B); u / L and ds go
 // to shared memory as hi and lo bf16, and ldmatrix.trans reads them back as
 // the A operand of dv += (u / L)^T dout and dk += ds^T q.
-template <int DHM, bool TABLE>
+template <int DHM, int TABLE>
 __global__ void __launch_bounds__(256, Bwd<DHM>::MIN_BLOCKS_DKV)
 flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
@@ -959,7 +962,7 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   using C = Bwd<DHM>;
   constexpr int BK = C::BK, NTA = C::NTA, KM = C::KM, NTB = C::NTB, LDP = C::LDP;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ PwlSearch tab;
+  __shared__ SearchTable<TABLE> tab;
   constexpr int ld = DHM + 8;
   const int dh = p.dh, nk = dh / 16;
   __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -1122,7 +1125,7 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   }
 }
 
-template <int DHM, bool TABLE>
+template <int DHM, int TABLE>
 int launch(const void* q, const void* k, const void* v, const void* dout, const float* m,
            const float* bp, const float* mq, Epilogue ep, float* stats, void* dq, void* dk,
            void* dv, int B, const Problem& p, cudaStream_t stream) {
@@ -1161,7 +1164,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout, cons
              const float* bp, const float* mq, Epilogue ep, float* stats, void* dq, void* dk,
              void* dv, int B, const Problem& p, cudaStream_t stream) {
   return with_table(ep, [&](auto table) {
-    constexpr bool TB = decltype(table)::value;
+    constexpr int TB = decltype(table)::value;
     if (p.dh <= 64)
       return launch<64, TB>(q, k, v, dout, m, bp, mq, ep, stats, dq, dk, dv, B, p, stream);
     if (p.dh <= 128)
@@ -1177,7 +1180,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout, cons
              const float* bp, const float* dmq, Epilogue ep, float* stats, void* dq, void* dk,
              void* dv, int B, const Problem& p, cudaStream_t stream) {
   return with_table(ep, [&](auto table) {
-    constexpr bool TB = decltype(table)::value;
+    constexpr int TB = decltype(table)::value;
     if (p.dh <= SMALL_DH)
       return launch<T, SmallTile, TB>(q, k, v, dout, m, bp, dmq, ep, stats, dq, dk, dv, B, p,
                                       stream);
@@ -1205,7 +1208,7 @@ extern "C" int flash_pwl_backward(const void* q, const void* k, const void* v, c
                                   int q_offset, int dtype, void* stream) {
   const Epilogue ep{kind, fn, n_bp};
   if (!epilogue_ok(ep) || B < 0 || S < 0 || T < 1 || Hkv < 1 || H % Hkv != 0 || dh < 16 ||
-      dh > MAX_DH || dh % 16 != 0 || (dtype == 1 && kind == EPI_PWL && mq == nullptr))
+      dh > MAX_DH || dh % 16 != 0 || (dtype == 1 && is_table(kind) && mq == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || H == 0) return 0;
   Problem p;

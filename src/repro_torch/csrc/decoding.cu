@@ -210,7 +210,7 @@ __device__ __forceinline__ void chunk_maxima(float* sMx, const float* sS, int np
 // every (head, page) corr = exp(m_before - m_page), m_page the running
 // maximum after the page: a prefix max over the chunk's page maxima from the
 // carried maximum sM.
-template <bool TABLE, int NT>
+template <int TABLE, int NT>
 __device__ __forceinline__ void chunk_probs(float* sS, float* sC, const float* sMx,
                                             const float* sM, const int* pg, int np, int ps,
                                             int G, int CK, int CH, long long key0,
@@ -283,7 +283,7 @@ struct ChunkSmem {
 // A split of at most one chunk of pages, whole in one block: its K and V
 // rows in by cp.async, steps 1-3, then the recurrence, one thread a
 // (head, d) and one a head for l.
-template <typename TQ, typename TKV, bool TABLE, int NT>
+template <typename TQ, typename TKV, int TABLE, int NT>
 __global__ void __launch_bounds__(NT)
 split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __restrict__ vp,
              const int* __restrict__ page_table, int n_cols, const int* __restrict__ kv_len,
@@ -292,8 +292,9 @@ split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp, const TKV* __
              int Hkv, int P, int ps, int dh, int G, int pps, int n_splits, bool vec,
              float scale) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ float s_bp[PWL_MAX_BP];
-  __shared__ float s_dmq[2 * (PWL_MAX_BP + 1)];
+  __shared__ ChainTable<TABLE> chain;
+  float* const s_bp = chain.bp(bp);
+  float* const s_dmq = chain.dmq(dmq);
   const int tid = threadIdx.x;
   const Split t = split_of(kv_len, Hkv, ps, pps);
   const int DP = dh + 16 / (int)sizeof(TKV);
@@ -409,15 +410,16 @@ page_scores_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kp,
 // Step 3 on chunk blockIdx.z of a long split, from the running maximum of
 // the split's pages before it, then every page's p . v and sum(p) into the
 // scratch.
-template <typename TKV, bool TABLE, int NT>
+template <typename TKV, int TABLE, int NT>
 __global__ void __launch_bounds__(NT)
 page_pv_kernel(const TKV* __restrict__ vp, const int* __restrict__ page_table, int n_cols,
                const int* __restrict__ kv_len, const float* __restrict__ bp,
                const float* __restrict__ dmq, Epilogue ep, PageScratch w, int Hkv, int P, int ps,
                int dh, int G, int pps, int n_splits, int CH, bool vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ float s_bp[PWL_MAX_BP];
-  __shared__ float s_dmq[2 * (PWL_MAX_BP + 1)];
+  __shared__ ChainTable<TABLE> chain;
+  float* const s_bp = chain.bp(bp);
+  float* const s_dmq = chain.dmq(dmq);
   const int tid = threadIdx.x;
   const Split t = split_of(kv_len, Hkv, ps, pps);
   const int p0 = blockIdx.z * CH;
@@ -508,14 +510,15 @@ recurrence_kernel(const int* __restrict__ kv_len, PageScratch w, float* __restri
     l_out[part * G + g] = acc;
 }
 
-template <typename TQ, bool TABLE>
+template <typename TQ, int TABLE>
 __global__ void __launch_bounds__(THREADS)
 merge_kernel(const float* __restrict__ m_p, const float* __restrict__ l_p,
              const float* __restrict__ acc_p, const float* __restrict__ bp,
              const float* __restrict__ dmq, Epilogue ep, TQ* __restrict__ out, int G, int dh,
              int n_splits) {
-  __shared__ float s_bp[PWL_MAX_BP];
-  __shared__ float s_dmq[2 * (PWL_MAX_BP + 1)];
+  __shared__ ChainTable<TABLE> chain;
+  float* const s_bp = chain.bp(bp);
+  float* const s_dmq = chain.dmq(dmq);
   epi_load_table<TABLE>(s_bp, s_dmq, bp, dmq, ep);
   __syncthreads();
   const int a = blockIdx.x;
@@ -547,7 +550,7 @@ int allow_smem(Kern kern, size_t smem, size_t* allowed) {
   return 0;
 }
 
-template <typename TQ, typename TKV, bool TABLE, int NT>
+template <typename TQ, typename TKV, int TABLE, int NT>
 int launch_splits(const void* q, const void* kp, const void* vp, const int* pt, int n_cols,
                   const int* kv_len, const float* bp, const float* dmq, Epilogue ep, float* m_p,
                   float* l_p, float* acc_p, float* scratch, size_t scratch_floats, int B,
@@ -599,7 +602,7 @@ int launch_splits(const void* q, const void* kp, const void* vp, const int* pt, 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TQ, typename TKV, bool TABLE>
+template <typename TQ, typename TKV, int TABLE>
 int launch(const void* q, const void* kp, const void* vp, const int* pt, int n_cols,
            const int* kv_len, const float* bp, const float* dmq, Epilogue ep, float* m_p,
            float* l_p, float* acc_p, float* scratch, size_t scratch_floats, void* out, int B,
@@ -656,7 +659,7 @@ extern "C" int paged_decode_forward(const void* q, const void* kp, const void* v
   float* sf = static_cast<float*>(scratch);
   const size_t sn = static_cast<size_t>(scratch_floats);
   return with_table(ep, [&](auto table) {
-    constexpr bool TB = decltype(table)::value;
+    constexpr int TB = decltype(table)::value;
 #define PAGED_DECODE_LAUNCH(TQ, TKV)                                                           \
   return launch<TQ, TKV, TB>(q, kp, vp, pt, n_cols, lens, bpf, dmqf, ep, mf, lf, af, sf, sn, \
                              out, B, Hkv, P, ps, dh, G, pps, n_splits, st)

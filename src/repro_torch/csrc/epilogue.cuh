@@ -5,9 +5,12 @@
 // Pallas kernels specialise at trace time: "identity" gives (x, 1), "exact:<fn>"
 // the function and its derivative, "pwl" the table's value and per-segment
 // slope.  Here the kind is a run-time argument of one launch interface, and
-// every kernel is compiled twice (with_table below): with TABLE true it holds
-// the PWL decode alone, the code it had before the other kinds came, so a
-// table costs what it did; with TABLE false a uniform branch picks the
+// every kernel is compiled three times (with_table below, TableMode of
+// pwl_decode.cuh): with TABLE_SHARED it holds the PWL decode alone over the
+// table in shared memory, the code it had before the other kinds came, so a
+// table costs what it did; with TABLE_WIDE the same decode over a table of
+// any size in device memory (kind EPI_PWL_WIDE, which the host asks for past
+// PWL_MAX_BP breakpoints); with TABLE_NONE a uniform branch picks the
 // identity or the exact function.
 //
 // The exact functions are those of repro_torch/core/functions.py, with the ids
@@ -25,7 +28,7 @@
 
 #include "pwl_decode.cuh"
 
-enum EpiKind : int { EPI_IDENTITY = 0, EPI_EXACT = 1, EPI_PWL = 2 };
+enum EpiKind : int { EPI_IDENTITY = 0, EPI_EXACT = 1, EPI_PWL = 2, EPI_PWL_WIDE = 3 };
 
 // The order of repro_torch.core.functions.REGISTRY.
 enum ExactFn : int {
@@ -45,32 +48,40 @@ enum ExactFn : int {
 struct Epilogue {
   int kind;
   int fn;    // EPI_EXACT only
-  int n_bp;  // EPI_PWL only: breakpoints of the table
+  int n_bp;  // EPI_PWL and EPI_PWL_WIDE only: breakpoints of the table
 };
+
+// A PWL epilogue, whichever instantiation holds its table.
+inline bool is_table(int kind) { return kind == EPI_PWL || kind == EPI_PWL_WIDE; }
 
 // Host-side check of a launch's epilogue arguments.
 inline bool epilogue_ok(const Epilogue& e) {
   if (e.kind == EPI_PWL) return e.n_bp >= 1 && e.n_bp <= PWL_MAX_BP;
+  if (e.kind == EPI_PWL_WIDE) return e.n_bp >= 1;
   if (e.kind == EPI_EXACT) return e.fn >= 0 && e.fn < FN_COUNT;
   return e.kind == EPI_IDENTITY;
 }
 
-// Host side: f(std::true_type{}) for a PWL epilogue, f(std::false_type{}) for
-// the identity or an exact function, so that a launcher instantiates its
-// kernel with TABLE = decltype(f's argument)::value.
+// Host side: f(std::integral_constant<int, TABLE_SHARED>{}) for a PWL
+// epilogue, TABLE_WIDE for a wide one, TABLE_NONE for the identity or an
+// exact function, so that a launcher instantiates its kernel with TABLE =
+// decltype(f's argument)::value.
 template <class F>
 int with_table(const Epilogue& e, F&& f) {
-  return e.kind == EPI_PWL ? f(std::true_type{}) : f(std::false_type{});
+  if (e.kind == EPI_PWL) return f(std::integral_constant<int, TABLE_SHARED>{});
+  if (e.kind == EPI_PWL_WIDE) return f(std::integral_constant<int, TABLE_WIDE>{});
+  return f(std::integral_constant<int, TABLE_NONE>{});
 }
 
-// The table into shared memory, for a PWL epilogue only (the other kinds have
-// no table operands: bp and dmq may be null).
-template <bool TABLE>
+// The table into shared memory, for TABLE_SHARED only (TABLE_WIDE reads it
+// where it lies; the other kinds have no table operands: bp and dmq may be
+// null).
+template <int TABLE>
 __device__ __forceinline__ void epi_load_table(float* s_bp, float* s_dmq,
                                                const float* __restrict__ bp,
                                                const float* __restrict__ dmq,
                                                const Epilogue& e) {
-  if constexpr (TABLE) pwl_load_table(s_bp, s_dmq, bp, dmq, e.n_bp);
+  if constexpr (TABLE == TABLE_SHARED) pwl_load_table(s_bp, s_dmq, bp, dmq, e.n_bp);
 }
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.0f / (1.0f + expf(-x)); }
@@ -157,10 +168,10 @@ __device__ __forceinline__ float2 exact_eval(int fn, float x) {
 }
 
 // (act(x), act'(x)): the backward kernels' epilogue.
-template <bool TABLE>
+template <int TABLE>
 __device__ __forceinline__ float2 epi_value_and_slope(const Epilogue& e, float x,
                                                       const float* s_bp, const float* s_dmq) {
-  if constexpr (TABLE) {
+  if constexpr (TABLE != TABLE_NONE) {
     return pwl_value_and_slope(x, s_bp, s_dmq, e.n_bp);
   } else {
     return e.kind == EPI_EXACT ? exact_eval<true>(e.fn, x) : make_float2(x, 1.0f);
@@ -169,10 +180,10 @@ __device__ __forceinline__ float2 epi_value_and_slope(const Epilogue& e, float x
 
 // act(x): the forward kernels' epilogue (the PWL value is the fused one, m * x
 // + q in one fmaf).
-template <bool TABLE>
+template <int TABLE>
 __device__ __forceinline__ float epi_value(const Epilogue& e, float x, const float* s_bp,
                                            const float* s_dmq) {
-  if constexpr (TABLE) {
+  if constexpr (TABLE != TABLE_NONE) {
     return pwl_value_and_slope(x, s_bp, s_dmq, e.n_bp).x;
   } else {
     return e.kind == EPI_EXACT ? exact_eval<false>(e.fn, x).x : x;
@@ -182,7 +193,7 @@ __device__ __forceinline__ float epi_value(const Epilogue& e, float x, const flo
 // The exp of the softmax chains: the epilogue on x clamped at -1e4, clamped at
 // 0 after it.  An exact exp keeps both clamps, as the JAX package's plan.apply
 // does inside the same chain.
-template <bool TABLE>
+template <int TABLE>
 __device__ __forceinline__ float epi_exp(const Epilogue& e, float x, const float* s_bp,
                                          const float* s_dmq) {
   return fmaxf(epi_value<TABLE>(e, fmaxf(x, SHIFT_CLAMP), s_bp, s_dmq), 0.0f);
@@ -191,36 +202,38 @@ __device__ __forceinline__ float epi_exp(const Epilogue& e, float x, const float
 // The flash kernels' bf16 design decodes by the search (pwl_decode.cuh): the
 // same values and slopes from the padded breakpoints and the prefix table.
 // piv: pwl_search_pivots of the table (unused without one).
-template <bool TABLE>
-__device__ __forceinline__ void epi_load_search(PwlSearch* t, const float* __restrict__ bp,
+template <int TABLE>
+__device__ __forceinline__ void epi_load_search(SearchTable<TABLE>* t,
+                                                const float* __restrict__ bp,
                                                 const float* __restrict__ mq, const Epilogue& e) {
-  if constexpr (TABLE) pwl_search_load(t, bp, mq, e.n_bp);
+  if constexpr (TABLE != TABLE_NONE) pwl_search_load(t, bp, mq, e.n_bp);
 }
 
-template <bool TABLE>
-__device__ __forceinline__ float3 epi_search_pivots(const PwlSearch& t) {
-  if constexpr (TABLE) return pwl_search_pivots(t);
+template <int TABLE>
+__device__ __forceinline__ float3 epi_search_pivots(const SearchTable<TABLE>& t) {
+  if constexpr (TABLE != TABLE_NONE) return pwl_search_pivots(t);
   return make_float3(0.0f, 0.0f, 0.0f);
 }
 
-template <bool TABLE>
+template <int TABLE>
 __device__ __forceinline__ float2 epi_search_value_and_slope(const Epilogue& e, float x,
-                                                             const PwlSearch& t, float3 piv) {
-  if constexpr (TABLE) {
+                                                             const SearchTable<TABLE>& t,
+                                                             float3 piv) {
+  if constexpr (TABLE != TABLE_NONE) {
     return pwl_search_value_and_slope(x, t, piv);
   } else {
     return e.kind == EPI_EXACT ? exact_eval<true>(e.fn, x) : make_float2(x, 1.0f);
   }
 }
 
-template <bool TABLE>
-__device__ __forceinline__ float epi_search_exp(const Epilogue& e, float x, const PwlSearch& t,
-                                                float3 piv) {
+template <int TABLE>
+__device__ __forceinline__ float epi_search_exp(const Epilogue& e, float x,
+                                                const SearchTable<TABLE>& t, float3 piv) {
   float v;
-  if constexpr (TABLE) {
+  if constexpr (TABLE != TABLE_NONE) {
     v = pwl_search_value_and_slope(fmaxf(x, SHIFT_CLAMP), t, piv).x;
   } else {
-    v = epi_value<false>(e, fmaxf(x, SHIFT_CLAMP), nullptr, nullptr);
+    v = epi_value<TABLE_NONE>(e, fmaxf(x, SHIFT_CLAMP), nullptr, nullptr);
   }
   return fmaxf(v, 0.0f);
 }

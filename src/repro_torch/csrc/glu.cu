@@ -117,7 +117,7 @@ __device__ __forceinline__ void load_vec(T* dst, const T* __restrict__ base, int
 // CUDA-core kernel decodes by the linear chain over its shared-memory copy of
 // the table; the bf16 tensor-core kernel by the search over the prefix table
 // (pwl_decode.cuh), which gives the same bits for ascending breakpoints.
-template <bool TABLE>
+template <int TABLE>
 struct ChainDecode {
   const float* s_bp;
   const float* s_dmq;
@@ -130,14 +130,14 @@ struct ChainDecode {
   }
 };
 
-template <bool TABLE>
+template <int TABLE>
 struct SearchDecode {
-  const PwlSearch* t;
+  const SearchTable<TABLE>* t;
   float3 piv;
   Epilogue ep;
   __device__ __forceinline__ float value(float x) const {
-    if constexpr (TABLE) return pwl_search_value_and_slope(x, *t, piv).x;
-    return epi_value<false>(ep, x, nullptr, nullptr);
+    if constexpr (TABLE != TABLE_NONE) return pwl_search_value_and_slope(x, *t, piv).x;
+    return epi_value<TABLE_NONE>(ep, x, nullptr, nullptr);
   }
   __device__ __forceinline__ float2 value_and_slope(float x) const {
     return epi_search_value_and_slope<TABLE>(ep, x, *t, piv);
@@ -151,9 +151,9 @@ struct SearchDecode {
 // (g * zu * act'(zg), g * act(zg)) in f32, act the launch's epilogue
 // (epilogue.cuh: the PWL table, an exact function or the identity; TABLE
 // selects the table's instantiation) as the kernel's decode evaluates it.
-template <typename T, bool TABLE>
+template <typename T, int TABLE>
 struct ForwardEpi {
-  static constexpr bool kTable = TABLE;
+  static constexpr int kTable = TABLE;
   T* out;
   int N;
   template <class D>
@@ -163,9 +163,9 @@ struct ForwardEpi {
   }
 };
 
-template <typename T, bool TABLE>
+template <typename T, int TABLE>
 struct BackwardEpi {
-  static constexpr bool kTable = TABLE;
+  static constexpr int kTable = TABLE;
   const T* g;
   float* dzg;
   float* dzu;
@@ -185,9 +185,9 @@ struct BackwardEpi {
 // unused): the bias, when there is one, is added to the f32 accumulator
 // after the last K tile, as the JAX kernel adds it, then the forward's
 // act(z) in T, or the backward's dz = g * act'(z) in f32.
-template <typename T, bool TABLE>
+template <typename T, int TABLE>
 struct LinearForwardEpi {
-  static constexpr bool kTable = TABLE;
+  static constexpr int kTable = TABLE;
   T* out;
   const T* bias;  // (N,) or nullptr
   int N;
@@ -199,9 +199,9 @@ struct LinearForwardEpi {
   }
 };
 
-template <typename T, bool TABLE>
+template <typename T, int TABLE>
 struct LinearBackwardEpi {
-  static constexpr bool kTable = TABLE;
+  static constexpr int kTable = TABLE;
   const T* g;
   const T* bias;  // (N,) or nullptr
   float* dz;
@@ -255,8 +255,9 @@ glu_pwl_kernel(const T* __restrict__ x, const T* __restrict__ wg, const T* __res
   constexpr int NW = C::NW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const ring = reinterpret_cast<T*>(smem_raw);
-  __shared__ float s_bp[PWL_MAX_BP];
-  __shared__ float s_dmq[2 * (PWL_MAX_BP + 1)];
+  __shared__ ChainTable<Epi::kTable> chain;
+  float* const s_bp = chain.bp(bp);
+  float* const s_dmq = chain.dmq(dmq);
 
   // this block's expert: its x bucket and weights, its rows of the output
   const size_t e = blockIdx.z;
@@ -456,7 +457,7 @@ glu_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
   constexpr int XS = C::XS, WS = C::WS, MI = C::MI, NI = C::NI;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* const ring = reinterpret_cast<bf16*>(smem_raw);
-  __shared__ PwlSearch s_tab;
+  __shared__ SearchTable<Epi::kTable> s_tab;
 
   const size_t e = blockIdx.z;
   x += e * M * K;
@@ -757,17 +758,18 @@ int linear_backward(const void* x, const void* w, const void* b, const void* g,
 
 // A PWL epilogue needs the prefix table in bf16 (the search decode).
 bool operands_ok(const Epilogue& ep, int dtype, const void* mq) {
-  return epilogue_ok(ep) && (dtype != 1 || ep.kind != EPI_PWL || mq != nullptr);
+  return epilogue_ok(ep) && (dtype != 1 || !is_table(ep.kind) || mq != nullptr);
 }
 
 }  // namespace
 
 // Every entry point takes the epilogue as (bp, dmq, n_bp, kind, fn, mq): kind
-// EPI_PWL with the table's f32 delta operands, n_bp breakpoints and the
-// prefix table mq (epilogue.py:search_prefix, (n_bp + 1) x 2 f32, read by the
-// bf16 tensor-core kernel; the host has checked that the breakpoints
-// ascend), EPI_EXACT with exact function fn, or EPI_IDENTITY (bp, dmq and mq
-// unread, may be null).
+// EPI_PWL (at most PWL_MAX_BP breakpoints) or EPI_PWL_WIDE (any number) with
+// the table's f32 delta operands, n_bp breakpoints and the search operand mq
+// (epilogue.py:search_prefix: the (n_bp + 1) x 2 f32 prefix table, then the
+// padded breakpoints EPI_PWL_WIDE reads, read by the bf16 tensor-core kernel;
+// the host has checked that the breakpoints ascend), EPI_EXACT with exact
+// function fn, or EPI_IDENTITY (bp, dmq and mq unread, may be null).
 
 // x (E, M, K), wg/wu (E, K, N), out (E, M, N), all in dtype (0 = float32,
 // 1 = bfloat16).  Returns the cudaError_t of the launch.

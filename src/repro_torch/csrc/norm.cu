@@ -74,22 +74,33 @@ constexpr int SC_BWD = 16;         //   forward, backward
 constexpr int STAGE_J = 8;         // a lane's columns a ds stage: 256 columns
 constexpr int STAGE_COLS = 32 * STAGE_J;
 
-// The epilogue as a compile-time mode: a table (the breakpoint search), the
-// identity and exact gelu are inlined; any other exact function is called
-// out of line.
-enum Mode : int { MODE_TABLE, MODE_IDENTITY, MODE_GELU, MODE_EXACT };
+// The epilogue as a compile-time mode: a table (the breakpoint search over
+// the table in shared memory, or in device memory past PWL_MAX_BP
+// breakpoints), the identity and exact gelu are inlined; any other exact
+// function is called out of line.
+enum Mode : int { MODE_TABLE, MODE_IDENTITY, MODE_GELU, MODE_EXACT, MODE_TABLE_WIDE };
 
 template <class F>
 int with_mode(const Epilogue& e, F&& f) {
   if (e.kind == EPI_PWL) return f(std::integral_constant<int, MODE_TABLE>{});
+  if (e.kind == EPI_PWL_WIDE) return f(std::integral_constant<int, MODE_TABLE_WIDE>{});
   if (e.kind == EPI_IDENTITY) return f(std::integral_constant<int, MODE_IDENTITY>{});
   if (e.fn == FN_GELU) return f(std::integral_constant<int, MODE_GELU>{});
   return f(std::integral_constant<int, MODE_EXACT>{});
 }
 
-// The table in shared memory and its pivots, once a block
+template <int MODE>
+constexpr bool kHasTable = MODE == MODE_TABLE || MODE == MODE_TABLE_WIDE;
+
+// A mode's search table (the modes without one declare the shared one, as
+// before the wide tables, and never load it).
+template <int MODE>
+using ModeTable = SearchTable<MODE == MODE_TABLE_WIDE ? TABLE_WIDE : TABLE_SHARED>;
+
+// The table and its pivots, once a block
+template <int MODE>
 struct Search {
-  const PwlSearch* tab;
+  const ModeTable<MODE>* tab;
   float3 piv;  // pwl_search_pivots
 };
 
@@ -100,11 +111,12 @@ struct Search {
 // +0 to a sum which starts at +0 and so change no bit: the forward's rows
 // need no branch a column.  Every thread of the block calls it once.
 template <int MODE>
-__device__ __forceinline__ Search load_block(PwlSearch* s_tab, const float* bp, const float* mq,
-                                             const Epilogue& ep, float* s_w, int n_w,
-                                             const float* __restrict__ scale, int D) {
-  Search sr{s_tab, make_float3(0.0f, 0.0f, 0.0f)};
-  constexpr bool TAB = MODE == MODE_TABLE;
+__device__ __forceinline__ Search<MODE> load_block(ModeTable<MODE>* s_tab, const float* bp,
+                                                   const float* mq, const Epilogue& ep,
+                                                   float* s_w, int n_w,
+                                                   const float* __restrict__ scale, int D) {
+  Search<MODE> sr{s_tab, make_float3(0.0f, 0.0f, 0.0f)};
+  constexpr bool TAB = kHasTable<MODE>;
   if constexpr (TAB) pwl_search_load(s_tab, bp, mq, ep.n_bp);
   for (int c = threadIdx.x; c < n_w; c += blockDim.x) s_w[c] = c < D ? 1.0f + scale[c] : 0.0f;
   if (TAB || n_w > 0) __syncthreads();
@@ -112,7 +124,8 @@ __device__ __forceinline__ Search load_block(PwlSearch* s_tab, const float* bp, 
   return sr;
 }
 
-__device__ __forceinline__ float2 search(float y, const Search& sr) {
+template <int MODE>
+__device__ __forceinline__ float2 search(float y, const Search<MODE>& sr) {
   return pwl_search_value_and_slope(y, *sr.tab, sr.piv);
 }
 
@@ -121,8 +134,8 @@ __device__ __noinline__ float exact_slope(int fn, float y) { return exact_eval<t
 
 // act(y): the forward's epilogue (the PWL value is fmaf(m, y, q), as before)
 template <int MODE>
-__device__ __forceinline__ float act_value(const Epilogue& ep, float y, const Search& sr) {
-  if constexpr (MODE == MODE_TABLE) return search(y, sr).x;
+__device__ __forceinline__ float act_value(const Epilogue& ep, float y, const Search<MODE>& sr) {
+  if constexpr (kHasTable<MODE>) return search(y, sr).x;
   else if constexpr (MODE == MODE_IDENTITY) return y;
   else if constexpr (MODE == MODE_GELU) return exact_eval<false>(FN_GELU, y).x;
   else return exact_value(ep.fn, y);
@@ -130,8 +143,8 @@ __device__ __forceinline__ float act_value(const Epilogue& ep, float y, const Se
 
 // act'(y): the backward's
 template <int MODE>
-__device__ __forceinline__ float act_slope(const Epilogue& ep, float y, const Search& sr) {
-  if constexpr (MODE == MODE_TABLE) return search(y, sr).y;
+__device__ __forceinline__ float act_slope(const Epilogue& ep, float y, const Search<MODE>& sr) {
+  if constexpr (kHasTable<MODE>) return search(y, sr).y;
   else if constexpr (MODE == MODE_IDENTITY) return 1.0f;
   else if constexpr (MODE == MODE_GELU) return exact_eval<true>(FN_GELU, y).y;
   else return exact_slope(ep.fn, y);
@@ -200,7 +213,7 @@ rmsnorm_rows_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                     const float* __restrict__ bp, const float* __restrict__ mq, Epilogue ep,
                     T* __restrict__ out, int M, int D, float eps) {
   constexpr int R = FWD_WARPS / S;  // rows a block
-  __shared__ PwlSearch s_tab;
+  __shared__ ModeTable<MODE> s_tab;
   __shared__ float s_w[32 * P * S];
   __shared__ float s_hand[R][32];
   __shared__ float s_r[R];
@@ -214,7 +227,7 @@ rmsnorm_rows_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   float v[P];
 #pragma unroll
   for (int j = 0; j < P; ++j) v[j] = live && cb + 32 * j < D ? to_f32(xr[cb + 32 * j]) : 0.0f;
-  const Search sr = load_block<MODE>(&s_tab, bp, mq, ep, s_w, 32 * P * S, scale, D);
+  const Search<MODE> sr = load_block<MODE>(&s_tab, bp, mq, ep, s_w, 32 * P * S, scale, D);
   const float ss = chain_parts<S>(part, lane, s_hand[grp], [&](float acc) {
 #pragma unroll
     for (int j = 0; j < P; ++j) acc += v[j] * v[j];
@@ -237,8 +250,8 @@ __global__ void __launch_bounds__(FWD_THREADS)
 rmsnorm_stream_kernel(const T* __restrict__ x, const float* __restrict__ scale,
                       const float* __restrict__ bp, const float* __restrict__ mq, Epilogue ep,
                       T* __restrict__ out, int M, int D, float eps) {
-  __shared__ PwlSearch s_tab;
-  const Search sr = load_block<MODE>(&s_tab, bp, mq, ep, nullptr, 0, scale, D);
+  __shared__ ModeTable<MODE> s_tab;
+  const Search<MODE> sr = load_block<MODE>(&s_tab, bp, mq, ep, nullptr, 0, scale, D);
   const long long row = (long long)blockIdx.x * FWD_WARPS + threadIdx.x / 32;
   if (row >= M) return;
   const int lane = threadIdx.x & 31;
@@ -307,7 +320,7 @@ rmsnorm_bwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ scale
                         float* __restrict__ ds_part, int M, int D, float eps) {
   constexpr bool HOLD_X = P <= 16;
   constexpr int SJ = P < STAGE_J ? P : STAGE_J;  // a lane's columns a stage
-  __shared__ PwlSearch s_tab;
+  __shared__ ModeTable<MODE> s_tab;
   __shared__ float2 s_stage[TILE_ROWS][STAGE_COLS];  // (dy, xh)
   __shared__ float s_w[32 * P];
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
@@ -324,7 +337,7 @@ rmsnorm_bwd_rows_kernel(const T* __restrict__ x, const float* __restrict__ scale
     if constexpr (HOLD_X) xv[j] = live && col < D ? to_f32(xr[col]) : 0.0f;
     dy[j] = live && col < D ? to_f32(g[base + col]) : 0.0f;
   }
-  const Search sr = load_block<MODE>(&s_tab, bp, mq, ep, s_w, 32 * P, scale, D);
+  const Search<MODE> sr = load_block<MODE>(&s_tab, bp, mq, ep, s_w, 32 * P, scale, D);
   auto xh_of = [&](int j, float r) {  // x r of the lane's column j (< D)
     if constexpr (HOLD_X) return xv[j] * r;
     else return reread(xr + lane + 32 * j) * r;
@@ -384,9 +397,9 @@ rmsnorm_bwd_stream_kernel(const T* __restrict__ x, const float* __restrict__ sca
                           const T* __restrict__ g, const float* __restrict__ bp,
                           const float* __restrict__ mq, Epilogue ep, float* __restrict__ dx,
                           float* __restrict__ ds_part, int M, int D, float eps) {
-  __shared__ PwlSearch s_tab;
+  __shared__ ModeTable<MODE> s_tab;
   __shared__ float2 s_stage[TILE_ROWS][STAGE_COLS];
-  const Search sr = load_block<MODE>(&s_tab, bp, mq, ep, nullptr, 0, scale, D);
+  const Search<MODE> sr = load_block<MODE>(&s_tab, bp, mq, ep, nullptr, 0, scale, D);
   const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
   const long long row0 = (long long)blockIdx.x * TILE_ROWS;
   const int rows = (int)min((long long)TILE_ROWS, (long long)M - row0);
@@ -500,7 +513,7 @@ int with_bwd_split(RowSplit sp, F&& f) {
 // PWL epilogue, the shape, and that the host's plan streams the row or holds
 // all of it (with_fwd_split / with_bwd_split refuse a split not built).
 bool args_ok(const Epilogue& ep, const void* mq, int M, int D, RowSplit sp) {
-  if (!epilogue_ok(ep) || (ep.kind == EPI_PWL && mq == nullptr) || M < 0 || D < 1) return false;
+  if (!epilogue_ok(ep) || (is_table(ep.kind) && mq == nullptr) || M < 0 || D < 1) return false;
   return (sp.per_lane == 0 && sp.warps == 0) || 32LL * sp.per_lane * sp.warps >= D;
 }
 

@@ -21,6 +21,10 @@
 // deltas, each delta the same f32 subtraction as the plain version's), so
 // every entry has the bits of that per-element accumulation, signed zeros
 // included; an element then costs its index and one shared-memory fetch.
+// Past PWL_MAX_SEG segments (Uniform<TABLE_WIDE>) one small kernel first
+// accumulates every segment so into device memory, and an element fetches
+// its own from there; the non-uniform table past PWL_MAX_BP breakpoints is
+// searched where it lies (pwl_decode.cuh, PwlSearchWide).
 // The index takes the TPU kernel's int32 steps: a saturating conversion, a
 // +1 that wraps, then the clip, so |x - lo| beyond 2^31 segment widths lands
 // in segment 0 there too.
@@ -47,17 +51,18 @@ namespace {
 
 constexpr int THREADS = 256;
 
-// The non-uniform table in shared memory: the padded breakpoints and the
-// prefix table of the search.
+// The non-uniform table: the padded breakpoints and the prefix table of the
+// search, in shared memory (TABLE_SHARED), or where they lie (TABLE_WIDE).
+template <int TABLE>
 struct NonUniform {
   const float* bp;
   const float* mq;
   int n_bp;
   struct Shared {
-    PwlSearch t;
+    SearchTable<TABLE> t;
   };
   struct Dec {
-    const PwlSearch* t;
+    const SearchTable<TABLE>* t;
     float3 piv;
     __device__ __forceinline__ float operator()(float x) const {
       const float2 mq = pwl_search_mq(x, *t, piv);
@@ -71,6 +76,7 @@ struct NonUniform {
 };
 
 // The uniform table: each segment's (m, q) by the delta loop, once a block.
+template <int TABLE>
 struct Uniform {
   const float* mq;
   int n_seg;
@@ -111,6 +117,39 @@ struct Uniform {
     return Dec{s.seg, n_seg - 1, lo, inv_h};
   }
 };
+
+// The uniform table past PWL_MAX_SEG segments: seg holds every segment's
+// (m, q), built by uniform_segments_kernel before the launch, and an element
+// fetches its segment's from device memory.
+template <>
+struct Uniform<TABLE_WIDE> {
+  const float* seg;
+  int n_seg;
+  float lo, inv_h;
+  struct Shared {};
+  using Dec = Uniform<TABLE_SHARED>::Dec;
+  __device__ __forceinline__ void load(Shared&) const {}
+  __device__ __forceinline__ Dec decoder(const Shared&) const {
+    return Dec{reinterpret_cast<const float2*>(seg), n_seg - 1, lo, inv_h};
+  }
+};
+
+// Segment k's (m, q) into seg[k], one thread a segment: the delta loop of
+// Uniform<TABLE_SHARED>::load over mq in device memory, the same f32
+// subtractions and fmaf in the same order, so the same bits.
+__global__ void uniform_segments_kernel(const float* __restrict__ mq, float2* __restrict__ seg,
+                                        int n_seg) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n_seg) return;
+  float m = mq[0];
+  float q = mq[1];
+  for (int j = 0; j < n_seg - 1; ++j) {
+    const float c = k > j ? 1.0f : 0.0f;
+    m = fmaf(c, __fsub_rn(mq[2 * j + 2], mq[2 * j]), m);
+    q = fmaf(c, __fsub_rn(mq[2 * j + 3], mq[2 * j + 1]), q);
+  }
+  seg[k] = make_float2(m, q);
+}
 
 // A 32-bit word of x's elements through the decode: one f32, or two bf16 or
 // f16 (exactly widened; the results rounded to nearest, as store() rounds).
@@ -201,24 +240,38 @@ int launch(const void* x, void* out, long long n, int dtype, const Table& tab, v
 
 // x and out hold n elements of dtype (0 = float32, 1 = bfloat16, 2 =
 // float16), at addresses equal modulo 16; bp (n_bp) the ascending
-// breakpoints and mq ((n_bp + 1) x 2) the prefix table of the search
-// (kernels/fused/epilogue.py:prefix_table).  Returns the cudaError_t of the
-// launch.
+// breakpoints and mq the search operand (kernels/fused/epilogue.py:
+// search_operand: the (n_bp + 1) x 2 prefix table, then the padded
+// breakpoints the wide search reads); wide: the TABLE_WIDE instantiation
+// (any n_bp), else the table goes to shared memory (at most PWL_MAX_BP).
+// Returns the cudaError_t of the launch.
 extern "C" int pwl_nonuniform_forward(const void* x, const void* bp, const void* mq, int n_bp,
-                                      void* out, long long n, int dtype, void* stream) {
-  if (n_bp < 1 || n_bp > PWL_MAX_BP || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const NonUniform tab{static_cast<const float*>(bp), static_cast<const float*>(mq), n_bp};
-  return launch(x, out, n, dtype, tab, stream);
+                                      int wide, void* out, long long n, int dtype,
+                                      void* stream) {
+  if (n_bp < 1 || (!wide && n_bp > PWL_MAX_BP) || n <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* bpf = static_cast<const float*>(bp);
+  const float* mqf = static_cast<const float*>(mq);
+  if (wide) return launch(x, out, n, dtype, NonUniform<TABLE_WIDE>{bpf, mqf, n_bp}, stream);
+  return launch(x, out, n, dtype, NonUniform<TABLE_SHARED>{bpf, mqf, n_bp}, stream);
 }
 
-// x and out as above; mq (n_seg, 2) f32 per-segment (m, q); lo and inv_h the
-// f32 constants of the affine address decode.  Returns the cudaError_t of
-// the launch.
-extern "C" int pwl_uniform_forward(const void* x, const void* mq, int n_seg, float lo,
-                                   float inv_h, void* out, long long n, int dtype,
+// x and out as above; mq (n_seg, 2) f32 per-segment (m, q); lo and inv_h
+// the f32 constants of the affine address decode; wide: the TABLE_WIDE
+// instantiation (any n_seg), which first builds every segment's accumulated
+// (m, q) into seg ((n_seg, 2) f32 scratch, unread otherwise), else the
+// segments are built in shared memory (at most PWL_MAX_SEG).  Returns the
+// cudaError_t of the launches.
+extern "C" int pwl_uniform_forward(const void* x, const void* mq, int n_seg, int wide, void* seg,
+                                   float lo, float inv_h, void* out, long long n, int dtype,
                                    void* stream) {
-  if (n_seg < 3 || n_seg > PWL_MAX_SEG || n <= 0)
+  if (n_seg < 3 || (!wide && n_seg > PWL_MAX_SEG) || (wide && seg == nullptr) || n <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Uniform tab{static_cast<const float*>(mq), n_seg, lo, inv_h};
+  const float* mqf = static_cast<const float*>(mq);
+  if (!wide) return launch(x, out, n, dtype, Uniform<TABLE_SHARED>{mqf, n_seg, lo, inv_h}, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  uniform_segments_kernel<<<(n_seg + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+      mqf, static_cast<float2*>(seg), n_seg);
+  const Uniform<TABLE_WIDE> tab{static_cast<const float*>(seg), n_seg, lo, inv_h};
   return launch(x, out, n, dtype, tab, stream);
 }

@@ -19,6 +19,16 @@
 // The table is at most 64 + 65 * 2 floats: a block loads it into shared
 // memory once, and every thread reads it from there (a broadcast read).
 //
+// A table of more breakpoints takes the TABLE_WIDE instantiation of the same
+// kernels (TableMode below; the host asks for it by the epilogue kind
+// EPI_PWL_WIDE, epilogue.cuh): ChainTable<TABLE_WIDE> and PwlSearchWide read
+// the table through pointers into device memory (a few KB, L1-resident)
+// instead of the fixed shared arrays, and the wide search runs log2(P) steps
+// over the breakpoints the host pads with +inf to P - 1, P the power of two
+// above n_bp (epilogue.py:prefix_for appends them behind the prefix table).
+// Both decodes keep the strict compare and the chain's order, so the wide
+// instantiation gives the same bits as the shared one would.
+//
 // pwl_search_value_and_slope is the same function by a search over the
 // breakpoints (the paper's binary-tree address decoder), for the bf16
 // tensor-core kernels and the standalone activation (pwl_search_mq, the
@@ -34,7 +44,14 @@
 #include <cuda_fp16.h>
 #include <math.h>
 
+#include <type_traits>
+
 #define PWL_MAX_BP 64
+
+// How a kernel instantiation holds its epilogue's table: none (the identity
+// or an exact function), in shared memory (at most PWL_MAX_BP breakpoints),
+// or where it lies in device memory (any number).
+enum TableMode : int { TABLE_NONE = 0, TABLE_SHARED = 1, TABLE_WIDE = 2 };
 
 constexpr float NEG_FILL = -1e30f;     // masked-score fill
 constexpr float SHIFT_CLAMP = -1e4f;   // lower clamp on the shifted scores
@@ -47,6 +64,23 @@ __device__ __forceinline__ void store(float v, __nv_bfloat16* dst) {
   *dst = __float2bfloat16_rn(v);
 }
 __device__ __forceinline__ void store(float v, __half* dst) { *dst = __float2half_rn(v); }
+
+// The chain's table as a kernel declares it, __shared__ ChainTable<TABLE>:
+// two shared arrays, which pwl_load_table fills; for TABLE_WIDE nothing, and
+// bp() and dmq() hand back the operands where they lie.
+template <int TABLE>
+struct ChainTable {
+  float s_bp[PWL_MAX_BP];
+  float s_dmq[2 * (PWL_MAX_BP + 1)];
+  __device__ __forceinline__ float* bp(const float*) { return s_bp; }
+  __device__ __forceinline__ float* dmq(const float*) { return s_dmq; }
+};
+
+template <>
+struct ChainTable<TABLE_WIDE> {
+  __device__ __forceinline__ float* bp(const float* g) { return const_cast<float*>(g); }
+  __device__ __forceinline__ float* dmq(const float* g) { return const_cast<float*>(g); }
+};
 
 __device__ __forceinline__ void pwl_load_table(float* s_bp, float* s_dmq,
                                                const float* __restrict__ bp,
@@ -129,8 +163,47 @@ __device__ __forceinline__ float2 pwl_search_mq(float x, const PwlSearch& t, flo
   return *reinterpret_cast<const float2*>(reinterpret_cast<const char*>(t.mq) + 2 * k4);
 }
 
-__device__ __forceinline__ float2 pwl_search_value_and_slope(float x, const PwlSearch& t,
-                                                             float3 piv) {
+// The TABLE_WIDE search: the table stays in device memory, and a block holds
+// only pointers to it in shared memory.  mq is the prefix table,
+// (n_bp + 1) x 2 floats, followed by the breakpoints padded with +inf to
+// P - 1 (P = the power of two above n_bp); the search halves [0, P) in
+// log2(P) steps, the same k = #{i : x > bp_i} as the shared-memory search.
+struct PwlSearchWide {
+  const float2* mq;
+  const float* bp;
+  int half;  // P / 2
+};
+
+// Every thread of the block writes the same pointers; the caller
+// synchronises.
+__device__ __forceinline__ void pwl_search_load(PwlSearchWide* t, const float* __restrict__ bp,
+                                                const float* __restrict__ mq, int n_bp) {
+  (void)bp;
+  int p = 1;
+  while (p < n_bp + 1) p <<= 1;
+  t->mq = reinterpret_cast<const float2*>(mq);
+  t->bp = mq + 2 * (n_bp + 1);
+  t->half = p >> 1;
+}
+
+__device__ __forceinline__ float3 pwl_search_pivots(const PwlSearchWide&) {
+  return make_float3(0.0f, 0.0f, 0.0f);
+}
+
+__device__ __forceinline__ float2 pwl_search_mq(float x, const PwlSearchWide& t, float3) {
+  const float* bp = t.bp;
+  int k = 0;
+  for (int h = t.half; h > 0; h >>= 1) k += x > bp[k + h - 1] ? h : 0;
+  return t.mq[k];
+}
+
+template <class Tab>
+__device__ __forceinline__ float2 pwl_search_value_and_slope(float x, const Tab& t, float3 piv) {
   const float2 mq = pwl_search_mq(x, t, piv);
   return make_float2(fmaf(mq.x, x, mq.y), mq.x);
 }
+
+// The search table of a TableMode (TABLE_NONE declares the shared one, as
+// the kernels did before the wide tables, and never loads it).
+template <int TABLE>
+using SearchTable = std::conditional_t<TABLE == TABLE_WIDE, PwlSearchWide, PwlSearch>;

@@ -207,8 +207,9 @@ __device__ __forceinline__ float load_scores(const float* __restrict__ x, unsign
 }
 
 // The table search operands, once a block.
+template <int TABLE>
 struct Search {
-  const PwlSearch* tab;
+  const SearchTable<TABLE>* tab;
   float3 piv;
 };
 
@@ -224,10 +225,10 @@ __device__ __forceinline__ bool is_exact_exp(const Epilogue& ep) {
 }
 
 // max(act(max(x, -1e4)), 0): the exp of the softmax chains.
-template <bool TABLE>
-__device__ __forceinline__ float row_exp(const Epilogue& ep, float x, const Search& sr) {
-  if constexpr (TABLE) {
-    return epi_search_exp<true>(ep, x, *sr.tab, sr.piv);
+template <int TABLE>
+__device__ __forceinline__ float row_exp(const Epilogue& ep, float x, const Search<TABLE>& sr) {
+  if constexpr (TABLE != TABLE_NONE) {
+    return epi_search_exp<TABLE>(ep, x, *sr.tab, sr.piv);
   } else {
     if (is_exact_exp(ep)) return epi_search_exp<false>(Epilogue{EPI_EXACT, FN_EXP, 0}, x, *sr.tab,
                                                        sr.piv);
@@ -236,11 +237,11 @@ __device__ __forceinline__ float row_exp(const Epilogue& ep, float x, const Sear
 }
 
 // (act(s), act'(s)) of the clamped shifted score s.
-template <bool TABLE>
+template <int TABLE>
 __device__ __forceinline__ float2 row_value_and_slope(const Epilogue& ep, float s,
-                                                      const Search& sr) {
-  if constexpr (TABLE) {
-    return epi_search_value_and_slope<true>(ep, s, *sr.tab, sr.piv);
+                                                      const Search<TABLE>& sr) {
+  if constexpr (TABLE != TABLE_NONE) {
+    return epi_search_value_and_slope<TABLE>(ep, s, *sr.tab, sr.piv);
   } else {
     if (is_exact_exp(ep))
       return epi_search_value_and_slope<false>(Epilogue{EPI_EXACT, FN_EXP, 0}, s, *sr.tab, sr.piv);
@@ -251,9 +252,9 @@ __device__ __forceinline__ float2 row_value_and_slope(const Epilogue& ep, float 
 // The forward on one row's columns: max, PWL exp of the kept scores, sum,
 // y.  WIDE: the row's reductions span the block and its cluster (cs blocks a
 // row); otherwise the warp holds the whole row.
-template <int PT, bool TABLE, bool WIDE>
+template <int PT, int TABLE, bool WIDE>
 __device__ __forceinline__ void softmax_row(const float* __restrict__ x, const Keep& keep,
-                                            const Epilogue& ep, const Search& sr,
+                                            const Epilogue& ep, const Search<TABLE>& sr,
                                             float* __restrict__ out, const Cols& cols,
                                             float (*s_red)[WARPS], float* s_part, int cs) {
   float v[PT];
@@ -284,10 +285,10 @@ __device__ __forceinline__ void softmax_row(const float* __restrict__ x, const K
 }
 
 // The backward on one row's columns (the VJP in the header).
-template <int PT, bool TABLE, bool WIDE>
+template <int PT, int TABLE, bool WIDE>
 __device__ __forceinline__ void softmax_bwd_row(const float* __restrict__ x, const Keep& keep,
                                                 const float* __restrict__ g, const Epilogue& ep,
-                                                const Search& sr, float* __restrict__ dx,
+                                                const Search<TABLE>& sr, float* __restrict__ dx,
                                                 const Cols& cols, float (*s_red)[WARPS],
                                                 float* s_part, int cs) {
   float v[PT];   // x, then gate_p * gate_t * slope, then dt
@@ -369,12 +370,12 @@ __device__ __forceinline__ void softmax_bwd_row(const float* __restrict__ x, con
   }
 }
 
-template <bool TABLE>
-__device__ __forceinline__ Search load_search(PwlSearch* s_tab, const float* bp, const float* mq,
-                                              const Epilogue& ep) {
+template <int TABLE>
+__device__ __forceinline__ Search<TABLE> load_search(SearchTable<TABLE>* s_tab, const float* bp,
+                                                     const float* mq, const Epilogue& ep) {
   epi_load_search<TABLE>(s_tab, bp, mq, ep);
   __syncthreads();
-  return Search{s_tab, epi_search_pivots<TABLE>(*s_tab)};
+  return Search<TABLE>{s_tab, epi_search_pivots<TABLE>(*s_tab)};
 }
 
 __device__ __forceinline__ Keep keep_of(const float* mask, long long row, int N, int seq_len,
@@ -384,14 +385,14 @@ __device__ __forceinline__ Keep keep_of(const float* mask, long long row, int N,
 }
 
 // Narrow rows: a warp a row, WARPS rows a block, PT = ceil(N / 32) bucketed.
-template <int PT, bool TABLE>
+template <int PT, int TABLE>
 __global__ void __launch_bounds__(THREADS)
 softmax_narrow_kernel(const float* __restrict__ x, const float* __restrict__ mask,
                       const float* __restrict__ bp, const float* __restrict__ mq, Epilogue ep,
                       float* __restrict__ out, int R, int N, int seq_len, int causal,
                       int has_window, int window) {
-  __shared__ PwlSearch s_tab;
-  const Search sr = load_search<TABLE>(&s_tab, bp, mq, ep);
+  __shared__ SearchTable<TABLE> s_tab;
+  const Search<TABLE> sr = load_search<TABLE>(&s_tab, bp, mq, ep);
   const long long row = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
   if (row >= R) return;  // the whole warp: no block barrier follows
   const size_t base = (size_t)row * N;
@@ -401,14 +402,14 @@ softmax_narrow_kernel(const float* __restrict__ x, const float* __restrict__ mas
                                 ep, sr, out + base, cols, nullptr, nullptr, 1);
 }
 
-template <int PT, bool TABLE>
+template <int PT, int TABLE>
 __global__ void __launch_bounds__(THREADS)
 softmax_bwd_narrow_kernel(const float* __restrict__ x, const float* __restrict__ mask,
                           const float* __restrict__ g, const float* __restrict__ bp,
                           const float* __restrict__ mq, Epilogue ep, float* __restrict__ dx,
                           int R, int N, int seq_len, int causal, int has_window, int window) {
-  __shared__ PwlSearch s_tab;
-  const Search sr = load_search<TABLE>(&s_tab, bp, mq, ep);
+  __shared__ SearchTable<TABLE> s_tab;
+  const Search<TABLE> sr = load_search<TABLE>(&s_tab, bp, mq, ep);
   const long long row = (long long)blockIdx.x * WARPS + threadIdx.x / 32;
   if (row >= R) return;
   const size_t base = (size_t)row * N;
@@ -420,16 +421,16 @@ softmax_bwd_narrow_kernel(const float* __restrict__ x, const float* __restrict__
 
 // Wide rows: cs blocks a row (a cluster when cs > 1), rank r owning columns
 // [r * slice, (r + 1) * slice) of it, PT = ceil(slice / THREADS) bucketed.
-template <int PT, bool TABLE>
+template <int PT, int TABLE>
 __global__ void __launch_bounds__(THREADS)
 softmax_wide_kernel(const float* __restrict__ x, const float* __restrict__ mask,
                     const float* __restrict__ bp, const float* __restrict__ mq, Epilogue ep,
                     float* __restrict__ out, int N, int seq_len, int causal, int has_window,
                     int window, int cs, int slice) {
-  __shared__ PwlSearch s_tab;
+  __shared__ SearchTable<TABLE> s_tab;
   __shared__ float s_red[1][WARPS];
   __shared__ float s_part[2];
-  const Search sr = load_search<TABLE>(&s_tab, bp, mq, ep);
+  const Search<TABLE> sr = load_search<TABLE>(&s_tab, bp, mq, ep);
   const long long row = blockIdx.x / cs;
   const int c0 = (int)(blockIdx.x % cs) * slice;
   const size_t base = (size_t)row * N;
@@ -440,16 +441,16 @@ softmax_wide_kernel(const float* __restrict__ x, const float* __restrict__ mask,
   if (cs > 1) cg::this_cluster().sync();  // the peers have read this block's s_part
 }
 
-template <int PT, bool TABLE>
+template <int PT, int TABLE>
 __global__ void __launch_bounds__(THREADS)
 softmax_bwd_wide_kernel(const float* __restrict__ x, const float* __restrict__ mask,
                         const float* __restrict__ g, const float* __restrict__ bp,
                         const float* __restrict__ mq, Epilogue ep, float* __restrict__ dx, int N,
                         int seq_len, int causal, int has_window, int window, int cs, int slice) {
-  __shared__ PwlSearch s_tab;
+  __shared__ SearchTable<TABLE> s_tab;
   __shared__ float s_red[3][WARPS];
   __shared__ float s_part[5];
-  const Search sr = load_search<TABLE>(&s_tab, bp, mq, ep);
+  const Search<TABLE> sr = load_search<TABLE>(&s_tab, bp, mq, ep);
   const long long row = blockIdx.x / cs;
   const int c0 = (int)(blockIdx.x % cs) * slice;
   const size_t base = (size_t)row * N;
@@ -494,7 +495,7 @@ struct Shape {
 // Checks the launch's arguments and derives a wide row's slice and the
 // register bucket: the same rule as kernels/fused/softmax.py:_split_plan.
 int plan_shape(const Epilogue& ep, const void* mq, int R, int N, int seq_len, int cs, Shape* s) {
-  if (!epilogue_ok(ep) || (ep.kind == EPI_PWL && mq == nullptr) || R < 0 || N < 1 ||
+  if (!epilogue_ok(ep) || (is_table(ep.kind) && mq == nullptr) || R < 0 || N < 1 ||
       N > MAX_WIDTH || seq_len < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   *s = Shape{R, cs, N, 0};
@@ -569,7 +570,7 @@ extern "C" int pwl_softmax_forward(const void* x, const void* mask, const void* 
   const float* mqf = static_cast<const float*>(mq);
   float* of = static_cast<float*>(out);
   return with_table(ep, [&](auto table) {
-    constexpr bool TB = decltype(table)::value;
+    constexpr int TB = decltype(table)::value;
     if (N <= NARROW_WIDTH) {
       return with_bucket<32>(s.pt, [&](auto pt) {
         constexpr int PT = decltype(pt)::value;
@@ -607,7 +608,7 @@ extern "C" int pwl_softmax_backward(const void* x, const void* mask, const void*
   const float* mqf = static_cast<const float*>(mq);
   float* df = static_cast<float*>(dx);
   return with_table(ep, [&](auto table) {
-    constexpr bool TB = decltype(table)::value;
+    constexpr int TB = decltype(table)::value;
     if (N <= NARROW_WIDTH) {
       return with_bucket<32>(s.pt, [&](auto pt) {
         constexpr int PT = decltype(pt)::value;

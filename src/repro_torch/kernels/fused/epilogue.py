@@ -231,9 +231,9 @@ def prefix_table(dmq) -> torch.Tensor:
     return torch.from_numpy(out)
 
 
-# (weak reference to dmq, prefix table on dmq's device) per packed operands,
-# for as long as they live: device_operands packs a table once per device,
-# and the search decode's prefix is built once per such packing
+# (weak reference to dmq, search operand on dmq's device) per packed
+# operands, for as long as they live: device_operands packs a table once per
+# device, and the search decode's operand is built once per such packing
 _PREFIX: dict[int, tuple] = {}
 
 
@@ -245,8 +245,27 @@ def search_prefix(plan: EpiloguePlan, tables):
     return prefix_for(*tables)
 
 
+def search_pad(n_bp: int) -> int:
+    """P, the power of two above ``n_bp``: the search over ``n_bp``
+    breakpoints padded with +inf to P - 1 takes log2(P) =
+    ceil(log2(n_bp + 1)) steps."""
+    return 1 << n_bp.bit_length()
+
+
+def search_operand(bp, dmq) -> torch.Tensor:
+    """The search decode's operand, flat f32 on the CPU: the prefix table
+    (:func:`prefix_table`, (n_bp + 1) x 2), then the breakpoints padded with
+    +inf to ``search_pad(n_bp) - 1``.  The kernels' shared-memory
+    instantiation reads the prefix table alone (it pads to 128 itself); the
+    wide one of ``csrc/pwl_decode.cuh`` (tables above :data:`PWL_MAX_BP`
+    breakpoints) also reads the padded breakpoints."""
+    b = bp.detach().to("cpu", torch.float32).reshape(-1)
+    pad = torch.full((search_pad(b.numel()) - 1 - b.numel(),), float("inf"))
+    return torch.cat([prefix_table(dmq).reshape(-1), b, pad])
+
+
 def prefix_for(bp, dmq):
-    """The search decode's prefix table (:func:`prefix_table`) for f32
+    """The search decode's operand (:func:`search_operand`) for f32
     delta-layout operands ``(bp, dmq)``, built once per operand tensor and
     kept on its device while that tensor lives (so a call that finds it
     reads nothing back from the device, and a CUDA graph can capture it).
@@ -256,7 +275,7 @@ def prefix_for(bp, dmq):
     hit = _PREFIX.get(key)
     if hit is None or hit[0]() is not dmq:
         check_ascending(bp)
-        hit = (weakref.ref(dmq), prefix_table(dmq).to(dmq.device).contiguous())
+        hit = (weakref.ref(dmq), search_operand(bp, dmq).to(dmq.device).contiguous())
         _PREFIX[key] = hit
         weakref.finalize(dmq, _PREFIX.pop, key, None)
     return hit[1]
@@ -278,20 +297,31 @@ def refuse_unsorted(plan: EpiloguePlan, tables) -> None:
 
 
 # The kernels' epilogue codes (csrc/epilogue.cuh): the kind, and the id of an
-# exact function in the order of repro_torch.core.functions.REGISTRY
-KIND_IDS = {"identity": 0, "exact": 1, "pwl": 2}
+# exact function in the order of repro_torch.core.functions.REGISTRY.  A table
+# of at most PWL_MAX_BP breakpoints goes to shared memory ("pwl"); a larger
+# one takes the kernels' instantiation that reads it from device memory
+# ("pwl_wide").
+KIND_IDS = {"identity": 0, "exact": 1, "pwl": 2, "pwl_wide": 3}
+PWL_MAX_BP = 64  # csrc/pwl_decode.cuh: the breakpoints a shared-memory table holds
 EXACT_IDS = {name: i for i, name in enumerate(F.REGISTRY)}
 EPILOGUE_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3
+
+
+def is_wide(n_bp: int) -> bool:
+    """Whether a table of ``n_bp`` breakpoints takes the kernels' wide
+    instantiation (more than :data:`PWL_MAX_BP`)."""
+    return n_bp > PWL_MAX_BP
 
 
 def kernel_epilogue(plan: EpiloguePlan, tables) -> tuple:
     """The epilogue as every CUDA kernel's C interface takes it, ``(bp, dmq,
     n_bp, kind, fn)`` (:data:`EPILOGUE_ARGTYPES`): the table operands'
     pointers and breakpoint count for a PWL plan (null and 0 otherwise), the
-    kind, and the exact function's id."""
+    kind (:func:`is_wide` picks the wide one), and the exact function's id."""
     if plan.kind == "pwl":
         bp, dmq = tables
-        return bp.data_ptr(), dmq.data_ptr(), plan.n_bp, KIND_IDS["pwl"], 0
+        kind = KIND_IDS["pwl_wide" if is_wide(plan.n_bp) else "pwl"]
+        return bp.data_ptr(), dmq.data_ptr(), plan.n_bp, kind, 0
     if plan.kind == "identity":
         return None, None, 0, KIND_IDS["identity"], 0
     return None, None, 0, KIND_IDS["exact"], EXACT_IDS[plan.kind.split(":", 1)[1]]

@@ -14,7 +14,11 @@ element's value is ``m·x + q`` with the product and the sum rounded apart,
 as the plain versions below compute it, so each kernel is bitwise its plain
 version.  What bounds them on an H100: each element is read and written
 once (15.0 us at 4096 x 3072 bf16), against ~9 operations an element for
-the search.
+the search.  A table past 64 breakpoints (65 segments, uniform) takes the
+kernels' wide instantiation (:func:`.fused.epilogue.is_wide`): the search
+reads the padded breakpoints from device memory, and the uniform kernel
+fetches each element's segment from a table that one small kernel
+accumulates first on the card, by the same delta loop, with the same bits.
 
 The public wrappers, which take the plain version for a CPU tensor and
 launch for a CUDA one, are :func:`repro_torch.kernels.ops.pwl_activation`
@@ -28,17 +32,18 @@ import ctypes
 import numpy as np
 import torch
 
-from .fused.epilogue import prefix_for, pwl_value_and_slope
+from .fused.epilogue import is_wide, prefix_for, pwl_value_and_slope
 
 _SIGNATURES = {
-    # x, the breakpoints, the search's prefix table
-    "pwl_nonuniform_forward": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p,
-                                                       ctypes.c_longlong, ctypes.c_int,
-                                                       ctypes.c_void_p],
-    "pwl_uniform_forward": [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_float,
-                                                    ctypes.c_float, ctypes.c_void_p,
-                                                    ctypes.c_longlong, ctypes.c_int,
-                                                    ctypes.c_void_p],
+    # x, the breakpoints, the search's operand, n_bp, wide
+    "pwl_nonuniform_forward": [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
+                                                       ctypes.c_void_p, ctypes.c_longlong,
+                                                       ctypes.c_int, ctypes.c_void_p],
+    # x, the segments' (m, q), n_seg, wide, the wide kernel's segment scratch, lo, inv_h
+    "pwl_uniform_forward": [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                                                    ctypes.c_float, ctypes.c_float,
+                                                    ctypes.c_void_p, ctypes.c_longlong,
+                                                    ctypes.c_int, ctypes.c_void_p],
 }
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -136,8 +141,9 @@ def launch_nonuniform(x, bp, dmq):
     lib = _build.load("pwl_act", _SIGNATURES)
     with torch.cuda.device(xc.device):
         stream = torch.cuda.current_stream(xc.device).cuda_stream
-        err = lib.pwl_nonuniform_forward(xc.data_ptr(), bp.data_ptr(), mq.data_ptr(),
-                                         int(bp.shape[0]), out.data_ptr(), xc.numel(),
+        n_bp = int(bp.shape[0])
+        err = lib.pwl_nonuniform_forward(xc.data_ptr(), bp.data_ptr(), mq.data_ptr(), n_bp,
+                                         int(is_wide(n_bp)), out.data_ptr(), xc.numel(),
                                          _KERNEL_DTYPES[xc.dtype], stream)
     _build.check(err, "pwl_activation")
     return out
@@ -145,7 +151,9 @@ def launch_nonuniform(x, bp, dmq):
 
 def launch_uniform(x, mq, lo: float, hi: float):
     """The uniform kernel on a CUDA tensor of any shape, with ``mq`` (n_seg,
-    2) f32 on its device.  The caller counts the launch."""
+    2) f32 on its device; past 64 breakpoints (:func:`.fused.epilogue.is_wide`)
+    the wide kernel first accumulates every segment into a scratch table on
+    the card.  The caller counts the launch."""
     from repro_torch.kernels import _build
 
     xc = _flat("pwl_activation_uniform", x)
@@ -155,10 +163,13 @@ def launch_uniform(x, mq, lo: float, hi: float):
         return out
     n_seg = int(mq.shape[0])
     lo32, inv_h32 = uniform_constants(lo, hi, n_seg)
+    wide = is_wide(n_seg - 1)
+    seg = torch.empty((n_seg, 2), dtype=torch.float32, device=xc.device) if wide else None
     lib = _build.load("pwl_act", _SIGNATURES)
     with torch.cuda.device(xc.device):
         stream = torch.cuda.current_stream(xc.device).cuda_stream
-        err = lib.pwl_uniform_forward(xc.data_ptr(), mq.data_ptr(), n_seg, lo32, inv_h32,
+        err = lib.pwl_uniform_forward(xc.data_ptr(), mq.data_ptr(), n_seg, int(wide),
+                                      None if seg is None else seg.data_ptr(), lo32, inv_h32,
                                       out.data_ptr(), xc.numel(), _KERNEL_DTYPES[xc.dtype],
                                       stream)
     _build.check(err, "pwl_activation_uniform")

@@ -13,6 +13,16 @@ layers have no paged layout (gemma3's sliding-window rings, mamba2's SSM
 states) makes the paged cache raise ``UnsupportedCacheError``; the launcher
 then says so on stderr and runs the dense loop, as the JAX launcher does.
 
+Resilience, as in the JAX launcher: ``--policy optimistic`` admits on free
+pages and recovers by recompute preemption; ``--deadline-ticks N`` gives
+every request an N-decode-step budget; ``--guard`` runs the engine with the
+``sfu.guard`` clamp / finite counters and the non-finite degrade re-run;
+``--chaos SEED`` runs the seeded chaos session (allocator exhaustion, a NaN
+at the MLP site, one deadline expiry) against a fault-free reference and
+returns 1 unless every other request is token-identical and the health
+summary shows the injected incidents.  A paged session that falls back
+from a fused site returns 1.
+
 The device defaults to ``cuda``.  Without a GPU the launcher raises; it runs
 on the CPU (the kernels' plain versions) only with ``--device cpu``.
 Weights are random, from a ``torch.Generator`` seeded 0; prompts come from
@@ -25,6 +35,7 @@ import argparse
 import contextlib
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -102,8 +113,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="[paged] admission policy: reserved = worst-case page "
                     "reservation; optimistic = admit on free pages, recover by "
                     "recompute preemption")
+    ap.add_argument("--guard", action="store_true",
+                    help="[paged] enable sfu.guard clamp/finite counters and "
+                    "non-finite degradation re-runs")
     ap.add_argument("--deadline-ticks", type=int, default=None,
                     help="[paged] per-request decode-step budget")
+    ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
+                    help="[paged] run the seeded fault-injection session "
+                    "(allocator exhaustion + NaN + one deadline expiry) "
+                    "against a fault-free reference; rc!=0 on any parity or "
+                    "health-summary failure")
     ap.add_argument("--plan", default=None, metavar="PATH",
                     help="load an ActivationPlan JSON; default: the fused PWL plan "
                     "compiled from the arch config")
@@ -115,15 +134,8 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def run(args: argparse.Namespace, session=contextlib.nullcontext) -> dict:
-    """One serving session as ``args`` describe it.  Returns a summary:
-    ``results`` (paged: GenResults; dense: token rows), ``tokens``,
-    ``seconds``, ``tok_per_s``, ``peak_bytes`` (the session's peak of
-    allocated device memory, weights included; None on the CPU), ``mode``
-    (the mode that ran: ``dense`` after a fallback from paged), plus
-    ``engine`` and ``prefills`` / ``decode_steps`` for the paged mode.
-    ``session()`` is a context entered around the session alone, after the
-    model's init (a profiler, say)."""
+def _setup(args: argparse.Namespace):
+    """``(cfg, model, params, prompts, device)`` as ``args`` describe them."""
     device = resolve_device(args.device)
     getter = get_reduced_config if args.reduced else get_config
     if args.plan:
@@ -149,16 +161,53 @@ def run(args: argparse.Namespace, session=contextlib.nullcontext) -> dict:
     print(f"[serve] {cfg.name} on {device}: {cfg.n_layers} layers, d_model "
           f"{cfg.d_model}, {args.batch} requests x prompt {args.prompt_len} + "
           f"{args.max_new} new ({args.mode} mode)")
+    return cfg, model, params, prompts, device
 
+
+def _make_engine(model, params, args, *, policy=None, guard=None, faults=None):
+    from repro_torch.serving import PagedServingEngine
+
+    return PagedServingEngine(
+        model, params, max_slots=args.max_slots, page_size=args.page_size,
+        max_context=args.prompt_len + args.max_new + args.page_size,
+        policy=policy if policy is not None else args.policy,
+        guard=args.guard if guard is None else guard, faults=faults)
+
+
+def _print_health(health: dict) -> None:
+    print(f"[serve] health: policy={health['policy']} guard={health['guard']} "
+          f"preemptions={health['preemptions']} "
+          f"replayed_prefill_tokens={health['replayed_prefill_tokens']} "
+          f"timeouts={health['timeouts']} retries={health['step_retries']} "
+          f"dropped_ticks={health['dropped_ticks']} "
+          f"nonfinite_logits={health['nonfinite_logits']}")
+    if health["clamped"]:
+        print(f"[serve] health: clamped-per-site {health['clamped']}")
+    if health["nonfinite_recoveries"]:
+        print(f"[serve] health: nonfinite recoveries {health['nonfinite_recoveries']}")
+    for rec in health["rejected"]:
+        print(f"[serve] rejected {rec['request_id']}: {rec['reason']}", file=sys.stderr)
+    for inc in health["incidents"]:
+        print(f"[serve] incident: {inc}")
+
+
+def run(args: argparse.Namespace, session=contextlib.nullcontext) -> dict:
+    """One serving session as ``args`` describe it.  Returns a summary:
+    ``results`` (paged: GenResults; dense: token rows), ``tokens``,
+    ``seconds``, ``tok_per_s``, ``peak_bytes`` (the session's peak of
+    allocated device memory, weights included; None on the CPU), ``mode``
+    (the mode that ran: ``dense`` after a fallback from paged), plus
+    ``engine`` and ``prefills`` / ``decode_steps`` for the paged mode.
+    ``session()`` is a context entered around the session alone, after the
+    model's init (a profiler, say)."""
+    cfg, model, params, prompts, device = _setup(args)
     if args.mode == "dense":
         return _serve_dense(model, params, prompts, args, device, session)
 
-    from repro_torch.serving import GenRequest, PagedServingEngine, UnsupportedCacheError
+    from repro_torch.serving import GenRequest, UnsupportedCacheError
 
     try:
-        engine = PagedServingEngine(
-            model, params, max_slots=args.max_slots, page_size=args.page_size,
-            max_context=args.prompt_len + args.max_new + args.page_size, policy=args.policy)
+        engine = _make_engine(model, params, args)
     except UnsupportedCacheError as e:
         print(f"[serve] paged cache unsupported ({e}); running dense mode", file=sys.stderr)
         return _serve_dense(model, params, prompts, args, device, session)
@@ -182,11 +231,7 @@ def run(args: argparse.Namespace, session=contextlib.nullcontext) -> dict:
           f"{engine.decode_steps} batched decode steps, "
           f"{engine.sched.allocator.num_free} pages free at exit"
           + (f", peak device memory {peak / 1e9:.2f} GB)" if peak is not None else ")"))
-    print(f"[serve] health: policy={health['policy']} preemptions={health['preemptions']} "
-          f"timeouts={health['timeouts']} retries={health['step_retries']} "
-          f"nonfinite_logits={health['nonfinite_logits']}")
-    for rec in health["rejected"]:
-        print(f"[serve] rejected {rec['request_id']}: {rec['reason']}", file=sys.stderr)
+    _print_health(health)
     return {"results": results, "tokens": engine.generated, "seconds": dt,
             "tok_per_s": engine.generated / dt, "engine": engine,
             "prefills": engine.prefills, "decode_steps": engine.decode_steps,
@@ -210,16 +255,105 @@ def _serve_dense(model: Model, params, prompts: np.ndarray, args, device, sessio
             "peak_bytes": peak, "mode": "dense"}
 
 
-def serve(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    summary = run(args)
-    if summary["mode"] == "paged":
-        health = summary["engine"].health_summary()
-        if health["nonfinite_logits"]:
-            print(f"[serve] {health['nonfinite_logits']} steps sampled non-finite "
-                  "logits", file=sys.stderr)
-            return 1
+def _serve_chaos(args: argparse.Namespace) -> int:
+    """The seeded chaos session: allocator exhaustion and one NaN at the MLP
+    plan site injected, one request's deadline expired; 0 only if nothing
+    crashed, every other request is token-identical to a fault-free
+    reference session, the health summary records the injected incidents,
+    and no fused site fell back."""
+    from repro_torch.serving import FaultInjector, GenRequest, chaos_specs
+
+    cfg, model, params, prompts, _ = _setup(args)
+    nan_site = sfu.site_key(sfu.SITE_MLP, cfg.activation)
+    victim = f"req{len(prompts) - 1}"
+
+    def make_requests(with_deadline: bool):
+        return [GenRequest(request_id=f"req{i}", prompt=prompts[i].tolist(),
+                           max_new_tokens=args.max_new,
+                           deadline_ticks=2 if (with_deadline and f"req{i}" == victim) else None)
+                for i in range(len(prompts))]
+
+    # fault-free reference (same policy, guard and pages: only the faults and
+    # the victim's deadline differ)
+    ref_engine = _make_engine(model, params, args, policy="optimistic", guard=True)
+    ref = {r.request_id: list(r.tokens) for r in ref_engine.run(make_requests(False))}
+
+    injector = FaultInjector(chaos_specs(args.chaos, nan_site, max_step=max(2, args.max_new - 1)))
+    engine = _make_engine(model, params, args, policy="optimistic", guard=True, faults=injector)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        results = engine.run(make_requests(True))
+    health = engine.health_summary()
+    _print_health(health)
+
+    failures = []
+    fallbacks = [str(w.message) for w in caught if "fused" in str(w.message).lower()]
+    if fallbacks:
+        failures.append(f"fused fallbacks during chaos session: {fallbacks}")
+    by_id = {r.request_id: r for r in results}
+    if set(by_id) != {f"req{i}" for i in range(len(prompts))}:
+        failures.append(f"missing results: got {sorted(by_id)}")
+    else:
+        if by_id[victim].finish_reason != "timeout":
+            failures.append(f"deadline victim {victim} finished "
+                            f"{by_id[victim].finish_reason!r}, expected 'timeout'")
+        for rid, res in sorted(by_id.items()):
+            if rid != victim and list(res.tokens) != ref[rid]:
+                failures.append(f"{rid} diverged from the fault-free run: "
+                                f"{res.tokens} != {ref[rid]}")
+    fired_kinds = {f["kind"] for f in health["faults_fired"]}
+    if fired_kinds != {"alloc_exhaust", "nan"}:
+        failures.append(f"injected faults did not all fire: {fired_kinds}")
+    if health["preemptions"] < 1:
+        failures.append("injected allocator exhaustion caused no preemption")
+    if not health["nonfinite_recoveries"]:
+        failures.append("NaN injection was not recovered by the guard")
+    if health["timeouts"] < 1:
+        failures.append("deadline expiry produced no timeout")
+    incident_kinds = {i["kind"] for i in health["incidents"]}
+    for want in ("preemption", "nan_injected", "nonfinite_output", "deadline_expired"):
+        if want not in incident_kinds:
+            failures.append(f"health summary missing incident kind {want!r}")
+
+    print(f"[serve] chaos seed {args.chaos}: {len(results)} results, faults fired: "
+          f"{sorted(fired_kinds)}")
+    if failures:
+        for msg in failures:
+            print(f"[serve] CHAOS FAILURE: {msg}", file=sys.stderr)
+        return 1
+    print("[serve] chaos session OK: non-faulted requests token-identical, incidents recorded")
     return 0
+
+
+def serve(argv=None) -> int:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.chaos is not None:
+        if args.mode != "paged":
+            ap.error("--chaos requires --mode paged")
+        return _serve_chaos(args)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        summary = run(args)
+    for w in caught:  # passed on as they came
+        warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
+    if summary["mode"] != "paged":
+        return 0
+    health = summary["engine"].health_summary()
+    rc = 0
+    if health["nonfinite_logits"]:
+        print(f"[serve] {health['nonfinite_logits']} steps sampled non-finite logits",
+              file=sys.stderr)
+        rc = 1
+    fallbacks = [str(w.message) for w in caught if "fused" in str(w.message).lower()]
+    print(f"[serve] fused fallbacks during session: {len(fallbacks)}")
+    if fallbacks:
+        # a fused plan that fell back mid-session is a regression to catch,
+        # not a warning to scroll past
+        for msg in fallbacks:
+            print(f"[serve]   fallback: {msg}", file=sys.stderr)
+        rc = 1
+    return rc
 
 
 if __name__ == "__main__":

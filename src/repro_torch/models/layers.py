@@ -279,8 +279,10 @@ def _attn_softmax_dispatch(q, k, v, *, causal: bool, exp_fn: Callable, table, wi
     B, S, H = q.shape[:3]
     T = k.shape[1]
     if _dense_softmax_preferred(B * H * S * T, T, window, T):
-        return dense_pwl_attention(q, k, v, table=table, causal=causal, window=window)
-    return fused.fused_flash_attention(q, k, v, table=table, causal=causal, window=window)
+        y = dense_pwl_attention(q, k, v, table=table, causal=causal, window=window)
+    else:
+        y = fused.fused_flash_attention(q, k, v, table=table, causal=causal, window=window)
+    return sfu.guard.check_fused(sfu.site_key(sfu.SITE_SOFTMAX, "exp"), y)
 
 
 def _decode_attention_fused(q, k_cache, v_cache, valid, table):
@@ -333,8 +335,10 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, kv_len,
     pages are gathered into logical order and :func:`decode_attention` runs
     over the ``kv_len`` prefix."""
     if softmax_table is not None:
-        return fused.paged_flash_decode(q, k_pages, v_pages, page_table, kv_len,
-                                        table=softmax_table)
+        return sfu.guard.check_fused(
+            sfu.site_key(sfu.SITE_SOFTMAX, "exp"),
+            fused.paged_flash_decode(q, k_pages, v_pages, page_table, kv_len,
+                                     table=softmax_table))
     k_dense = _pg.gather_pages(k_pages, page_table)
     v_dense = _pg.gather_pages(v_pages, page_table)
     T = k_dense.shape[1]
@@ -344,6 +348,26 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, kv_len,
 
 # ---------------------------------------------------------------------------
 # MLP
+
+
+def plain_glu(act, x, w_gate, w_up):
+    """``act(x @ w_gate) * (x @ w_up)`` as the fused GLU kernel computes it:
+    both products, the activation and the gating in f32 (``x`` and the
+    weights widen exactly), rounded once to x's dtype: the kernel's values
+    but for the f32 summation order, where the plain expression in bf16
+    rounds four times (both products, the activation, the gating).
+    ``x`` (..., K) with ``w`` (K, N), or batched (E, C, K) with (E, K, N)."""
+    xf = x.float()
+    return (act(xf @ w_gate.float()) * (xf @ w_up.float())).to(x.dtype)
+
+
+def plain_linear_act(act, x, w, b=None):
+    """``act(x @ w + b)`` as the fused linear kernel computes it: in f32,
+    rounded once to x's dtype (see :func:`plain_glu`)."""
+    z = x.float() @ w.float()
+    if b is not None:
+        z = z + b.float()
+    return act(z).to(x.dtype)
 
 
 def _fused_mlp_hidden(cfg: ModelConfig, params, x, plan):
@@ -359,14 +383,43 @@ def _fused_mlp_hidden(cfg: ModelConfig, params, x, plan):
     return fused.fused_linear(x, params["w_in"], params.get("b_in"), table=table)
 
 
+def _guard_fused_mlp(cfg: ModelConfig, params, x, h, plan, key):
+    """sfu.guard checkpoint on the fused-MLP hidden state.  The fused kernel
+    consumes the pre-activation internally, so with an active collector the
+    clamp counter recomputes it (``x @ w_gate``, or ``x @ w_in + b_in``)
+    against the table's fitted range, a deliberate diagnostics-mode cost;
+    with no collector this is the bare NaN-injection hook (a no-op unless
+    armed)."""
+    clamped = None
+    if sfu.guard.active():
+        table = plan.fused_table(key)
+        if cfg.mlp_type in ("swiglu", "geglu"):
+            z = x @ params["w_gate"]
+        else:
+            z = x @ params["w_in"]
+            if "b_in" in params:
+                z = z + params["b_in"]
+        clamped = sfu.guard.count_outside(z, float(table.bp[0]), float(table.bp[-1]))
+    return sfu.guard.check_fused(key, h, clamped)
+
+
 def mlp(cfg: ModelConfig, params, x, plan=None):
     """Dense FFN: swiglu / geglu, or a plain (biased) MLP; activation via the
     plan's ``mlp:<activation>`` site."""
     plan = plan if plan is not None else sfu.plan_for(cfg)
+    key = sfu.site_key(sfu.SITE_MLP, cfg.activation)
     h = _fused_mlp_hidden(cfg, params, x, plan)
-    if h is None:
-        act = plan.act(sfu.site_key(sfu.SITE_MLP, cfg.activation))
-        if cfg.mlp_type in ("swiglu", "geglu"):
+    if h is not None:
+        h = _guard_fused_mlp(cfg, params, x, h, plan, key)
+    else:
+        act = plan.act(key)
+        if plan.spec(key).impl == "jnp":
+            # the table unfused (a plan's, or the degrade ladder's first
+            # rung): computed as the fused kernel computes it
+            h = (plain_glu(act, x, params["w_gate"], params["w_up"])
+                 if cfg.mlp_type in ("swiglu", "geglu")
+                 else plain_linear_act(act, x, params["w_in"], params.get("b_in")))
+        elif cfg.mlp_type in ("swiglu", "geglu"):
             h = act(x @ params["w_gate"]) * (x @ params["w_up"])
         else:
             h = x @ params["w_in"]

@@ -34,6 +34,7 @@ from repro_torch import sfu
 from repro_torch.kernels import fused
 
 from .common import ModelConfig
+from .layers import plain_glu
 
 
 def route(cfg: ModelConfig, router, xt):
@@ -88,6 +89,10 @@ def moe_layer(cfg: ModelConfig, params, x, plan=None):
     w_gate, w_up, w_down = (params[k].to(dtype) for k in ("w_gate", "w_up", "w_down"))
     if fused_table is not None:
         h = fused.fused_moe_glu(buf, w_gate, w_up, table=fused_table)
+    elif plan.spec(key).impl == "jnp":
+        # the table unfused (a plan's, or the degrade ladder's first rung):
+        # computed as the fused kernel computes it
+        h = plain_glu(act, buf, w_gate, w_up)
     else:
         h = act(torch.einsum("ecd,edf->ecf", buf, w_gate)) * torch.einsum(
             "ecd,edf->ecf", buf, w_up)
@@ -98,6 +103,10 @@ def moe_layer(cfg: ModelConfig, params, x, plan=None):
     y = picked[:, 0]
     for k in range(1, K):
         y = y + picked[:, k]
+    if fused_table is not None:
+        # sfu.guard checkpoint on the combined expert output: a NaN in any
+        # expert reaches the combine, so finite-checking it covers the site
+        y = sfu.guard.check_fused(key, y)
 
     # Switch load-balancing loss
     frac_tokens = F.one_hot(top_e[:, 0], E).to(torch.float32).mean(dim=0)

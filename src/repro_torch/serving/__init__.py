@@ -2,10 +2,12 @@
 engine (the torch port of ``repro.serving``).
 
 The page writes are hand-written CUDA kernels that update the pools in
-place (:mod:`.kv_cache`); the scheduler and the resilience types are the
-port's own copies of the JAX package's pure-Python host logic.
+place (:mod:`.kv_cache`); the scheduler, the resilience types and the
+deterministic fault injector (:mod:`.faults`) are the port's own copies of
+the JAX package's pure-Python host logic.
 """
 from .engine import PagedServingEngine
+from .faults import FAULT_KINDS, FaultInjector, FaultSpec, chaos_specs
 from .kv_cache import (
     SENTINEL_PAGE,
     PageAllocator,
@@ -20,6 +22,7 @@ from .resilience import (
     RequestRejected,
     RetryPolicy,
     ServingError,
+    SimulatedKernelFailure,
     StepRetriesExhausted,
     UnsupportedCacheError,
 )
@@ -38,10 +41,15 @@ __all__ = [
     "write_prompt_pages_",
     "FINISH_REASONS",
     "POLICIES",
+    "FAULT_KINDS",
+    "FaultInjector",
+    "FaultSpec",
+    "chaos_specs",
     "PagePoolExhausted",
     "RequestRejected",
     "RetryPolicy",
     "ServingError",
+    "SimulatedKernelFailure",
     "StepRetriesExhausted",
     "UnsupportedCacheError",
 ]

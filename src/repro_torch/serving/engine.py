@@ -20,18 +20,42 @@ replays prefill over ``prompt + tokens[:-1]``, so greedy tokens are
 unchanged); ``GenRequest.deadline_ticks`` and ``wall_clock_budget_s`` expire
 overdue work; a step that raises a retryable error is retried with bounded
 backoff, and a step that keeps failing finishes the live work as
-``"preempted_unrecoverable"``.  The page writes are in place, so a retried
-step writes the same rows again (the same token's K/V at the same slot).
-Before each step the host mirrors go through ``kv_cache.check_targets``, so
-a write outside the pools raises here rather than being skipped on the card.
+``"preempted_unrecoverable"``.  Before each step the host mirrors go
+through ``kv_cache.check_targets``, so a write outside the pools raises here
+rather than being skipped on the card.
+
+``guard=True`` runs every model call under an ``sfu.guard`` collector: the
+per-site clamp / non-finite counters come back with every step (one
+device-to-host copy a step), and a step whose fused output went non-finite
+is re-run with the offending sites degraded to ``impl="jnp"`` (then
+``"exact"``), each a model built once per (sites, impl); recorded in
+:meth:`health_summary`, warned once per site.  ``faults`` (a
+:class:`~repro_torch.serving.faults.FaultInjector`) threads deterministic
+chaos through the same paths: allocator exhaustion, a NaN at a plan site,
+an injected kernel failure (raised before the call, retried), a dropped
+tick (a decode step's results discarded, the step run again).
+
+The pools are written in place, where the JAX engine's jit hands each call
+fresh ones.  A re-run (a retry, a degraded re-run, the step after a dropped
+tick) has the same page table, ``kv_len`` and inactive lanes as the attempt
+before it, so it writes exactly the rows that attempt wrote, and each layer
+writes its row before it reads the pools: the re-run overwrites whatever
+the failed attempt left there (a NaN-poisoned layer's K/V included) and
+reads nothing else of it.  Each ``run()`` resets every warn-once latch
+first (``sfu.reset_all_warnings``), so a second session in one process
+reports its own fused fallbacks.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from repro_torch import sfu
 
 from .kv_cache import check_targets
 from .resilience import (
@@ -39,6 +63,7 @@ from .resilience import (
     PagePoolExhausted,
     RequestRejected,
     RetryPolicy,
+    SimulatedKernelFailure,
     StepRetriesExhausted,
     new_health,
 )
@@ -60,6 +85,8 @@ class PagedServingEngine:
         max_context: int = 512,
         num_pages: Optional[int] = None,
         policy: str = "reserved",
+        guard: bool = False,
+        faults=None,  # repro_torch.serving.faults.FaultInjector
         max_preemptions: int = 8,
         retry: Optional[RetryPolicy] = None,
         wall_clock_budget_s: Optional[float] = None,
@@ -79,31 +106,108 @@ class PagedServingEngine:
         self.cache = model.make_paged_cache(num_pages, page_size)
         self.sched = ContinuousBatchingScheduler(
             max_slots, page_size, num_pages, policy=policy,
-            max_preemptions=max_preemptions)
+            max_preemptions=max_preemptions, faults=faults)
         # host mirrors: the scheduler mutates these between device steps
         self.page_table = np.zeros((max_slots, self.max_cols), np.int32)
         self.kv_len = np.zeros((max_slots,), np.int32)
         self._cur = np.zeros((max_slots,), np.int32)  # next decode input
+        self.guard = bool(guard)
+        self.faults = faults
         self.retry = retry if retry is not None else RetryPolicy()
         self.wall_clock_budget_s = wall_clock_budget_s
-        self.health = new_health(policy, False)
+        self.health = new_health(policy, guard)
         self.health["nonfinite_logits"] = 0  # steps whose sampled logits were not finite
+        self._fns = self._build_fns()
+        self._nan_fns_cache: dict = {}
+        self._degraded_cache: dict = {}
         self.prefills = 0
         self.decode_steps = 0
         self.generated = 0
 
-    # -- device execution -----------------------------------------------------
+    # -- model-call variants ------------------------------------------------
+    def _build_fns(self, model=None, inject_site: Optional[str] = None):
+        """Prefill/decode callables returning ``(logits, diag)``, ``diag``
+        the ``sfu.guard`` per-site ``{key: int32[2]}`` counts on the host
+        ({} when the guard is off).  ``model`` swaps the model (a degraded
+        plan; by default ``self.model``, looked up at each call);
+        ``inject_site`` arms the NaN fault for one site."""
+        guard_on = self.guard
+
+        def wrap(name):
+            def call(params, toks, cache, pt, lens):
+                fn = getattr(model if model is not None else self.model, name)
+                with contextlib.ExitStack() as stack:
+                    if inject_site is not None:
+                        stack.enter_context(sfu.guard.force_nan(inject_site))
+                    col = stack.enter_context(sfu.guard.collecting()) if guard_on else None
+                    logits = fn(params, toks, cache, pt, lens)
+                return logits, (col.to_host() if col is not None else {})
+
+            return call
+
+        return {"prefill": wrap("prefill_paged"), "decode": wrap("decode_step_paged")}
+
+    def _nan_fns(self, site: str):
+        if site not in self._nan_fns_cache:
+            self._nan_fns_cache[site] = self._build_fns(inject_site=site)
+        return self._nan_fns_cache[site]
+
+    def _degraded_fns(self, sites: tuple, impl: str):
+        """The model with ``sites`` degraded to ``impl``, built once per
+        (sites, impl).  "jnp" keeps the same PWL table unfused, and an MLP
+        or MoE site computes its GLU as the fused kernel does, in f32
+        rounded once (``layers.plain_glu``), so its hidden state is the
+        kernel's but for the f32 summation order: one ulp apart in a few
+        elements.  Whether greedy tokens hold then depends on the model: a
+        full-width bf16 model at random init turns a one-ulp change of a
+        site's output into logit changes of order 1 (``chip_smoke.py``'s
+        ``guard_phase`` measures it).  "exact" is the last resort for a
+        poisoned table."""
+        key = (sites, impl)
+        if key not in self._degraded_cache:
+            base = sfu.plan_for(self.model.cfg)
+            degraded = sfu.ActivationPlan(sites=tuple(
+                (k, dataclasses.replace(s, impl=impl) if k in sites else s)
+                for k, s in base.items()))
+            model = type(self.model)(dataclasses.replace(self.model.cfg, act_plan=degraded),
+                                     device=self.device)
+            self._degraded_cache[key] = self._build_fns(model=model)
+        return self._degraded_cache[key]
+
+    # -- incident / diagnostics ----------------------------------------------
     def _t(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def _incident(self, kind: str, **info) -> None:
         self.health["incidents"].append({"kind": kind, **info})
 
+    def _scan_diag(self, diag: dict, accumulate: bool) -> list[str]:
+        """Read a step's guard counters; returns the sites whose output went
+        non-finite.  ``accumulate=False`` on degraded re-runs keeps the
+        session counters meaning "observed on the primary path"."""
+        bad = []
+        for k, rec in diag.items():
+            clamped, nonfinite = int(rec[0]), int(rec[1])
+            if accumulate:
+                self.health["clamped"][k] = self.health["clamped"].get(k, 0) + clamped
+                self.health["nonfinite"][k] = self.health["nonfinite"].get(k, 0) + nonfinite
+            if nonfinite > 0:
+                bad.append(k)
+        return sorted(bad)
+
+    # -- device execution -----------------------------------------------------
     def _device_call(self, fn, args, phase: str):
-        """One model call under the bounded retry policy."""
+        """One model call under the bounded retry policy.  Injected kernel
+        failures (raised before the call, so nothing is written) retry with
+        exponential backoff; exhausting the budget raises
+        :class:`StepRetriesExhausted` for :meth:`decode_step` to contain."""
         attempt = 0
         while True:
             try:
+                if (phase == "decode" and self.faults is not None
+                        and self.faults.kernel_fail_due()):
+                    raise SimulatedKernelFailure(
+                        f"injected kernel failure at decode step {self.decode_steps}")
                 return fn(self.params, *args)
             except RETRYABLE_EXCEPTIONS as e:
                 if attempt >= self.retry.max_retries:
@@ -114,6 +218,39 @@ class PagedServingEngine:
                                step=self.decode_steps, error=str(e))
                 time.sleep(self.retry.backoff(attempt))
                 attempt += 1
+
+    def _exec(self, phase: str, args):
+        """One prefill/decode step with fault injection and the guard's
+        degrade ladder: a step whose guarded output went non-finite is run
+        again with the offending sites at ``impl="jnp"``, then ``"exact"``
+        (the re-run rewrites the rows the failed attempt wrote)."""
+        nan_site = None
+        if phase == "decode" and self.faults is not None:
+            nan_site = self.faults.nan_site_due()
+        fns = self._fns if nan_site is None else self._nan_fns(nan_site)
+        if nan_site is not None:
+            self._incident("nan_injected", site=nan_site, step=self.decode_steps)
+        logits, diag = self._device_call(fns[phase], args, phase)
+        bad = self._scan_diag(diag, accumulate=True)
+        for impl in ("jnp", "exact"):
+            if not bad:
+                break
+            for k in bad:
+                sfu.guard.warn_nonfinite(k, impl)
+            self._incident("nonfinite_output", phase=phase, sites=list(bad),
+                           degraded_to=impl, step=self.decode_steps)
+            dfns = self._degraded_fns(tuple(bad), impl)
+            logits, diag = self._device_call(dfns[phase], args, phase)
+            still = self._scan_diag(diag, accumulate=False)
+            rec = self.health["nonfinite_recoveries"]
+            for k in bad:
+                if k not in still:
+                    rec[k] = rec.get(k, 0) + 1
+            bad = still
+        if bad:
+            self._incident("nonfinite_unrecovered", phase=phase, sites=list(bad),
+                           step=self.decode_steps)
+        return logits
 
     def _sample(self, logits: torch.Tensor) -> np.ndarray:
         """Greedy tokens of (B, 1, V) logits; counts non-finite steps."""
@@ -142,7 +279,7 @@ class PagedServingEngine:
         check_targets(row[None, :npg], self.num_pages, self.page_size)
         args = (self._t(toks), self.cache, self._t(row[None, :npg]),
                 self._t(np.asarray([n], np.int32)))
-        logits = self._device_call(self.model.prefill_paged, args, "prefill")
+        logits = self._exec("prefill", args)
         self.prefills += 1
         if adm.resume_tokens:
             # restore after preemption: the replayed prefill only rebuilds the
@@ -191,6 +328,8 @@ class PagedServingEngine:
     def decode_step(self) -> list[int]:
         """One batched decode step over every slot.  Returns the slots that
         finished this step."""
+        if self.faults is not None:
+            self.faults.set_step(self.decode_steps)
         active = self._grow_with_preemption(self.sched.active_slots())
         if not active:
             return []
@@ -200,12 +339,21 @@ class PagedServingEngine:
         args = (self._t(self._cur[:, None]), self.cache,
                 self._t(self.page_table[:, :n_cols]), self._t(self.kv_len))
         try:
-            logits = self._device_call(self.model.decode_step_paged, args, "decode")
+            logits = self._exec("decode", args)
         except StepRetriesExhausted as e:
+            # the device step keeps failing: finish everything as
+            # unrecoverable instead of ending the session
             self._incident("step_failed", step=self.decode_steps, error=str(e))
             for i in list(self.sched.active_slots()):
                 self._evict(i, reason="preempted_unrecoverable")
             self.sched.drain_queue("preempted_unrecoverable")
+            return []
+        if self.faults is not None and self.faults.drop_tick_due():
+            # a lost completion: discard the step's outputs and advance
+            # nothing.  Its page writes stay in the pools, and the step run
+            # again writes the same rows (same kv_len, same page table)
+            self.health["dropped_ticks"] += 1
+            self._incident("dropped_tick", step=self.decode_steps)
             return []
         nxt = self._sample(logits)
         self.sched.tick()
@@ -237,6 +385,9 @@ class PagedServingEngine:
         """Serve ``requests`` to completion under continuous batching; results
         in finish order.  Invalid requests are rejected up front (recorded in
         the health summary) without ending the session."""
+        # per-session warn lifecycle: a fused fallback (or a guard
+        # degradation) is reported once per session, not once per process
+        sfu.reset_all_warnings()
         t0 = time.monotonic()
         for r in requests:
             try:
@@ -273,5 +424,9 @@ class PagedServingEngine:
         h["replayed_prefill_tokens"] = self.sched.replayed_prefill_tokens
         h["timeouts"] = self.sched.timeout_count
         h["rejected"] = list(self.health["rejected"])
+        h["clamped"] = dict(self.health["clamped"])
+        h["nonfinite"] = dict(self.health["nonfinite"])
+        h["nonfinite_recoveries"] = dict(self.health["nonfinite_recoveries"])
         h["incidents"] = list(self.health["incidents"])
+        h["faults_fired"] = list(self.faults.fired) if self.faults is not None else []
         return h

@@ -67,9 +67,13 @@ _ROPE_FMT = {torch.bfloat16: 1, torch.float16: 2, torch.float32: 3}
 @dataclasses.dataclass
 class PageAllocator:
     """LIFO free-list page allocator (host side).  Freed pages are reused
-    first, so real admit/evict traffic gives fragmented page tables."""
+    first, so real admit/evict traffic gives fragmented page tables.
+    ``faults`` (a :class:`~repro_torch.serving.faults.FaultInjector`) can
+    make an allocation of a given ``scope`` ("admit" or "grow") raise
+    :class:`PagePoolExhausted` as a dry pool would."""
 
     num_pages: int
+    faults: object = None
 
     def __post_init__(self):
         self._free = list(range(self.num_pages - 1, SENTINEL_PAGE, -1))
@@ -78,9 +82,13 @@ class PageAllocator:
     def num_free(self) -> int:
         return len(self._free)
 
-    def alloc(self, n: int) -> list[int]:
+    def alloc(self, n: int, scope: str = "") -> list[int]:
         if n == 0:
             return []
+        if self.faults is not None and self.faults.alloc_should_fail(scope):
+            raise PagePoolExhausted(
+                f"page pool exhausted (injected fault, scope={scope or 'any'}): "
+                f"asked {n}, {len(self._free)} free of {self.num_pages}")
         if n > len(self._free):
             raise PagePoolExhausted(
                 f"page pool exhausted: asked {n}, {len(self._free)} free of "

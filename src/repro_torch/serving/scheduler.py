@@ -133,7 +133,8 @@ class Admission:
 
 class ContinuousBatchingScheduler:
     def __init__(self, max_slots: int, page_size: int, num_pages: int,
-                 policy: str = POLICY_RESERVED, max_preemptions: int = 8):
+                 policy: str = POLICY_RESERVED, max_preemptions: int = 8,
+                 faults=None):
         if policy not in POLICIES:
             raise ValueError(f"unknown policy {policy!r}; expected one of "
                              f"{POLICIES}")
@@ -141,7 +142,7 @@ class ContinuousBatchingScheduler:
         self.page_size = page_size
         self.policy = policy
         self.max_preemptions = max_preemptions
-        self.allocator = PageAllocator(num_pages)
+        self.allocator = PageAllocator(num_pages, faults=faults)
         self.queue: deque[_Queued] = deque()
         self.slots: list[Optional[_Slot]] = [None] * max_slots
         self.step = 0               # decode-step counter
@@ -221,7 +222,7 @@ class ContinuousBatchingScheduler:
                 if prompt_pages > self.allocator.num_free:
                     break
             try:
-                pages = self.allocator.alloc(prompt_pages)
+                pages = self.allocator.alloc(prompt_pages, scope="admit")
             except PagePoolExhausted:
                 break  # retry at the next admission round
             self.queue.popleft()
@@ -259,7 +260,7 @@ class ContinuousBatchingScheduler:
         s = self.slot(i)
         if s.kv_len < len(s.pages) * self.page_size:
             return None
-        page = self.allocator.alloc(1)[0]
+        page = self.allocator.alloc(1, scope="grow")[0]
         if self.policy == POLICY_RESERVED:
             self._reserved -= 1
         s.pages.append(page)

@@ -5,8 +5,11 @@
     once per model config, JSON-compatible with the JAX package's plans;
   * :class:`TableStore` + :func:`get_store` — provenance-aware table
     artifacts keyed by (fn, n_breakpoints, dtype, fit), with the uniform
-    fallback, fit-on-miss and f32 / bf16 / f16 / int8 quantization.
+    fallback, fit-on-miss and f32 / bf16 / f16 / int8 quantization;
+  * :mod:`.guard` — the opt-in clamp / non-finite counters and the NaN
+    fault hook the serving engine's degrade ladder reads.
 """
+from . import guard
 from .plan import (
     FUSED_SITES,
     SITE_MLP,
@@ -20,6 +23,7 @@ from .plan import (
     model_sites,
     plan_for,
     plan_missing_sites,
+    reset_all_warnings,
     reset_fused_fallback_warnings,
     resolve_spec,
     site_key,
@@ -55,4 +59,6 @@ __all__ = [
     "FUSED_SITES",
     "warn_fused_fallback",
     "reset_fused_fallback_warnings",
+    "reset_all_warnings",
+    "guard",
 ]

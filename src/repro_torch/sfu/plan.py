@@ -62,6 +62,17 @@ def reset_fused_fallback_warnings() -> None:
     _FALLBACK_WARNED.clear()
 
 
+def reset_all_warnings() -> None:
+    """Reset every warn-once latch in one call: the fused-fallback warnings
+    above and the guard's non-finite warnings
+    (``sfu.guard.reset_guard_warnings``).  The serving engine calls it at
+    the start of each ``run()``, so every session reports its own."""
+    reset_fused_fallback_warnings()
+    from . import guard
+
+    guard.reset_guard_warnings()
+
+
 @dataclasses.dataclass(frozen=True)
 class ActivationPlan:
     """Ordered, frozen mapping of site keys to ApproxSpecs."""
@@ -91,14 +102,24 @@ class ActivationPlan:
     def act(self, key: str, store: Optional[TableStore] = None) -> Callable:
         """Elementwise activation callable for a site.  ``impl="fused"``
         resolves to the plain PWL evaluation, its unfused fallback; the fused
-        dispatch itself goes through :meth:`fused_table`."""
+        dispatch itself goes through :meth:`fused_table`.  Under an open
+        ``sfu.guard`` collector a table-backed impl comes wrapped in the
+        guard's clamp / finite counters; otherwise (the guard off) it comes
+        bare.  The layers resolve their activations inside each model call,
+        so the engine's collector is open when it counts."""
         spec = self.spec(key)
         if spec.impl == "fused" and key.split(":", 1)[0] not in FUSED_SITES:
             warn_fused_fallback(
                 key, "no fused producer kernel covers this site; evaluating "
                 "the PWL table elementwise (impl='jnp' semantics)"
             )
-        return resolve_spec(spec, store)
+        fn = resolve_spec(spec, store)
+        from . import guard
+
+        if spec.impl == "exact" or not guard.active():
+            return fn
+        table = (store or get_store()).get(spec)
+        return guard.wrap_elementwise(key, fn, float(table.bp[0]), float(table.bp[-1]))
 
     def fused_table(self, key: str, store: Optional[TableStore] = None) -> Optional[pwl.PWLTable]:
         """Table for the fused-epilogue path, or None when the site is absent

@@ -174,7 +174,23 @@
    olmoe-1b-7b's expert site (with a kernel failure and a dropped tick),
    each recovered by the degraded re-run, whose GLU is held within
    rounding of the kernel's and whose token changes to the band that one
-   ulp at the site opens.
+   ulp at the site opens;
+20. slice 19, the per-site plan autotuner and the analytic roofline (no new
+   kernel): ``autotune_phase`` holds every fused candidate of each run's
+   sweep (the GLU, the MoE GLU and the flash forward with tables of 8, 16,
+   32 and 64 breakpoints in f32, bf16, f16 and int8) against its plain
+   version at the workload's shape, then runs ``python -m
+   repro_torch.launch.autotune`` (in this process) for full-width
+   repro-100m with the softmax site (the full sweep, on a fresh cache,
+   then again on the warm one: the same plan bytes, no miss), olmoe-1b-7b
+   and mamba2-2.7b (``--quick``; ``ssm:silu`` stays exact), each rc 0 with
+   every site's choice within its accuracy budget and no slower than the
+   baseline, and a report naming the card and its power limit; then
+   serves repro-100m under the emitted plan (serve's exit code 0, each
+   site's kernels launched where the plan says ``fused`` and not
+   elsewhere).  ``roofline_lines`` prints ``repro_torch.roofline``'s model
+   FLOPs and ``mfu`` of the 8 x 512 and 1 x 4096 training steps timed
+   above, and the default serve session's memory-bound decode time.
 
 Every failed check exits non-zero.  The last two lines of standard output
 are the kernels' JSON line and ``{"ok": true, "device": {...}}``; the card's
@@ -191,6 +207,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -423,6 +440,20 @@ MAX_FLIP_SHARE = 1e-3  # elements whose slope is not the plain version's
 MAX_BAND_SHARE = 0.2   # within the band: ~4% at K = 768, ~14% at olmoe's K = 2048
 
 
+def _near_breakpoint(torch, z, tables, band):
+    """For each element of ``z``: whether it lies within ``band`` of a
+    breakpoint of the table (``tables[0]``), and the nearest breakpoint."""
+    bps = tables[0].reshape(-1).float()
+    dist = torch.full_like(z, math.inf)
+    nearest = torch.zeros_like(z, dtype=torch.long)
+    for i, b in enumerate(bps.tolist()):
+        d = (z - b).abs()
+        closer = d < dist
+        dist = torch.where(closer, d, dist)
+        nearest = torch.where(closer, i, nearest)
+    return dist <= band, bps[nearest]
+
+
 def _order_band(torch, x, weights, bias, g, got, plan, tables, what,
                 max_band: float | None = MAX_BAND_SHARE):
     """The backward kernel's slopes against the plain version's, element by
@@ -464,16 +495,7 @@ def _order_band(torch, x, weights, bias, g, got, plan, tables, what,
         return (got.float() - want).abs() > allow
 
     marked = off(plan.apply_value_and_slope(z[0], *tables)[1])
-    bps = tables[0].reshape(-1).float()
-    dist = torch.full_like(z[0], math.inf)
-    nearest = torch.zeros_like(z[0], dtype=torch.long)
-    for i, b in enumerate(bps.tolist()):
-        d = (z[0] - b).abs()
-        closer = d < dist
-        dist = torch.where(closer, d, dist)
-        nearest = torch.where(closer, i, nearest)
-    near = dist <= ORDER_BAND_C * (K + 1) * u * mag[0]
-    b = bps[nearest]
+    near, b = _near_breakpoint(torch, z[0], tables, ORDER_BAND_C * (K + 1) * u * mag[0])
     # the breakpoint's own segment (the left one owns it) and the right one
     sides = [plan.apply_value_and_slope(t, *tables)[1]
              for t in (b, torch.nextafter(b, torch.full_like(b, math.inf)))]
@@ -1910,7 +1932,8 @@ FULL_WIDTH = {  # arch: (d_model, layers, experts) of its published config
 
 
 def serve_phase(torch, argv: list[str], attention, ffn: str | None = None,
-                fallback: bool = False, ffn_layers: int | None = None) -> dict:
+                fallback: bool = False, ffn_layers: int | None = None,
+                rc0: bool = False) -> dict:
     """One full-width session through the serve entry point; returns the
     launch counts of exactly that session.  ``attention(steps)`` gives the
     expected softmax / paged-decode / flash launches from the session's
@@ -1924,7 +1947,9 @@ def serve_phase(torch, argv: list[str], attention, ffn: str | None = None,
     mean time of a model call and the session's peak of allocated device
     memory (weights included), as serve measures it.  ``fallback``: the
     session asks for the paged cache, which the arch has no layout for, so
-    serve must say so on stderr and run its dense loop.  Returns the counts
+    serve must say so on stderr and run its dense loop.  ``rc0``: the exit
+    code serve's command line gives the session (``serve.session_rc``: no
+    non-finite logits, no fused fallback) must be 0.  Returns the counts
     and, under ``"session"``, tok/s, ms a model call and the peak."""
     import io
 
@@ -1938,12 +1963,20 @@ def serve_phase(torch, argv: list[str], attention, ffn: str | None = None,
           f"not full-width {args.arch}")
     reset_counters()
     err = io.StringIO()
-    with contextlib.redirect_stderr(err):
+    capture = warnings.catch_warnings(record=True) if rc0 else contextlib.nullcontext([])
+    with contextlib.redirect_stderr(err), capture as caught:
+        if rc0:
+            warnings.simplefilter("always")
         summary = serve.run(args)
     torch.cuda.synchronize()
     counts = read_counters()
     for line in err.getvalue().splitlines():
         print(f"[smoke] serve stderr: {line}")
+    if rc0:
+        for w in caught:
+            print(f"[smoke] serve warning: {w.message}")
+        rc = serve.session_rc(summary, caught)
+        check(rc == 0, f"serve {' '.join(argv)} would exit {rc}")
     mode = "dense" if fallback else args.mode
     check(summary["mode"] == mode, f"{args.arch}: serve ran {summary['mode']} mode, not {mode}")
     if fallback:
@@ -5678,6 +5711,308 @@ def wide_serve_phase(torch, tmp: pathlib.Path) -> dict:
     return serve_phase(torch, ["--plan", str(path)], short_prompt_attention)
 
 
+# ---------------------------------------------------------------------------
+# slice 19: the per-site plan autotuner and the analytic roofline
+
+AUTOTUNE_RUNS = (  # (tag, the autotune command line's arguments): full width
+    ("repro-100m", ["--arch", "repro-100m", "--pwl-softmax"]),
+    ("olmoe-1b-7b", ["--arch", "olmoe-1b-7b", "--quick"]),
+    ("mamba2-2.7b", ["--arch", "mamba2-2.7b", "--quick"]),
+)
+AUTOTUNE_KERNELS = ("fused_glu", "fused_moe_glu", "fused_flash_attention")
+
+
+def _glu_forward_band(torch, x, wg, wu, got, plan, tables, tol, what) -> tuple[float, str]:
+    """The GLU's (or the MoE GLU's, batched) forward against its plain
+    value ``PWL(zg) * zu`` in f32, element by element, at ``tol``
+    (``torch.allclose``'s atol = rtol).  A table whose values jump at a
+    breakpoint (an int8 table's independently rounded m and q) turns a
+    pre-activation that the kernel's summation order moves across a
+    breakpoint into an error the size of the jump, so an element off by
+    more than ``tol`` must lie within the order band of a breakpoint of the
+    plain pre-activation (``_order_band``'s) and take there, within ``tol``,
+    the value of one of the breakpoint's two segments; at most
+    ``MAX_FLIP_SHARE`` of the elements may.  Returns the max abs error
+    outside those elements and a line to print."""
+    u = 2.0 ** -24
+    K = x.shape[-1]
+    xf = x.float()
+    zg, zu = xf @ wg.float(), xf @ wu.float()
+    mag = xf.abs() @ wg.float().abs()
+    g = got.float()
+
+    def off(z):
+        want = plan.apply_value_and_slope(z, *tables)[0] * zu
+        return (g - want).abs() > tol + tol * want.abs()
+
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    marked = off(zg)
+    near, b = _near_breakpoint(torch, zg, tables, ORDER_BAND_C * (K + 1) * u * mag)
+    wrong = marked & off(b) & off(torch.nextafter(b, torch.full_like(b, math.inf)))
+    outside, n_wrong, flips = int((marked & ~near).sum()), int(wrong.sum()), int(marked.sum())
+    check(outside == 0, f"{what}: {outside} outputs off the plain value outside the order band "
+                        "of a breakpoint")
+    check(n_wrong == 0, f"{what}: {n_wrong} outputs are neither segment's at their breakpoint")
+    check(flips <= MAX_FLIP_SHARE * zg.numel(), f"{what}: {flips} outputs flipped a segment")
+    want = plan.apply_value_and_slope(zg, *tables)[0] * zu
+    err = (g - want).abs().masked_fill(marked, 0).max().item()
+    return err, f"{flips} in the order band took the neighbouring segment"
+
+
+def _flash_forward_band(torch, q, k, v, got, plan, tables, tol, what) -> tuple[float, str]:
+    """The causal flash forward (B, S, H, dh with H = Hkv, one chain block:
+    S = T <= 512) against its plain version at ``tol`` (allclose), widened
+    row by row for the jumps of the table at its breakpoints: the kernel's
+    shifted score s - m of a key lies within twice the order band of the
+    plain one's (``ORDER_BAND_C`` (dh + 1) 2^-24 |q|.|k|, s and the row
+    max each), and where that puts it within reach of a breakpoint its
+    probability may take either segment's value, a change of at most the
+    table's jump J there.  A row's output may then move by
+    sum J |v - out| / (l - sum J) over those keys; a row with none is held
+    at ``tol`` alone.  Returns the max abs error and a line to print."""
+    from repro_torch.kernels.fused.attention import fused_flash_attention_plain
+    from repro_torch.kernels.fused.softmax import pwl_exp
+
+    u = 2.0 ** -24
+    S, dh = q.shape[1], q.shape[3]
+    check(k.shape[1] == S <= 512 and k.shape[2] == q.shape[2], f"{what}: not one chain block")
+    want = fused_flash_attention_plain(q, k, v, plan, tables, causal=True, window=None,
+                                       q_offset=0, kv_valid_len=None)[0].float()
+    qf, kf, vf = q.float(), k.float(), v.float()
+    scale = 1.0 / math.sqrt(dh)
+    keep = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    s = torch.einsum("bshd,bthd->bhst", qf, kf) * scale
+    s = torch.where(keep, s, -math.inf)
+    x = s - s.amax(dim=-1, keepdim=True)
+    mag = torch.einsum("bshd,bthd->bhst", qf.abs(), kf.abs()) * scale
+    band = 2 * ORDER_BAND_C * (dh + 1) * u * mag.masked_fill(~keep, 0).amax(dim=-1, keepdim=True)
+    p = torch.where(keep, pwl_exp(x.clamp(min=-1e4), plan, tables), 0.0)
+    jump = torch.zeros_like(x)
+    bps = tables[0].reshape(-1).float()
+    right = torch.nextafter(bps, torch.full_like(bps, math.inf))
+    jumps = (pwl_exp(right, plan, tables) - pwl_exp(bps, plan, tables)).abs()
+    for b, j in zip(bps.tolist(), jumps.tolist()):
+        jump = torch.where(keep & ((x - b).abs() <= band), jump.clamp(min=j), jump)
+    l = p.sum(dim=-1)                                   # (B, H, S)
+    j_sum = jump.sum(dim=-1)
+    out = want.permute(0, 2, 1, 3)                      # (B, H, S, dh)
+    dev = (vf.permute(0, 2, 1, 3)[:, :, None, :, :] - out[:, :, :, None, :]).abs()
+    allow = torch.einsum("bhst,bhstd->bhsd", jump, dev) / (l - j_sum).clamp(min=1e-30)[..., None]
+    g = got.float().permute(0, 2, 1, 3)
+    err = (g - out).abs()
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    bad = int((err > tol + tol * out.abs() + allow).sum())
+    check(bad == 0, f"{what}: {bad} outputs off the plain version by more than {tol} and the "
+                    f"table's jumps within the order band")
+    rows = int((j_sum > 1e-6).sum())
+    return err.max().item(), f"{rows} rows with a key within the order band of a jump"
+
+
+def _autotune_cfg(argv: list[str]):
+    """The autotune command line's parsed arguments and the full-width
+    config it searches."""
+    from repro_torch.launch import autotune as cli
+    from repro_torch.sfu.autotune import driver
+
+    args = cli.build_parser().parse_args(argv)
+    cfg = driver._model_cfg(driver.AutotuneConfig(arch=args.arch, quick=args.quick,
+                                                  pwl_softmax=args.pwl_softmax))
+    check((cfg.d_model, cfg.n_layers, cfg.n_experts) == FULL_WIDTH[args.arch],
+          f"not full-width {args.arch}")
+    return args, cfg
+
+
+def _fused_candidates_against_plain(torch, argv: list[str]) -> list[str]:
+    """Every fused candidate of one autotune run's sweep (all of them, not
+    only those within the budget) through its kernel once at the site's
+    workload, on the workload's inputs, held against the kernel's plain
+    version there at 1e-2 (bf16), widened only where an int8 table's jumps
+    at its breakpoints turn a summation-order flip into a jump-sized error:
+    the GLU and the MoE GLU by ``_glu_forward_band``, the flash attention
+    by ``_flash_forward_band``.  Returns a line a candidate: kernel,
+    breakpoints, table format, max abs error."""
+    from repro_torch import sfu
+    from repro_torch.kernels.fused.epilogue import plan_and_operands
+    from repro_torch.sfu.autotune import measure, space
+
+    args, cfg = _autotune_cfg(argv)
+    ran = []
+    for key, _ in sfu.compile_plan(cfg).items():
+        site, _, fn = key.partition(":")
+        wl = measure.workload_for(cfg, site, quick=args.quick)
+        check(wl.dtype == "bf16", f"{key}: workload in {wl.dtype}, not the config's bf16")
+        for cand in space.candidates(site, fn, quick=args.quick):
+            if cand.impl != "fused":
+                continue
+            run, inputs = measure._latency_thunk(cand, None, wl, "cuda")
+            kernel = run.kernel
+            n0 = kernel.launches
+            got = run(*inputs)
+            check(kernel.launches == n0 + 1, f"{key} {cand.to_json()}: kernel not launched")
+            plan, tables = plan_and_operands(sfu.get_store().get(cand))
+            tables = tuple(t.cuda() for t in tables)
+            what = (f"autotune {args.arch} {key}: {kernel.__name__}, {cand.n_breakpoints} bp "
+                    f"{cand.dtype} table, {tuple(inputs[0].shape)} bf16")
+            band = _flash_forward_band if site == "attn.softmax" else _glu_forward_band
+            err, note = band(torch, *inputs, got, plan, tables, 1e-2, what)
+            ran.append(f"{what}: max_abs_err {err:.3g}; {note}")
+            del got, inputs
+    return ran
+
+
+def _autotune_run(torch, argv: list[str], out: pathlib.Path, cache: pathlib.Path,
+                  power: str) -> tuple[dict, dict, float]:
+    """One ``python -m repro_torch.launch.autotune`` command line, called in
+    this process (``launch.autotune.run``) with the launch counters reset
+    before it and read after it.  Checks rc 0, the report's provenance (the
+    card, its power limit, no interpret mode), that each site's chosen spec
+    (the latency argmin) is within its budget and at most the baseline's µs,
+    and that the plan's spec (the accuracy-first one after the e2e gate's
+    fallback) is within its budget.  Returns the report, the counts and the
+    seconds."""
+    from repro_torch.launch import autotune as cli
+
+    report = out.with_suffix(".report.json")
+    reset_counters()
+    t0 = time.perf_counter()
+    rc = cli.run(argv + ["--out", str(out), "--report", str(report), "--cache-dir", str(cache)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counters()
+    check(rc == 0, f"autotune {' '.join(argv)}: rc {rc}")
+    rpt = json.loads(report.read_text())
+    check(rpt["backend"] == "cuda" and not rpt["interpret_mode"] and not rpt["reduced"],
+          f"autotune {' '.join(argv)}: backend {rpt['backend']}")
+    check(rpt["device"] == torch.cuda.get_device_name(0) and rpt["power_limit"] == power,
+          f"autotune provenance names {rpt['device']}, {rpt['power_limit']}")
+    which = "accuracy_first" if rpt["accuracy_fallback"] else "chosen"
+    for e in rpt["sites"]:
+        c, b = e["chosen"], e["baseline"]
+        check(c["mse"] <= e["budget_mse"] * (1 + 1e-9) and c["us"] <= b["us"],
+              f"autotune {e['site']}: chosen mse {c['mse']} (budget {e['budget_mse']}), "
+              f"{c['us']} us (baseline {b['us']})")
+        check(e[which]["mse"] <= e["budget_mse"] * (1 + 1e-9) and c["block"] is None,
+              f"autotune {e['site']}: the plan's mse {e[which]['mse']}, block {c['block']}")
+    return rpt, counts, secs
+
+
+def autotune_phase(torch, tmp: pathlib.Path, power: str) -> dict:
+    """The autotuner on the card at full width (``AUTOTUNE_RUNS``): each
+    run's fused candidates held against their plain versions first
+    (``_fused_candidates_against_plain``), then the command line on a fresh
+    cache directory; repro-100m's full sweep again on its warm cache (the
+    plan byte-identical, no miss); mamba2's ``ssm:silu`` exact (budget 0);
+    then ``serve --plan`` with repro-100m's emitted plan (serve's exit code
+    0), whose counters must show each site's kernels launched where the plan
+    chose ``fused`` and not where it chose ``jnp`` or ``exact``.  Prints each
+    site's choice, µs, baseline µs, MSE and budget, the e2e metrics, the
+    cache's hits and misses and each run's launches of the sweep's kernels.
+    Where the e2e
+    gate fell back to the accuracy-first plan, prints the e2e metrics of
+    the latency argmin plan it refused, and serves repro-100m under that
+    plan too (rc 0, its kernels launched where it says ``fused``)."""
+    from repro_torch import sfu
+    from repro_torch.sfu.autotune import driver, measure
+
+    out = {}
+    for tag, argv in AUTOTUNE_RUNS:
+        t0 = time.perf_counter()
+        ran = _fused_candidates_against_plain(torch, argv)
+        for line in ran:
+            print(f"[smoke] {line}")
+        print(f"[smoke] autotune {tag}: {len(ran)} fused candidates within 1e-2 of their plain "
+              f"versions ({time.perf_counter() - t0:.1f}s)")
+        _release(torch)
+        plan_path = tmp / f"autotune_{tag}.json"
+        rpt, counts, secs = _autotune_run(torch, argv, plan_path, tmp / f"cache_{tag}", power)
+        which = "accuracy_first" if rpt["accuracy_fallback"] else "chosen"
+        for e in rpt["sites"]:
+            c, b = e["chosen"], e["baseline"]
+            s = c["spec"]
+            print(f"[smoke] autotune {tag} {e['site']}: {s['impl']}/{s['n_segments'] - 1}bp/"
+                  f"{s['dtype']} {c['us']:.3f} us (baseline {b['spec']['impl']}/"
+                  f"{b['spec']['n_segments'] - 1}bp/{b['spec']['dtype']} {b['us']:.3f} us), mse "
+                  f"{c['mse']:.4e} (budget {e['budget_mse']:.4e}), {e['n_within_budget']} of "
+                  f"{e['n_candidates']} candidates within budget; in the plan "
+                  f"{e[which]['spec']['impl']}/{e[which]['spec']['n_segments'] - 1}bp/"
+                  f"{e[which]['spec']['dtype']}")
+        print(f"[smoke] autotune {tag}: e2e {rpt['e2e']}, accuracy fallback "
+              f"{rpt['accuracy_fallback']}; cache {rpt['cache']['hits']} hits, "
+              f"{rpt['cache']['misses']} misses; {secs:.1f}s; launches "
+              f"{ {k: counts[k] for k in AUTOTUNE_KERNELS} } ({rpt['device']}, "
+              f"{rpt['power_limit']})")
+        if rpt["accuracy_fallback"]:  # what the gate saw before it fell back
+            e2e = measure.e2e_logit_check(_autotune_cfg(argv)[1],
+                                          driver._assemble(rpt["sites"], "chosen"),
+                                          seed=rpt["seed"])
+            print(f"[smoke] autotune {tag}: e2e of the latency argmin plan {e2e} (min top-1 "
+                  f"{rpt['objective']['min_top1']})")
+        out[tag] = {"report": rpt, "counts": counts, "seconds": secs, "plan": plan_path}
+        _release(torch)
+
+    tag, argv = AUTOTUNE_RUNS[0]
+    warm, _, secs = _autotune_run(torch, argv, tmp / f"autotune_{tag}_warm.json",
+                                  tmp / f"cache_{tag}", power)
+    check(warm["cache"]["misses"] == 0, f"warm rerun: {warm['cache']['misses']} misses")
+    check((tmp / f"autotune_{tag}_warm.json").read_bytes() == out[tag]["plan"].read_bytes(),
+          "warm rerun: the plan is not byte-identical")
+    print(f"[smoke] autotune {tag} warm rerun: plan byte-identical, cache "
+          f"{warm['cache']['hits']} hits, {warm['cache']['misses']} misses, {secs:.1f}s")
+
+    mamba = out["mamba2-2.7b"]["report"]
+    silu = next(e for e in mamba["sites"] if e["site"] == "ssm:silu")
+    check(silu["budget_mse"] == 0.0 and silu["chosen"]["spec"]["impl"] == "exact",
+          f"mamba2 ssm:silu chose {silu['chosen']['spec']} at budget {silu['budget_mse']}")
+
+    # the sessions: the emitted plan, and the latency argmin where the gate fell back from it
+    rpt = out[tag]["report"]
+    plans = {"emitted": out[tag]["plan"]}
+    if rpt["accuracy_fallback"]:
+        plans["latency argmin"] = sfu.dump_plan(driver._assemble(rpt["sites"], "chosen"),
+                                                tmp / f"autotune_{tag}_argmin.json")
+    for what, path in plans.items():
+        plan = sfu.load_plan(path)
+        softmax = plan.get("attn.softmax:exp")
+        attention = (short_prompt_attention if softmax is not None and softmax.impl == "fused"
+                     else no_attention_kernels)
+        fused_mlp = plan.spec("mlp:gelu_tanh").impl == "fused"
+        print(f"[smoke] autotune {tag}: serve --plan <the {what} plan> {plan.fingerprint}")
+        out[f"serve {what}"] = serve_phase(torch, ["--plan", str(path)], attention,
+                                           ffn_layers=None if fused_mlp else 0, rc0=True)
+    return out
+
+
+def roofline_lines(trained: dict, long_trained: dict, session: dict, card: str) -> list[str]:
+    """The analytic roofline (``repro_torch.roofline``) of runs already
+    timed: model FLOPs of repro-100m's 8 x 512 and 1 x 4096 steps and their
+    ``mfu``, model_flops_train / (989e12 x the median step seconds); the
+    memory-bound time of the default serve session's decode call (4 slots,
+    a cache of 32 + 16 positions) beside its measured ms a model call."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ShapeCell
+    from repro_torch.roofline import model as roof
+
+    cfg = get_config("repro-100m")
+    lines = []
+    for what, run, tokens in ((f"{TRAIN_BATCH} x {TRAIN_SEQ}", trained, TRAIN_TOKENS),
+                              (f"{LONG_BATCH} x {LONG_SEQ}", long_trained,
+                               LONG_BATCH * LONG_SEQ)):
+        flops = roof.model_flops_train(cfg, tokens)
+        mfu = flops / (roof.PEAK_FLOPS * run["step_ms"] * 1e-3)
+        lines.append(f"[smoke] roofline repro-100m train {what}: model_flops_train {flops:.6g}, "
+                     f"median step {run['step_ms']:.3f} ms, mfu {mfu:.6f} of "
+                     f"{roof.PEAK_FLOPS:.4g} bf16 FLOP/s ({card})")
+    cell = ShapeCell("serve decode", seq_len=32 + 16, global_batch=4, kind="decode")
+    nbytes = roof.analytic_memory_traffic(cfg, cell, {})
+    flops = roof.model_flops_decode(cfg, cell.global_batch, cell.seq_len)
+    lines.append(f"[smoke] roofline repro-100m default serve decode call (B=4, cache "
+                 f"{cell.seq_len}): {nbytes:.6g} bytes, memory-bound "
+                 f"{nbytes / roof.HBM_BW * 1e6:.3f} us at {roof.HBM_BW:.4g} B/s "
+                 f"({flops:.6g} FLOP, {flops / roof.PEAK_FLOPS * 1e6:.4f} us at the bf16 peak); "
+                 f"measured {session['ms_per_call']:.3f} ms a model call ({card})")
+    return lines
+
+
 def main() -> int:
     try:
         import torch
@@ -5794,6 +6129,10 @@ def main() -> int:
             mamba_serve = mamba2_serve_phases(torch, pathlib.Path(tmp))
             mamba_trained = mamba2_train_phase(torch, pathlib.Path(tmp))
             mark("slice 16 phases (mamba2-2.7b serve, and train 8 x 512 with a resume)")
+            _release(torch)
+            autotuned = autotune_phase(torch, pathlib.Path(tmp), card.rsplit(",", 1)[1].strip())
+            mark("slice 19 autotune phase (repro-100m full sweep and warm rerun, olmoe-1b-7b "
+                 "and mamba2-2.7b quick, serve --plan)")
             arch_reference_phase(torch)
             ssm_ref = ssm_reference_phase(torch)
         reference_phase(torch)
@@ -6156,6 +6495,14 @@ def main() -> int:
     print(f"[smoke] {MAMBA} train step (8 x 512) {mamba_trained['step_ms']:.1f} ms median, "
           f"{mamba_trained['tokens_per_s']:.0f} tokens/s, peak "
           f"{mamba_trained['peak_bytes'] / 1e9:.2f} GB")
+    for line in roofline_lines(trained, long_trained, main_counts["session"], card):
+        print(line)
+    for tag, run in autotuned.items():
+        if not tag.startswith("serve"):
+            print(f"[smoke] autotune {tag}: {run['seconds']:.1f}s, e2e top1 "
+                  f"{run['report']['e2e']['top1_agree']:.4f}, plan "
+                  f"{run['report']['plan_fingerprint']}, launches "
+                  f"{ {k: run['counts'][k] for k in AUTOTUNE_KERNELS} }")
     print(f"[smoke] guard: {guard['off']:.2f} launches a call off, {guard['on']:.2f} on; "
           f"repro-100m call {guard['repro-100m']['call_ms']:.2f} ms, degraded re-run "
           f"{guard['repro-100m']['degraded_ms']} ms; olmoe call "

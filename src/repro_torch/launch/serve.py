@@ -337,6 +337,13 @@ def serve(argv=None) -> int:
         summary = run(args)
     for w in caught:  # passed on as they came
         warnings.warn_explicit(w.message, w.category, w.filename, w.lineno)
+    return session_rc(summary, caught)
+
+
+def session_rc(summary: dict, caught) -> int:
+    """The exit code of a finished session: 1 when a paged session sampled
+    non-finite logits or a fused site fell back (a fused-fallback warning
+    among ``caught``), else 0."""
     if summary["mode"] != "paged":
         return 0
     health = summary["engine"].health_summary()

@@ -22,10 +22,31 @@ package.  The device is explicit and defaults to ``cuda``; pass
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from . import encdec, transformer
 from .common import ModelConfig, init_params
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One (sequence length, global batch, step kind) point that the
+    roofline model (``repro_torch.roofline``) is evaluated at."""
+
+    name: str          # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str          # train | prefill | decode
+
+
+SHAPE_CELLS = {
+    "train_4k": ShapeCell("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524288, 1, "decode"),
+}
 
 
 def param_defs(cfg: ModelConfig):

@@ -1,0 +1,29 @@
+"""`repro_torch.roofline` — the analytic roofline of a config on an H100:
+model FLOPs, parameter counts, HBM traffic and peak memory per step
+(:mod:`.model`).  The JAX package's HLO parser and report renderer read
+compiled sharded programs and wait for distribution."""
+from .model import (
+    HBM_BW,
+    NVLINK_BW,
+    PEAK_FLOPS,
+    RooflineReport,
+    active_params,
+    analytic_memory_traffic,
+    analytic_peak_memory,
+    model_flops_decode,
+    model_flops_train,
+    total_params,
+)
+
+__all__ = [
+    "HBM_BW",
+    "NVLINK_BW",
+    "PEAK_FLOPS",
+    "RooflineReport",
+    "active_params",
+    "analytic_memory_traffic",
+    "analytic_peak_memory",
+    "model_flops_decode",
+    "model_flops_train",
+    "total_params",
+]

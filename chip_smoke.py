@@ -455,7 +455,7 @@ def _near_breakpoint(torch, z, tables, band):
 
 
 def _order_band(torch, x, weights, bias, g, got, plan, tables, what,
-                max_band: float | None = MAX_BAND_SHARE):
+                max_band: float | None = MAX_BAND_SHARE, parts: bool = False):
     """The backward kernel's slopes against the plain version's, element by
     element: ``got`` is dzg of the GLU (``weights`` (wg, wu)) or dz of the
     linear layer (``weights`` (w,), ``bias``).  An element is marked where
@@ -470,7 +470,10 @@ def _order_band(torch, x, weights, bias, g, got, plan, tables, what,
     grows past ``MAX_BAND_SHARE``) the band's share is not bounded, and the
     mask returned is that of the marked elements alone: every other element,
     in the band or not, takes the plain version's slope and stays in the
-    caller's tolerance check."""
+    caller's tolerance check.  With ``parts`` it returns the marked mask,
+    the band's mask, each element's allowance at the plain version's slope
+    (the rounding of zu over the order band and of the products) and the
+    line, for ``_compare_flips``."""
     u = 2.0 ** -24
     K = x.shape[-1]
     xf, gf = x.float(), g.float()
@@ -511,9 +514,32 @@ def _order_band(torch, x, weights, bias, g, got, plan, tables, what,
     line = (f"slope mismatches {flips:.3g} of the elements, each within the order band "
             f"(c = {ORDER_BAND_C}) of a breakpoint with a neighbouring segment's slope; "
             f"the band holds {in_band:.3g}")
+    if parts:
+        return (marked, near, want_and_allow(plan.apply_value_and_slope(z[0], *tables)[1])[1],
+                line + ", the mismatches alone left out of the tolerance, the band's other "
+                       "elements held within it plus their allowance")
     if max_band is None:
         return marked, line + ", the mismatches alone left out of the tolerance"
     return near, line + ", left out of the tolerance"
+
+
+def _compare_flips(torch, got, want, marked, near, allow, tol, what) -> float:
+    """dzg against the plain version's with the slope mismatches
+    (``marked``: each a neighbouring segment's slope within the order band
+    of a breakpoint, as ``_order_band`` checks) left out: every other
+    element within ``tol`` times max |want|, and within the band (``near``)
+    also within its ``allow``, zu's rounding over the order band times
+    |g·slope|, since a flip between two segments whose slopes differ by
+    less than that is not marked.  Returns the max abs error of the
+    elements held."""
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite output")
+    err = (got.float() - want.float()).abs().masked_fill(marked, 0.0)
+    scale = want.float().abs().max().item()
+    over = int((err > tol * scale + torch.where(near, allow, torch.zeros_like(allow))).sum())
+    worst = err.max().item()
+    check(over == 0, f"{what}: {over} elements past {tol} x scale {scale} (and their "
+                     f"allowance within the band); max err {worst}")
+    return worst
 
 
 def _compare_outside(torch, got, want, near, tol, what) -> float:
@@ -6013,6 +6039,344 @@ def roofline_lines(trained: dict, long_trained: dict, session: dict, card: str) 
     return lines
 
 
+# ---------------------------------------------------------------------------
+# slice 20: distribution.  The card is one, so the mesh's collectives are
+# held on the CPU (tests/test_torch_mesh_*.py); here every fused kernel runs
+# at the local shapes a rank of the (data=2, model=2) mesh hands it.
+
+SHARD_MESH = ((2, 2), ("data", "model"))
+SHARD_ARCHS = ("repro-100m", "olmoe-1b-7b", "qwen2.5-32b")
+SHARD_DECODE_SLOTS = 4  # the paged decode cell: 4 slots (the page writes' B)
+
+
+def shard_shapes(cfg, mesh, cell) -> dict:
+    """The local shapes of the fused sites of ``cfg`` that a rank sees under
+    ``make_cell_rules(cfg, mesh, cell)``, each from ``shard_spec`` of the
+    site's operands as the model's call sites place them: x and the GLU
+    weights (``_mlp_hidden_sharded``), the per-shard experts and their
+    capacity (``_moe_layer_shardmap``), q and k/v in whole GQA groups
+    (``_shard_attention``; ``cache_kv`` for the paged decode), and the page
+    writes' whole batch (``kv_cache._sharded_rope_write``)."""
+    from repro_torch.distributed import shard_fused as shf
+    from repro_torch.launch.steps import make_cell_rules
+    from repro_torch.models.moe import capacity
+
+    rules = make_cell_rules(cfg, mesh, cell)
+    sizes = shf.mesh_axis_sizes(rules)
+    B = cell.global_batch
+    S = cell.seq_len if cell.kind == "train" else 1
+    D, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+
+    def local(axes, shape):
+        return shf.local_shape(rules, shf.shard_spec(rules, axes, shape), shape)
+
+    out = {"rules": rules, "x": local(("batch", None, None), (B, S, D))}
+    if cfg.n_experts:
+        tp = sizes.get("model", 1)
+        e_loc = cfg.n_experts // tp if cfg.n_experts % tp == 0 else cfg.n_experts
+        out["experts"] = (e_loc, capacity(cfg, out["x"][0] * S), D, cfg.moe_d_ff)
+    else:
+        out["w"] = local((None, "mlp"), (D, cfg.d_ff))
+    kv_axis = "act_kv" if cell.kind == "train" else "cache_kv"
+    h, hk = shf.gqa_shard_entries(rules, "act_heads", H, kv_axis, Hkv)
+    b = shf.batch_entry(rules, B)
+    out["q"] = shf.local_shape(rules, shf.P(b, None, h, None), (B, S, H, dh))
+    out["kv"] = shf.local_shape(rules, shf.P(b, None, hk, None), (B, S, Hkv, dh))
+    out["write_heads"] = (out["q"][2], out["kv"][2])  # the writes' batch stays whole
+    return out
+
+
+def shard_shapes_phase(torch, card: str) -> list:
+    """Every fused kernel at the local shapes of full-width repro-100m
+    (``force_dp_only=False``), olmoe-1b-7b and qwen2.5-32b under
+    ``make_cell_rules`` on a (data=2, model=2) mesh built as a shape only
+    (no process group): an 8 x 512 training step and a paged decode of 4
+    slots at 1024 keys.  The GLU forward and backward at d_ff / 2 columns,
+    the MoE GLU forward and backward at 32 of 64 experts, the flash forward
+    and backward at half the heads in whole GQA groups, the row softmax,
+    the paged decode and both page writes at half the KV heads; each
+    against its plain version at the tolerance of its own phase (bf16 1e-2;
+    the backward's dzg without its slope mismatches, each checked within
+    the order band, and dzu whole; the page writes bitwise), timed beside
+    its bound.  Builds no model and loads no weights.  Then the production
+    mesh's (16 x 16) local shapes of qwen2.5-32b, whose 40 heads do not
+    divide 16: the rules take sequence-parallel attention.  Returns the
+    rows of the kernels line (no launches: one card runs no mesh)."""
+    import torch.nn.functional as F
+
+    from repro_torch.distributed.sharding import AbstractMesh
+    from repro_torch.kernels.fused import (
+        fused_flash_attention,
+        fused_glu,
+        fused_moe_glu,
+        fused_pwl_softmax,
+        paged_flash_decode,
+    )
+    from repro_torch.kernels.fused import attention as A
+    from repro_torch.kernels.fused.decoding import paged_flash_decode_plain
+    from repro_torch.kernels.fused.glu import fused_glu_bwd, fused_glu_bwd_plain, fused_glu_plain
+    from repro_torch.kernels.fused.softmax import fused_pwl_softmax_plain, static_mask
+    from repro_torch.models import ShapeCell
+
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(30)
+    mesh = AbstractMesh(*SHARD_MESH)
+    train = ShapeCell("train 8x512", TRAIN_SEQ, TRAIN_BATCH, "train")
+    decode = ShapeCell("paged decode", 1024, SHARD_DECODE_SLOTS, "decode")
+    exp_table, exp_plan, exp_tables = _exp_table(torch)
+    rows = []
+
+    def row(name, src, rep, shape, err, k_ms, p_ms, l_ms, bound):
+        rows.append({"name": f"{name}[2x2 shard: {shape}]", "route": "cuda",
+                     "source": f"src/repro_torch/csrc/{src}", "replaces": rep,
+                     "shape": f"{shape}, a rank's block on the (data=2, model=2) mesh (on no "
+                              "path of one card)",
+                     "launches": 0, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                     "library_ms": l_ms, **bound})
+        print(f"[smoke] shard {name} {shape}: max_abs_err {err:.3g}, kernel {k_ms * 1e3:.2f} us, "
+              f"plain {p_ms * 1e3:.2f} us, library "
+              + ("-" if l_ms is None else f"{l_ms * 1e3:.2f} us")
+              + f", bound {bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}); {card}")
+
+    def glu(arch, act, M, K, N, bwd):
+        table, plan, tables = _table(torch, act)
+        s = 1.0 / math.sqrt(K)
+        x = torch.randn(M, K, generator=gen, device=dev).to(torch.bfloat16)
+        wg = (torch.randn(K, N, generator=gen, device=dev) * s).to(torch.bfloat16)
+        wu = (torch.randn(K, N, generator=gen, device=dev) * s).to(torch.bfloat16)
+        shape = f"{arch} M={M} K={K} N={N} bf16"
+        n0 = fused_glu.launches
+        got = fused_glu(x, wg, wu, table=table)
+        check(fused_glu.launches == n0 + 1, f"shard GLU {shape}: not launched")
+        err = _compare(torch, got, fused_glu_plain(x, wg, wu, plan, tables), 1e-2,
+                       f"shard GLU {shape}")
+        wcat = torch.cat([wg, wu], dim=1)
+        row("fused_glu", "glu.cu", "src/repro/kernels/fused/glu.py:30", shape, err,
+            time_ms(torch, lambda i: fused_glu(x, wg, wu, table=table), reps=5, iters=4),
+            time_ms(torch, lambda i: fused_glu_plain(x, wg, wu, plan, tables), reps=2, iters=2),
+            time_ms(torch, lambda i: torch.matmul(x, wcat), reps=5, iters=4),
+            _bound((M * K + 2 * K * N + M * N) * 2, 4.0 * M * K * N))
+        if not bwd:
+            return
+        g = torch.randn(M, N, generator=gen, device=dev).to(torch.bfloat16)
+        dzg, dzu = fused_glu_bwd(x, wg, wu, g, plan, tables)
+        wdzg, wdzu = fused_glu_bwd_plain(x, wg, wu, g, plan, tables)
+        # past K = 2048 the band holds more than MAX_BAND_SHARE (qwen2.5-32b's
+        # shard, K = 5120), so its share is not bounded there, as in
+        # arch_glu_phase; dzu = g·act(zg) has no slope jump and is held whole
+        marked, near, allow, band = _order_band(
+            torch, x, (wg, wu), None, g, dzg, plan, tables, f"shard GLU backward {shape}",
+            max_band=MAX_BAND_SHARE if K <= MOE_K else None, parts=True)
+        err = max(_compare_flips(torch, dzg, wdzg, marked, near, allow, 1e-2,
+                                 f"shard GLU dzg {shape}"),
+                  _compare_scaled(torch, dzu, wdzu, 1e-2, f"shard GLU dzu {shape}"))
+        del wdzg, wdzu, marked, near, allow
+        print(f"[smoke] shard fused_glu_bwd {shape}: order band {band}")
+        row("fused_glu_bwd", "glu.cu", "src/repro/kernels/fused/glu.py:97", shape, err,
+            time_ms(torch, lambda i: fused_glu_bwd(x, wg, wu, g, plan, tables), reps=5, iters=4),
+            time_ms(torch, lambda i: fused_glu_bwd_plain(x, wg, wu, g, plan, tables),
+                    reps=2, iters=2),
+            time_ms(torch, lambda i: torch.matmul(x, wcat), reps=5, iters=4),
+            _bound((M * K + 2 * K * N + M * N) * 2 + 2 * M * N * 4, 4.0 * M * K * N))
+
+    def moe(E, C, K, N, bwd):
+        table, plan, tables = _table(torch, "silu")
+        s = 1.0 / math.sqrt(K)
+        x = torch.randn(E, C, K, generator=gen, device=dev).to(torch.bfloat16)
+        wg = (torch.randn(E, K, N, generator=gen, device=dev) * s).to(torch.bfloat16)
+        wu = (torch.randn(E, K, N, generator=gen, device=dev) * s).to(torch.bfloat16)
+        shape = f"olmoe-1b-7b E={E} of {MOE_E} C={C} K={K} N={N} bf16"
+        n0 = fused_moe_glu.launches
+        got = fused_moe_glu(x, wg, wu, table=table)
+        check(fused_moe_glu.launches == n0 + 1, f"shard MoE GLU {shape}: not launched")
+        err = _compare_scaled(torch, got, fused_glu_plain(x, wg, wu, plan, tables), 1e-2,
+                              f"shard MoE GLU {shape}")
+        wcat = torch.cat([wg, wu], dim=2)
+        row("fused_moe_glu", "glu.cu", "src/repro/kernels/fused/moe.py:41", shape, err,
+            time_ms(torch, lambda i: fused_moe_glu(x, wg, wu, table=table), reps=5, iters=4),
+            time_ms(torch, lambda i: fused_glu_plain(x, wg, wu, plan, tables), reps=2, iters=2),
+            time_ms(torch, lambda i: torch.bmm(x, wcat), reps=5, iters=4),
+            _bound(_moe_bytes(E, C, K, N, 2), 4.0 * E * C * K * N))
+        if not bwd:
+            return
+        g = torch.randn(E, C, N, generator=gen, device=dev).to(torch.bfloat16)
+
+        def kbwd(i):
+            return fused_glu_bwd(x, wg, wu, g, plan, tables, counter=fused_moe_glu)
+
+        dzg, dzu = kbwd(0)
+        wdzg, wdzu = fused_glu_bwd_plain(x, wg, wu, g, plan, tables)
+        marked, near, allow, band = _order_band(torch, x, (wg, wu), None, g, dzg, plan, tables,
+                                                f"shard MoE GLU backward {shape}", parts=True)
+        err = max(_compare_flips(torch, dzg, wdzg, marked, near, allow, 1e-2,
+                                 f"shard MoE dzg {shape}"),
+                  _compare_scaled(torch, dzu, wdzu, 1e-2, f"shard MoE dzu {shape}"))
+        del wdzg, wdzu, marked, near, allow
+        print(f"[smoke] shard fused_moe_glu_bwd {shape}: {band}")
+        row("fused_moe_glu_bwd", "glu.cu", "src/repro/kernels/fused/moe.py:107", shape, err,
+            time_ms(torch, kbwd, reps=5, iters=4),
+            time_ms(torch, lambda i: fused_glu_bwd_plain(x, wg, wu, g, plan, tables),
+                    reps=2, iters=2),
+            time_ms(torch, lambda i: torch.bmm(x, wcat), reps=5, iters=4),
+            _bound(_moe_bytes(E, C, K, N, 2, f32_outputs=2), 4.0 * E * C * K * N))
+
+    def flash(arch, B, S, H, hkv, dh):
+        shape = f"{arch} B={B} S=T={S} causal H={H} Hkv={hkv} dh={dh} bf16"
+        q = _igrid(torch, gen, (B, S, H, dh), torch.bfloat16)
+        k = _igrid(torch, gen, (B, S, hkv, dh), torch.bfloat16)
+        v = _igrid(torch, gen, (B, S, hkv, dh), torch.bfloat16)
+        dout = _igrid(torch, gen, (B, S, H, dh), torch.bfloat16)
+        kw = {"causal": True, "window": None, "q_offset": 0, "kv_valid_len": None}
+        n0 = fused_flash_attention.launches
+        got = fused_flash_attention(q, k, v, table=exp_table, causal=True)
+        check(fused_flash_attention.launches == n0 + 1, f"shard flash {shape}: not launched")
+        want, _ = A.fused_flash_attention_plain(q, k, v, exp_plan, exp_tables, **kw)
+        err = _compare(torch, got, want, 1e-2, f"shard flash {shape}")
+        qh, kh, vh = (t.permute(0, 2, 1, 3).contiguous() for t in (q, k, v))
+        rep = hkv != H
+        sdpa = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, enable_gqa=rep), reps=5, iters=4)
+        pairs = B * H * S * (S + 1) / 2
+        nbytes = (2 * q.numel() + 2 * k.numel()) * 2
+        row("fused_flash_attention", "attention.cu", "src/repro/kernels/fused/attention.py:100",
+            shape, err,
+            time_ms(torch, lambda i: fused_flash_attention(q, k, v, table=exp_table,
+                                                           causal=True), reps=5, iters=4),
+            time_ms(torch, lambda i: A.fused_flash_attention_plain(
+                q, k, v, exp_plan, exp_tables, **kw), reps=2, iters=2),
+            sdpa, _bound(nbytes, 4.0 * pairs * dh))
+        _, m = A._launch(q, k, v, exp_plan, exp_tables, True, None, 0, None, True)
+        b0 = fused_flash_attention.bwd_launches
+        grads = A.fused_flash_attention_bwd(q, k, v, dout, m, exp_plan, exp_tables, **kw)
+        check(fused_flash_attention.bwd_launches == b0 + 1, f"shard flash bwd {shape}: not "
+                                                           "launched")
+        wants = A.fused_flash_attention_bwd_plain(q, k, v, dout, m, exp_plan, exp_tables, **kw)
+        err = max(_compare_scaled(torch, g_, w_, 1e-2, f"shard flash bwd {shape} d{n}")
+                  for n, g_, w_ in zip("qkv", grads, wants))
+        del grads, wants
+        row("fused_flash_attention_bwd", "attention_bwd.cu",
+            "src/repro/kernels/fused/attention.py:334/396/445/498", shape, err,
+            time_ms(torch, lambda i: A.fused_flash_attention_bwd(
+                q, k, v, dout, m, exp_plan, exp_tables, **kw), reps=5, iters=4),
+            time_ms(torch, lambda i: A.fused_flash_attention_bwd_plain(
+                q, k, v, dout, m, exp_plan, exp_tables, **kw), reps=2, iters=2),
+            None, _bound(nbytes * 2, 10.0 * pairs * dh))
+
+    def softmax(arch, B, hkv, S):
+        shape = f"{arch} {B}x{hkv}x{S} rows x {S} causal f32"
+        x = torch.randn((B, 1, hkv, S, S), generator=gen, device=dev) * 3.0
+        x2 = x.reshape(-1, S)
+        mask2 = static_mask(x2.shape[0], S, S, True, None, device=dev)
+        n0 = fused_pwl_softmax.launches
+        got = fused_pwl_softmax(x, table=exp_table, causal=True)
+        check(fused_pwl_softmax.launches == n0 + 1, f"shard softmax {shape}: not launched")
+        want = fused_pwl_softmax_plain(x2, mask2, exp_plan, exp_tables).reshape(x.shape)
+        live = mask2 > 0
+        err = _compare_probs(torch, got, want, live, 1e-5, f"shard softmax {shape}")
+        n_live = int(live.sum())
+        row("fused_pwl_softmax", "softmax.cu", "src/repro/kernels/fused/softmax.py:69", shape,
+            err, time_ms(torch, lambda i: fused_pwl_softmax(x, table=exp_table, causal=True)),
+            time_ms(torch, lambda i: fused_pwl_softmax_plain(x2, mask2, exp_plan, exp_tables),
+                    reps=5, iters=4),
+            time_ms(torch, lambda i: torch.softmax(x, dim=-1)),
+            _bound(_softmax_bytes(x.numel(), n_live, 1, False), 0.0))
+
+    def paged(arch, B, H, hkv, dh, context):
+        # a rank's block of the decode cell: its B slots at the cell's
+        # context (the last page partial), held and timed; then the same
+        # block with its last slot inactive, held (its rows exact zeros)
+        shape = f"{arch} B={B} kv_len ~{context} H={H} Hkv={hkv} dh={dh} ps={PS} bf16 pools"
+        n_cols = -(-context // PS)
+        P = B * n_cols + 1
+        rows_ = _fragmented_table(B, n_cols, P)
+        tab = torch.zeros((B, n_cols), dtype=torch.int32)
+        for i, r in enumerate(rows_):
+            tab[i, :len(r)] = torch.tensor(r)
+        tab = tab.to(dev)
+        q = torch.randn(B, 1, H, dh, generator=gen, device=dev).to(torch.bfloat16)
+        kp = torch.randn(hkv, P, PS, dh, generator=gen, device=dev).to(torch.bfloat16)
+        vp = torch.randn(hkv, P, PS, dh, generator=gen, device=dev).to(torch.bfloat16)
+        live = [context - 13 * i for i in range(B)]
+        eff = min(2048 // PS, n_cols)
+        err = 0.0
+        for kv_len in (live, live[:-1] + [0]):
+            lens = torch.tensor(kv_len, dtype=torch.int32, device=dev)
+            n0 = paged_flash_decode.launches
+            got = paged_flash_decode(q, kp, vp, tab, lens, table=exp_table)
+            check(paged_flash_decode.launches == n0 + 1, f"shard decode {shape}: not launched")
+            want = paged_flash_decode_plain(q, kp, vp, tab, lens, exp_plan, exp_tables, eff)
+            err = max(err, _compare(torch, got, want, 1e-2, f"shard decode {shape} {kv_len}"))
+            check(not bool(got[lens == 0].any()), f"shard decode {shape}: kv_len 0 not zeros")
+        lens = torch.tensor(live, dtype=torch.int32, device=dev)
+        live_pages = sum(-(-n // PS) for n in live)
+        nbytes = 2 * live_pages * PS * dh * hkv * 2 + 2 * q.numel() * 2 + tab.numel() * 4 + B * 4
+        row("paged_flash_decode", "decoding.cu", "src/repro/kernels/fused/decoding.py:72",
+            shape, err,
+            time_ms(torch, lambda i: paged_flash_decode(q, kp, vp, tab, lens, table=exp_table)),
+            time_ms(torch, lambda i: paged_flash_decode_plain(
+                q, kp, vp, tab, lens, exp_plan, exp_tables, eff), reps=3, iters=3),
+            _decode_sdpa_ms(torch, q, kp, vp, tab, lens),
+            _bound(nbytes, 4.0 * int(lens.sum()) * H * dh))
+
+    from repro_torch.configs import get_config
+
+    for arch in SHARD_ARCHS:
+        # repro-100m's default (force_dp_only None) drops tensor parallelism
+        cfg = get_config(arch, force_dp_only=False if arch == "repro-100m" else None)
+        tr, de = shard_shapes(cfg, mesh, train), shard_shapes(cfg, mesh, decode)
+        print(f"[smoke] shard {arch} {SHARD_MESH[0]} train 8x512 local: x {tr['x']}, "
+              + (f"experts {tr['experts']}" if cfg.n_experts else f"w {tr['w']}")
+              + f", q {tr['q']}, kv {tr['kv']}; paged decode local: q {de['q']}, pools' heads "
+              f"{de['kv'][2]}, writes' heads {de['write_heads']}; {card}")
+        M = tr["x"][0] * tr["x"][1]
+        if cfg.n_experts:
+            E, C, K, N = tr["experts"]
+            check(E == MOE_E // 2, f"shard {arch}: {E} local experts, want {MOE_E // 2}")
+            moe(E, C, K, N, bwd=True)
+            moe(*de["experts"], bwd=False)
+        else:
+            check(tr["w"][1] == cfg.d_ff // 2, f"shard {arch}: GLU columns {tr['w']}")
+            glu(arch, cfg.activation, M, cfg.d_model, tr["w"][1], bwd=True)
+            glu(arch, cfg.activation, de["x"][0], cfg.d_model, de["w"][1], bwd=False)
+        B, S, H, dh = tr["q"]
+        hkv = tr["kv"][2]
+        check(H == cfg.n_heads // 2 and hkv == cfg.n_kv_heads // 2,
+              f"shard {arch}: heads {H} / {hkv}")
+        if arch == "repro-100m":  # its 8 x 512 step takes the row softmax
+            softmax(arch, B, hkv, S)
+        else:
+            flash(arch, B, S, H, hkv, dh)
+        Bd, _, Hd, _ = de["q"]
+        paged(arch, Bd, Hd, de["kv"][2], dh, decode.seq_len)
+        for Bw, Sw in ((SHARD_DECODE_SLOTS, 1), (1, 32)):
+            r = _rope_case(torch, arch, Bw, Sw, H=de["write_heads"][0], hkv=de["write_heads"][1])
+            name = "rope_append_kv_" if Sw == 1 else "rope_write_prompt_pages_"
+            rows.append({"name": f"{name}[2x2 shard: {arch} {r['shape']}]", "route": "cuda",
+                         "source": "src/repro_torch/csrc/kv_cache.cu",
+                         "replaces": "src/repro/serving/kv_cache.py:"
+                                     + ("212" if Sw == 1 else "129"),
+                         **r, "shape": f"{arch} {r['shape']}, a rank's heads on the (data=2, "
+                                       "model=2) mesh, the whole batch (on no path of one card)",
+                         "launches": 0})
+    # the production mesh: qwen2.5-32b's 40 heads do not divide 16
+    from repro_torch.models import SHAPE_CELLS
+
+    qwen = get_config("qwen2.5-32b")
+    prod = AbstractMesh((16, 16), ("data", "model"))
+    for name in ("train_4k", "decode_32k"):
+        sh = shard_shapes(qwen, prod, SHAPE_CELLS[name])
+        t = sh["rules"].table
+        check(t["act_heads"] is None and t["cache_seq"] == "model" and t["mlp"] == "model",
+              f"qwen2.5-32b on 16 x 16 {name}: rules {t}")
+        print(f"[smoke] shard qwen2.5-32b (16, 16) {name} local: x {sh['x']}, w {sh['w']}, "
+              f"q {sh['q']}, kv {sh['kv']} (sequence-parallel attention: heads whole, "
+              f"cache_seq over model)")
+    print(f"[smoke] shard_shapes_phase {time.perf_counter() - t0:.1f}s; {card}")
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -6062,6 +6426,8 @@ def main() -> int:
         arch_glu = arch_glu_phase(torch)
         arch_kv = arch_kv_phase(torch)
         mark("slice 15 kernel phases (the new architectures' shapes)")
+        shard_rows = shard_shapes_phase(torch, card)
+        mark("slice 20 shard_shapes_phase (every fused kernel at a 2 x 2 mesh rank's shapes)")
         main_counts = serve_phase(torch, [], no_attention_kernels)
         serve_phase(torch, ["--batch", "8", "--prompt-len", "256", "--max-new", "32"],
                     no_attention_kernels)
@@ -6471,6 +6837,9 @@ def main() -> int:
                          + ("launches: the 129-segment session's" if r["on_path"]
                             else "on no model path at this shape"),
                 "launches": wide_counts[name] if r["on_path"] else 0, **r})
+    # slice 20: every fused kernel at the local shapes of a (data=2, model=2)
+    # mesh rank; one card runs no mesh, so none is on a path here
+    kernels.extend(shard_rows)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     print(f"[smoke] whisper-small train step {whisper_trained['step_ms']:.1f} ms median, "

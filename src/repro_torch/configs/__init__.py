@@ -1,9 +1,9 @@
 """Architecture configs.  ``get_config("<arch-id>")`` takes the JAX
 package's ids (dashes/dots normalized to underscores); only the configs
-ported so far exist here.  jamba-v0.1-52b has its reduced config
-(``get_reduced_config``) but its full width is refused, as is
-phi3.5-moe-42b-a6.6b: their bf16 weights (102.9 GB, 83.7 GB) pass one card's
-memory, so both wait for distribution."""
+ported so far exist here.  jamba-v0.1-52b and phi3.5-moe-42b-a6.6b have
+their reduced configs (``get_reduced_config``; reduced phi3.5 trains and
+serves on a mesh, its experts parallel over "model") but their full widths
+are refused: their bf16 weights (102.9 GB, 83.7 GB) pass one card's memory."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,10 +17,12 @@ ARCH_IDS = ["repro-100m", "olmoe-1b-7b", "whisper-small", "olmo-1b", "stablelm-1
 REFUSED = {
     "jamba-v0.1-52b": "distribution (102.9 GB of bf16 weights), not ported yet; "
                       "get_reduced_config gives its reduced config",
-    "phi3.5-moe-42b-a6.6b": "distribution (83.7 GB of bf16 weights), not ported yet",
+    "phi3.5-moe-42b-a6.6b": "two cards for its distribution (83.7 GB of bf16 "
+                            "weights), and the chip machine has one; get_reduced_config "
+                            "gives its reduced config",
 }
 # refused at full width, but with a reduced config here
-REDUCED_ONLY = ("jamba-v0.1-52b",)
+REDUCED_ONLY = ("jamba-v0.1-52b", "phi3.5-moe-42b-a6.6b")
 
 
 def _module(arch_id: str, reduced: bool = False):

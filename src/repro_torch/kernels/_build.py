@@ -10,6 +10,7 @@ waits for all of them.  Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -25,6 +26,26 @@ NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+
+@functools.cache
+def _dtensor_type() -> type:
+    from torch.distributed.tensor import DTensor
+
+    return DTensor
+
+
+def refuse_dtensor(what: str, *tensors) -> None:
+    """A kernel's wrapper reads raw pointers of whole tensors: a DTensor
+    (whose pointer is one rank's block) is refused, never launched on.
+    Under a mesh the fused call sites run their kernels per shard
+    (``distributed.shard_fused.run_sharded``), handing them plain local
+    tensors."""
+    dtensor = _dtensor_type()
+    if any(isinstance(t, dtensor) for t in tensors):
+        raise TypeError(f"{what} takes plain tensors, got a DTensor: under a mesh call it "
+                        "per shard (distributed.shard_fused.run_sharded)")
+
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 _SIGNED: set[tuple[str, str]] = set()  # (library, function) with argtypes set

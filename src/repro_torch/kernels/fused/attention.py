@@ -58,6 +58,7 @@ import torch
 
 from repro_torch.core.functions import tie_max
 from repro_torch.core.pwl import PWLTable
+from repro_torch.kernels import _build
 
 from .backward import resolve_impl_bwd
 from .epilogue import (
@@ -361,6 +362,7 @@ def fused_flash_attention_bwd(q, k, v, dout, m, plan: EpiloguePlan, tables, *, c
     """``(dq, dk, dv)`` of the fused flash attention at the saved row max
     ``m`` (B, H, S) f32, in the inputs' dtypes: the backward kernels on CUDA
     tensors, their plain version on CPU tensors."""
+    _build.refuse_dtensor("fused_flash_attention_bwd", q, k, v, dout, m)
     kw = dict(causal=causal, window=window, q_offset=int(q_offset), kv_valid_len=kv_valid_len)
     if q.device.type == "cpu":
         refuse_unsorted(plan, tables)
@@ -420,6 +422,7 @@ def fused_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``causal``/``window`` mask by position (queries start at ``q_offset``);
     ``kv_valid_len`` (B,) is each row's valid key prefix.  Returns (B, S, H, dh) in q's dtype.  Differentiable in q, k
     and v; ``impl_bwd`` picks the backward (:mod:`.backward`)."""
+    _build.refuse_dtensor("fused_flash_attention", q, k, v)
     if table is None and act is None:
         act = "exp"
     if table is not None and q.device.type == "cpu":

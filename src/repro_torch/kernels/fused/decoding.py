@@ -38,6 +38,7 @@ import math
 import torch
 
 from repro_torch.core.pwl import PWLTable
+from repro_torch.kernels import _build
 
 from .epilogue import (
     EPILOGUE_ARGTYPES,
@@ -172,6 +173,7 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Te
     (0 = inactive slot).  ``table`` is the exp table; ``act="exp"`` (the
     default when neither is given) runs the exact exponential through the
     same chain, on the card too.  Returns (B, 1, H, dh) in q's dtype."""
+    _build.refuse_dtensor("paged_flash_decode", q, k_pages, v_pages, page_table, kv_len)
     if table is None and act is None:
         act = "exp"
     plan, tables = device_operands(table, act, q.device)

@@ -36,6 +36,7 @@ import ctypes
 import torch
 
 from repro_torch.core.pwl import PWLTable
+from repro_torch.kernels import _build
 
 from .backward import resolve_impl_bwd
 from .epilogue import (
@@ -173,6 +174,7 @@ def fused_glu_bwd(x, w_gate, w_up, g, plan: EpiloguePlan, tables, counter=None):
     ``counter.bwd_launches`` (``fused_glu``'s unless the caller passes its
     own wrapper) unless the problem is empty, its plain version on CPU
     tensors."""
+    _build.refuse_dtensor("fused_glu_bwd", x, w_gate, w_up, g)
     if x.device.type == "cpu":
         refuse_unsorted(plan, tables)
         return fused_glu_bwd_plain(x, w_gate, w_up, g, plan, tables)
@@ -226,6 +228,7 @@ def fused_glu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, *,
     GLU.  On a CUDA tensor every epilogue, and a table of any format, runs
     the hand-written kernels (forward, and backward under
     ``impl_bwd="fused"``).  Differentiable in x, w_gate and w_up."""
+    _build.refuse_dtensor("fused_glu", x, w_gate, w_up)
     plan, tables = device_operands(table, act, x.device)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])

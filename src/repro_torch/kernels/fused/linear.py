@@ -29,6 +29,7 @@ import ctypes
 import torch
 
 from repro_torch.core.pwl import PWLTable
+from repro_torch.kernels import _build
 
 from .backward import resolve_impl_bwd
 from .epilogue import (
@@ -123,6 +124,7 @@ def fused_linear_bwd(x, w, b, g, plan: EpiloguePlan, tables):
     """``dz`` of the fused linear layer on (M, K) x: the backward kernel on
     CUDA tensors, counted on ``fused_linear.bwd_launches``, its plain
     version on CPU tensors."""
+    _build.refuse_dtensor("fused_linear_bwd", x, w, b, g)
     if x.device.type == "cpu":
         refuse_unsorted(plan, tables)
         return fused_linear_bwd_plain(x, w, b, g, plan, tables)
@@ -171,6 +173,7 @@ def fused_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None
     table -> PWL epilogue, act -> exact epilogue, neither -> identity.  On a
     CUDA tensor each of them runs the hand-written kernels (forward, and
     backward under ``impl_bwd="fused"``).  Differentiable in x, w and b."""
+    _build.refuse_dtensor("fused_linear", x, w, b)
     plan, tables = device_operands(table, act, x.device)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])

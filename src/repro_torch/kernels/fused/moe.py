@@ -38,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.pwl import PWLTable
+from repro_torch.kernels import _build
 
 from .backward import resolve_impl_bwd
 from .epilogue import device_operands
@@ -58,6 +59,7 @@ def fused_moe_glu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, *,
     ``fused_glu_plain`` and ``fused_glu_bwd_plain``, on (E, C, ·) operands;
     ``fused_glu_bwd(..., counter=fused_moe_glu)`` is its backward kernel's
     wrapper."""
+    _build.refuse_dtensor("fused_moe_glu", x, w_gate, w_up)
     if x.dim() != 3 or w_gate.dim() != 3 or w_up.dim() != 3:
         raise ValueError(f"fused_moe_glu takes x (E, C, K) and weights (E, K, N), got "
                          f"{tuple(x.shape)}, {tuple(w_gate.shape)}, {tuple(w_up.shape)}")

@@ -41,6 +41,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.pwl import PWLTable
+from repro_torch.kernels import _build
 
 from .backward import resolve_impl_bwd
 from .epilogue import (
@@ -185,6 +186,7 @@ def fused_rmsnorm_bwd(x, scale, g, plan: EpiloguePlan, tables, eps: float = 1e-6
     """``(dx, ds)`` of the fused RMSNorm on (M, D) x, f32: the backward
     kernel on CUDA tensors, counted on ``fused_rmsnorm.bwd_launches``, its
     plain version on CPU tensors."""
+    _build.refuse_dtensor("fused_rmsnorm_bwd", x, scale, g)
     if x.device.type == "cpu":
         refuse_unsorted(plan, tables)
         return fused_rmsnorm_bwd_plain(x, scale, g, plan, tables, eps)
@@ -239,6 +241,7 @@ def fused_rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
     the JAX signature's TPU row tile: the port's results do not depend on
     it (the CUDA kernels take one to four warps a row, and sum ds in 16-row
     tiles).  Returns x's shape and dtype; differentiable in x and scale."""
+    _build.refuse_dtensor("fused_rmsnorm", x, scale)
     plan, tables = device_operands(table, act, x.device)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])

@@ -48,6 +48,7 @@ import torch
 
 from repro_torch.core.functions import tie_max
 from repro_torch.core.pwl import PWLTable
+from repro_torch.kernels import _build
 
 from .backward import resolve_impl_bwd
 from .epilogue import (
@@ -260,6 +261,7 @@ def fused_pwl_softmax_bwd(x2, mask2, g2, plan: EpiloguePlan, tables, seq_len: in
     """dx of the fused PWL softmax on (R, N) f32 rows: the backward kernel
     on CUDA tensors, its plain version on CPU tensors.  ``mask2`` /
     ``causal`` / ``window`` / ``seq_len`` as the forward took them."""
+    _build.refuse_dtensor("fused_pwl_softmax_bwd", x2, mask2, g2)
     if x2.device.type == "cpu":
         refuse_unsorted(plan, tables)
         return fused_pwl_softmax_bwd_plain(
@@ -312,6 +314,7 @@ def fused_pwl_softmax(x: torch.Tensor, *, table: PWLTable | None = None,
     position (second-to-last axis) and the key position (last axis), and
     exclude ``mask``.  Returns x's shape and dtype.  Differentiable in x;
     ``impl_bwd`` picks the backward (:mod:`.backward`)."""
+    _build.refuse_dtensor("fused_pwl_softmax", x)
     if table is None and act is None:
         act = "exp"
     if mask is not None and (causal or window is not None):

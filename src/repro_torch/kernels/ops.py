@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.pwl import PWLTable
+from repro_torch.kernels import _build
 
 from . import pwl_act
 from .fused.epilogue import check_ascending, device_operands, pack_for, pack_table
@@ -44,6 +45,7 @@ def pwl_activation(x: torch.Tensor, table: PWLTable, *,
     """Non-uniform PWL activation of ``x`` (any shape), in x's dtype.
     ``table_dtype`` stores the table in another format first ("f32" | "bf16"
     | "f16" | "int8"); a table the store already quantized needs none."""
+    _build.refuse_dtensor("pwl_activation", x)
     _refuse_grad("pwl_activation", x)
     if table_dtype is None:
         _, (bp, dmq) = device_operands(table, None, x.device)
@@ -62,6 +64,7 @@ def pwl_activation_uniform(x: torch.Tensor, m, q, lo: float, hi: float) -> torch
     """Uniform-address PWL baseline of ``x`` (any shape), in x's dtype: m and
     q hold n_seg = n_inner + 2 segments, the inner ones of width
     ``(hi - lo) / n_inner``."""
+    _build.refuse_dtensor("pwl_activation_uniform", x)
     _refuse_grad("pwl_activation_uniform", x)
     mq = pack_uniform(m, q)
     if x.device.type == "cpu":

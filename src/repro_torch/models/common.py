@@ -7,7 +7,8 @@ materializes it from an explicit ``torch.Generator`` on an explicit device.
 Serving holds parameters the way the model uses them: matrices in
 ``cfg.dtype`` (the JAX package keeps f32 masters and casts every matrix to
 ``cfg.dtype`` at each use, which gives the same values), norm scales in f32
-(the JAX package reads them in f32).  Training holds f32 masters
+(the JAX package reads them in f32).  Each leaf carries the JAX package's logical axes, which
+:func:`logical_specs` lists for the sharding rules.  Training holds f32 masters
 (``init_params(..., master=True)``), as the JAX package does, and
 :func:`compute_params` casts them to the serving layout with a
 differentiable ``.to()`` once per step, so each gradient lands on its f32
@@ -20,6 +21,8 @@ import math
 from typing import Any, Optional
 
 import torch
+
+from repro_torch.distributed.sharding import fsdp_gather
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +70,9 @@ class ModelConfig:
     n_vision_tokens: int = 0          # stub patch-embedding prefix length
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True                # recompute each layer in the backward
+    # small-model full data parallelism under a mesh (steps.make_cell_rules):
+    # None decides by the parameter count, True / False force it
+    force_dp_only: object = None
     tie_embeddings: bool = False
 
     @property
@@ -123,6 +129,9 @@ DRAW_WHOLE_MAX = 1 << 31
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: tuple[int, ...]
+    # one logical axis per dim ("embed", "heads", "mlp", ...), the JAX
+    # package's, which the sharding rules map to mesh axes
+    logical_axes: tuple[Optional[str], ...]
     init: str = "normal"      # normal | zeros | ones | small_normal
     matrix: bool = True       # held in cfg.dtype (else f32)
 
@@ -181,9 +190,31 @@ def init_params(defs, seed: int, device, dtype, master: bool = False) -> Any:
 def compute_params(defs, params, dtype) -> Any:
     """The tree the model computes with: every matrix of ``params`` cast to
     ``dtype`` by a differentiable ``.to()`` (a no-op on a tree already
-    held so), every other leaf as it is."""
+    held so), every other leaf as it is.  A DTensor leaf (a sharded state)
+    outside the stacked layers is then gathered over its FSDP ("embed")
+    axes: the products read whole rows, and the gradient is reduce-scattered
+    back to the shard (the per-use gather GSPMD makes of an FSDP weight).
+    The layer loops gather each layer where it runs (:func:`gather_layer`),
+    so one layer's weights are whole at a time."""
     if isinstance(defs, ParamDef):
-        return params.to(dtype) if defs.matrix else params
+        p = params.to(dtype) if defs.matrix else params
+        return p if defs.logical_axes[:1] == ("layers",) else fsdp_gather(p, defs.logical_axes)
     if isinstance(defs, dict):
         return {k: compute_params(v, params[k], dtype) for k, v in defs.items()}
     return [compute_params(d, p, dtype) for d, p in zip(defs, params)]
+
+
+def logical_specs(defs) -> Any:
+    """The tree of logical-axis tuples matching the parameter tree."""
+    return _map_defs(lambda d: d.logical_axes, defs)
+
+
+def gather_layer(defs, layer) -> Any:
+    """One layer of a stacked tree (``layer``, its leaves DTensors under a
+    mesh) with each leaf gathered over its FSDP axes; ``defs`` is the
+    layer's unstacked ParamDef tree."""
+    if isinstance(defs, ParamDef):
+        return fsdp_gather(layer, defs.logical_axes)
+    if isinstance(defs, dict):
+        return {k: gather_layer(v, layer[k]) for k, v in defs.items()}
+    return [gather_layer(d, x) for d, x in zip(defs, layer)]

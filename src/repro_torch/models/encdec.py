@@ -31,9 +31,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import sfu
+from repro_torch.distributed import shard_fused as shf
+from repro_torch.distributed.sharding import constrain, is_dtensor
 
 from . import layers as L
-from .common import ModelConfig, ParamDef, compute_params
+from .common import ModelConfig, ParamDef, compute_params, gather_layer
 from .transformer import (
     _layer,
     _stack,
@@ -47,19 +49,32 @@ from .transformer import (
 )
 
 
+def _enc_layer_defs(cfg: ModelConfig) -> dict:
+    return {"ln1": norm_defs(cfg), "mixer": attn_defs(cfg), "ln2": norm_defs(cfg),
+            "ffn": mlp_defs(cfg)}
+
+
+def _dec_layer_defs(cfg: ModelConfig) -> dict:
+    return {"ln1": norm_defs(cfg), "self": attn_defs(cfg), "ln_x": norm_defs(cfg),
+            "cross": attn_defs(cfg), "ln2": norm_defs(cfg), "ffn": mlp_defs(cfg)}
+
+
 def encdec_defs(cfg: ModelConfig) -> dict:
-    enc_layer = {"ln1": norm_defs(cfg), "mixer": attn_defs(cfg), "ln2": norm_defs(cfg),
-                 "ffn": mlp_defs(cfg)}
-    dec_layer = {"ln1": norm_defs(cfg), "self": attn_defs(cfg), "ln_x": norm_defs(cfg),
-                 "cross": attn_defs(cfg), "ln2": norm_defs(cfg), "ffn": mlp_defs(cfg)}
+    enc_layer, dec_layer = _enc_layer_defs(cfg), _dec_layer_defs(cfg)
     return {
-        "embed": ParamDef((cfg.padded_vocab, cfg.d_model), init="small_normal"),
+        "embed": ParamDef((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"), init="small_normal"),
         "enc_final_norm": norm_defs(cfg),
         "final_norm": norm_defs(cfg),
         "encoder": _stack(enc_layer, cfg.n_encoder_layers),
         "decoder": _stack(dec_layer, cfg.n_layers),
-        "unembed": ParamDef((cfg.d_model, cfg.padded_vocab)),
+        "unembed": ParamDef((cfg.d_model, cfg.padded_vocab), ("embed", "vocab")),
     }
+
+
+def _alike(t, like):
+    """``t`` (alike on every rank) as a replicated DTensor when ``like`` is
+    a DTensor (the positions added to a sharded activation)."""
+    return shf.replicated(t, like.device_mesh) if is_dtensor(like) else t
 
 
 def _project_kv(h, p):
@@ -68,12 +83,15 @@ def _project_kv(h, p):
             torch.einsum("bsd,dhk->bshk", h, p["wv"]))
 
 
-def _layers(fn, h, stack, n: int, remat: bool):
+def _layers(fn, h, stack, n: int, remat: bool, defs: dict):
     """``h`` through ``fn(h, layer_params, i)`` for each of the ``n`` stacked
-    layers, each recomputed in the backward under ``remat``."""
+    layers, each recomputed in the backward under ``remat``; under a mesh
+    each layer's FSDP rows are gathered where it runs (``defs``: a layer's
+    ParamDef tree)."""
+    sharded = is_dtensor(h)
     for i, p in enumerate(_unbind(stack, n)):
         def layer_fn(h, p=p, i=i):
-            return fn(h, p, i)
+            return fn(h, gather_layer(defs, p) if sharded else p, i)
 
         h = checkpoint(layer_fn, h, use_reentrant=False) if remat else layer_fn(h)
     return h
@@ -83,7 +101,8 @@ def encode(cfg: ModelConfig, params, frames, remat: bool = False):
     """frames: (B, encoder_seq, D) stub embeddings -> the encoder output."""
     plan = sfu.plan_for(cfg)
     h = frames.to(cfg.dtype)
-    h = h + L.sinusoidal_positions(h.shape[1], cfg.d_model, h.device).to(cfg.dtype)
+    h = h + _alike(L.sinusoidal_positions(h.shape[1], cfg.d_model, h.device).to(cfg.dtype), h)
+    h = constrain(h, "batch", "act_seq", "act_embed")
 
     def layer_fn(h, p, i):
         # bidirectional: the self-projected k/v go through the unmasked
@@ -94,7 +113,8 @@ def encode(cfg: ModelConfig, params, frames, remat: bool = False):
         h = h + y
         return h + L.mlp(cfg, p["ffn"], L.apply_norm(cfg, p["ln2"], h), plan=plan)
 
-    h = _layers(layer_fn, h, params["encoder"], cfg.n_encoder_layers, remat)
+    h = _layers(layer_fn, h, params["encoder"], cfg.n_encoder_layers, remat,
+                _enc_layer_defs(cfg))
     return L.apply_norm(cfg, params["enc_final_norm"], h)
 
 
@@ -107,7 +127,8 @@ def _decoder_pass(cfg: ModelConfig, params, tokens, enc_out, cache=None, pos: in
     plan = sfu.plan_for(cfg)
     h = embed_tokens(cfg, params, tokens)
     S = h.shape[1]
-    h = h + L.sinusoidal_positions(pos + S, cfg.d_model, h.device)[pos:].to(cfg.dtype)
+    h = h + _alike(L.sinusoidal_positions(pos + S, cfg.d_model, h.device)[pos:].to(cfg.dtype), h)
+    h = constrain(h, "batch", "act_seq", "act_embed")
 
     def layer_fn(h, p, i):
         lc = _layer(cache, i) if cache is not None else None
@@ -129,7 +150,7 @@ def _decoder_pass(cfg: ModelConfig, params, tokens, enc_out, cache=None, pos: in
         h = h + y
         return h + L.mlp(cfg, p["ffn"], L.apply_norm(cfg, p["ln2"], h), plan=plan)
 
-    return _layers(layer_fn, h, params["decoder"], cfg.n_layers, remat)
+    return _layers(layer_fn, h, params["decoder"], cfg.n_layers, remat, _dec_layer_defs(cfg))
 
 
 def forward(cfg: ModelConfig, params, tokens, frames):

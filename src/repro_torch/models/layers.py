@@ -18,6 +18,16 @@ Masking follows the JAX package: masked scores are filled with ``-1e30``
 before the row max, masked probabilities are zeroed, and the row sum is
 clamped at ``1e-30``.  Tensor layouts are the JAX package's: q is
 (B, S, H, dh), k/v are (B, T, Hkv, dh), ``wq`` (D, H, dh), ``wo`` (H, dh, D).
+
+Under rules with a mesh of more than one rank (``distributed.sharding``)
+the projections are DTensor products and ``constrain`` sits at the JAX
+package's sites; the attention core (rotation, page writes, the softmax
+dispatch) and the MLP's hidden state run per shard in ``local_map`` bodies
+(``distributed.shard_fused.run_sharded``): heads over "model" in whole GQA
+groups, d_ff columns over "mlp", batch over the data axes, each body on
+plain local tensors, so every fused kernel sees its local shapes.  The page
+writes keep the batch replicated (every data rank applies every request's
+write, so pool replicas never diverge), as in JAX.
 """
 from __future__ import annotations
 
@@ -27,6 +37,14 @@ from typing import Callable
 import torch
 
 from repro_torch import sfu
+from repro_torch.distributed import shard_fused as shf
+from repro_torch.distributed.sharding import (
+    active_mesh_rules,
+    constrain,
+    logical_extent,
+    placements,
+    unruled,
+)
 from repro_torch.kernels import fused
 from repro_torch.serving import kv_cache as _pg
 
@@ -267,6 +285,21 @@ def dense_pwl_attention(q, k, v, *, table, causal: bool = True, window=None):
     return out.permute(0, 3, 2, 1, 4).reshape(B, S, H, dh).to(q.dtype)
 
 
+def _shard_attention(rules, fn, q, k, v):
+    """``fn(q, k, v)`` per shard: heads over the model axis in whole GQA
+    groups, batch over the data axes, k/v head-sharded beside q (attention
+    is head-local: no collective).  The fused executors' choice is made on
+    the local shapes, which are what a rank holds."""
+    B, _, H, _ = q.shape
+    Hkv = k.shape[2]
+    b = shf.batch_entry(rules, B)
+    h, hk = shf.gqa_shard_entries(rules, "act_heads", H, "act_kv", Hkv)
+    return shf.run_sharded(
+        rules, unruled(fn), (q, k, v),
+        (shf.P(b, None, h, None), shf.P(b, None, hk, None), shf.P(b, None, hk, None)),
+        shf.P(b, None, h, None))
+
+
 def _attn_softmax_dispatch(q, k, v, *, causal: bool, exp_fn: Callable, table, window=None):
     """Attention for prefill and training.  With a fused softmax ``table`` it
     always runs fused: the dense PWL-exp softmax kernel while the scores fit
@@ -308,7 +341,10 @@ def decode_attention(q, k_cache, v_cache, valid, exp_fn: Callable = torch.exp,
     """Single-position attention over a cache.  q: (B, 1, H, dh);
     k/v_cache: (B, T, Hkv, dh); valid: (B, T) bool, a prefix per row.  With
     ``softmax_table`` (the softmax site planned fused) the softmax runs in
-    the fused kernels; otherwise elementwise with ``exp_fn``."""
+    the fused kernels; otherwise elementwise with ``exp_fn``.  Under a mesh
+    it runs on a rank's local tensors, inside the per-shard body of
+    :func:`_attention_core_sharded`, which writes and reads a dense cache
+    in one body."""
     if softmax_table is not None:
         return _decode_attention_fused(q, k_cache, v_cache, valid, softmax_table)
     B, _, H, dh = q.shape
@@ -327,13 +363,52 @@ def decode_attention(q, k_cache, v_cache, valid, exp_fn: Callable = torch.exp,
     return out.reshape(B, 1, H, dh).to(q.dtype)
 
 
+def _seq_sharded_fallback(rules, what: str) -> bool:
+    """True (after the warn-once fused-fallback warning) when the rules
+    shard the KV cache over its sequence (``cache_seq``): the per-shard
+    fused decode would replicate the cache there, so the unfused path runs,
+    as in the JAX package."""
+    if logical_extent(rules, "cache_seq") <= 1:
+        return False
+    sfu.warn_fused_fallback(
+        sfu.site_key(sfu.SITE_SOFTMAX, "exp"),
+        f"{what} is sharded over the sequence axis (cache_seq, seq-parallel "
+        "attention rules); the unfused contraction honors that sharding, the "
+        "per-shard fused kernel would replicate the cache")
+    return True
+
+
 def paged_decode_attention(q, k_pages, v_pages, page_table, kv_len,
                            exp_fn: Callable = torch.exp, softmax_table=None):
     """Single-position attention over a paged cache.  q: (B, 1, H, dh);
     pools (Hkv, P, ps, dh); kv_len: (B,).  With ``softmax_table`` the
     split-KV kernel reads K/V through the page table; otherwise the table's
     pages are gathered into logical order and :func:`decode_attention` runs
-    over the ``kv_len`` prefix."""
+    over the ``kv_len`` prefix.
+
+    Under a mesh the decode runs per shard: q over its head groups and the
+    batch, the pools over their KV heads, the table and lengths with the
+    batch.  A cache sharded over ``cache_seq`` takes the unfused path with
+    the warn-once warning."""
+    rules = active_mesh_rules()
+    if rules is not None:
+        if softmax_table is not None and _seq_sharded_fallback(rules, "paged KV pool"):
+            softmax_table = None
+        B, _, H, _ = q.shape
+        Hkv = k_pages.shape[0]
+        b = shf.batch_entry(rules, B)
+        h, hk = shf.gqa_shard_entries(rules, "act_heads", H, "cache_kv", Hkv)
+        pool = shf.P(hk, None, None, None)
+        table = softmax_table
+
+        def body(q_l, kp_l, vp_l, pt_l, len_l):
+            return paged_decode_attention(q_l, kp_l, vp_l, pt_l, len_l, exp_fn,
+                                          softmax_table=table)
+
+        return shf.run_sharded(
+            rules, unruled(body), (q, k_pages, v_pages, page_table, kv_len),
+            (shf.P(b, None, h, None), pool, pool, shf.P(b, None), shf.P(b)),
+            shf.P(b, None, h, None))
     if softmax_table is not None:
         return sfu.guard.check_fused(
             sfu.site_key(sfu.SITE_SOFTMAX, "exp"),
@@ -403,33 +478,77 @@ def _guard_fused_mlp(cfg: ModelConfig, params, x, h, plan, key):
     return sfu.guard.check_fused(key, h, clamped)
 
 
-def mlp(cfg: ModelConfig, params, x, plan=None):
-    """Dense FFN: swiglu / geglu, or a plain (biased) MLP; activation via the
-    plan's ``mlp:<activation>`` site."""
-    plan = plan if plan is not None else sfu.plan_for(cfg)
+def _mlp_hidden(cfg: ModelConfig, params, x, plan):
+    """The FFN's hidden state (B, S, d_ff) on one device (or one shard)."""
     key = sfu.site_key(sfu.SITE_MLP, cfg.activation)
     h = _fused_mlp_hidden(cfg, params, x, plan)
     if h is not None:
-        h = _guard_fused_mlp(cfg, params, x, h, plan, key)
+        return _guard_fused_mlp(cfg, params, x, h, plan, key)
+    act = plan.act(key)
+    if plan.spec(key).impl == "jnp":
+        # the table unfused (a plan's, or the degrade ladder's first
+        # rung): computed as the fused kernel computes it
+        return (plain_glu(act, x, params["w_gate"], params["w_up"])
+                if cfg.mlp_type in ("swiglu", "geglu")
+                else plain_linear_act(act, x, params["w_in"], params.get("b_in")))
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        return act(x @ params["w_gate"]) * (x @ params["w_up"])
+    h = x @ params["w_in"]
+    if "b_in" in params:
+        h = h + params["b_in"]
+    return act(h)
+
+
+def _mlp_hidden_sharded(rules, cfg: ModelConfig, params, x, plan):
+    """The hidden state per shard: d_ff columns over the rules' "mlp" axis,
+    batch over the data axes, the weights' d_model rows whole on every rank
+    (the FSDP gather), so the hidden is d_ff-local and needs no collective.
+    A d_ff the mlp extent does not divide replicates its columns, as
+    ``sanitize_spec`` does to the unfused constraint."""
+    names = (("w_gate", "w_up") if cfg.mlp_type in ("swiglu", "geglu")
+             else ("w_in", "b_in") if "b_in" in params else ("w_in",))
+    b = shf.batch_entry(rules, x.shape[0])
+    f = shf.dim_entry(rules, "mlp", params[names[0]].shape[-1])
+    specs = [shf.P(b, None, None)] + [shf.P(f) if n == "b_in" else shf.P(None, f)
+                                      for n in names]
+
+    def body(x_l, *w_l):
+        return _mlp_hidden(cfg, dict(zip(names, w_l)), x_l, plan)
+
+    return shf.run_sharded(rules, unruled(body), (x, *(params[n] for n in names)), specs,
+                           shf.P(b, None, f))
+
+
+def mlp(cfg: ModelConfig, params, x, plan=None):
+    """Dense FFN: swiglu / geglu, or a plain (biased) MLP; activation via the
+    plan's ``mlp:<activation>`` site.  Under a mesh the hidden state runs
+    per shard (:func:`_mlp_hidden_sharded`) and the down projection is a
+    row-parallel DTensor product, its partial sums reduced at the output's
+    ``constrain``."""
+    plan = plan if plan is not None else sfu.plan_for(cfg)
+    rules = active_mesh_rules()
+    if rules is None:
+        h = _mlp_hidden(cfg, params, x, plan)
+    elif params["w_down"].shape[0] == 0:
+        # an empty FFN (mamba2's d_ff 0): nothing to split, one body makes
+        # its zeros (and the empty weights' empty gradients)
+        names = sorted(params)
+        b = shf.batch_entry(rules, x.shape[0])
+
+        def body(x_l, *w_l):
+            return mlp(cfg, dict(zip(names, w_l)), x_l, plan)
+
+        return shf.run_sharded(rules, unruled(body), (x, *(params[n] for n in names)),
+                               (shf.P(b, None, None),) + tuple(shf.P() for _ in names),
+                               shf.P(b, None, None))
     else:
-        act = plan.act(key)
-        if plan.spec(key).impl == "jnp":
-            # the table unfused (a plan's, or the degrade ladder's first
-            # rung): computed as the fused kernel computes it
-            h = (plain_glu(act, x, params["w_gate"], params["w_up"])
-                 if cfg.mlp_type in ("swiglu", "geglu")
-                 else plain_linear_act(act, x, params["w_in"], params.get("b_in")))
-        elif cfg.mlp_type in ("swiglu", "geglu"):
-            h = act(x @ params["w_gate"]) * (x @ params["w_up"])
-        else:
-            h = x @ params["w_in"]
-            if "b_in" in params:
-                h = h + params["b_in"]
-            h = act(h)
+        h = _mlp_hidden_sharded(rules, cfg, params, x, plan)
+    # inside the TP region the hidden is sharded on d_ff only (Megatron)
+    h = constrain(h, "batch", None, "mlp")
     y = h @ params["w_down"]
     if "b_down" in params:
         y = y + params["b_down"]
-    return y
+    return constrain(y, "batch", "act_seq", "act_embed")
 
 
 # ---------------------------------------------------------------------------
@@ -473,6 +592,16 @@ def attention_layer(cfg: ModelConfig, params, x, *, kind: str = "attn", cache=No
     else:
         k, v = cross_kv
 
+    rules = active_mesh_rules()
+    if rules is not None:
+        y = _attention_core_sharded(rules, cfg, q, k, v, cache=cache, cache_pos=cache_pos,
+                                    paged=paged, cross=cross_kv is not None,
+                                    use_rope=use_rope, exp_fn=exp_fn, table=softmax_table,
+                                    window=window)
+        y = constrain(y, "batch", "act_seq", "act_heads", None)
+        out = torch.einsum("bshk,hkd->bsd", y, params["wo"])
+        return constrain(out, "batch", "act_seq", "act_embed"), cache
+
     off = 0 if cache_pos is None else cache_pos
     paged_rope = cache is not None and "k_pages" in cache and "rope" in paged
     if use_rope and cross_kv is None and not paged_rope:
@@ -508,29 +637,105 @@ def attention_layer(cfg: ModelConfig, params, x, *, kind: str = "attn", cache=No
             y = _attn_softmax_dispatch(q, k, v, causal=True, exp_fn=exp_fn,
                                        table=softmax_table, window=window)
     elif cache is not None and cross_kv is None:
-        T = cache["k"].shape[1]
-        ring = window is not None and T == window
-        pos0 = int(off)
-        for name, new in (("k", k), ("v", v)):
-            buf = cache[name]
-            new = new.to(buf.dtype)
-            if S == 1 and ring:
-                buf[:, pos0 % T:pos0 % T + 1] = new
-            elif ring and S >= T:  # the last T tokens, token p at slot p % T
-                buf.copy_(torch.roll(new[:, S - T:], S % T, dims=1))
-            else:
-                buf[:, pos0:pos0 + S] = new
-        if S == 1:
-            t = torch.arange(T, device=x.device)[None, :]
-            valid = ((t <= pos0) | (pos0 >= T)) if ring else t <= pos0
-            y = decode_attention(q, cache["k"], cache["v"], valid.expand(B, T), exp_fn,
-                                 softmax_table=softmax_table)
-        else:
-            y = _attn_softmax_dispatch(q, k, v, causal=True, exp_fn=exp_fn,
-                                       table=softmax_table, window=window)
+        y = _dense_cache_attend(q, k, v, cache["k"], cache["v"], int(off), window, exp_fn,
+                                softmax_table)
     else:
         y = _attn_softmax_dispatch(q, k, v, causal=cross_kv is None, exp_fn=exp_fn,
                                    table=softmax_table, window=window)
 
     out = torch.einsum("bshk,hkd->bsd", y, params["wo"])
     return out, cache
+
+
+def _dense_cache_attend(q, k, v, k_cache, v_cache, pos0: int, window, exp_fn, table):
+    """Write k / v into a dense layer cache (B, T, Hkv, dh) in place from
+    position ``pos0`` (a local layer's cache of T == window slots is a
+    ring), then attend: one decode position over the cache's valid slots,
+    or a prefill causally over the in-flight k / v."""
+    B, S = q.shape[:2]
+    T = k_cache.shape[1]
+    ring = window is not None and T == window
+    for buf, new in ((k_cache, k), (v_cache, v)):
+        new = new.to(buf.dtype)
+        if S == 1 and ring:
+            buf[:, pos0 % T:pos0 % T + 1] = new
+        elif ring and S >= T:  # the last T tokens, token p at slot p % T
+            buf.copy_(torch.roll(new[:, S - T:], S % T, dims=1))
+        else:
+            buf[:, pos0:pos0 + S] = new
+    if S == 1:
+        t = torch.arange(T, device=q.device)[None, :]
+        valid = ((t <= pos0) | (pos0 >= T)) if ring else t <= pos0
+        return decode_attention(q, k_cache, v_cache, valid.expand(B, T), exp_fn,
+                                softmax_table=table)
+    return _attn_softmax_dispatch(q, k, v, causal=True, exp_fn=exp_fn, table=table,
+                                  window=window)
+
+
+def dense_cache_spec(rules, cfg: ModelConfig, batch: int):
+    """The spec of a layer's dense (B, T, Hkv, dh) cache under a mesh: the
+    batch over its axes, the KV heads over "cache_kv" when q's heads split
+    with them in whole groups.  The sequence stays whole (the per-shard
+    body writes and reads it), so a ``cache_seq`` rule is not applied."""
+    hk = shf.gqa_shard_entries(rules, "act_heads", cfg.n_heads, "cache_kv", cfg.n_kv_heads)[1]
+    return shf.P(shf.batch_entry(rules, batch), None, hk, None)
+
+
+def _attention_core_sharded(rules, cfg: ModelConfig, q, k, v, *, cache, cache_pos, paged,
+                            cross: bool, use_rope: bool, exp_fn, table, window):
+    """The attention core under a mesh, from the projections' DTensors to
+    the (B, S, H, dh) output: a training or cross-attention call rotates
+    and attends in one per-shard body; a paged call writes its pages per
+    shard (``kv_cache``'s sharded writes, batch replicated) and then
+    attends per shard; a dense cache is written and read in one per-shard
+    body, on each rank's batch rows and KV heads."""
+    q = constrain(q, "batch", "act_seq", "act_heads", None)
+    S = q.shape[1]
+    if cache is not None and "k_pages" not in cache:
+        pos0 = int(0 if cache_pos is None else cache_pos)
+        spec = dense_cache_spec(rules, cfg, q.shape[0])
+        want = placements(rules.mesh, spec)
+        for t in (cache["k"], cache["v"]):
+            if list(t.placements) != want:
+                raise ValueError(f"dense cache placed {list(t.placements)}, the per-shard write "
+                                 f"needs {want}: make it under the rules (make_cache)")
+        if S == 1 and table is not None and _seq_sharded_fallback(rules, "decode KV cache"):
+            table = None
+        hs = shf.P(spec[0], None, spec[2], None)  # q's heads split with the cache's
+
+        def dense(q_l, k_l, v_l, kc_l, vc_l):
+            if use_rope:
+                pos = pos0 + torch.arange(S, device=q_l.device)[None, :].expand(q_l.shape[0], S)
+                q_l, k_l = rope(q_l, pos, cfg.rope_theta), rope(k_l, pos, cfg.rope_theta)
+            return _dense_cache_attend(q_l, k_l, v_l, kc_l, vc_l, pos0, window, exp_fn, table)
+
+        return shf.run_sharded(rules, unruled(dense), (q, k, v, cache["k"], cache["v"]),
+                               (hs, spec, spec, spec, spec), hs)
+    if cache is None:
+        rotate = use_rope and not cross
+
+        def body(q_l, k_l, v_l):
+            if rotate:
+                pos = torch.arange(S, device=q_l.device)[None, :].expand(q_l.shape[0], S)
+                q_l = rope(q_l, pos, cfg.rope_theta)
+                k_l = rope(k_l, pos, cfg.rope_theta)
+            return _attn_softmax_dispatch(q_l, k_l, v_l, causal=not cross, exp_fn=exp_fn,
+                                          table=table, window=window)
+
+        return _shard_attention(rules, body, q, k, v)
+    pools = (cache["k_pages"], cache["v_pages"])
+    page_table = paged["page_table"]
+    if "rope" not in paged:
+        raise NotImplementedError("a paged call under a mesh passes its rope tables")
+    if S == 1:
+        kv_len = paged["kv_len"]
+        q = _pg.rope_append_kv_(q, k, v, *pools, page_table, kv_len, *paged["rope"])
+        return paged_decode_attention(q, *pools, page_table, kv_len + 1, exp_fn,
+                                      softmax_table=table)
+    q, k = _pg.rope_write_prompt_pages_(q, k, v, *pools, page_table, *paged["rope"])
+
+    def attend(q_l, k_l, v_l):
+        return _attn_softmax_dispatch(q_l, k_l, v_l, causal=True, exp_fn=exp_fn, table=table,
+                                      window=window)
+
+    return _shard_attention(rules, attend, q, k, v)

@@ -27,7 +27,7 @@ import dataclasses
 import torch
 
 from . import encdec, transformer
-from .common import ModelConfig, init_params
+from .common import ModelConfig, init_params, logical_specs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +64,11 @@ class Model:
 
     def param_defs(self):
         return param_defs(self.cfg)
+
+    def param_logical(self):
+        """The logical-axis tuple of every parameter (the sharding rules'
+        input, ``distributed.sharding.specs_for_params``)."""
+        return logical_specs(self.param_defs())
 
     def init(self, seed: int = 0, master: bool = False):
         """Random weights: the serving tree, or with ``master=True`` the f32

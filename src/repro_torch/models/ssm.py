@@ -24,12 +24,22 @@ SiLU and dt's softplus resolve through the activation plan's ``ssm:*``
 sites: under an ``impl="kernel"`` plan the softplus runs the standalone PWL
 kernel (``kernels/ops.py``).  The block has no kernel of its own, as the
 JAX block has no Pallas kernel.
+
+Under rules with a mesh (training; a cache has no sharded path) the
+projections are DTensor products and the block's middle runs per shard in
+one ``local_map`` body (:func:`_mamba2_sharded`): heads and the inner width
+over "model" ("ssm_heads", "ssm_inner"), batch over the data axes, B and C
+whole on every rank.  The causal conv is depthwise, so each rank convolves
+its own x channels and every B/C channel; the gated RMSNorm's sum of
+squares over the inner width is the one collective.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import sfu
+from repro_torch.distributed import shard_fused as shf
+from repro_torch.distributed.sharding import active_mesh_rules, constrain, use_rules
 
 from .common import ModelConfig
 from .layers import rms_norm
@@ -140,6 +150,11 @@ def mamba2_layer(cfg: ModelConfig, params, x, cache=None, plan=None):
     dtype = x.dtype
     f32 = torch.float32
     plan = plan if plan is not None else sfu.plan_for(cfg)
+    rules = active_mesh_rules()
+    if rules is not None:
+        if cache is not None:
+            raise NotImplementedError("an SSM cache under a mesh is not ported")
+        return _mamba2_sharded(rules, cfg, params, x, plan), cache
     silu = plan.act(sfu.site_key(sfu.SITE_SSM, "silu"))
     softplus = plan.act(sfu.site_key(sfu.SITE_SSM, "softplus"))
 
@@ -193,3 +208,56 @@ def mamba2_layer(cfg: ModelConfig, params, x, cache=None, plan=None):
     # gated RMSNorm, then the out projection
     y = rms_norm(y * silu(z), params["norm_scale"])
     return y @ params["out_proj"], cache
+
+
+def _mamba2_sharded(rules, cfg: ModelConfig, params, x, plan):
+    """The Mamba2 block under a mesh (the module docstring), training only."""
+    B, L, D = x.shape
+    d_inner, n_heads, d_state, _, _ = ssm_dims(cfg)
+    P = cfg.ssm_head_dim
+    dtype = x.dtype
+    f32 = torch.float32
+    silu = plan.act(sfu.site_key(sfu.SITE_SSM, "silu"))
+    softplus = plan.act(sfu.site_key(sfu.SITE_SSM, "softplus"))
+    z = constrain(x @ params["in_z"], "batch", None, "ssm_inner")
+    x_in = x @ params["in_x"]
+    bc_in = x @ params["in_bc"]
+    dt_raw = x @ params["in_dt"]
+    b = shf.batch_entry(rules, B)
+    i = shf.dim_entry(rules, "ssm_inner", d_inner)
+    hh = shf.dim_entry(rules, "ssm_heads", n_heads)
+    if i != hh:  # whole heads per rank, or nothing split
+        i = hh = None
+    groups = [shf.axis_group(rules, a) for a in shf.entry_axes(i)]
+    conv_w, conv_b = params["conv_w"], params["conv_b"]
+    ops = (x_in, bc_in, dt_raw, z, conv_w[:, :d_inner], conv_w[:, d_inner:],
+           conv_b[:d_inner], conv_b[d_inner:], params["dt_bias"], params["A_log"], params["D"],
+           params["norm_scale"])
+    specs = (shf.P(b, None, i), shf.P(b, None, None), shf.P(b, None, hh), shf.P(b, None, i),
+             shf.P(None, i), shf.P(None, None), shf.P(i), shf.P(None), shf.P(hh), shf.P(hh),
+             shf.P(hh), shf.P(i))
+
+    def body(x_l, bc_l, dt_l, z_l, cwx, cwbc, cbx, cbbc, dt_bias, A_log, D_l, scale):
+        with use_rules(None):
+            x_ssm = silu(_causal_conv(x_l, cwx, cbx))
+            bc = silu(_causal_conv(bc_l, cwbc, cbbc))
+            Bmat, Cmat = bc[..., :d_state].to(f32), bc[..., d_state:].to(f32)
+            dt = softplus(dt_l.to(f32) + dt_bias.to(f32))
+            A = -torch.exp(A_log.to(f32))
+            B_l, h_l = x_l.shape[0], dt.shape[-1]
+            xh = x_ssm.to(f32).reshape(B_l, L, h_l, P)
+            y, _ = ssd_chunked(xh * dt[..., None], dt * A, Bmat, Cmat,
+                               chunk=min(cfg.ssm_chunk, L))
+            y = (y + D_l.to(f32)[None, None, :, None] * xh).reshape(B_l, L, h_l * P).to(dtype)
+            # the gated RMSNorm over the whole inner width: one sum of
+            # squares over the ranks, each then scaling its own columns
+            yf = (y * silu(z_l)).to(f32)
+            ss = yf.square().sum(dim=-1, keepdim=True)
+            for g in groups:
+                ss = shf.psum_split(ss, g)
+            yf = yf * torch.rsqrt(ss / d_inner + 1e-6)
+            return (yf * (1.0 + scale.to(f32))).to(dtype)
+
+    y = shf.run_sharded(rules, body, ops, specs, shf.P(b, None, i))
+    y = constrain(y, "batch", None, "ssm_inner")
+    return constrain(y @ params["out_proj"], "batch", None, "act_embed")

@@ -30,18 +30,20 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import sfu
+from repro_torch.distributed import shard_fused as shf
+from repro_torch.distributed.sharding import active_mesh_rules, constrain, is_dtensor
 
 from . import layers as L
 from . import moe as MOE
 from . import ssm as SSM
-from .common import ModelConfig, ParamDef, compute_params
+from .common import ModelConfig, ParamDef, compute_params, gather_layer
 
 # ---------------------------------------------------------------------------
 # parameter definitions
 
 
 def _stack(defs: dict, n: int) -> dict:
-    return {k: (ParamDef((n,) + v.shape, v.init, v.matrix) if isinstance(v, ParamDef)
+    return {k: (ParamDef((n,) + v.shape, ("layers",) + v.logical_axes, v.init, v.matrix) if isinstance(v, ParamDef)
                 else _stack(v, n))
             for k, v in defs.items()}
 
@@ -52,10 +54,10 @@ def moe_defs(cfg: ModelConfig) -> dict:
     it would change which experts are chosen."""
     D, E, Fe = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
     return {
-        "router": ParamDef((D, E), init="small_normal", matrix=False),
-        "w_gate": ParamDef((E, D, Fe)),
-        "w_up": ParamDef((E, D, Fe)),
-        "w_down": ParamDef((E, Fe, D)),
+        "router": ParamDef((D, E), ("embed", None), init="small_normal", matrix=False),
+        "w_gate": ParamDef((E, D, Fe), ("experts", "embed", "mlp")),
+        "w_up": ParamDef((E, D, Fe), ("experts", "embed", "mlp")),
+        "w_down": ParamDef((E, Fe, D), ("experts", "mlp", "embed")),
     }
 
 
@@ -64,10 +66,10 @@ def norm_defs(cfg: ModelConfig) -> dict:
     for olmo's non-parametric LayerNorm, an empty subtree as in JAX."""
     D = cfg.d_model
     if cfg.norm_type == "rmsnorm":
-        return {"scale": ParamDef((D,), init="zeros", matrix=False)}
+        return {"scale": ParamDef((D,), (None,), init="zeros", matrix=False)}
     if cfg.norm_type == "layernorm":
-        return {"scale": ParamDef((D,), init="ones", matrix=False),
-                "bias": ParamDef((D,), init="zeros", matrix=False)}
+        return {"scale": ParamDef((D,), (None,), init="ones", matrix=False),
+                "bias": ParamDef((D,), (None,), init="zeros", matrix=False)}
     if cfg.norm_type == "nonparam_ln":
         return {}
     raise ValueError(f"norm_type {cfg.norm_type!r}")
@@ -78,15 +80,15 @@ def attn_defs(cfg: ModelConfig) -> dict:
     the model dtype: the JAX package casts them to it at each use)."""
     D, H, Hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     defs = {
-        "wq": ParamDef((D, H, dh)),
-        "wk": ParamDef((D, Hkv, dh)),
-        "wv": ParamDef((D, Hkv, dh)),
-        "wo": ParamDef((H, dh, D)),
+        "wq": ParamDef((D, H, dh), ("embed", "heads", None)),
+        "wk": ParamDef((D, Hkv, dh), ("embed", "kv", None)),
+        "wv": ParamDef((D, Hkv, dh), ("embed", "kv", None)),
+        "wo": ParamDef((H, dh, D), ("heads", None, "embed")),
     }
     if cfg.qkv_bias:
-        defs["bq"] = ParamDef((H, dh), init="zeros")
-        defs["bk"] = ParamDef((Hkv, dh), init="zeros")
-        defs["bv"] = ParamDef((Hkv, dh), init="zeros")
+        defs["bq"] = ParamDef((H, dh), ("heads", None), init="zeros")
+        defs["bk"] = ParamDef((Hkv, dh), ("kv", None), init="zeros")
+        defs["bv"] = ParamDef((Hkv, dh), ("kv", None), init="zeros")
     return defs
 
 
@@ -96,10 +98,13 @@ def mlp_defs(cfg: ModelConfig) -> dict:
     each use)."""
     D, F = cfg.d_model, cfg.d_ff
     if cfg.mlp_type in ("swiglu", "geglu"):
-        return {"w_gate": ParamDef((D, F)), "w_up": ParamDef((D, F)),
-                "w_down": ParamDef((F, D))}
-    return {"w_in": ParamDef((D, F)), "b_in": ParamDef((F,), init="zeros"),
-            "w_down": ParamDef((F, D)), "b_down": ParamDef((D,), init="zeros")}
+        return {"w_gate": ParamDef((D, F), ("embed", "mlp")),
+                "w_up": ParamDef((D, F), ("embed", "mlp")),
+                "w_down": ParamDef((F, D), ("mlp", "embed"))}
+    return {"w_in": ParamDef((D, F), ("embed", "mlp")),
+            "b_in": ParamDef((F,), ("mlp",), init="zeros"),
+            "w_down": ParamDef((F, D), ("mlp", "embed")),
+            "b_down": ParamDef((D,), (None,), init="zeros")}
 
 
 def ssm_defs(cfg: ModelConfig) -> dict:
@@ -111,17 +116,17 @@ def ssm_defs(cfg: ModelConfig) -> dict:
     d_inner, n_heads, d_state, conv_ch, _ = SSM.ssm_dims(cfg)
     vec = dict(matrix=False)
     return {
-        "in_z": ParamDef((D, d_inner)),
-        "in_x": ParamDef((D, d_inner)),
-        "in_bc": ParamDef((D, 2 * d_state)),
-        "in_dt": ParamDef((D, n_heads)),
-        "conv_w": ParamDef((cfg.ssm_conv_dim, conv_ch), init="small_normal"),
-        "conv_b": ParamDef((conv_ch,), init="zeros"),
-        "A_log": ParamDef((n_heads,), init="zeros", **vec),
-        "D": ParamDef((n_heads,), init="ones", **vec),
-        "dt_bias": ParamDef((n_heads,), init="zeros", **vec),
-        "norm_scale": ParamDef((d_inner,), init="zeros", **vec),
-        "out_proj": ParamDef((d_inner, D)),
+        "in_z": ParamDef((D, d_inner), ("embed", "ssm_inner")),
+        "in_x": ParamDef((D, d_inner), ("embed", "ssm_inner")),
+        "in_bc": ParamDef((D, 2 * d_state), ("embed", None)),
+        "in_dt": ParamDef((D, n_heads), ("embed", "ssm_heads")),
+        "conv_w": ParamDef((cfg.ssm_conv_dim, conv_ch), (None, None), init="small_normal"),
+        "conv_b": ParamDef((conv_ch,), (None,), init="zeros"),
+        "A_log": ParamDef((n_heads,), ("ssm_heads",), init="zeros", **vec),
+        "D": ParamDef((n_heads,), ("ssm_heads",), init="ones", **vec),
+        "dt_bias": ParamDef((n_heads,), ("ssm_heads",), init="zeros", **vec),
+        "norm_scale": ParamDef((d_inner,), ("ssm_inner",), init="zeros", **vec),
+        "out_proj": ParamDef((d_inner, D), ("ssm_inner", "embed")),
     }
 
 
@@ -141,12 +146,12 @@ def model_defs(cfg: ModelConfig) -> dict:
     period = cfg.period
     n_periods = cfg.n_layers // period
     defs = {
-        "embed": ParamDef((cfg.padded_vocab, cfg.d_model), init="small_normal"),
+        "embed": ParamDef((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"), init="small_normal"),
         "final_norm": norm_defs(cfg),
         "layers": [_stack(block_defs(cfg, *kinds[j]), n_periods) for j in range(period)],
     }
     if not cfg.tie_embeddings:
-        defs["unembed"] = ParamDef((cfg.d_model, cfg.padded_vocab))
+        defs["unembed"] = ParamDef((cfg.d_model, cfg.padded_vocab), ("embed", "vocab"))
     return defs
 
 
@@ -194,15 +199,45 @@ def block_apply(cfg: ModelConfig, p, h, mixer: str, ffn: str, cache=None, pos=No
     return h + y2, cache, aux
 
 
+def _embed_sharded(rules, table, tokens):
+    """The lookup per shard (Megatron's vocab-parallel embedding): each
+    rank holds its rows of the vocab-sharded table (the FSDP gather gives it
+    every column), looks up the tokens it holds, zeroes the rows of tokens
+    outside its slice and one sum over the vocab axes makes the embedding
+    whole, as JAX's one-hot contraction over the sharded vocab does."""
+    V = table.shape[0]
+    b = shf.batch_entry(rules, tokens.shape[0])
+    v = shf.dim_entry(rules, "vocab", V)
+    groups = [shf.axis_group(rules, a) for a in shf.entry_axes(v)]
+
+    def body(tab, tok):
+        if v is None:
+            return tab[tok.long()]
+        n = tab.shape[0]
+        t = tok.long() - shf.entry_index(rules, v) * n
+        ok = (t >= 0) & (t < n)
+        h = torch.where(ok[..., None], tab[t.clamp(0, n - 1)], torch.zeros((), dtype=tab.dtype))
+        for g in groups:
+            h = shf.psum(h, g)
+        return h
+
+    return shf.run_sharded(rules, body, (table, tokens), (shf.P(v, None), shf.P(b, None)),
+                           shf.P(b, None, None))
+
+
 def embed_tokens(cfg: ModelConfig, params, tokens, vision_embeds=None):
     """(B, S) int tokens -> (B, S, D) in cfg.dtype (an index gather; the JAX
     package's one-hot contraction for short inputs gives the same values),
     behind ``vision_embeds`` (B, n_vision, D) when given: (B, n_vision + S,
-    D)."""
-    h = params["embed"][tokens.long()].to(cfg.dtype)
+    D).  Under a mesh, the vocab-parallel lookup (:func:`_embed_sharded`)."""
+    rules = active_mesh_rules()
+    if rules is not None:
+        h = _embed_sharded(rules, params["embed"], tokens).to(cfg.dtype)
+    else:
+        h = params["embed"][tokens.long()].to(cfg.dtype)
     if vision_embeds is not None:
         h = torch.cat([vision_embeds.to(cfg.dtype), h], dim=1)
-    return h
+    return constrain(h, "batch", "act_seq", "act_embed")
 
 
 def unembed(cfg: ModelConfig, params, h):
@@ -212,9 +247,12 @@ def unembed(cfg: ModelConfig, params, h):
         logits = h @ params["unembed"]
     logits = logits.to(torch.float32)
     if cfg.padded_vocab != cfg.vocab_size:  # mask pad ids out of the softmax
-        pad = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
-        logits = logits - pad.to(torch.float32) * 1e9
-    return logits
+        pad = torch.arange(cfg.padded_vocab, device=h.device) >= cfg.vocab_size
+        pad = pad.to(torch.float32) * 1e9
+        if is_dtensor(logits):  # every rank holds the mask alike
+            pad = shf.replicated(pad, logits.device_mesh)
+        logits = logits - pad
+    return constrain(logits, "batch", "act_seq", "vocab")
 
 
 def _run_layers(cfg: ModelConfig, params, h, cache=None, pos=None, paged=None,
@@ -229,11 +267,19 @@ def _run_layers(cfg: ModelConfig, params, h, cache=None, pos=None, paged=None,
     plan = sfu.plan_for(cfg)
     stacks = [_unbind(params["layers"][j], n_periods) for j in range(period)]
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    # under a mesh each layer's FSDP rows are gathered where it runs (again
+    # in the backward's recomputation under remat)
+    layer_defs = ([block_defs(cfg, *kinds[j]) for j in range(period)]
+                  if is_dtensor(h) else None)
+    if is_dtensor(h):
+        aux = shf.replicated(aux, h.device_mesh)
     for i in range(n_periods):
         def period_fn(h, aux, i=i):
             for j in range(period):
                 c = _layer(cache[j], i) if cache is not None else None
-                h, _, a = block_apply(cfg, stacks[j][i], h, *kinds[j], cache=c, pos=pos,
+                p = stacks[j][i] if layer_defs is None else gather_layer(layer_defs[j],
+                                                                         stacks[j][i])
+                h, _, a = block_apply(cfg, p, h, *kinds[j], cache=c, pos=pos,
                                       plan=plan, paged=paged)
                 if a is not None:
                     aux = aux + a
@@ -265,10 +311,49 @@ def forward(cfg: ModelConfig, params, tokens, vision_embeds=None):
     return forward_with_aux(cfg, params, tokens, vision_embeds)[0]
 
 
+def _cross_entropy_sharded(rules, logits, targets, mask):
+    """The cross entropy per shard, the vocab sharded end to end: each rank
+    takes the max, the exp-sum and the target pick over its vocab slice,
+    and the group's max and sums make them whole (the reductions JAX's
+    GSPMD partitions over the vocab); the token sums then go over the batch
+    axes.  Every rank returns the same mean."""
+    B, S, V = logits.shape
+    b = shf.batch_entry(rules, B)
+    v = shf.dim_entry(rules, "vocab", V)
+    vgroups = [shf.axis_group(rules, a) for a in shf.entry_axes(v)]
+    bgroups = [shf.axis_group(rules, a) for a in shf.entry_axes(b)]
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=targets.device)
+
+    def body(lf, tgt, msk):
+        lf = lf.to(torch.float32)
+        m = lf.amax(dim=-1, keepdim=True).detach()
+        for g in vgroups:
+            m = shf.pmax(m, g)
+        se = torch.exp(lf - m).sum(dim=-1)
+        off = shf.entry_index(rules, v) * lf.shape[-1] if v is not None else 0
+        vocab = off + torch.arange(lf.shape[-1], device=lf.device, dtype=tgt.dtype)
+        pick = torch.where(vocab == tgt[..., None], lf, 0.0).sum(dim=-1)
+        for g in vgroups:
+            se, pick = shf.psum(se, g), shf.psum(pick, g)
+        ll = pick - (torch.log(se) + m[..., 0])
+        num, den = (ll * msk).sum(), msk.sum()
+        for g in bgroups:
+            num, den = shf.psum(num, g), shf.psum(den, g)
+        return -num / torch.clamp(den, min=1)
+
+    return shf.run_sharded(rules, body, (logits, targets, mask),
+                           (shf.P(b, None, v), shf.P(b, None), shf.P(b, None)), shf.P())
+
+
 def sharded_cross_entropy(logits, targets, mask=None):
     """Mean next-token cross entropy, the JAX package's formula: a
     stop-gradient row max, a logsumexp, and the target logit picked by a
-    compare-and-sum over the vocab (no gather)."""
+    compare-and-sum over the vocab (no gather).  Under a mesh, per shard
+    (:func:`_cross_entropy_sharded`)."""
+    rules = active_mesh_rules()
+    if rules is not None:
+        return _cross_entropy_sharded(rules, logits, targets, mask)
     lf = logits.to(torch.float32)
     m = lf.amax(dim=-1, keepdim=True).detach()
     lse = torch.log(torch.exp(lf - m).sum(dim=-1)) + m[..., 0]
@@ -307,18 +392,39 @@ def cache_len(cfg: ModelConfig, mixer: str, max_len: int) -> int:
     return max_len
 
 
+def _serving_params(cfg: ModelConfig, params):
+    """Under a mesh, the serving tree with its FSDP rows gathered (what
+    every product reads); as it is otherwise."""
+    if active_mesh_rules() is None:
+        return params
+    return compute_params(model_defs(cfg), params, cfg.dtype)
+
+
+def _host_logits(logits):
+    """The logits every rank samples from alike: a DTensor's whole value."""
+    return logits.full_tensor() if is_dtensor(logits) else logits
+
+
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, device):
     """Dense cache, per period slot by its layer kind, every leaf in
     ``cfg.dtype`` and stacked (n_periods, ...): an attention slot's {k, v}
     of (B, T, Hkv, dh), T = :func:`cache_len` of its kind; an SSM slot's
-    {conv (B, K-1, C), ssm (B, H, P, N)}."""
+    {conv (B, K-1, C), ssm (B, H, P, N)}.  Under a mesh the attention
+    slots are placed by ``layers.dense_cache_spec`` (an SSM cache has no
+    sharded path)."""
     n_periods = cfg.n_layers // cfg.period
+    rules = active_mesh_rules()
 
     def zeros(*shape):
-        return torch.zeros((n_periods,) + shape, dtype=cfg.dtype, device=device)
+        t = torch.zeros((n_periods,) + shape, dtype=cfg.dtype, device=device)
+        if rules is None:
+            return t
+        return shf.place(t, rules.mesh, shf.P(None, *L.dense_cache_spec(rules, cfg, batch)))
 
     cache = []
     for mixer, _ in cfg.layer_kinds[:cfg.period]:
+        if mixer == "ssm" and rules is not None:
+            raise NotImplementedError("an SSM cache under a mesh is not ported")
         if mixer == "ssm":
             _, n_heads, d_state, conv_ch, _ = SSM.ssm_dims(cfg)
             cache.append({"conv": zeros(batch, cfg.ssm_conv_dim - 1, conv_ch),
@@ -333,16 +439,19 @@ def prefill(cfg: ModelConfig, params, tokens, cache, vision_embeds=None):
     """Prompt (behind an optional ``vision_embeds`` prefix) through the
     model, filling ``cache`` in place from position 0.  Returns the
     last-position logits (B, 1, V)."""
+    params = _serving_params(cfg, params)
     h = embed_tokens(cfg, params, tokens, vision_embeds)
     h, _ = _run_layers(cfg, params, h, cache=cache, pos=0)
-    return unembed(cfg, params, L.apply_norm(cfg, params["final_norm"], h[:, -1:]))
+    return _host_logits(unembed(cfg, params, L.apply_norm(cfg, params["final_norm"],
+                                                         h[:, -1:])))
 
 
 def decode_step(cfg: ModelConfig, params, tokens, cache, pos: int):
     """One-token decode at absolute position ``pos``.  tokens: (B, 1)."""
+    params = _serving_params(cfg, params)
     h = embed_tokens(cfg, params, tokens)
     h, _ = _run_layers(cfg, params, h, cache=cache, pos=pos)
-    return unembed(cfg, params, L.apply_norm(cfg, params["final_norm"], h))
+    return _host_logits(unembed(cfg, params, L.apply_norm(cfg, params["final_norm"], h)))
 
 
 # ---------------------------------------------------------------------------
@@ -376,12 +485,13 @@ def prefill_paged(cfg: ModelConfig, params, tokens, cache, page_table, lengths):
     """Prompt prefill into a paged cache (written in place).  tokens: (B, S)
     with S a multiple of the page size; rows past ``lengths`` are pads.
     Returns the logits at position lengths-1, (B, 1, V)."""
+    params = _serving_params(cfg, params)
     h = embed_tokens(cfg, params, tokens)
     B, S = tokens.shape
     positions = torch.arange(S, device=h.device)[None, :].expand(B, S)
     h, _ = _run_layers(cfg, params, h, cache=cache, pos=0,
                        paged={"page_table": page_table, "rope": _rope(cfg, positions)})
-    logits = unembed(cfg, params, L.apply_norm(cfg, params["final_norm"], h))
+    logits = _host_logits(unembed(cfg, params, L.apply_norm(cfg, params["final_norm"], h)))
     idx = torch.clamp(lengths.long() - 1, 0, logits.shape[1] - 1)
     return logits[torch.arange(logits.shape[0], device=logits.device), idx][:, None]
 
@@ -389,11 +499,12 @@ def prefill_paged(cfg: ModelConfig, params, tokens, cache, page_table, lengths):
 def decode_step_paged(cfg: ModelConfig, params, tokens, cache, page_table, kv_len):
     """One-token decode over the paged cache.  tokens: (B, 1); kv_len: (B,)
     per-request depths (the new token's position).  Returns (B, 1, V)."""
+    params = _serving_params(cfg, params)
     h = embed_tokens(cfg, params, tokens)
     h, _ = _run_layers(cfg, params, h, cache=cache, pos=kv_len,
                        paged={"page_table": page_table, "kv_len": kv_len,
                               "rope": _rope(cfg, kv_len[:, None])})
-    return unembed(cfg, params, L.apply_norm(cfg, params["final_norm"], h))
+    return _host_logits(unembed(cfg, params, L.apply_norm(cfg, params["final_norm"], h)))
 
 
 def _rope(cfg: ModelConfig, positions):

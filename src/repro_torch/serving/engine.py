@@ -44,6 +44,15 @@ the failed attempt left there (a NaN-poisoned layer's K/V included) and
 reads nothing else of it.  Each ``run()`` resets every warn-once latch
 first (``sfu.reset_all_warnings``), so a second session in one process
 reports its own fused fallbacks.
+
+``rules`` (a :class:`repro_torch.distributed.sharding.Rules` with a
+``DeviceMesh``) serves sharded, every rank of the mesh running the same
+engine on the same requests: the parameters are placed by
+``specs_for_params`` (a plain tree is placed here), the pools over their
+KV heads (``kv_cache.pool_spec``; replicated over the data axes, every data
+rank writing every request), and every model call runs under
+``use_rules``, so the fused kernels run per shard; the logits come back
+whole on every rank, which then sample alike.
 """
 from __future__ import annotations
 
@@ -56,8 +65,9 @@ import numpy as np
 import torch
 
 from repro_torch import sfu
+from repro_torch.distributed.sharding import use_rules
 
-from .kv_cache import check_targets
+from .kv_cache import check_targets, place_pools
 from .resilience import (
     RETRYABLE_EXCEPTIONS,
     PagePoolExhausted,
@@ -90,6 +100,7 @@ class PagedServingEngine:
         max_preemptions: int = 8,
         retry: Optional[RetryPolicy] = None,
         wall_clock_budget_s: Optional[float] = None,
+        rules=None,  # repro_torch.distributed.sharding.Rules: serve sharded
     ):
         if page_size & (page_size - 1):
             raise ValueError(f"page_size must be a power of two, got {page_size}")
@@ -103,7 +114,13 @@ class PagedServingEngine:
             # worst case: every slot at max_context, plus the sentinel
             num_pages = max_slots * self.max_cols + 1
         self.num_pages = num_pages
+        self.rules = rules
         self.cache = model.make_paged_cache(num_pages, page_size)
+        if rules is not None:
+            from repro_torch.launch.steps import shard_params
+
+            self.params = shard_params(model.cfg, params, rules)
+            self.cache = place_pools(model.cfg, self.cache, rules)
         self.sched = ContinuousBatchingScheduler(
             max_slots, page_size, num_pages, policy=policy,
             max_preemptions=max_preemptions, faults=faults)
@@ -137,6 +154,7 @@ class PagedServingEngine:
             def call(params, toks, cache, pt, lens):
                 fn = getattr(model if model is not None else self.model, name)
                 with contextlib.ExitStack() as stack:
+                    stack.enter_context(use_rules(self.rules))
                     if inject_site is not None:
                         stack.enter_context(sfu.guard.force_nan(inject_site))
                     col = stack.enter_context(sfu.guard.collecting()) if guard_on else None

@@ -32,6 +32,15 @@ repro-100m decode step with the rotation), a 2 x 4096 prefill by bytes
 (~90 MB), so the kernel moves 16-byte vectors.  A CPU tensor takes the plain version (index assignment); a
 CUDA tensor launches the kernel or raises.
 
+Under rules with a mesh (``distributed.sharding.active_mesh_rules``) the
+rotating writes run per shard in a ``local_map`` body on each rank's pools:
+the pools shard over their KV heads ("cache_kv"), q over the matching head
+groups, and the batch stays replicated, so every data rank applies every
+request's write and the pool replicas never diverge (the JAX package's
+``kv_cache.py:147-170, 233-255``).  The pools must already hold that
+placement: the body writes into their own storage.  :func:`check_targets`
+runs on the whole host table, outside the body.
+
 A write target outside the pools (a page id outside ``[0, P)``, or an
 append past the table's last column) is refused by :func:`check_targets`
 on host arrays: the CPU wrappers check their tensors, and the engine checks
@@ -46,6 +55,10 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from repro_torch.distributed import shard_fused as shf
+from repro_torch.distributed.sharding import active_mesh_rules, placements, unruled
+from repro_torch.kernels import _build
 
 from .resilience import PagePoolExhausted
 
@@ -177,6 +190,7 @@ def write_prompt_pages_(k_pages, v_pages, k_new, v_new, page_table) -> None:
     k_new/v_new: (B, S, Hkv, dh) with ``S % page_size == 0``; token ``s`` of
     request ``b`` lands in page ``page_table[b, s // page_size]`` slot
     ``s % page_size``.  Pools: (Hkv, P, page_size, dh), modified in place."""
+    _build.refuse_dtensor("write_prompt_pages_", k_pages, v_pages, k_new, v_new, page_table)
     Hkv, P, ps, dh = _check_pools(k_pages, v_pages, k_new, v_new, page_table)
     B, S = k_new.shape[:2]
     if S % ps:
@@ -189,8 +203,6 @@ def write_prompt_pages_(k_pages, v_pages, k_new, v_new, page_table) -> None:
         return
     if k_pages.device.type != "cuda":
         raise ValueError(f"pools must be on cpu or cuda, got {k_pages.device}")
-    from repro_torch.kernels import _build
-
     kn, vn, pt = _kernel_args(k_pages, v_pages, k_new, v_new, page_table)
     lib = _build.load("kv_cache", _SIGNATURES)
     dev = k_pages.device
@@ -227,6 +239,7 @@ def append_kv_(k_pages, v_pages, k_new, v_new, page_table, kv_len) -> None:
     k_new/v_new: (B, 1, Hkv, dh); ``kv_len``: (B,) int current valid length,
     so the token lands at page ``page_table[b, kv_len // ps]`` slot
     ``kv_len % ps``.  Inactive slots (all-sentinel rows) write into page 0."""
+    _build.refuse_dtensor("append_kv_", k_pages, v_pages, k_new, v_new, page_table, kv_len)
     Hkv, P, ps, dh = _check_pools(k_pages, v_pages, k_new, v_new, page_table)
     B = k_new.shape[0]
     if k_new.shape[1] != 1 or kv_len.shape != (B,):
@@ -237,8 +250,6 @@ def append_kv_(k_pages, v_pages, k_new, v_new, page_table, kv_len) -> None:
         return
     if k_pages.device.type != "cuda":
         raise ValueError(f"pools must be on cpu or cuda, got {k_pages.device}")
-    from repro_torch.kernels import _build
-
     kn, vn, pt = _kernel_args(k_pages, v_pages, k_new, v_new, page_table)
     if kv_len.device != k_pages.device:
         raise ValueError("kv_len must be on the pools' device")
@@ -290,8 +301,6 @@ def _rope_launch(fn: str, q, k, v, k_pages, v_pages, page_table, cos, sin, outs,
     """Launch ``kv_rope_write_prompt`` or ``kv_rope_append``: q, k, v at
     their own strides (the projections' outputs, read in place), the tables
     at theirs, ``outs`` allocated by the caller."""
-    from repro_torch.kernels import _build
-
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ValueError("pools must be contiguous (they are written in place)")
     if any(t.stride(-1) != 1 for t in (q, k, v, cos, sin)) or cos.stride() != sin.stride():
@@ -321,6 +330,45 @@ def _rope_launch(fn: str, q, k, v, k_pages, v_pages, page_table, cos, sin, outs,
     _build.check(err, fn)
 
 
+def pool_spec(rules, H: int, Hkv: int):
+    """The spec of a layer's (Hkv, P, ps, dh) pool under ``rules``: KV heads
+    over "cache_kv" when q's heads split with them in whole groups."""
+    return shf.P(shf.gqa_shard_entries(rules, "act_heads", H, "cache_kv", Hkv)[1],
+                 None, None, None)
+
+
+def place_pools(cfg, cache, rules):
+    """A paged cache's stacked (n_periods, Hkv, P, ps, dh) pools placed by
+    :func:`pool_spec` (each rank keeps its own heads)."""
+    spec = shf.P(None, *pool_spec(rules, cfg.n_heads, cfg.n_kv_heads))
+    return [{k: shf.place(t, rules.mesh, spec) for k, t in layer.items()} for layer in cache]
+
+
+def _sharded_rope_write(rules, body, q, k, v, k_pages, v_pages, page_table, extra, cos, sin,
+                        n_out: int):
+    """A rotating write per shard (the module docstring): ``body`` on each
+    rank's q / k / v head slices and pools, the whole batch."""
+    H, Hkv = q.shape[2], k_pages.shape[0]
+    pool = pool_spec(rules, H, Hkv)
+    h = hk = pool[0]
+    want = placements(rules.mesh, pool)
+    for t in (k_pages, v_pages):
+        if list(t.placements) != want:
+            raise ValueError(f"pools placed {list(t.placements)}, the write needs {want}: "
+                             "allocate them with kv_cache.pool_spec")
+    if page_table.device.type == "cpu":  # the engine checks its host mirrors
+        ps = k_pages.shape[2]
+        cols = q.shape[1] // ps if extra is None else page_table.shape[1]
+        check_targets(page_table[:, :cols], k_pages.shape[1], ps,
+                      None if extra is None else extra)
+    qs, kvs = shf.P(None, None, h, None), shf.P(None, None, hk, None)
+    ops = (q, k, v, k_pages, v_pages, page_table) + (() if extra is None else (extra,)) \
+        + (cos, sin)
+    specs = (qs, kvs, kvs, pool, pool, shf.P(None, None)) \
+        + (() if extra is None else (shf.P(None),)) + (shf.P(None, None, None),) * 2
+    return shf.run_sharded(rules, body, ops, specs, (qs, kvs)[:n_out] if n_out > 1 else qs)
+
+
 def rope_write_prompt_pages_plain(q, k, v, k_pages, v_pages, page_table, cos, sin):
     from repro_torch.models.layers import apply_rope
 
@@ -335,7 +383,11 @@ def rope_write_prompt_pages_(q, k, v, k_pages, v_pages, page_table, cos, sin):
     and ``v``.  q: (B, S, H, dh); k, v: (B, S, Hkv, dh); cos, sin: f32
     (B, S, dh // 2) from ``rope_tables``; one dtype for q, k, v and the
     pools.  Returns (rotated q, rotated k), which the in-flight attention
-    reads."""
+    reads.  Under a mesh, per shard (the module docstring)."""
+    rules = active_mesh_rules()
+    if rules is not None:
+        return _sharded_rope_write(rules, unruled(rope_write_prompt_pages_), q, k, v, k_pages,
+                                   v_pages, page_table, None, cos, sin, 2)
     B, S, H, Hkv, P, ps, dh = _check_rope(q, k, v, k_pages, v_pages, page_table, cos, sin)
     if S % ps:
         raise ValueError(f"prompt length {S} not a multiple of page_size {ps}")
@@ -368,7 +420,12 @@ def rope_append_kv_(q, k, v, k_pages, v_pages, page_table, kv_len, cos, sin):
     **in place**: :func:`append_kv_` of ``apply_rope(k, cos, sin)`` and
     ``v``.  q: (B, 1, H, dh); k, v: (B, 1, Hkv, dh); ``kv_len`` (B,), the
     token's position; cos, sin: f32 (B, 1, dh // 2) from ``rope_tables`` at
-    ``kv_len``.  Returns the rotated q."""
+    ``kv_len``.  Returns the rotated q.  Under a mesh, per shard (the
+    module docstring)."""
+    rules = active_mesh_rules()
+    if rules is not None:
+        return _sharded_rope_write(rules, unruled(rope_append_kv_), q, k, v, k_pages, v_pages,
+                                   page_table, kv_len, cos, sin, 1)
     B, S, H, Hkv, P, ps, dh = _check_rope(q, k, v, k_pages, v_pages, page_table, cos, sin)
     if S != 1 or kv_len.shape != (B,):
         raise ValueError("rope_append_kv_ takes one token per request and (B,) kv_len")

@@ -190,7 +190,20 @@
    site's kernels launched where the plan says ``fused`` and not
    elsewhere).  ``roofline_lines`` prints ``repro_torch.roofline``'s model
    FLOPs and ``mfu`` of the 8 x 512 and 1 x 4096 training steps timed
-   above, and the default serve session's memory-bound decode time.
+   above, and the default serve session's memory-bound decode time;
+21. slice 21, the SSM and encoder-decoder caches under a mesh and the dry
+   run (no new kernel): ``shard_shapes_phase`` adds the kernels their
+   per-shard bodies launch at a 2 x 2 rank's block of the decode cell
+   (mamba2-2.7b's dt softplus on the standalone PWL kernel at 40 of 80
+   heads, bitwise; whisper-small's self- and cross-attention row softmax
+   at 6 of 12 KV heads); ``dryrun_phase`` runs ``python -m
+   repro_torch.launch.dryrun`` in subprocesses on a fake 512-rank process
+   group and the meta device, started after the build at the lowest CPU
+   priority so that they run beside the kernel phases (repro-100m's four
+   shapes on both meshes, mamba2-2.7b, whisper-small, full-width
+   jamba-v0.1-52b and qwen2.5-32b's training cell on 2 x 16 x 16), holds
+   every row ``ok`` or JAX's SKIP row and the pinned collective counts,
+   and prints the report's tables.
 
 Every failed check exits non-zero.  The last two lines of standard output
 are the kernels' JSON line and ``{"ok": true, "device": {...}}``; the card's
@@ -202,7 +215,9 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import pathlib
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3162,6 +3177,7 @@ def whisper_serve_phase(torch, plan: str) -> dict:
 
 
 WHISPER_STEPS = 4
+WHISPER_SELF_POS = 200  # a shard row's decode position in its 448-slot self-attention cache
 
 
 def whisper_train_phase(torch, plan: str) -> dict:
@@ -6100,8 +6116,15 @@ def shard_shapes_phase(torch, card: str) -> list:
     the order band, and dzu whole; the page writes bitwise), timed beside
     its bound.  Builds no model and loads no weights.  Then the production
     mesh's (16 x 16) local shapes of qwen2.5-32b, whose 40 heads do not
-    divide 16: the rules take sequence-parallel attention.  Returns the
-    rows of the kernels line (no launches: one card runs no mesh)."""
+    divide 16: the rules take sequence-parallel attention.  Slice 21 adds
+    the kernels the SSM and encoder-decoder caches' per-shard bodies
+    launch on a rank's block of the decode cell (2 of its 4 slots): the
+    standalone PWL kernel on mamba2-2.7b's one-step dt softplus at 40 of
+    its 80 heads (bitwise), and the row softmax on whisper-small's cached
+    decode at 6 of its 12 KV heads, over a 448-slot self-attention cache
+    with a valid prefix and over the 1500 frames of the cross-attention.
+    Returns the rows of the kernels line (no launches: one card runs no
+    mesh)."""
     import torch.nn.functional as F
 
     from repro_torch.distributed.sharding import AbstractMesh
@@ -6116,6 +6139,7 @@ def shard_shapes_phase(torch, card: str) -> list:
     from repro_torch.kernels.fused.decoding import paged_flash_decode_plain
     from repro_torch.kernels.fused.glu import fused_glu_bwd, fused_glu_bwd_plain, fused_glu_plain
     from repro_torch.kernels.fused.softmax import fused_pwl_softmax_plain, static_mask
+    from repro_torch.launch.steps import make_cell_rules
     from repro_torch.models import ShapeCell
 
     t0 = time.perf_counter()
@@ -6360,6 +6384,71 @@ def shard_shapes_phase(torch, card: str) -> list:
                          **r, "shape": f"{arch} {r['shape']}, a rank's heads on the (data=2, "
                                        "model=2) mesh, the whole batch (on no path of one card)",
                          "launches": 0})
+    # slice 21: the SSM and encoder-decoder caches' per-shard bodies at a
+    # rank's block of the paged decode cell's slots
+    from repro_torch import sfu
+    from repro_torch.distributed import shard_fused as shf
+    from repro_torch.kernels import ops, pwl_act
+    from repro_torch.kernels.fused.epilogue import pack_table
+    from repro_torch.models import encdec, ssm
+
+    mamba = get_config(MAMBA)
+    rules = make_cell_rules(mamba, mesh, decode)
+    state = shf.local_shape(rules, ssm.cache_spec(rules, mamba, decode.global_batch)["ssm"],
+                            (decode.global_batch, MAMBA_H, mamba.ssm_head_dim, mamba.ssm_state))
+    check(state[:2] == (SHARD_DECODE_SLOTS // 2, MAMBA_H // 2),
+          f"shard {MAMBA}: the decode's local state {state}")
+    # the one-step body's dt softplus on the standalone kernel (the table of
+    # mamba2_plan(..., softplus_kernel=True)): f32 (rows, 1, heads) of the rank
+    sp = sfu.get_store().get(sfu.compile_plan(get_config(MAMBA, act_impl="fused")).spec(
+        "ssm:softplus"))
+    sp_ops = tuple(a.to(dev) for a in pack_table(sp))
+    x = torch.randn((state[0], 1, state[1]), generator=gen, device=dev) * 2.0
+    shape = f"{MAMBA} decode dt {state[0]} x 1 x {state[1]} f32, softplus"
+    n0 = ops.pwl_activation.launches
+    got = ops.pwl_activation(x, sp)
+    check(ops.pwl_activation.launches == n0 + 1, f"shard pwl_activation {shape}: not launched")
+    _bitwise(torch, got, pwl_act.pwl_nonuniform_plain(x, *sp_ops), f"shard pwl {shape}")
+    row("pwl_activation", "pwl_act.cu", "src/repro/kernels/pwl_act.py:40", shape, 0.0,
+        time_ms(torch, lambda i: ops.pwl_activation(x, sp)),
+        time_ms(torch, lambda i: pwl_act.pwl_nonuniform_plain(x, *sp_ops)), None,
+        _elementwise_bound(x.numel(), x.element_size(), SEARCH_OPS + 2))
+
+    whisper = get_config("whisper-small")
+    rules = make_cell_rules(whisper, mesh, decode)
+    kv = shf.local_shape(rules, encdec.cache_specs(rules, whisper, decode.global_batch)["xk"],
+                         (whisper.n_layers, decode.global_batch, WHISPER_FRAMES,
+                          whisper.n_kv_heads, whisper.resolved_head_dim))
+    Bl, hl = kv[1], kv[3]
+    check((Bl, hl) == (SHARD_DECODE_SLOTS // 2, whisper.n_kv_heads // 2),
+          f"shard whisper-small: the decode's local cross K/V {kv}")
+    # the dense-cache body's decode over the self-attention cache (a valid
+    # prefix), then the cross-attention over the 1500 frames, both on the
+    # row softmax kernel
+    for what, x, mask in (
+            ("self", torch.randn((Bl, hl, 1, WHISPER_TRAIN_SEQ), generator=gen, device=dev) * 3,
+             (torch.arange(WHISPER_TRAIN_SEQ, device=dev) <= WHISPER_SELF_POS)[None, None,
+                                                                             None, :]),
+            ("cross", torch.randn((Bl, 1, hl, 1, WHISPER_FRAMES), generator=gen, device=dev) * 3,
+             None)):
+        N = x.shape[-1]
+        shape = f"whisper-small {what}-attention decode {Bl}x{hl} rows x {N} f32"
+        x2 = x.reshape(-1, N)
+        mask2 = (None if mask is None else
+                 torch.broadcast_to(mask.to(torch.float32), x.shape).reshape(-1, N))
+        n0 = fused_pwl_softmax.launches
+        got = fused_pwl_softmax(x, table=exp_table, mask=mask)
+        check(fused_pwl_softmax.launches == n0 + 1, f"shard softmax {shape}: not launched")
+        want = fused_pwl_softmax_plain(x2, mask2, exp_plan, exp_tables).reshape(x.shape)
+        live = torch.ones_like(x2, dtype=torch.bool) if mask2 is None else mask2 > 0
+        err = _compare_probs(torch, got, want, live, 1e-5, f"shard softmax {shape}")
+        row("fused_pwl_softmax", "softmax.cu", "src/repro/kernels/fused/softmax.py:69", shape,
+            err, time_ms(torch, lambda i: fused_pwl_softmax(x, table=exp_table, mask=mask)),
+            time_ms(torch, lambda i: fused_pwl_softmax_plain(x2, mask2, exp_plan, exp_tables),
+                    reps=5, iters=4),
+            time_ms(torch, lambda i: torch.softmax(x, dim=-1)),
+            _bound(_softmax_bytes(x.numel(), int(live.sum()), 1, mask is not None), 0.0))
+
     # the production mesh: qwen2.5-32b's 40 heads do not divide 16
     from repro_torch.models import SHAPE_CELLS
 
@@ -6375,6 +6464,109 @@ def shard_shapes_phase(torch, card: str) -> list:
               f"cache_seq over model)")
     print(f"[smoke] shard_shapes_phase {time.perf_counter() - t0:.1f}s; {card}")
     return rows
+
+
+# the full-width dry-run rows' collectives by kind that tests/test_torch_dryrun.py
+# pins on the CPU (its FULL_WIDTH_PINS)
+DRYRUN_PINS = {
+    "repro-100m__decode_32k__multi": {"all-gather": 89, "all-reduce": 13},
+}
+DRYRUN_RUNS = (  # the dry run's arguments, one process each, all started together
+    ("--arch", "repro-100m"),
+    ("--arch", MAMBA, "--shape", "decode_32k", "--singlepod-only"),
+    ("--arch", MAMBA, "--shape", "long_500k", "--singlepod-only"),
+    ("--arch", "whisper-small", "--shape", "decode_32k", "--singlepod-only"),
+    ("--arch", "jamba-v0.1-52b", "--shape", "decode_32k", "--singlepod-only"),
+    ("--arch", "qwen2.5-32b", "--shape", "train_4k", "--multipod-only"),
+)
+DRYRUN_TIMEOUT_S = 900
+DRYRUN_SKIP = "SKIP (full attention at 500k — DESIGN.md Sec. 5)"
+
+
+_DRYRUN: dict = {}  # the running dry run: its processes, rows' folder, start time
+
+
+def dryrun_start() -> dict:
+    """Start ``python -m repro_torch.launch.dryrun`` on this machine's torch,
+    each run of ``DRYRUN_RUNS`` in a subprocess of its own (the fake
+    512-rank process group never enters this process;
+    ``CUDA_VISIBLE_DEVICES`` empty: everything is on the meta device), at
+    the lowest CPU priority (``nice`` 19), so that they run beside the
+    kernel phases, which use one core of the host, and take no wall time of
+    their own.  :func:`dryrun_phase` collects them; :func:`dryrun_stop`
+    ends any still running."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    out = pathlib.Path(tempfile.mkdtemp(prefix="dryrun_"))
+    procs = []
+    for i, args in enumerate(DRYRUN_RUNS):  # each log to a file: no pipe fills unread
+        with open(out / f"run{i}.log", "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out", str(out)],
+                env=env, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+                preexec_fn=lambda: os.nice(19)))
+    _DRYRUN.update(procs=procs, out=out, t0=time.time())
+    return _DRYRUN
+
+
+def dryrun_stop() -> None:
+    """Kill the dry-run processes still running and remove their rows."""
+    for p in _DRYRUN.pop("procs", []):
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    if "out" in _DRYRUN:
+        shutil.rmtree(_DRYRUN["out"], ignore_errors=True)
+    _DRYRUN.clear()
+
+
+def dryrun_phase(card: str, started: dict) -> dict:
+    """Wait for the runs :func:`dryrun_start` started: repro-100m's four
+    shapes on both meshes (``long_500k`` JAX's SKIP row), mamba2-2.7b
+    ``decode_32k`` and ``long_500k``, whisper-small ``decode_32k``,
+    full-width jamba-v0.1-52b ``decode_32k`` on 16 x 16 and qwen2.5-32b
+    ``train_4k`` on 2 x 16 x 16.  Each row reads ``ok`` or the SKIP row,
+    the pinned cells' collectives equal ``DRYRUN_PINS``, and ``python -m
+    repro_torch.roofline.report`` renders the rows (printed).  Returns the
+    rows by tag, the seconds from the start to the last row and the seconds
+    this call waited."""
+    t_wait = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    out = started["out"]
+    try:
+        logs = []
+        for i, (args, p) in enumerate(zip(DRYRUN_RUNS, started["procs"])):
+            p.wait(timeout=DRYRUN_TIMEOUT_S)
+            logs.append((out / f"run{i}.log").read_text())
+            check(p.returncode == 0, f"dryrun {' '.join(args)}: rc {p.returncode}\n"
+                  + logs[-1][-3000:])
+        waited = time.perf_counter() - t_wait
+        for log in logs:
+            for line in log.splitlines():
+                if line.startswith(("[ok]", "[skip]", "[FAIL]", "done:")):
+                    print(f"[smoke] dryrun {line}")
+        rows = {p.stem: json.loads(p.read_text()) for p in sorted(out.glob("*.json"))}
+        seconds = max(p.stat().st_mtime for p in out.glob("*.json")) - started["t0"]
+        check(len(rows) == 13, f"dryrun: {len(rows)} rows, want 13: {sorted(rows)}")
+        for tag, r in rows.items():
+            want_skip = r["shape"] == "long_500k" and r["arch"] == "repro-100m"
+            check(r["status"] == (DRYRUN_SKIP if want_skip else "ok"),
+                  f"dryrun {tag}: status {r['status']!r}")
+            if tag in DRYRUN_PINS:
+                check(r["collective_counts"] == DRYRUN_PINS[tag],
+                      f"dryrun {tag}: collectives {r['collective_counts']}, pinned "
+                      f"{DRYRUN_PINS[tag]}")
+        check(rows["qwen2.5-32b__train_4k__multi"]["chips"] == 512, "dryrun: qwen's mesh")
+        rep = subprocess.run([sys.executable, "-m", "repro_torch.roofline.report", "--dir",
+                              str(out)], env=env, cwd=ROOT, capture_output=True, text=True,
+                             timeout=120)
+        check(rep.returncode == 0 and "### Roofline (single-pod)" in rep.stdout,
+              f"report: rc {rep.returncode}\n{rep.stderr[-2000:]}")
+        print(rep.stdout)
+    finally:
+        dryrun_stop()
+    print(f"[smoke] dryrun_phase {seconds:.1f}s from its start to its last row, "
+          f"{waited:.1f}s waited for ({len(rows)} rows; {card})")
+    return {"rows": rows, "seconds": seconds, "waited": waited}
 
 
 def main() -> int:
@@ -6397,6 +6589,7 @@ def main() -> int:
 
     try:
         build_s = build_phase()
+        dry_started = dryrun_start()  # runs beside the kernel phases below
         glu = glu_phase(torch)
         moe = moe_phase(torch)
         glu_decode_phase(torch)
@@ -6428,6 +6621,8 @@ def main() -> int:
         mark("slice 15 kernel phases (the new architectures' shapes)")
         shard_rows = shard_shapes_phase(torch, card)
         mark("slice 20 shard_shapes_phase (every fused kernel at a 2 x 2 mesh rank's shapes)")
+        dry = dryrun_phase(card, dry_started)
+        mark(f"slice 21 dryrun_phase ({dry['seconds']:.1f}s, {dry['waited']:.1f}s waited for)")
         main_counts = serve_phase(torch, [], no_attention_kernels)
         serve_phase(torch, ["--batch", "8", "--prompt-len", "256", "--max-new", "32"],
                     no_attention_kernels)
@@ -6553,6 +6748,8 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        dryrun_stop()
 
     g = glu[(4, torch.bfloat16)]
     kernels = [

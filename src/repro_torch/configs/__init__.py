@@ -15,8 +15,9 @@ ARCH_IDS = ["repro-100m", "olmoe-1b-7b", "whisper-small", "olmo-1b", "stablelm-1
 
 # the JAX package's architectures whose full width waits, and on what
 REFUSED = {
-    "jamba-v0.1-52b": "distribution (102.9 GB of bf16 weights), not ported yet; "
-                      "get_reduced_config gives its reduced config",
+    "jamba-v0.1-52b": "two cards for its distribution (102.9 GB of bf16 "
+                      "weights), and the chip machine has one; get_reduced_config "
+                      "gives its reduced config",
     "phi3.5-moe-42b-a6.6b": "two cards for its distribution (83.7 GB of bf16 "
                             "weights), and the chip machine has one; get_reduced_config "
                             "gives its reduced config",

@@ -274,6 +274,17 @@ def pmax(x, group):
     return y
 
 
+def all_gather_dim(x, group, dim: int):
+    """The blocks of ``x`` that the ranks of ``group`` hold, concatenated
+    along ``dim`` in rank order (a functional all-gather; no gradient: the
+    callers gather cache writes)."""
+    n = dist.get_world_size(group)
+    c10d = torch.ops._c10d_functional
+    y = c10d.wait_tensor(c10d.all_gather_into_tensor(x.detach().contiguous(), n,
+                                                     group.group_name))
+    return torch.cat(y.chunk(n), dim=dim)
+
+
 def entry_axes(entry) -> tuple:
     """The mesh axes of a spec entry."""
     if entry is None:
@@ -303,6 +314,7 @@ def axis_group(rules: Rules, axis: str):
 
 __all__ = [
     "P",
+    "all_gather_dim",
     "axis_group",
     "axis_index",
     "batch_entry",

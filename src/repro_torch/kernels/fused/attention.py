@@ -60,6 +60,7 @@ from repro_torch.core.functions import tie_max
 from repro_torch.core.pwl import PWLTable
 from repro_torch.kernels import _build
 
+from . import meta
 from .backward import resolve_impl_bwd
 from .epilogue import (
     EPILOGUE_ARGTYPES,
@@ -363,6 +364,8 @@ def fused_flash_attention_bwd(q, k, v, dout, m, plan: EpiloguePlan, tables, *, c
     ``m`` (B, H, S) f32, in the inputs' dtypes: the backward kernels on CUDA
     tensors, their plain version on CPU tensors."""
     _build.refuse_dtensor("fused_flash_attention_bwd", q, k, v, dout, m)
+    if meta.is_meta(q):  # shapes only (meta.py)
+        return meta.flash_bwd(q, k, v, dout, causal, window, int(q_offset))
     kw = dict(causal=causal, window=window, q_offset=int(q_offset), kv_valid_len=kv_valid_len)
     if q.device.type == "cpu":
         refuse_unsorted(plan, tables)
@@ -384,6 +387,8 @@ class _FlashOp(torch.autograd.Function):
             out, m = fused_flash_attention_plain(q, k, v, plan, tables, causal=causal,
                                                  window=window, q_offset=q_offset,
                                                  kv_valid_len=kv_valid_len)
+        elif meta.is_meta(q):  # shapes only (meta.py)
+            out, m = meta.flash(q, k, v, causal, window, q_offset)
         else:
             out, m = _launch(q, k, v, plan, tables, causal, window, q_offset, kv_valid_len,
                              need_grad)

@@ -40,6 +40,7 @@ import torch
 from repro_torch.core.pwl import PWLTable
 from repro_torch.kernels import _build
 
+from . import meta
 from .epilogue import (
     EPILOGUE_ARGTYPES,
     EpiloguePlan,
@@ -188,6 +189,8 @@ def paged_flash_decode(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Te
         raise ValueError(f"page_table must be ({B}, n_cols >= 1), got {tuple(page_table.shape)}")
     pps = pages_per_split or max(1, DEFAULT_SPLIT_KEYS // ps)
     pps = min(pps, page_table.shape[1])
+    if meta.is_meta(q):  # shapes only (meta.py)
+        return meta.paged_decode(q, k_pages, v_pages, page_table)
     if q.device.type == "cpu":
         return paged_flash_decode_plain(q, k_pages, v_pages, page_table, kv_len, plan,
                                         tables, pps)

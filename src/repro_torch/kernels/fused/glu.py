@@ -38,6 +38,7 @@ import torch
 from repro_torch.core.pwl import PWLTable
 from repro_torch.kernels import _build
 
+from . import meta
 from .backward import resolve_impl_bwd
 from .epilogue import (
     EPILOGUE_ARGTYPES,
@@ -175,6 +176,8 @@ def fused_glu_bwd(x, w_gate, w_up, g, plan: EpiloguePlan, tables, counter=None):
     own wrapper) unless the problem is empty, its plain version on CPU
     tensors."""
     _build.refuse_dtensor("fused_glu_bwd", x, w_gate, w_up, g)
+    if meta.is_meta(x):  # shapes only (meta.py)
+        return meta.glu_bwd(x, w_gate, w_up, g)
     if x.device.type == "cpu":
         refuse_unsorted(plan, tables)
         return fused_glu_bwd_plain(x, w_gate, w_up, g, plan, tables)
@@ -195,6 +198,8 @@ class _GLUOp(torch.autograd.Function):
         if x.device.type == "cpu":
             refuse_unsorted(plan, tables)
             y = fused_glu_plain(x, w_gate, w_up, plan, tables)
+        elif meta.is_meta(x):  # shapes only (meta.py)
+            y = meta.glu(x, w_gate, w_up)
         else:  # the kernel, or its refusals (another device among them)
             y = _launch_forward(counter.__name__, x, w_gate, w_up, plan, tables)
             if y.numel():  # an empty problem launches nothing

@@ -31,6 +31,7 @@ import torch
 from repro_torch.core.pwl import PWLTable
 from repro_torch.kernels import _build
 
+from . import meta
 from .backward import resolve_impl_bwd
 from .epilogue import (
     EPILOGUE_ARGTYPES,
@@ -125,6 +126,8 @@ def fused_linear_bwd(x, w, b, g, plan: EpiloguePlan, tables):
     CUDA tensors, counted on ``fused_linear.bwd_launches``, its plain
     version on CPU tensors."""
     _build.refuse_dtensor("fused_linear_bwd", x, w, b, g)
+    if meta.is_meta(x):  # shapes only (meta.py)
+        return meta.linear_bwd(x, w, g)
     if x.device.type == "cpu":
         refuse_unsorted(plan, tables)
         return fused_linear_bwd_plain(x, w, b, g, plan, tables)
@@ -143,6 +146,8 @@ class _LinearOp(torch.autograd.Function):
         if x.device.type == "cpu":
             refuse_unsorted(plan, tables)
             y = fused_linear_plain(x, w, b, plan, tables)
+        elif meta.is_meta(x):  # shapes only (meta.py)
+            y = meta.linear(x, w)
         else:  # the kernel, or its refusals (another device among them)
             y = _launch("fused_linear", x, w, b, plan, tables)
             if y.numel():  # an empty problem launches nothing

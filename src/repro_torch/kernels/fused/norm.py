@@ -43,6 +43,7 @@ import torch
 from repro_torch.core.pwl import PWLTable
 from repro_torch.kernels import _build
 
+from . import meta
 from .backward import resolve_impl_bwd
 from .epilogue import (
     EPILOGUE_ARGTYPES,
@@ -187,6 +188,8 @@ def fused_rmsnorm_bwd(x, scale, g, plan: EpiloguePlan, tables, eps: float = 1e-6
     kernel on CUDA tensors, counted on ``fused_rmsnorm.bwd_launches``, its
     plain version on CPU tensors."""
     _build.refuse_dtensor("fused_rmsnorm_bwd", x, scale, g)
+    if meta.is_meta(x):  # shapes only (meta.py)
+        return meta.rmsnorm_bwd(x, scale, g)
     if x.device.type == "cpu":
         refuse_unsorted(plan, tables)
         return fused_rmsnorm_bwd_plain(x, scale, g, plan, tables, eps)
@@ -205,6 +208,8 @@ class _RMSNormOp(torch.autograd.Function):
         if x.device.type == "cpu":
             refuse_unsorted(plan, tables)
             y = fused_rmsnorm_plain(x, scale, plan, tables, eps)
+        elif meta.is_meta(x):  # shapes only (meta.py)
+            y = meta.rmsnorm(x, scale)
         else:  # the kernel, or its refusals (another device among them)
             y = _launch(x, scale, plan, tables, eps)
             if y.numel():  # an empty problem launches nothing

@@ -50,6 +50,7 @@ from repro_torch.core.functions import tie_max
 from repro_torch.core.pwl import PWLTable
 from repro_torch.kernels import _build
 
+from . import meta
 from .backward import resolve_impl_bwd
 from .epilogue import (
     EPILOGUE_ARGTYPES,
@@ -262,6 +263,8 @@ def fused_pwl_softmax_bwd(x2, mask2, g2, plan: EpiloguePlan, tables, seq_len: in
     on CUDA tensors, its plain version on CPU tensors.  ``mask2`` /
     ``causal`` / ``window`` / ``seq_len`` as the forward took them."""
     _build.refuse_dtensor("fused_pwl_softmax_bwd", x2, mask2, g2)
+    if meta.is_meta(x2):  # shapes only (meta.py)
+        return meta.row_softmax_bwd(x2, g2)
     if x2.device.type == "cpu":
         refuse_unsorted(plan, tables)
         return fused_pwl_softmax_bwd_plain(
@@ -279,6 +282,8 @@ class _SoftmaxOp(torch.autograd.Function):
             refuse_unsorted(plan, tables)
             y = fused_pwl_softmax_plain(
                 x2, _plain_mask(x2, mask2, seq_len, causal, window), plan, tables)
+        elif meta.is_meta(x2):  # shapes only (meta.py)
+            y = meta.row_softmax(x2)
         else:
             y = _launch(x2, mask2, plan, tables, seq_len, causal, window)
         ctx.save_for_backward(x2, mask2)

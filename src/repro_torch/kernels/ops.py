@@ -18,6 +18,7 @@ from repro_torch.core.pwl import PWLTable
 from repro_torch.kernels import _build
 
 from . import pwl_act
+from .fused import meta
 from .fused.epilogue import check_ascending, device_operands, pack_for, pack_table
 
 
@@ -51,6 +52,8 @@ def pwl_activation(x: torch.Tensor, table: PWLTable, *,
         _, (bp, dmq) = device_operands(table, None, x.device)
     else:
         bp, dmq = pack_for(table, x.device, table_dtype)
+    if meta.is_meta(x):  # shapes only (fused/meta.py)
+        return meta.pwl(x)
     if x.device.type == "cpu":
         check_ascending(bp)  # as the kernel refuses them
         return pwl_act.pwl_nonuniform_plain(x, bp, dmq)
@@ -67,6 +70,8 @@ def pwl_activation_uniform(x: torch.Tensor, m, q, lo: float, hi: float) -> torch
     _build.refuse_dtensor("pwl_activation_uniform", x)
     _refuse_grad("pwl_activation_uniform", x)
     mq = pack_uniform(m, q)
+    if meta.is_meta(x):  # shapes only (fused/meta.py)
+        return meta.pwl(x)
     if x.device.type == "cpu":
         return pwl_act.pwl_uniform_plain(x, mq, lo, hi)
     y = pwl_act.launch_uniform(x, mq, lo, hi)

@@ -15,6 +15,12 @@ the f32 masters and both AdamW moments are DTensors placed by
 ``specs_for_params``, the batch is placed by ``batch_specs``, every model
 call runs under ``use_rules``, and the in-place update keeps every
 placement.  With no mesh the step is the one-device step.
+
+The dry run's steps (``launch/dryrun.py``): ``build_step(cfg, mesh, cell)``
+returns ``(step, operands)``, a train, prefill or decode step and its meta
+operands (parameters or the AdamW state, the batch of ``input_specs``, a
+dense cache), each placed as the sharded step places it, for
+``step(*operands)`` to trace with nothing allocated.
 """
 from __future__ import annotations
 
@@ -36,10 +42,10 @@ from repro_torch.distributed.sharding import (
     specs_for_params,
     use_rules,
 )
-from repro_torch.models.common import ParamDef
+from repro_torch.models.common import shape_structs, zip_defs
 from repro_torch.roofline.model import total_params
 from repro_torch.kernels import fused
-from repro_torch.models import Model
+from repro_torch.models import Model, input_specs
 from repro_torch.optim import adamw
 
 
@@ -125,16 +131,8 @@ def param_specs(cfg, rules: Rules):
     ``Model.param_logical()``, each checked against its shape)."""
     model = Model(cfg, device="meta")
     specs = specs_for_params(rules, model.param_logical())
-    return _zip_defs(lambda d, s: sanitize_spec(rules.mesh, s, d.shape), model.param_defs(),
-                     specs)
-
-
-def _zip_defs(fn, defs, other):
-    if isinstance(defs, ParamDef):
-        return fn(defs, other)
-    if isinstance(defs, dict):
-        return {k: _zip_defs(fn, v, other[k]) for k, v in defs.items()}
-    return [_zip_defs(fn, d, o) for d, o in zip(defs, other)]
+    return zip_defs(lambda d, s: sanitize_spec(rules.mesh, s, d.shape), model.param_defs(),
+                    specs)
 
 
 def _spec_leaves(specs) -> list:
@@ -146,12 +144,17 @@ def _spec_leaves(specs) -> list:
     return [s for v in specs for s in _spec_leaves(v)]
 
 
+def _place_tree(tensors, specs, mesh):
+    """A tree of tensors (plain, alike on every rank, or DTensors), each
+    placed by its spec in ``specs``: each rank keeps its own blocks."""
+    return tree.unflatten(tensors, [shf.place(t, mesh, s) for t, s in
+                                    zip(tree.leaves(tensors), _spec_leaves(specs), strict=True)])
+
+
 def shard_params(cfg, params, rules: Rules):
     """A parameter tree (plain tensors alike on every rank, or DTensors)
-    placed by :func:`param_specs`: each rank keeps its own blocks."""
-    specs = _spec_leaves(param_specs(cfg, rules))
-    return tree.unflatten(params, [shf.place(p, rules.mesh, s)
-                                   for p, s in zip(tree.leaves(params), specs, strict=True)])
+    placed by :func:`param_specs`."""
+    return _place_tree(params, param_specs(cfg, rules), rules.mesh)
 
 
 def shard_state(cfg, state: dict, rules: Rules) -> dict:
@@ -247,3 +250,81 @@ def build_train_step(cfg, device, opt_cfg: Optional[adamw.AdamWConfig] = None,
     train_step.grads = grads_only
     train_step.rules = rules
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# the dry run's steps: meta operands, placed
+
+
+def _cache_specs_structs(model, cfg, rules: Rules, batch: int, max_len: int):
+    """(specs, meta tensors) of the dense cache of ``batch`` rows and
+    ``max_len`` positions: ``Model.cache_specs``, as ``make_cache`` places
+    it, and ``shape_structs`` of ``Model.cache_defs``."""
+    return (model.cache_specs(rules, batch),
+            shape_structs(model.cache_defs(batch, max_len), cfg.dtype))
+
+
+def _meta_serving(cfg, mesh, cell):
+    """(model, rules, placed meta parameters, placed meta batch) of a
+    prefill or decode cell."""
+    model = Model(cfg, device="meta")
+    rules = make_cell_rules(cfg, mesh, cell)
+    params = shard_params(cfg, shape_structs(model.param_defs(), cfg.dtype), rules)
+    return model, rules, params, place_batch(cfg, cell, input_specs(cfg, cell), rules)
+
+
+def _meta_cache(model, cfg, rules, cell):
+    """The placed meta dense cache of a prefill or decode cell; a VLM's
+    prefix rides in it (``max_len = seq_len + n_vision_tokens``)."""
+    max_len = cell.seq_len + (cfg.n_vision_tokens or 0)
+    specs, structs = _cache_specs_structs(model, cfg, rules, cell.global_batch, max_len)
+    return _place_tree(structs, specs, rules.mesh), max_len
+
+
+def build_prefill_step(cfg, mesh, cell):
+    """``(step, (params, batch, cache))``: ``step`` runs ``Model.prefill``
+    under the cell rules and returns (logits, cache)."""
+    model, rules, params, batch = _meta_serving(cfg, mesh, cell)
+    cache, _ = _meta_cache(model, cfg, rules, cell)
+
+    def prefill_step(params, batch, cache):
+        with use_rules(rules):
+            extras = {k: v for k, v in batch.items() if k != "tokens"}
+            return model.prefill(params, batch["tokens"], cache, **extras), cache
+
+    return prefill_step, (params, batch, cache)
+
+
+def build_decode_step(cfg, mesh, cell):
+    """``(step, (params, batch, cache))``: ``step`` runs one
+    ``Model.decode_step`` under the cell rules and returns (logits, cache).
+    A meta ``pos`` stands for the cache's last slot: a step reads the
+    whole cache, masked, at any position."""
+    model, rules, params, batch = _meta_serving(cfg, mesh, cell)
+    cache, max_len = _meta_cache(model, cfg, rules, cell)
+
+    def decode_step(params, batch, cache):
+        pos = batch["pos"]
+        pos = max_len - 1 if pos.device.type == "meta" else int(pos)
+        with use_rules(rules):
+            return model.decode_step(params, batch["tokens"], cache, pos), cache
+
+    return decode_step, (params, batch, cache)
+
+
+def build_step(cfg, mesh, cell, microbatches: Optional[int] = None):
+    """The dry run's step of ``cell`` on ``mesh`` and its placed meta
+    operands (module docstring).  A train cell's step is
+    :func:`build_train_step`'s in-place step over the AdamW state of f32
+    masters, at ``microbatches`` (:func:`auto_microbatches` when None)."""
+    if cell.kind == "prefill":
+        return build_prefill_step(cfg, mesh, cell)
+    if cell.kind == "decode":
+        return build_decode_step(cfg, mesh, cell)
+    if microbatches is None:
+        microbatches = auto_microbatches(cfg, cell, mesh)
+    step = build_train_step(cfg, "meta", microbatches=microbatches, in_place=True, mesh=mesh,
+                            cell=cell)
+    masters = shape_structs(Model(cfg, device="meta").param_defs(), torch.float32)
+    state = shard_state(cfg, adamw.init_state(masters), step.rules)
+    return step, (state, place_batch(cfg, cell, input_specs(cfg, cell), step.rules))

@@ -172,6 +172,27 @@ def _map_defs(fn, defs):
     return [_map_defs(fn, v) for v in defs]
 
 
+def zip_defs(fn, defs, other) -> Any:
+    """``fn(def, o)`` over a ParamDef tree and a tree of its shape (specs,
+    tensors)."""
+    if isinstance(defs, ParamDef):
+        return fn(defs, other)
+    if isinstance(defs, dict):
+        return {k: zip_defs(fn, v, other[k]) for k, v in defs.items()}
+    return [zip_defs(fn, d, o) for d, o in zip(defs, other)]
+
+
+def zeros_like_defs(defs, dtype, device, rules=None, specs=None) -> Any:
+    """A cache of zeros in ``dtype`` shaped as ``defs``; under ``rules``
+    each leaf placed by its spec in ``specs`` (a tree of defs' shape)."""
+    if rules is None:
+        return _map_defs(lambda d: torch.zeros(d.shape, dtype=dtype, device=device), defs)
+    from repro_torch.distributed import shard_fused as shf
+
+    return zip_defs(lambda d, s: shf.place(torch.zeros(d.shape, dtype=dtype, device=device),
+                                           rules.mesh, s), defs, specs)
+
+
 def init_params(defs, seed: int, device, dtype, master: bool = False) -> Any:
     """Materialize a ParamDef tree from a seeded generator on ``device``.
 
@@ -202,6 +223,14 @@ def compute_params(defs, params, dtype) -> Any:
     if isinstance(defs, dict):
         return {k: compute_params(v, params[k], dtype) for k, v in defs.items()}
     return [compute_params(d, p, dtype) for d, p in zip(defs, params)]
+
+
+def shape_structs(defs, dtype) -> Any:
+    """The tree of meta tensors a ParamDef tree describes, each in ``dtype``
+    if it is a matrix, else f32: shapes and dtypes with no storage and no
+    generator (the dry run's parameters and caches)."""
+    return _map_defs(lambda d: torch.empty(d.shape, dtype=dtype if d.matrix else torch.float32,
+                                           device="meta"), defs)
 
 
 def logical_specs(defs) -> Any:

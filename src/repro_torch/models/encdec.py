@@ -32,11 +32,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import sfu
 from repro_torch.distributed import shard_fused as shf
-from repro_torch.distributed.sharding import constrain, is_dtensor
+from repro_torch.distributed.sharding import active_mesh_rules, constrain, is_dtensor
 
 from . import layers as L
-from .common import ModelConfig, ParamDef, compute_params, gather_layer
+from .common import ModelConfig, ParamDef, compute_params, gather_layer, zeros_like_defs
 from .transformer import (
+    _host_logits,
     _layer,
     _stack,
     _unbind,
@@ -101,6 +102,9 @@ def encode(cfg: ModelConfig, params, frames, remat: bool = False):
     """frames: (B, encoder_seq, D) stub embeddings -> the encoder output."""
     plan = sfu.plan_for(cfg)
     h = frames.to(cfg.dtype)
+    rules = active_mesh_rules()
+    if rules is not None and not is_dtensor(h):  # frames alike on every rank
+        h = shf.replicated(h, rules.mesh)
     h = h + _alike(L.sinusoidal_positions(h.shape[1], cfg.d_model, h.device).to(cfg.dtype), h)
     h = constrain(h, "batch", "act_seq", "act_embed")
 
@@ -176,29 +180,59 @@ def loss_fn(cfg: ModelConfig, params, batch):
     return nll, {"nll": nll, "aux": torch.zeros((), dtype=torch.float32, device=nll.device)}
 
 
-def make_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
-    """Dense cache: {k, v} (L, B, max_len, Hkv, dh) of the decoder's
-    self-attention, {xk, xv} (L, B, encoder_seq, Hkv, dh) of its
+def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """The dense cache's ParamDef tree (zeros, held in ``cfg.dtype``) with
+    the JAX package's logical axes: {k, v} (L, B, max_len, Hkv, dh) of the
+    decoder's self-attention, {xk, xv} (L, B, encoder_seq, Hkv, dh) of its
     cross-attention."""
     Hkv, dh, nl = cfg.n_kv_heads, cfg.resolved_head_dim, cfg.n_layers
+    self_axes = ("layers", "batch", "cache_seq", "cache_kv", None)
+    cross_axes = ("layers", "batch", None, "cache_kv", None)
+    return {"k": ParamDef((nl, batch, max_len, Hkv, dh), self_axes, init="zeros"),
+            "v": ParamDef((nl, batch, max_len, Hkv, dh), self_axes, init="zeros"),
+            "xk": ParamDef((nl, batch, cfg.encoder_seq, Hkv, dh), cross_axes, init="zeros"),
+            "xv": ParamDef((nl, batch, cfg.encoder_seq, Hkv, dh), cross_axes, init="zeros")}
 
-    def zeros(t):
-        return torch.zeros((nl, batch, t, Hkv, dh), dtype=cfg.dtype, device=device)
 
-    return {"k": zeros(max_len), "v": zeros(max_len), "xk": zeros(cfg.encoder_seq),
-            "xv": zeros(cfg.encoder_seq)}
+def cache_specs(rules, cfg: ModelConfig, batch: int) -> dict:
+    """The spec of each leaf of :func:`cache_defs` under a mesh:
+    ``layers.dense_cache_spec`` behind the layer axis (the per-shard dense
+    body writes and reads {k, v}; the cross-attention reads {xk, xv} on the
+    same batch rows and KV heads)."""
+    spec = shf.P(None, *L.dense_cache_spec(rules, cfg, batch))
+    return {k: spec for k in ("k", "v", "xk", "xv")}
+
+
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
+    """The dense cache of :func:`cache_defs`, zeros; under a mesh each leaf
+    placed by :func:`cache_specs`."""
+    rules = active_mesh_rules()
+    return zeros_like_defs(cache_defs(cfg, batch, max_len), cfg.dtype, device, rules,
+                           None if rules is None else cache_specs(rules, cfg, batch))
+
+
+def _serving_params(cfg: ModelConfig, params):
+    """Under a mesh, the serving tree with its FSDP rows gathered outside
+    the layer stacks (each layer gathers its own where it runs); as it is
+    otherwise."""
+    if active_mesh_rules() is None:
+        return params
+    return compute_params(encdec_defs(cfg), params, cfg.dtype)
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache, frames):
     """Encode the frames and run the decoder prompt, filling the self- and
     cross-attention caches in place.  Returns the last position's logits
-    (B, 1, V)."""
+    (B, 1, V), whole on every rank under a mesh."""
+    params = _serving_params(cfg, params)
     enc_out = encode(cfg, params, frames)
     h = _decoder_pass(cfg, params, tokens, enc_out, cache=cache, pos=0)
-    return unembed(cfg, params, L.apply_norm(cfg, params["final_norm"], h[:, -1:]))
+    return _host_logits(unembed(cfg, params, L.apply_norm(cfg, params["final_norm"],
+                                                         h[:, -1:])))
 
 
 def decode_step(cfg: ModelConfig, params, tokens, cache, pos: int):
     """One-token decode at absolute position ``pos``.  tokens: (B, 1)."""
+    params = _serving_params(cfg, params)
     h = _decoder_pass(cfg, params, tokens, None, cache=cache, pos=pos)
-    return unembed(cfg, params, L.apply_norm(cfg, params["final_norm"], h))
+    return _host_logits(unembed(cfg, params, L.apply_norm(cfg, params["final_norm"], h)))

@@ -84,7 +84,19 @@ class Model:
     def loss(self, params, batch):
         return self._impl.loss_fn(self.cfg, params, batch)
 
+    def cache_defs(self, batch: int, max_len: int):
+        """The dense cache's ParamDef tree, with the JAX package's logical
+        axes."""
+        return self._impl.cache_defs(self.cfg, batch, max_len)
+
+    def cache_specs(self, rules, batch: int):
+        """The spec of each leaf of :meth:`cache_defs` under a mesh (where
+        :meth:`make_cache` places it)."""
+        return self._impl.cache_specs(rules, self.cfg, batch)
+
     def make_cache(self, batch: int, max_len: int):
+        """The dense cache, zeros; under active rules with a mesh, every
+        leaf placed by :meth:`cache_specs`."""
         return self._impl.make_cache(self.cfg, batch, max_len, self.device)
 
     def prefill(self, params, tokens, cache, frames=None, vision_embeds=None):
@@ -109,3 +121,27 @@ class Model:
     def decode_step_paged(self, params, tokens, cache, page_table, kv_len):
         return transformer.decode_step_paged(self.cfg, params, tokens, cache,
                                              page_table, kv_len)
+
+
+def input_specs(cfg: ModelConfig, cell: ShapeCell) -> dict:
+    """Meta tensors standing for one (arch x shape) cell's inputs, with the
+    JAX package's keys, shapes and dtypes: ``tokens`` (and ``targets`` to
+    train) (B, S) int32, an encoder-decoder's ``frames`` (B, encoder_seq,
+    D) and a VLM's ``vision_embeds`` (B, n_vision_tokens, D) in
+    ``cfg.dtype``; a decode cell's one new token (B, 1) and its scalar
+    ``pos``."""
+    B, S = cell.global_batch, cell.seq_len
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if cell.kind == "decode":
+        return {"tokens": meta((B, 1), torch.int32), "pos": meta((), torch.int32)}
+    out = {"tokens": meta((B, S), torch.int32)}
+    if cell.kind == "train":
+        out["targets"] = meta((B, S), torch.int32)
+    if cfg.is_encoder_decoder:
+        out["frames"] = meta((B, cfg.encoder_seq, cfg.d_model), cfg.dtype)
+    if cfg.n_vision_tokens:
+        out["vision_embeds"] = meta((B, cfg.n_vision_tokens, cfg.d_model), cfg.dtype)
+    return out

@@ -25,13 +25,18 @@ sites: under an ``impl="kernel"`` plan the softplus runs the standalone PWL
 kernel (``kernels/ops.py``).  The block has no kernel of its own, as the
 JAX block has no Pallas kernel.
 
-Under rules with a mesh (training; a cache has no sharded path) the
-projections are DTensor products and the block's middle runs per shard in
-one ``local_map`` body (:func:`_mamba2_sharded`): heads and the inner width
-over "model" ("ssm_heads", "ssm_inner"), batch over the data axes, B and C
-whole on every rank.  The causal conv is depthwise, so each rank convolves
-its own x channels and every B/C channel; the gated RMSNorm's sum of
-squares over the inner width is the one collective.
+Under rules with a mesh the projections are DTensor products and the
+block's middle runs per shard in one ``local_map`` body
+(:func:`_mamba2_sharded`): heads and the inner width over "model"
+("ssm_heads", "ssm_inner"), batch over the data axes, B and C whole on
+every rank.  The causal conv is depthwise, so each rank convolves its own x
+channels and every B/C channel; the gated RMSNorm's sum of squares over the
+inner width is the one collective.  A cache (:func:`cache_spec`) is read
+and written in the same body: the state ``ssm`` (B, H, P, N) split with the
+heads, the conv tail (B, K-1, C) whole on every rank as x|B|C, of which a
+rank reads its own x channels and every B/C channel; the x channels of the
+new tail are gathered over the inner width's axes, so every rank's tail
+stays whole.
 """
 from __future__ import annotations
 
@@ -152,9 +157,7 @@ def mamba2_layer(cfg: ModelConfig, params, x, cache=None, plan=None):
     plan = plan if plan is not None else sfu.plan_for(cfg)
     rules = active_mesh_rules()
     if rules is not None:
-        if cache is not None:
-            raise NotImplementedError("an SSM cache under a mesh is not ported")
-        return _mamba2_sharded(rules, cfg, params, x, plan), cache
+        return _mamba2_sharded(rules, cfg, params, x, plan, cache), cache
     silu = plan.act(sfu.site_key(sfu.SITE_SSM, "silu"))
     softplus = plan.act(sfu.site_key(sfu.SITE_SSM, "softplus"))
 
@@ -171,13 +174,12 @@ def mamba2_layer(cfg: ModelConfig, params, x, cache=None, plan=None):
     if decode:
         # the exact causal conv at one step, over [cache window, current]
         win = torch.cat([cache["conv"].to(dtype), xBC], dim=1)  # (B, K, C)
-        conv_out = (torch.einsum("bkc,kc->bc", win, conv_w) + conv_b)[:, None, :]
+        conv_out = _conv_step(win, conv_w, conv_b)
         new_conv = win[:, 1:]
     else:
         conv_out = _causal_conv(xBC, conv_w, conv_b)
         if cache is not None:  # prefill: stash the tail for decode
-            tail = torch.nn.functional.pad(xBC, (0, 0, max(0, K - 1 - L), 0))
-            new_conv = tail[:, tail.shape[1] - (K - 1):]
+            new_conv = _conv_tail(xBC, K)
 
     conv_out = silu(conv_out)
     x_ssm = conv_out[..., :d_inner]
@@ -191,11 +193,7 @@ def mamba2_layer(cfg: ModelConfig, params, x, cache=None, plan=None):
     a = dt * A                                           # (B, L, H)
 
     if decode:
-        h_prev = cache["ssm"].to(f32)                    # read before the write below
-        dec = torch.exp(a[:, 0])                         # (B, H)
-        upd = xdt[:, 0, :, :, None] * Bmat[:, 0, None, None, :]  # (B, H, P, N)
-        h_new = h_prev * dec[:, :, None, None] + upd
-        y = (h_new @ Cmat[:, 0, None, :, None])[..., 0][:, None]  # (B, 1, H, P)
+        y, h_new = _ssm_step(cache["ssm"].to(f32), xdt, a, Bmat, Cmat)
     else:
         y, h_new = ssd_chunked(xdt, a, Bmat, Cmat, chunk=min(cfg.ssm_chunk, L))
     if cache is not None:
@@ -210,8 +208,50 @@ def mamba2_layer(cfg: ModelConfig, params, x, cache=None, plan=None):
     return y @ params["out_proj"], cache
 
 
-def _mamba2_sharded(rules, cfg: ModelConfig, params, x, plan):
-    """The Mamba2 block under a mesh (the module docstring), training only."""
+def _inner_entries(rules, cfg: ModelConfig):
+    """The spec entries (inner width, heads) of the block under a mesh:
+    the "ssm_inner" and "ssm_heads" axes when both split alike (whole heads
+    per rank), else (None, None)."""
+    d_inner, n_heads, _, _, _ = ssm_dims(cfg)
+    i = shf.dim_entry(rules, "ssm_inner", d_inner)
+    hh = shf.dim_entry(rules, "ssm_heads", n_heads)
+    return (i, hh) if i == hh else (None, None)
+
+
+def cache_spec(rules, cfg: ModelConfig, batch: int) -> dict:
+    """The specs of an SSM layer's cache leaves (no layer axis) under a mesh:
+    the batch over its axes, the state's heads as the block splits them,
+    the conv tail's x|B|C channels whole (the module docstring)."""
+    b = shf.batch_entry(rules, batch)
+    return {"conv": shf.P(b, None, None), "ssm": shf.P(b, _inner_entries(rules, cfg)[1], None,
+                                                      None)}
+
+
+def _conv_step(win, w, b):
+    """The exact causal conv at one step, over its window ``win`` (B, K, C)
+    of the cached K - 1 steps and the current one: (B, 1, C)."""
+    return (torch.einsum("bkc,kc->bc", win, w) + b)[:, None, :]
+
+
+def _ssm_step(h_prev, xdt, a, Bmat, Cmat):
+    """The exact one-step state recurrence from ``h_prev`` (B, H, P, N), f32,
+    read before the cache is written: (y (B, 1, H, P), h_new)."""
+    upd = xdt[:, 0, :, :, None] * Bmat[:, 0, None, None, :]  # (B, H, P, N)
+    h_new = h_prev * torch.exp(a[:, 0])[:, :, None, None] + upd
+    return (h_new @ Cmat[:, 0, None, :, None])[..., 0][:, None], h_new
+
+
+def _conv_tail(t, K: int):
+    """The last K - 1 steps of ``t`` (B, L, C), left-padded with zeros when
+    L < K - 1: what a prefill leaves in the conv cache."""
+    L = t.shape[1]
+    t = torch.nn.functional.pad(t, (0, 0, max(0, K - 1 - L), 0))
+    return t[:, t.shape[1] - (K - 1):]
+
+
+def _mamba2_sharded(rules, cfg: ModelConfig, params, x, plan, cache=None):
+    """The Mamba2 block under a mesh (the module docstring); ``cache`` as in
+    :func:`mamba2_layer`, placed by :func:`cache_spec`."""
     B, L, D = x.shape
     d_inner, n_heads, d_state, _, _ = ssm_dims(cfg)
     P = cfg.ssm_head_dim
@@ -224,30 +264,57 @@ def _mamba2_sharded(rules, cfg: ModelConfig, params, x, plan):
     bc_in = x @ params["in_bc"]
     dt_raw = x @ params["in_dt"]
     b = shf.batch_entry(rules, B)
-    i = shf.dim_entry(rules, "ssm_inner", d_inner)
-    hh = shf.dim_entry(rules, "ssm_heads", n_heads)
-    if i != hh:  # whole heads per rank, or nothing split
-        i = hh = None
-    groups = [shf.axis_group(rules, a) for a in shf.entry_axes(i)]
+    i, hh = _inner_entries(rules, cfg)
+    axes = shf.entry_axes(i)
+    groups = [shf.axis_group(rules, a) for a in axes]
     conv_w, conv_b = params["conv_w"], params["conv_b"]
+    K = conv_w.shape[0]
+    decode = cache is not None and L == 1
     ops = (x_in, bc_in, dt_raw, z, conv_w[:, :d_inner], conv_w[:, d_inner:],
            conv_b[:d_inner], conv_b[d_inner:], params["dt_bias"], params["A_log"], params["D"],
            params["norm_scale"])
     specs = (shf.P(b, None, i), shf.P(b, None, None), shf.P(b, None, hh), shf.P(b, None, i),
              shf.P(None, i), shf.P(None, None), shf.P(i), shf.P(None), shf.P(hh), shf.P(hh),
              shf.P(hh), shf.P(i))
+    if cache is not None:
+        cspec = cache_spec(rules, cfg, B)
+        ops += (cache["conv"], cache["ssm"])
+        specs += (cspec["conv"], cspec["ssm"])
 
-    def body(x_l, bc_l, dt_l, z_l, cwx, cwbc, cbx, cbbc, dt_bias, A_log, D_l, scale):
+    def body(x_l, bc_l, dt_l, z_l, cwx, cwbc, cbx, cbbc, dt_bias, A_log, D_l, scale,
+             conv_l=None, ssm_l=None):
         with use_rules(None):
-            x_ssm = silu(_causal_conv(x_l, cwx, cbx))
-            bc = silu(_causal_conv(bc_l, cwbc, cbbc))
+            if decode:  # the exact causal conv at one step, over [cache window, current]
+                d_l = x_l.shape[-1]
+                x0 = shf.entry_index(rules, i) * d_l
+                win_x = torch.cat([conv_l[..., x0:x0 + d_l].to(dtype), x_l], dim=1)
+                win_bc = torch.cat([conv_l[..., d_inner:].to(dtype), bc_l], dim=1)
+                x_conv = _conv_step(win_x, cwx, cbx)
+                bc_conv = _conv_step(win_bc, cwbc, cbbc)
+                tails = (win_x[:, 1:], win_bc[:, 1:])
+            else:
+                x_conv = _causal_conv(x_l, cwx, cbx)
+                bc_conv = _causal_conv(bc_l, cwbc, cbbc)
+                tails = (_conv_tail(x_l, K), _conv_tail(bc_l, K))
+            x_ssm = silu(x_conv)
+            bc = silu(bc_conv)
             Bmat, Cmat = bc[..., :d_state].to(f32), bc[..., d_state:].to(f32)
             dt = softplus(dt_l.to(f32) + dt_bias.to(f32))
             A = -torch.exp(A_log.to(f32))
             B_l, h_l = x_l.shape[0], dt.shape[-1]
             xh = x_ssm.to(f32).reshape(B_l, L, h_l, P)
-            y, _ = ssd_chunked(xh * dt[..., None], dt * A, Bmat, Cmat,
-                               chunk=min(cfg.ssm_chunk, L))
+            xdt, a = xh * dt[..., None], dt * A
+            if decode:
+                y, h_new = _ssm_step(ssm_l.to(f32), xdt, a, Bmat, Cmat)
+            else:
+                y, h_new = ssd_chunked(xdt, a, Bmat, Cmat, chunk=min(cfg.ssm_chunk, L))
+            if conv_l is not None:
+                tail_x = tails[0]
+                for a_name in reversed(axes):  # minor axis first: blocks in index order
+                    tail_x = shf.all_gather_dim(tail_x, shf.axis_group(rules, a_name), 2)
+                conv_l[..., :d_inner].copy_(tail_x.to(conv_l.dtype))
+                conv_l[..., d_inner:].copy_(tails[1].to(conv_l.dtype))
+                ssm_l.copy_(h_new.to(ssm_l.dtype))
             y = (y + D_l.to(f32)[None, None, :, None] * xh).reshape(B_l, L, h_l * P).to(dtype)
             # the gated RMSNorm over the whole inner width: one sum of
             # squares over the ranks, each then scaling its own columns

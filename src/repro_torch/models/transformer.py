@@ -36,7 +36,7 @@ from repro_torch.distributed.sharding import active_mesh_rules, constrain, is_dt
 from . import layers as L
 from . import moe as MOE
 from . import ssm as SSM
-from .common import ModelConfig, ParamDef, compute_params, gather_layer
+from .common import ModelConfig, ParamDef, compute_params, gather_layer, zeros_like_defs
 
 # ---------------------------------------------------------------------------
 # parameter definitions
@@ -405,34 +405,51 @@ def _host_logits(logits):
     return logits.full_tensor() if is_dtensor(logits) else logits
 
 
-def make_cache(cfg: ModelConfig, batch: int, max_len: int, device):
-    """Dense cache, per period slot by its layer kind, every leaf in
-    ``cfg.dtype`` and stacked (n_periods, ...): an attention slot's {k, v}
-    of (B, T, Hkv, dh), T = :func:`cache_len` of its kind; an SSM slot's
-    {conv (B, K-1, C), ssm (B, H, P, N)}.  Under a mesh the attention
-    slots are placed by ``layers.dense_cache_spec`` (an SSM cache has no
-    sharded path)."""
+def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> list:
+    """The dense cache's ParamDef tree (zeros, held in ``cfg.dtype``), per
+    period slot by its layer kind, stacked (n_periods, ...), with the JAX
+    package's logical axes: an attention slot's {k, v} of (B, T, Hkv, dh),
+    T = :func:`cache_len` of its kind; an SSM slot's {conv (B, K-1, C),
+    ssm (B, H, P, N)}."""
     n_periods = cfg.n_layers // cfg.period
-    rules = active_mesh_rules()
-
-    def zeros(*shape):
-        t = torch.zeros((n_periods,) + shape, dtype=cfg.dtype, device=device)
-        if rules is None:
-            return t
-        return shf.place(t, rules.mesh, shf.P(None, *L.dense_cache_spec(rules, cfg, batch)))
-
-    cache = []
+    out = []
     for mixer, _ in cfg.layer_kinds[:cfg.period]:
-        if mixer == "ssm" and rules is not None:
-            raise NotImplementedError("an SSM cache under a mesh is not ported")
         if mixer == "ssm":
             _, n_heads, d_state, conv_ch, _ = SSM.ssm_dims(cfg)
-            cache.append({"conv": zeros(batch, cfg.ssm_conv_dim - 1, conv_ch),
-                          "ssm": zeros(batch, n_heads, cfg.ssm_head_dim, d_state)})
-            continue
-        shape = (batch, cache_len(cfg, mixer, max_len), cfg.n_kv_heads, cfg.resolved_head_dim)
-        cache.append({"k": zeros(*shape), "v": zeros(*shape)})
-    return cache
+            slot = {"conv": ((batch, cfg.ssm_conv_dim - 1, conv_ch), ("batch", None, None)),
+                    "ssm": ((batch, n_heads, cfg.ssm_head_dim, d_state),
+                            ("batch", "ssm_heads", None, None))}
+        else:
+            shape = (batch, cache_len(cfg, mixer, max_len), cfg.n_kv_heads,
+                     cfg.resolved_head_dim)
+            axes = ("batch", "cache_seq", "cache_kv", None)
+            slot = {"k": (shape, axes), "v": (shape, axes)}
+        out.append({k: ParamDef((n_periods,) + shape, ("layers",) + axes, init="zeros")
+                    for k, (shape, axes) in slot.items()})
+    return out
+
+
+def cache_specs(rules, cfg: ModelConfig, batch: int) -> list:
+    """The spec of each leaf of :func:`cache_defs` under a mesh, the layer
+    axis leading: an attention slot's by ``layers.dense_cache_spec`` (its
+    sequence whole, where JAX's ``cache_seq`` may split it), an SSM slot's
+    by ``ssm.cache_spec``."""
+    out = []
+    for mixer, _ in cfg.layer_kinds[:cfg.period]:
+        if mixer == "ssm":
+            out.append({k: shf.P(None, *s) for k, s in SSM.cache_spec(rules, cfg, batch).items()})
+        else:
+            spec = shf.P(None, *L.dense_cache_spec(rules, cfg, batch))
+            out.append({"k": spec, "v": spec})
+    return out
+
+
+def make_cache(cfg: ModelConfig, batch: int, max_len: int, device):
+    """The dense cache of :func:`cache_defs`, zeros; under a mesh each leaf
+    placed by :func:`cache_specs`."""
+    rules = active_mesh_rules()
+    return zeros_like_defs(cache_defs(cfg, batch, max_len), cfg.dtype, device, rules,
+                           None if rules is None else cache_specs(rules, cfg, batch))
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache, vision_embeds=None):

@@ -1,7 +1,8 @@
 """`repro_torch.roofline` — the analytic roofline of a config on an H100:
 model FLOPs, parameter counts, HBM traffic and peak memory per step
-(:mod:`.model`).  The JAX package's HLO parser and report renderer read
-compiled sharded programs and wait for distribution."""
+(:mod:`.model`); one rank's collectives, FLOPs and op histogram from its
+traced step (:mod:`.collectives`, the counterpart of the JAX package's HLO
+parser); the dry run's tables (:mod:`.report`)."""
 from .model import (
     HBM_BW,
     NVLINK_BW,

@@ -78,7 +78,13 @@ def test_left_segment_owns_the_breakpoint():
     torch.testing.assert_close(slope, t.m[:-1], rtol=0, atol=0)
 
 
-def test_wrapper_refuses_other_devices():
+def test_wrapper_refuses_other_devices(monkeypatch):
+    """A device other than the CPU and CUDA is refused.  Meta tensors stand
+    for one here, with the wrappers' shapes-only meta branch
+    (``kernels/fused/meta.py``) switched off."""
+    from repro_torch.kernels.fused import meta
+
+    monkeypatch.setattr(meta, "is_meta", lambda t: False)
     t = tsfu.get_store().get(fn="gelu_tanh", n_breakpoints=32)
     x = torch.empty((4, 8), device="meta")
     w = torch.empty((8, 16), device="meta")

@@ -20,9 +20,12 @@ JAX).
   falls back with JAX's warning, once in each of two sessions (JAX's
   ``test_engine_session_warns_once_per_session_on_seq_sharded_cache``),
   the tokens unchanged.
-* Dense caches: prefill and decode steps of reduced repro-100m and
-  gemma3-1b (rings) against the single-process calls, the fused decode
-  taking plain tensors of a rank's batch rows and KV heads.
+* Dense caches: prefill and decode steps of reduced repro-100m, gemma3-1b
+  (rings), mamba2-2.7b (SSM states and conv tails, ``ssm:softplus`` on the
+  standalone PWL kernel), jamba-v0.1-52b (SSM, attention and MoE layers)
+  and whisper-small (self- and cross-attention K/V) against the
+  single-process calls, the fused decode taking plain tensors of a rank's
+  batch rows and KV heads.
 """
 import pytest
 
@@ -96,14 +99,45 @@ def dense(tmp_path_factory):
 
 
 @pytest.mark.parametrize("rank", range(4))
-@pytest.mark.parametrize("arch", ["repro-100m", "gemma3-1b"])
+@pytest.mark.parametrize("arch", ["repro-100m", "gemma3-1b", "mamba2-2.7b", "jamba-v0.1-52b",
+                                  "whisper-small"])
 def test_dense_cache_prefill_and_decode_match_single_process(dense, arch, rank):
     """A dense cache written and read per shard (gemma3-1b's local layers
-    as rings): prefill and three decode steps' logits within 1e-4 of the
+    as rings, the SSM layers' states and conv tails, whisper's cross K/V):
+    prefill and three decode steps' logits within 1e-4 of the
     single-process calls', whole on every rank, the cache placed by
-    ``dense_cache_spec``."""
+    ``Model.cache_specs``."""
     r = dense[rank][arch]
     assert r["err"] <= 1e-4 and r["plain"] and r["placed"]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-v0.1-52b", "whisper-small"])
+def test_ssm_and_encdec_caches_tokens_and_plain_local_calls(dense, arch):
+    """The SSM and encoder-decoder sessions on the mesh: the greedy tokens
+    of the prefill and every decode step are the single-process ones on
+    every rank, no fused call falls back, and every fused call (the
+    standalone PWL kernel's among them) takes plain tensors."""
+    want = {"mamba2-2.7b": {"pwl_activation"},
+            "jamba-v0.1-52b": {"fused_moe_glu", "fused_pwl_softmax"},
+            "whisper-small": {"fused_linear", "fused_pwl_softmax"}}[arch]
+    for r in dense:
+        a = r[arch]
+        assert a["tokens"] == a["ref_tokens"]
+        assert a["fallbacks"] == []
+        assert want <= {c[0] for c in a["calls"]}
+        assert all(plain for _, plain, _ in a["calls"])
+
+
+def test_ssm_cache_local_blocks(dense):
+    """Reduced mamba2 (8 heads of 16, d_inner 128, state 16, conv width 4):
+    a rank holds half the batch of both leaves, its 4 heads of the state
+    and every x|B|C channel of the conv tail; whisper's cross K/V half the
+    KV heads."""
+    for r in dense:
+        conv, ssm = r["mamba2-2.7b"]["local_shapes"]
+        assert conv == (2, 2, 3, 160) and ssm == (2, 2, 4, 16, 16)
+        k, v, xk, xv = r["whisper-small"]["local_shapes"]
+        assert xk == xv == (2, 2, 24, 2, 16) and k == v == (2, 2, 40, 2, 16)
 
 
 def test_dense_decode_fallback_only_where_the_cache_sequence_is_sharded(dense):

@@ -133,7 +133,13 @@ def test_autograd_matches_jax_grad(fmt, impl_bwd):
         _close(a.numpy(), b, 1e-4, name)
 
 
-def test_wrapper_refuses_other_devices_and_shapes():
+def test_wrapper_refuses_other_devices_and_shapes(monkeypatch):
+    """Meta tensors stand for a device other than the CPU and CUDA, with
+    the wrappers' shapes-only meta branch (``kernels/fused/meta.py``)
+    switched off."""
+    from repro_torch.kernels.fused import meta
+
+    monkeypatch.setattr(meta, "is_meta", lambda t: False)
     _, t = _tables()
     x = torch.empty((2, 4, 8), device="meta")
     w = torch.empty((2, 8, 16), device="meta")

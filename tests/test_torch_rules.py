@@ -163,8 +163,15 @@ def _kernel_calls(table, grad=False, act=None):
 @pytest.mark.parametrize("kernel", ["softmax", "decode", "flash", "moe", "linear", "norm",
                                     "pwl", "pwl_uniform"])
 def test_cuda_only_refusals_raise_off_the_cpu(kernel, monkeypatch):
+    """Meta tensors stand for a device other than the CPU and CUDA, with
+    the wrappers' shapes-only meta branch (``kernels/fused/meta.py``)
+    switched off: no wrapper runs its plain version there, and each
+    reaches its device check."""
     from repro_torch import sfu
     from repro_torch.kernels import fused, pwl_act
+    from repro_torch.kernels.fused import meta
+
+    monkeypatch.setattr(meta, "is_meta", lambda t: False)
 
     def no_plain(*a, **kw):
         raise AssertionError("a wrapper ran its plain version on a non-CPU tensor")

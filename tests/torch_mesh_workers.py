@@ -352,20 +352,56 @@ def comm_census(rank, world):
     return out
 
 
+DENSE_CASES = {  # name: (config overrides, ssm:softplus on the standalone PWL kernel)
+    "repro-100m": ({"act_impl": "fused", "pwl_softmax": True, "force_dp_only": False}, False),
+    "gemma3-1b": ({"act_impl": "fused", "pwl_softmax": True}, False),
+    "mamba2-2.7b": ({"act_impl": "fused"}, True),
+    # capacity E / K: no pair dropped, in the mesh's per-data-shard buckets or
+    # in one call over every row
+    "jamba-v0.1-52b": ({"act_impl": "fused", "pwl_softmax": True, "capacity_factor": 2.0},
+                       False),
+    "whisper-small": ({"act_impl": "fused", "pwl_softmax": True}, False),
+}
+
+
+def _softplus_kernel_plan(cfg):
+    """``cfg``'s plan with ``ssm:softplus`` on the standalone PWL kernel."""
+    plan = sfu.compile_plan(cfg)
+    return dataclasses.replace(cfg, act_plan=sfu.ActivationPlan(sites=tuple(
+        (k, dataclasses.replace(s, impl="kernel") if k == "ssm:softplus" else s)
+        for k, s in plan.items())))
+
+
+def _record_pwl_kernel():
+    """Record the standalone PWL kernel's calls in ``CALLS`` too (the plan's
+    ``impl="kernel"`` sites look it up at each call)."""
+    from repro_torch.kernels import ops
+
+    if getattr(ops, "_recorded", False):
+        return
+    ops._recorded = True
+    fn = ops.pwl_activation
+
+    def call(x, *args, **kw):
+        CALLS.append(("pwl_activation", type(x) is torch.Tensor, [tuple(x.shape)]))
+        return fn(x, *args, **kw)
+    ops.pwl_activation = call
+
+
 def dense_cache_parity(rank, world):
     """Dense-cache prefill and three decode steps on the 2x2 mesh (the cache
-    written and read per shard; gemma3-1b's local layers as rings) against
-    the single-process calls' logits; the cache placements; the fused
-    calls' operands."""
-    from repro_torch.distributed import shard_fused as shf
-    from repro_torch.models import layers
-
+    written and read per shard; gemma3-1b's local layers as rings, mamba2's
+    and jamba's SSM states and conv tails, whisper's self- and cross-
+    attention K/V) against the single-process calls' logits and greedy
+    tokens; the cache placements; the fused calls' operands."""
     mesh = _mesh()
     out = {}
-    for arch, over in (("repro-100m", {"act_impl": "fused", "pwl_softmax": True,
-                                       "force_dp_only": False}),
-                       ("gemma3-1b", {"act_impl": "fused", "pwl_softmax": True})):
+    _record_fused()
+    _record_pwl_kernel()
+    for arch, (over, softplus_kernel) in DENSE_CASES.items():
         cfg = get_reduced_config(arch, dtype=torch.float32, **over)
+        if softplus_kernel:
+            cfg = _softplus_kernel_plan(cfg)
         model = Model(cfg, device="cpu")
         params = model.init(seed=0)
         rng = np.random.default_rng(7)
@@ -373,6 +409,10 @@ def dense_cache_parity(rank, world):
         tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int64))
         steps_ = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int64))
                   for _ in range(3)]
+        extras = {}
+        if cfg.is_encoder_decoder:
+            extras["frames"] = torch.from_numpy(
+                rng.standard_normal((B, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
 
         def run(rules):
             p = params if rules is None else steps.shard_params(cfg, params, rules)
@@ -380,21 +420,23 @@ def dense_cache_parity(rank, world):
             with sh.use_rules(rules), warnings.catch_warnings(record=True) as rec:
                 warnings.simplefilter("always")
                 cache = model.make_cache(B, T)
-                logits = [model.prefill(p, tokens, cache)]
+                logits = [model.prefill(p, tokens, cache, **extras)]
                 for i, t in enumerate(steps_):
                     logits.append(model.decode_step(p, t, cache, S + i))
             falls = [str(w.message) for w in rec if "falling back" in str(w.message)]
             return logits, cache, falls
 
-        _record_fused()
         ref, _, _ = run(None)
         rules = sh.make_rules(cfg, mesh)
         got, cache, falls = run(rules)
         calls = list(CALLS)
-        spec = sh.placements(mesh, shf.P(None, *layers.dense_cache_spec(rules, cfg, B)))
+        specs = steps._spec_leaves(model.cache_specs(rules, B))
         out[arch] = {"err": max(float((a - b).abs().max()) for a, b in zip(got, ref)),
+                     "tokens": [l.argmax(-1).tolist() for l in got],
+                     "ref_tokens": [l.argmax(-1).tolist() for l in ref],
                      "plain": all(type(t) is torch.Tensor for t in got),
-                     "placed": all(list(t.placements) == spec
-                                   for slot in cache for t in slot.values()),
+                     "placed": all(list(t.placements) == sh.placements(mesh, s)
+                                   for t, s in zip(tree.leaves(cache), specs, strict=True)),
+                     "local_shapes": [tuple(t.to_local().shape) for t in tree.leaves(cache)],
                      "fallbacks": falls, "calls": calls}
     return out

@@ -203,7 +203,19 @@
    shapes on both meshes, mamba2-2.7b, whisper-small, full-width
    jamba-v0.1-52b and qwen2.5-32b's training cell on 2 x 16 x 16), holds
    every row ``ok`` or JAX's SKIP row and the pinned collective counts,
-   and prints the report's tables.
+   and prints the report's tables;
+22. slice 22, the sequence-sharded dense cache and the examples (no new
+   kernel): ``dryrun_phase`` adds qwen2.5-32b ``decode_32k`` and gemma3-1b
+   ``long_500k`` on 16 x 16, whose caches split over "model" and over
+   ("data", "model"), prints every serving row's per-rank cache GiB and
+   holds those two rows' to the blocks of the port's own rules;
+   ``shard_shapes_phase`` times the rank-local body of the sequence-sharded
+   decode (JAX's unfused formula) at qwen2.5-32b's 16 x 16 block; and
+   ``examples_phase`` runs the six scripts of ``examples_torch/`` on the
+   card (``readme_plan.py``, ``quickstart.py`` and
+   ``ablation_pwl_vs_exact.py --steps 60`` in this process, ``serve_lm.py``
+   and ``train_lm.py --steps 20`` as subprocesses, ``train_compressed.py``
+   under ``torchrun`` on one NCCL rank).  No mesh runs on one card.
 
 Every failed check exits non-zero.  The last two lines of standard output
 are the kernels' JSON line and ``{"ok": true, "device": {...}}``; the card's
@@ -213,6 +225,8 @@ repository around this file; imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import importlib.util
+import io
 import json
 import math
 import os
@@ -6416,7 +6430,8 @@ def shard_shapes_phase(torch, card: str) -> list:
 
     whisper = get_config("whisper-small")
     rules = make_cell_rules(whisper, mesh, decode)
-    kv = shf.local_shape(rules, encdec.cache_specs(rules, whisper, decode.global_batch)["xk"],
+    kv = shf.local_shape(rules, encdec.cache_specs(rules, whisper, decode.global_batch,
+                                                   decode.seq_len)["xk"],
                          (whisper.n_layers, decode.global_batch, WHISPER_FRAMES,
                           whisper.n_kv_heads, whisper.resolved_head_dim))
     Bl, hl = kv[1], kv[3]
@@ -6462,14 +6477,90 @@ def shard_shapes_phase(torch, card: str) -> list:
         print(f"[smoke] shard qwen2.5-32b (16, 16) {name} local: x {sh['x']}, w {sh['w']}, "
               f"q {sh['q']}, kv {sh['kv']} (sequence-parallel attention: heads whole, "
               f"cache_seq over model)")
+    seq_block_decode_lines(torch, qwen, prod, gen, card)
     print(f"[smoke] shard_shapes_phase {time.perf_counter() - t0:.1f}s; {card}")
     return rows
+
+
+SEQ_DECODE_VALID = 1500  # the block's valid slots in the timed decode
+
+
+def _eager_ms(torch, fn, iters: int = 20) -> float:
+    """Time of one eager ``fn()`` call, host launches included: ``iters``
+    calls between CUDA events after three warm-up calls (for work that a
+    CUDA graph cannot capture, such as a host table copied each call)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def seq_block_decode_lines(torch, qwen, prod, gen, card) -> dict:
+    """Slice 22: the rank-local body of the sequence-sharded dense decode
+    (``layers.seq_block_decode``, JAX's unfused formula; no kernel) at
+    qwen2.5-32b's ``decode_32k`` block on the (16, 16) mesh: 8 of 128 rows,
+    2048 of 32768 slots, 8 KV heads of 128, bf16, the first 1500 slots
+    valid; the reduce is the identity (one card holds no group: the three
+    all-reduces are not in the time).  Under the exact exp it is held
+    against ``scaled_dot_product_attention`` on the same block (bf16 1e-2)
+    and timed as a CUDA graph (device time) and eagerly; under the PWL exp
+    of a ``pwl_softmax`` plan, whose table is copied to the card each call
+    (no graph captures that), eagerly.  Returns the µs by variant."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import shard_fused as shf
+    from repro_torch.launch.steps import make_cell_rules
+    from repro_torch.models import SHAPE_CELLS, layers
+
+    cell = SHAPE_CELLS["decode_32k"]
+    rules = make_cell_rules(qwen, prod, cell)
+    shape = (cell.global_batch, cell.seq_len, qwen.n_kv_heads, qwen.resolved_head_dim)
+    Bl, Tl, hk, dh = shf.local_shape(rules, layers.dense_cache_spec(rules, qwen, *shape[:2]),
+                                     shape)
+    check((Bl, Tl, hk, dh) == (8, 2048, 8, 128), f"qwen2.5-32b decode_32k block {(Bl, Tl, hk, dh)}")
+    dev = torch.device("cuda")
+    q = torch.randn((Bl, 1, qwen.n_heads, dh), generator=gen, device=dev).to(torch.bfloat16)
+    kb, vb = (torch.randn((Bl, Tl, hk, dh), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    valid = (torch.arange(Tl, device=dev) < SEQ_DECODE_VALID)[None, :].expand(Bl, Tl)
+    bound = _bound(2 * (kb.numel() + vb.numel() + 2 * q.numel()), 0.0)
+    qt, kt, vt = q.transpose(1, 2), kb.transpose(1, 2), vb.transpose(1, 2)
+    sdpa_mask = valid[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask,
+                                              enable_gqa=True).transpose(1, 2)
+
+    def body(exp_fn):
+        return lambda *_: layers.seq_block_decode(q, kb, vb, valid, exp_fn)
+
+    pwl_exp = layers.resolve_exp(get_config("qwen2.5-32b", act_impl="jnp", pwl_softmax=True))
+    err = float((body(torch.exp)().float() - sdpa().float()).abs().max())
+    check(err <= 1e-2, f"seq block decode against SDPA: {err}")
+    check(bool(torch.isfinite(body(pwl_exp)()).all()), "seq block decode, pwl exp: not finite")
+    us = {"exact graph": time_ms(torch, body(torch.exp)) * 1e3,
+          "exact eager": _eager_ms(torch, body(torch.exp)) * 1e3,
+          "pwl eager": _eager_ms(torch, body(pwl_exp)) * 1e3,
+          "sdpa graph": time_ms(torch, lambda i: sdpa()) * 1e3}
+    print(f"[smoke] seq-sharded decode body, qwen2.5-32b decode_32k rank block {Bl} x {Tl} "
+          f"slots x {hk} x {dh} bf16 ({SEQ_DECODE_VALID} valid): "
+          + ", ".join(f"{k} {v:.2f} us" for k, v in us.items())
+          + f"; bound {bound['bound_ms'] * 1e3:.2f} us (bytes); max_abs_err vs SDPA {err:.3g}; "
+          f"no collective timed; {card}")
+    return us
 
 
 # the full-width dry-run rows' collectives by kind that tests/test_torch_dryrun.py
 # pins on the CPU (its FULL_WIDTH_PINS)
 DRYRUN_PINS = {
-    "repro-100m__decode_32k__multi": {"all-gather": 89, "all-reduce": 13},
+    "repro-100m__decode_32k__multi": {"all-gather": 89, "all-reduce": 49},
 }
 DRYRUN_RUNS = (  # the dry run's arguments, one process each, all started together
     ("--arch", "repro-100m"),
@@ -6478,7 +6569,21 @@ DRYRUN_RUNS = (  # the dry run's arguments, one process each, all started togeth
     ("--arch", "whisper-small", "--shape", "decode_32k", "--singlepod-only"),
     ("--arch", "jamba-v0.1-52b", "--shape", "decode_32k", "--singlepod-only"),
     ("--arch", "qwen2.5-32b", "--shape", "train_4k", "--multipod-only"),
+    # slice 22: caches sharded over their sequence ("model"; ("data", "model"))
+    ("--arch", "qwen2.5-32b", "--shape", "decode_32k", "--singlepod-only"),
+    ("--arch", "gemma3-1b", "--shape", "long_500k", "--singlepod-only"),
 )
+# a rank's dense cache in bytes (bf16 K and V) of the rows whose cache is sharded over
+# its sequence, the blocks JAX's rules give (tests/test_torch_seq_cache.py pins the same):
+# qwen2.5-32b decode_32k, sequence-parallel rules: 128 / 16 rows x 32768 / 16 slots x
+#   8 KV heads x 128 x 2 B x 2 x 64 layers = 4 GiB (64 GiB with the sequence whole);
+# gemma3-1b long_500k, context-parallel ("data", "model") = 256 ways, 1 row, 1 KV head
+#   of 256: 4 global layers x 524288 / 256 slots + 22 local rings x 512 / 256 slots,
+#   x 256 x 2 B x 2 = 8,433,664 B
+DRYRUN_CACHE_BYTES = {
+    "qwen2.5-32b__decode_32k__single": 4 * 2**30,
+    "gemma3-1b__long_500k__single": 8_433_664,
+}
 DRYRUN_TIMEOUT_S = 900
 DRYRUN_SKIP = "SKIP (full attention at 500k — DESIGN.md Sec. 5)"
 
@@ -6519,13 +6624,26 @@ def dryrun_stop() -> None:
     _DRYRUN.clear()
 
 
+def _dryrun_row_count(args) -> int:
+    """The rows one run of ``DRYRUN_RUNS`` writes: its shapes (all four
+    without ``--shape``) times its meshes (one with ``--singlepod-only`` or
+    ``--multipod-only``)."""
+    shapes = 1 if "--shape" in args else 4
+    meshes = 1 if ("--singlepod-only" in args or "--multipod-only" in args) else 2
+    return shapes * meshes
+
+
 def dryrun_phase(card: str, started: dict) -> dict:
     """Wait for the runs :func:`dryrun_start` started: repro-100m's four
     shapes on both meshes (``long_500k`` JAX's SKIP row), mamba2-2.7b
     ``decode_32k`` and ``long_500k``, whisper-small ``decode_32k``,
-    full-width jamba-v0.1-52b ``decode_32k`` on 16 x 16 and qwen2.5-32b
-    ``train_4k`` on 2 x 16 x 16.  Each row reads ``ok`` or the SKIP row,
-    the pinned cells' collectives equal ``DRYRUN_PINS``, and ``python -m
+    full-width jamba-v0.1-52b ``decode_32k`` on 16 x 16, qwen2.5-32b
+    ``train_4k`` on 2 x 16 x 16, and (slice 22) qwen2.5-32b ``decode_32k``
+    and gemma3-1b ``long_500k`` on 16 x 16.  Each row reads ``ok`` or the
+    SKIP row, the rows number what the runs write, the pinned cells'
+    collectives equal ``DRYRUN_PINS``, every serving row's per-rank cache
+    GiB is printed and equals ``DRYRUN_CACHE_BYTES`` where that pins it,
+    and ``python -m
     repro_torch.roofline.report`` renders the rows (printed).  Returns the
     rows by tag, the seconds from the start to the last row and the seconds
     this call waited."""
@@ -6546,7 +6664,9 @@ def dryrun_phase(card: str, started: dict) -> dict:
                     print(f"[smoke] dryrun {line}")
         rows = {p.stem: json.loads(p.read_text()) for p in sorted(out.glob("*.json"))}
         seconds = max(p.stat().st_mtime for p in out.glob("*.json")) - started["t0"]
-        check(len(rows) == 13, f"dryrun: {len(rows)} rows, want 13: {sorted(rows)}")
+        want_rows = sum(_dryrun_row_count(args) for args in DRYRUN_RUNS)
+        check(len(rows) == want_rows, f"dryrun: {len(rows)} rows, want {want_rows}: "
+              f"{sorted(rows)}")
         for tag, r in rows.items():
             want_skip = r["shape"] == "long_500k" and r["arch"] == "repro-100m"
             check(r["status"] == (DRYRUN_SKIP if want_skip else "ok"),
@@ -6555,6 +6675,13 @@ def dryrun_phase(card: str, started: dict) -> dict:
                 check(r["collective_counts"] == DRYRUN_PINS[tag],
                       f"dryrun {tag}: collectives {r['collective_counts']}, pinned "
                       f"{DRYRUN_PINS[tag]}")
+            if r["status"] == "ok" and r["shape"] != "train_4k":
+                print(f"[smoke] dryrun {tag}: a rank's dense cache "
+                      f"{r['cache_bytes_per_device'] / 2**30:.4f} GiB")
+        for tag, want in DRYRUN_CACHE_BYTES.items():
+            check(rows[tag]["cache_bytes_per_device"] == want,
+                  f"dryrun {tag}: a rank's cache {rows[tag]['cache_bytes_per_device']} B, "
+                  f"pinned {want} B")
         check(rows["qwen2.5-32b__train_4k__multi"]["chips"] == 512, "dryrun: qwen's mesh")
         rep = subprocess.run([sys.executable, "-m", "repro_torch.roofline.report", "--dir",
                               str(out)], env=env, cwd=ROOT, capture_output=True, text=True,
@@ -6567,6 +6694,113 @@ def dryrun_phase(card: str, started: dict) -> dict:
     print(f"[smoke] dryrun_phase {seconds:.1f}s from its start to its last row, "
           f"{waited:.1f}s waited for ({len(rows)} rows; {card})")
     return {"rows": rows, "seconds": seconds, "waited": waited}
+
+
+# ---------------------------------------------------------------------------
+# slice 22: the port's examples (examples_torch/), each as a user runs it
+
+EXAMPLES = ROOT / "examples_torch"
+EXAMPLE_TIMEOUT_S = 600
+TRAIN_LM_STEPS = 20
+ABLATION_STEPS = 60
+
+
+def _load_example(name: str):
+    """``examples_torch/<name>.py`` as a module (its ``main`` not run)."""
+    spec = importlib.util.spec_from_file_location(f"example_{name}", EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_example(args, what: str) -> str:
+    """An example in a subprocess on the card; its standard output (rc 0)."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, *map(str, args)], cwd=ROOT, capture_output=True,
+                         text=True, timeout=EXAMPLE_TIMEOUT_S,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    check(out.returncode == 0, f"example {what}: rc {out.returncode}\n{out.stdout[-2000:]}\n"
+          f"{out.stderr[-3000:]}")
+    print(f"[smoke] example {what}: rc 0, {time.perf_counter() - t0:.1f}s")
+    return out.stdout
+
+
+def _in_process(fn):
+    """``fn()`` with its standard output captured: (result, the lines)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn()
+    return res, buf.getvalue().splitlines()
+
+
+def examples_phase(torch, tmp: pathlib.Path, card: str) -> dict:
+    """The six scripts of ``examples_torch/`` on ``cuda``, their default:
+    ``readme_plan.py`` and ``quickstart.py`` in this process (the Fig. 2 fit
+    on the card, the standalone PWL kernel on 1024 points, reduced
+    repro-100m's f32 logits fused against jnp: the launch counters, reset
+    before and read after, show the standalone kernel and the GLU kernel
+    reached); ``serve_lm.py`` and ``train_lm.py --steps 20`` as
+    subprocesses (rc 0: the session's, and the loss fell);
+    ``ablation_pwl_vs_exact.py --steps 60`` in this process (the final
+    exact and PWL losses and their delta printed); ``train_compressed.py``
+    under ``torchrun --nproc-per-node 1`` on NCCL (its loss falls)."""
+    t0 = time.perf_counter()
+    out = {}
+    argv = sys.argv
+    try:  # the script reads its --device from argv and sets the default device
+        sys.argv = [str(EXAMPLES / "readme_plan.py")]
+        import runpy
+
+        _, lines = _in_process(lambda: runpy.run_path(str(EXAMPLES / "readme_plan.py"),
+                                                      run_name="__main__"))
+    finally:
+        sys.argv = argv
+        torch.set_default_device(None)
+    check(lines[-1] == "table: silu 32 breakpoints, c47961bd3f5f",
+          f"readme_plan: {lines[-2:]}")
+    print(f"[smoke] example readme_plan.py: {lines[-2]}; {lines[-1]}")
+
+    quickstart = _load_example("quickstart")
+    reset_counters()
+    t1 = time.perf_counter()
+    err, lines = _in_process(lambda: quickstart.main([]))
+    counts = read_counters()
+    out["quickstart_s"] = time.perf_counter() - t1
+    for line in lines:
+        print(f"[smoke] example quickstart.py: {line}")
+    check(counts["pwl_activation"] >= 1 and counts["fused_glu"] >= 1,
+          f"quickstart: launches {counts}")
+    check(err <= 1e-5, f"quickstart: logits |fused - jnp| {err}")
+    out["quickstart_counts"] = {k: counts[k] for k in ("pwl_activation", "fused_glu")}
+    print(f"[smoke] example quickstart.py: {out['quickstart_s']:.1f}s, launches "
+          f"{out['quickstart_counts']}")
+
+    _run_example([EXAMPLES / "serve_lm.py"], "serve_lm.py")
+    lines = _run_example([EXAMPLES / "train_lm.py", "--steps", TRAIN_LM_STEPS, "--ckpt-dir",
+                          tmp / "train_lm"], f"train_lm.py --steps {TRAIN_LM_STEPS}").splitlines()
+    print(f"[smoke] example train_lm.py: {lines[-1] if lines else ''}")
+
+    ablation = _load_example("ablation_pwl_vs_exact")
+    t1 = time.perf_counter()
+    (exact, approx), lines = _in_process(lambda: ablation.main(["--steps", str(ABLATION_STEPS)]))
+    out["ablation"] = {"exact": exact[-1], "pwl": approx[-1], "delta": approx[-1] - exact[-1],
+                       "s": time.perf_counter() - t1}
+    check(math.isfinite(out["ablation"]["delta"]), f"ablation: {lines[-1]}")
+    for line in lines:
+        print(f"[smoke] example ablation_pwl_vs_exact.py: {line}")
+    print(f"[smoke] example ablation_pwl_vs_exact.py --steps {ABLATION_STEPS}: final exact "
+          f"{exact[-1]:.6f}, pwl {approx[-1]:.6f}, delta {approx[-1] - exact[-1]:+.6f} "
+          f"({out['ablation']['s']:.1f}s)")
+
+    lines = _run_example(["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+                          EXAMPLES / "train_compressed.py"],
+                         "train_compressed.py (torchrun, 1 rank, NCCL)").splitlines()
+    done = [l for l in lines if l.startswith("[dp-compressed]") and " -> " in l]
+    check(len(done) == 1, f"train_compressed: {lines[-3:]}")
+    print(f"[smoke] example train_compressed.py: {done[0]}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[smoke] examples_phase {out['seconds']:.1f}s; {card}")
+    return out
 
 
 def main() -> int:
@@ -6696,6 +6930,9 @@ def main() -> int:
                  "and mamba2-2.7b quick, serve --plan)")
             arch_reference_phase(torch)
             ssm_ref = ssm_reference_phase(torch)
+            _release(torch)
+            examples = examples_phase(torch, pathlib.Path(tmp), card)
+            mark("slice 22 examples_phase (examples_torch/ on the card)")
         reference_phase(torch)
         # the launches of each kernel on the path that runs it
         path_counts = {name: main_counts[name]
@@ -7074,7 +7311,8 @@ def main() -> int:
           f"{guard['repro-100m']['degraded_ms']} ms; olmoe call "
           f"{guard['olmoe-1b-7b']['call_ms']:.2f} ms, degraded re-run "
           f"{guard['olmoe-1b-7b']['degraded_ms']} ms")
-    print(f"[smoke] total {time.perf_counter() - t_start:.1f}s (build {build_s:.1f}s)")
+    print(f"[smoke] total {time.perf_counter() - t_start:.1f}s (build {build_s:.1f}s, "
+          f"examples_phase {examples['seconds']:.1f}s)")
     print(card_line())
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

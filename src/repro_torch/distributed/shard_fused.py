@@ -312,6 +312,17 @@ def axis_group(rules: Rules, axis: str):
     return rules.mesh.get_group(axis)
 
 
+def entry_group(rules: Rules, entry):
+    """The process group of the ranks that share every coordinate but those
+    on the mesh axes of a spec entry: one axis' group, or one group over
+    several axes (the mesh flattened over them, in mesh order, so that a
+    rank's place in it is :func:`entry_index`)."""
+    axes = entry_axes(entry)
+    if len(axes) == 1:
+        return rules.mesh.get_group(axes[0])
+    return rules.mesh[axes]._flatten().get_group()
+
+
 __all__ = [
     "P",
     "all_gather_dim",
@@ -321,6 +332,7 @@ __all__ = [
     "copy_to_split",
     "dim_entry",
     "entry_axes",
+    "entry_group",
     "entry_index",
     "gqa_shard_entries",
     "local_shape",

@@ -16,6 +16,9 @@ terms:
     FLOPs (``FlopCounterMode``'s formulas on its local shapes, the fused
     kernels' meta ops among them), its collectives by kind and output bytes,
     its transcendentals and its unfused op traffic;
+  * rank 0's bytes of a prefill or decode cell's dense cache, its blocks as
+    the cell rules place them (``cache_bytes_per_device``, a key JAX's row
+    lacks);
   * the analytic terms of ``roofline/model.py`` (model FLOPs, HBM traffic,
     peak memory, active parameters) and ``RooflineReport`` at the H100's
     peaks.
@@ -35,9 +38,6 @@ Known differences from the JAX package's dry run:
     extrapolate from (JAX's ``cost_analysis`` counts a scan body once);
     train cells are traced at one microbatch, as JAX's probes are, and
     ``raw_scan_once`` repeats the same counts;
-  * a decoder's dense cache keeps its sequence whole
-    (``layers.dense_cache_spec``), where JAX's context-parallel rules shard
-    it: the ``long_500k`` cells' collectives differ from JAX's;
   * the mesh is a CPU ``DeviceMesh``, on which DTensor makes a
     shard-to-shard redistribution an all-gather and a chunk (an all-to-all
     on a ``cuda`` mesh), and the port's prefill gathers its logits whole on
@@ -69,7 +69,7 @@ import torch.distributed as dist
 from repro_torch import sfu
 from repro_torch.configs import REFUSED, get_config
 from repro_torch.launch.mesh import make_production_mesh
-from repro_torch.launch.steps import auto_microbatches, build_step
+from repro_torch.launch.steps import auto_microbatches, build_step, cache_bytes_per_device
 from repro_torch.models import SHAPE_CELLS
 from repro_torch.roofline import collectives
 from repro_torch.roofline.model import (
@@ -195,6 +195,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool, act_impl: str = "jnp",
         mb = auto_microbatches(cfg, cell, mesh) if cell.kind == "train" else None
         # one microbatch, full depth: the whole step's counts
         rec, t_lower = trace_cell(cfg, mesh, cell, microbatches=1 if mb else None)
+        cache_bytes = cache_bytes_per_device(cfg, mesh, cell)
     m = _metrics(rec)
     coll = m["coll"]
 
@@ -246,6 +247,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool, act_impl: str = "jnp",
         memory_analysis="unavailable: meta device",
         peak_analytic_gb=analytic_peak_memory(cfg, cell, mesh_shape, mb or 1) / 2**30,
         hlo_bytes_per_device=m["bytes"],
+        cache_bytes_per_device=cache_bytes,
         raw_scan_once=m,  # no scan: the same full-depth counts
     )
     return row

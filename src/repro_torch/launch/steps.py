@@ -20,7 +20,8 @@ The dry run's steps (``launch/dryrun.py``): ``build_step(cfg, mesh, cell)``
 returns ``(step, operands)``, a train, prefill or decode step and its meta
 operands (parameters or the AdamW state, the batch of ``input_specs``, a
 dense cache), each placed as the sharded step places it, for
-``step(*operands)`` to trace with nothing allocated.
+``step(*operands)`` to trace with nothing allocated;
+``cache_bytes_per_device`` is a rank's bytes of that cache.
 """
 from __future__ import annotations
 
@@ -260,7 +261,7 @@ def _cache_specs_structs(model, cfg, rules: Rules, batch: int, max_len: int):
     """(specs, meta tensors) of the dense cache of ``batch`` rows and
     ``max_len`` positions: ``Model.cache_specs``, as ``make_cache`` places
     it, and ``shape_structs`` of ``Model.cache_defs``."""
-    return (model.cache_specs(rules, batch),
+    return (model.cache_specs(rules, batch, max_len),
             shape_structs(model.cache_defs(batch, max_len), cfg.dtype))
 
 
@@ -279,6 +280,17 @@ def _meta_cache(model, cfg, rules, cell):
     max_len = cell.seq_len + (cfg.n_vision_tokens or 0)
     specs, structs = _cache_specs_structs(model, cfg, rules, cell.global_batch, max_len)
     return _place_tree(structs, specs, rules.mesh), max_len
+
+
+def cache_bytes_per_device(cfg, mesh, cell) -> int:
+    """The bytes of a rank's blocks of the dense cache that a prefill or
+    decode cell's step holds (every leaf placed by ``Model.cache_specs``);
+    0 for a train cell, which holds none."""
+    if cell.kind == "train":
+        return 0
+    model = Model(cfg, device="meta")
+    cache, _ = _meta_cache(model, cfg, make_cell_rules(cfg, mesh, cell), cell)
+    return sum(t.to_local().numel() * t.element_size() for t in tree.leaves(cache))
 
 
 def build_prefill_step(cfg, mesh, cell):

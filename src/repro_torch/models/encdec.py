@@ -194,13 +194,16 @@ def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
             "xv": ParamDef((nl, batch, cfg.encoder_seq, Hkv, dh), cross_axes, init="zeros")}
 
 
-def cache_specs(rules, cfg: ModelConfig, batch: int) -> dict:
-    """The spec of each leaf of :func:`cache_defs` under a mesh:
-    ``layers.dense_cache_spec`` behind the layer axis (the per-shard dense
-    body writes and reads {k, v}; the cross-attention reads {xk, xv} on the
-    same batch rows and KV heads)."""
-    spec = shf.P(None, *L.dense_cache_spec(rules, cfg, batch))
-    return {k: spec for k in ("k", "v", "xk", "xv")}
+def cache_specs(rules, cfg: ModelConfig, batch: int, max_len: int) -> dict:
+    """The spec of each leaf of :func:`cache_defs` under a mesh, as JAX's
+    ``rules.tree_specs(logical_specs(cache_defs))`` places it, behind the
+    layer axis: {k, v} by ``layers.dense_cache_spec`` (the per-shard dense
+    body writes and reads them, their sequence over "cache_seq" where that
+    divides it); {xk, xv} on the same batch rows and KV heads, the frames
+    whole (no ``cache_seq`` on the cross K/V, as in JAX)."""
+    spec = L.dense_cache_spec(rules, cfg, batch, max_len)
+    cross = shf.P(None, spec[0], None, spec[2], None)
+    return {"k": shf.P(None, *spec), "v": shf.P(None, *spec), "xk": cross, "xv": cross}
 
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
@@ -208,7 +211,7 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, device) -> dict:
     placed by :func:`cache_specs`."""
     rules = active_mesh_rules()
     return zeros_like_defs(cache_defs(cfg, batch, max_len), cfg.dtype, device, rules,
-                           None if rules is None else cache_specs(rules, cfg, batch))
+                           None if rules is None else cache_specs(rules, cfg, batch, max_len))
 
 
 def _serving_params(cfg: ModelConfig, params):

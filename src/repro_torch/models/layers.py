@@ -27,7 +27,11 @@ dispatch) and the MLP's hidden state run per shard in ``local_map`` bodies
 groups, d_ff columns over "mlp", batch over the data axes, each body on
 plain local tensors, so every fused kernel sees its local shapes.  The page
 writes keep the batch replicated (every data rank applies every request's
-write, so pool replicas never diverge), as in JAX.
+write, so pool replicas never diverge), as in JAX.  A dense cache sharded
+over its sequence (``cache_seq``: sequence-parallel rules, or the
+context-parallel cell rules) keeps on each rank its block of the slots; a
+decode there runs JAX's unfused formula as GSPMD partitions it, with a MAX
+and two SUM all-reduces over the ranks of that block's group.
 """
 from __future__ import annotations
 
@@ -347,28 +351,43 @@ def decode_attention(q, k_cache, v_cache, valid, exp_fn: Callable = torch.exp,
     in one body."""
     if softmax_table is not None:
         return _decode_attention_fused(q, k_cache, v_cache, valid, softmax_table)
+    return seq_block_decode(q, k_cache, v_cache, valid, exp_fn)
+
+
+def seq_block_decode(q, k_blk, v_blk, valid, exp_fn: Callable,
+                     reduce: Callable | None = None):
+    """The JAX package's unfused decode over one block of the cache's
+    sequence, as GSPMD partitions it over ``cache_seq``: the local row max
+    reduced by ``reduce(x, "max")``, the local ``exp_fn``, the row sum
+    reduced by ``reduce(x, "sum")``, the local division, then the local
+    ``p·v`` reduced by ``reduce(x, "sum")``.  q: (B, 1, H, dh); k/v_blk:
+    (B, Tb, Hkv, dh); valid: (B, Tb) bool.  A block with no valid slot
+    contributes a max of -1e30, a sum of 0 and ``p·v`` of 0.  With no
+    ``reduce`` the block is the whole cache."""
+    if reduce is None:
+        reduce = lambda x, op: x  # noqa: E731
     B, _, H, dh = q.shape
-    Hkv = k_cache.shape[2]
+    Hkv = k_blk.shape[2]
     G = H // Hkv
     scale = 1.0 / math.sqrt(dh)
     qf = q.to(torch.float32).reshape(B, Hkv, G, dh)
-    s = torch.einsum("bhgd,bthd->bhgt", qf, k_cache.to(torch.float32)) * scale
+    s = torch.einsum("bhgd,bthd->bhgt", qf, k_blk.to(torch.float32)) * scale
     vm = valid[:, None, None, :]
     s = torch.where(vm, s, torch.full_like(s, -1e30))
-    m = s.amax(dim=-1, keepdim=True)
+    m = reduce(s.amax(dim=-1, keepdim=True), "max")
     p = torch.where(vm, exp_fn(s - m), torch.zeros_like(s))
-    l = p.sum(dim=-1, keepdim=True)
+    l = reduce(p.sum(dim=-1, keepdim=True), "sum")
     p = p / torch.clamp(l, min=1e-30)
-    out = torch.einsum("bhgt,bthd->bhgd", p, v_cache.to(torch.float32))
+    out = reduce(torch.einsum("bhgt,bthd->bhgd", p, v_blk.to(torch.float32)), "sum")
     return out.reshape(B, 1, H, dh).to(q.dtype)
 
 
-def _seq_sharded_fallback(rules, what: str) -> bool:
-    """True (after the warn-once fused-fallback warning) when the rules
-    shard the KV cache over its sequence (``cache_seq``): the per-shard
-    fused decode would replicate the cache there, so the unfused path runs,
-    as in the JAX package."""
-    if logical_extent(rules, "cache_seq") <= 1:
+def _seq_sharded_fallback(sharded: bool, what: str) -> bool:
+    """``sharded`` (after the warn-once fused-fallback warning when true):
+    whether the KV cache is sharded over its sequence (``cache_seq``); the
+    per-shard fused decode would replicate the cache there, so the unfused
+    path runs, as in the JAX package."""
+    if not sharded:
         return False
     sfu.warn_fused_fallback(
         sfu.site_key(sfu.SITE_SOFTMAX, "exp"),
@@ -392,7 +411,8 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, kv_len,
     the warn-once warning."""
     rules = active_mesh_rules()
     if rules is not None:
-        if softmax_table is not None and _seq_sharded_fallback(rules, "paged KV pool"):
+        if softmax_table is not None and _seq_sharded_fallback(
+                logical_extent(rules, "cache_seq") > 1, "paged KV pool"):
             softmax_table = None
         B, _, H, _ = q.shape
         Hkv = k_pages.shape[0]
@@ -647,38 +667,68 @@ def attention_layer(cfg: ModelConfig, params, x, *, kind: str = "attn", cache=No
     return out, cache
 
 
-def _dense_cache_attend(q, k, v, k_cache, v_cache, pos0: int, window, exp_fn, table):
+def _dense_cache_attend(q, k, v, k_cache, v_cache, pos0: int, window, exp_fn, table, *,
+                        T: int | None = None, lo: int = 0, reduce: Callable | None = None):
     """Write k / v into a dense layer cache (B, T, Hkv, dh) in place from
     position ``pos0`` (a local layer's cache of T == window slots is a
     ring), then attend: one decode position over the cache's valid slots,
-    or a prefill causally over the in-flight k / v."""
-    B, S = q.shape[:2]
-    T = k_cache.shape[1]
+    or a prefill causally over the in-flight k / v.  Under a mesh that
+    shards the cache over its sequence, ``k_cache`` / ``v_cache`` are a
+    rank's block ``[lo, lo + Tb)`` of a ``T``-slot cache: the write keeps
+    the block's positions (k / v whole over the sequence: no collective),
+    and a decode is :func:`seq_block_decode` over the block's valid slots,
+    ``reduce`` over the ranks that share the sequence."""
+    S, Tb = q.shape[1], k_cache.shape[1]
+    T = Tb if T is None else T
     ring = window is not None and T == window
     for buf, new in ((k_cache, k), (v_cache, v)):
-        new = new.to(buf.dtype)
-        if S == 1 and ring:
-            buf[:, pos0 % T:pos0 % T + 1] = new
-        elif ring and S >= T:  # the last T tokens, token p at slot p % T
-            buf.copy_(torch.roll(new[:, S - T:], S % T, dims=1))
-        else:
-            buf[:, pos0:pos0 + S] = new
+        _write_cache_block(buf, new, pos0, T, lo, ring)
     if S == 1:
-        t = torch.arange(T, device=q.device)[None, :]
-        valid = ((t <= pos0) | (pos0 >= T)) if ring else t <= pos0
-        return decode_attention(q, k_cache, v_cache, valid.expand(B, T), exp_fn,
-                                softmax_table=table)
+        t = lo + torch.arange(Tb, device=q.device)[None, :]
+        valid = (((t <= pos0) | (pos0 >= T)) if ring else t <= pos0).expand(q.shape[0], Tb)
+        if reduce is None:
+            return decode_attention(q, k_cache, v_cache, valid, exp_fn, softmax_table=table)
+        return seq_block_decode(q, k_cache, v_cache, valid, exp_fn, reduce)
     return _attn_softmax_dispatch(q, k, v, causal=True, exp_fn=exp_fn, table=table,
                                   window=window)
 
 
-def dense_cache_spec(rules, cfg: ModelConfig, batch: int):
-    """The spec of a layer's dense (B, T, Hkv, dh) cache under a mesh: the
-    batch over its axes, the KV heads over "cache_kv" when q's heads split
-    with them in whole groups.  The sequence stays whole (the per-shard
-    body writes and reads it), so a ``cache_seq`` rule is not applied."""
+def _write_cache_block(buf, new, pos0: int, T: int, lo: int, ring: bool) -> None:
+    """Write ``new`` (B, S, ...) at the global positions ``pos0 ..`` of a
+    T-slot cache into ``buf``, its block of global slots ``[lo, lo + Tb)``
+    (the whole cache: ``lo`` 0, Tb = T): only the positions that fall in
+    the block, each where the single-process write puts it (a ring's
+    position p at slot p % T; a prefill of S >= T into a ring keeps its
+    last T tokens, rolled by S % T)."""
+    S, Tb = new.shape[1], buf.shape[1]
+    new = new.to(buf.dtype)
+    if ring and S >= T:
+        buf.copy_(torch.roll(new[:, S - T:], S % T, dims=1)[:, lo:lo + Tb])
+        return
+    start = pos0 % T if ring else pos0
+    if start + S > T:
+        raise ValueError(f"{S} positions from {pos0} do not fit a {T}-slot cache")
+    a, b = max(start, lo), min(start + S, lo + Tb)
+    if a < b:
+        buf[:, a - lo:b - lo] = new[:, a - start:b - start]
+
+
+def dense_cache_spec(rules, cfg: ModelConfig, batch: int, T: int):
+    """The spec of a layer's dense (B, T, Hkv, dh) cache under a mesh, JAX's
+    ``rules.spec("batch", "cache_seq", "cache_kv", None)`` with each entry
+    that does not divide its dim replicated (``sanitize_spec``): the batch
+    over its axes, the sequence over "cache_seq" (sequence-parallel rules:
+    "model"; context-parallel cell rules: ("data", "model")), the KV heads
+    over "cache_kv" when q's heads split with them in whole groups."""
     hk = shf.gqa_shard_entries(rules, "act_heads", cfg.n_heads, "cache_kv", cfg.n_kv_heads)[1]
-    return shf.P(shf.batch_entry(rules, batch), None, hk, None)
+    return shf.P(shf.batch_entry(rules, batch), shf.dim_entry(rules, "cache_seq", T), hk, None)
+
+
+def _group_reduce(group) -> Callable:
+    """``reduce(x, op)`` over a process group: ``op`` "max" or "sum"."""
+    def reduce(x, op: str):
+        return shf.pmax(x, group) if op == "max" else shf.psum(x, group)
+    return reduce
 
 
 def _attention_core_sharded(rules, cfg: ModelConfig, q, k, v, *, cache, cache_pos, paged,
@@ -688,29 +738,38 @@ def _attention_core_sharded(rules, cfg: ModelConfig, q, k, v, *, cache, cache_po
     and attends in one per-shard body; a paged call writes its pages per
     shard (``kv_cache``'s sharded writes, batch replicated) and then
     attends per shard; a dense cache is written and read in one per-shard
-    body, on each rank's batch rows and KV heads."""
+    body, on each rank's batch rows, KV heads and, where "cache_seq" shards
+    it, block of the sequence (the decode's softmax then reduced over the
+    ranks that share the sequence: :func:`seq_block_decode`)."""
     q = constrain(q, "batch", "act_seq", "act_heads", None)
     S = q.shape[1]
     if cache is not None and "k_pages" not in cache:
         pos0 = int(0 if cache_pos is None else cache_pos)
-        spec = dense_cache_spec(rules, cfg, q.shape[0])
+        T = cache["k"].shape[1]
+        spec = dense_cache_spec(rules, cfg, q.shape[0], T)
         want = placements(rules.mesh, spec)
         for t in (cache["k"], cache["v"]):
             if list(t.placements) != want:
                 raise ValueError(f"dense cache placed {list(t.placements)}, the per-shard write "
                                  f"needs {want}: make it under the rules (make_cache)")
-        if S == 1 and table is not None and _seq_sharded_fallback(rules, "decode KV cache"):
+        seq = spec[1]  # this rank's block of the sequence, reduced over its group
+        if S == 1 and table is not None and _seq_sharded_fallback(seq is not None,
+                                                                  "decode KV cache"):
             table = None
-        hs = shf.P(spec[0], None, spec[2], None)  # q's heads split with the cache's
+        # q, k and v whole over the sequence, their heads split with the cache's
+        hs = shf.P(spec[0], None, spec[2], None)
+        block = 0 if seq is None else shf.entry_index(rules, seq)
+        reduce = None if seq is None else _group_reduce(shf.entry_group(rules, seq))
 
         def dense(q_l, k_l, v_l, kc_l, vc_l):
             if use_rope:
                 pos = pos0 + torch.arange(S, device=q_l.device)[None, :].expand(q_l.shape[0], S)
                 q_l, k_l = rope(q_l, pos, cfg.rope_theta), rope(k_l, pos, cfg.rope_theta)
-            return _dense_cache_attend(q_l, k_l, v_l, kc_l, vc_l, pos0, window, exp_fn, table)
+            return _dense_cache_attend(q_l, k_l, v_l, kc_l, vc_l, pos0, window, exp_fn, table,
+                                       T=T, lo=block * kc_l.shape[1], reduce=reduce)
 
         return shf.run_sharded(rules, unruled(dense), (q, k, v, cache["k"], cache["v"]),
-                               (hs, spec, spec, spec, spec), hs)
+                               (hs, hs, hs, spec, spec), hs)
     if cache is None:
         rotate = use_rope and not cross
 

@@ -89,10 +89,11 @@ class Model:
         axes."""
         return self._impl.cache_defs(self.cfg, batch, max_len)
 
-    def cache_specs(self, rules, batch: int):
+    def cache_specs(self, rules, batch: int, max_len: int):
         """The spec of each leaf of :meth:`cache_defs` under a mesh (where
-        :meth:`make_cache` places it)."""
-        return self._impl.cache_specs(rules, self.cfg, batch)
+        :meth:`make_cache` places it): JAX's logical specs under ``rules``,
+        each entry that does not divide its dim replicated."""
+        return self._impl.cache_specs(rules, self.cfg, batch, max_len)
 
     def make_cache(self, batch: int, max_len: int):
         """The dense cache, zeros; under active rules with a mesh, every

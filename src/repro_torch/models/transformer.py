@@ -429,17 +429,19 @@ def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> list:
     return out
 
 
-def cache_specs(rules, cfg: ModelConfig, batch: int) -> list:
+def cache_specs(rules, cfg: ModelConfig, batch: int, max_len: int) -> list:
     """The spec of each leaf of :func:`cache_defs` under a mesh, the layer
-    axis leading: an attention slot's by ``layers.dense_cache_spec`` (its
-    sequence whole, where JAX's ``cache_seq`` may split it), an SSM slot's
-    by ``ssm.cache_spec``."""
+    axis leading, as JAX's ``rules.tree_specs(logical_specs(cache_defs))``
+    places it: an attention slot's by ``layers.dense_cache_spec`` at its
+    kind's :func:`cache_len` (the sequence over "cache_seq" where that
+    divides it), an SSM slot's by ``ssm.cache_spec``."""
     out = []
     for mixer, _ in cfg.layer_kinds[:cfg.period]:
         if mixer == "ssm":
             out.append({k: shf.P(None, *s) for k, s in SSM.cache_spec(rules, cfg, batch).items()})
         else:
-            spec = shf.P(None, *L.dense_cache_spec(rules, cfg, batch))
+            T = cache_len(cfg, mixer, max_len)
+            spec = shf.P(None, *L.dense_cache_spec(rules, cfg, batch, T))
             out.append({"k": spec, "v": spec})
     return out
 
@@ -449,7 +451,7 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int, device):
     placed by :func:`cache_specs`."""
     rules = active_mesh_rules()
     return zeros_like_defs(cache_defs(cfg, batch, max_len), cfg.dtype, device, rules,
-                           None if rules is None else cache_specs(rules, cfg, batch))
+                           None if rules is None else cache_specs(rules, cfg, batch, max_len))
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache, vision_embeds=None):

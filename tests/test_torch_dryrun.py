@@ -11,7 +11,9 @@ package's, on a fake process group of 512 ranks and meta tensors.
   reads ``ok`` (``chip_smoke.py``'s ``dryrun_phase`` holds the same pins on
   the chip machine).
 * The pins of repro-100m and mamba2-2.7b are derived from the rules by
-  hand (``_hand_collectives``).
+  hand (``_hand_collectives``), and so is the full-width pin (its cache's
+  sequence over "model": three all-reduces per attention layer's decode).
+* A row's ``cache_bytes_per_device`` is a rank's block of the dense cache.
 * Per-device FLOPs of a reduced prefill equal a hand count of its
   products; a fused plan's row (the GLU's meta op) counts the jnp row's
   FLOPs within 1%; a fused plan's train step with the PWL softmax runs
@@ -66,7 +68,7 @@ PINS = {
 
 # full-width cells' rows: collectives by kind (the pins chip_smoke.py holds)
 FULL_WIDTH_PINS = {
-    "repro-100m__decode_32k__multi": {"all-gather": 89, "all-reduce": 13},
+    "repro-100m__decode_32k__multi": {"all-gather": 89, "all-reduce": 49},
 }
 
 
@@ -128,7 +130,7 @@ _GATHERED = {"attn": 4, "ssm": 5, "dense": 3}
 _REPLICATED = {"attn": 1, "ssm": 7, "dense": 1}
 
 
-def _hand_collectives(cfg, kind):
+def _hand_collectives(cfg, kind, seq_parallel=False, pods=False):
     """One step's collectives by kind on the (data=2, model=2) mesh, from
     the rules alone (``test_hand_counts_are_the_pins`` checks the rules'
     premises).  Train (data parallel: the batch over both axes, weights
@@ -144,17 +146,25 @@ def _hand_collectives(cfg, kind):
     an empty FFN's three weights taken whole by its body; all-reduces of
     the vocab-parallel embedding, an attention block's out projection, an
     SSM block's gated-norm sum of squares and out projection, a non-empty
-    FFN's down projection."""
+    FFN's down projection.  Under sequence-parallel attention
+    (``seq_parallel``: heads whole, the cache's sequence over "model") an
+    attention block's out projection reduces nothing, and its decode over a
+    sequence block all-reduces the row max, the row sum and ``p·v`` over
+    "model"; with ``pods`` the logits' gather over ("pod", "data") is two
+    gathers."""
     blocks = [b for pair in cfg.layer_kinds for b in pair]
     mats = (1 if cfg.tie_embeddings else 2) + sum(_GATHERED[b] for b in blocks)
     if kind == "train":
         reps = 1 + sum(_REPLICATED[b] for b in blocks)  # the final norm's scale
         return {"all-gather": mats, "reduce-scatter": mats,
                 "all-reduce": mats + 2 * reps + 2 * 2 + 2}
-    ssm = blocks.count("ssm")
+    ssm, attn = blocks.count("ssm"), blocks.count("attn")
     empty_ffn = blocks.count("dense") if cfg.d_ff == 0 else 0
-    return {"all-gather": mats + 2 + ssm + 3 * empty_ffn,
-            "all-reduce": 1 + blocks.count("attn") + 2 * ssm + blocks.count("dense") - empty_ffn}
+    out_proj = 0 if seq_parallel else attn
+    seq_decode = 3 * attn if seq_parallel and kind == "decode" else 0
+    return {"all-gather": mats + (3 if pods else 2) + ssm + 3 * empty_ffn,
+            "all-reduce": 1 + out_proj + seq_decode + 2 * ssm + blocks.count("dense")
+            - empty_ffn}
 
 
 _TP = {"heads": "model", "mlp": "model", "vocab": "model", "ssm_inner": "model",
@@ -178,6 +188,23 @@ def test_hand_counts_are_the_pins(mesh22, arch, kind):
         del want["heads"]  # no attention block to split
     assert {k: table[k] for k in want} == want
     assert _hand_collectives(cfg, kind) == PINS[arch, kind]
+
+
+def test_full_width_pins_are_the_hand_count():
+    """Full-width repro-100m ``decode_32k`` on 2 x 16 x 16: 12 heads do not
+    divide 16, so the rules are sequence-parallel and the 32768-slot cache
+    splits over "model"; the count is the hand count with the partitioned
+    decode's three all-reduces per attention layer."""
+    from repro_torch.distributed.sharding import AbstractMesh
+    from repro_torch.launch.steps import make_cell_rules
+
+    cfg = get_config("repro-100m")
+    mesh = AbstractMesh((2, 16, 16), ("pod", "data", "model"))
+    t = make_cell_rules(cfg, mesh, SHAPE_CELLS["decode_32k"]).table
+    assert (t["act_heads"], t["cache_seq"], t["mlp"], t["batch"]) == \
+        (None, "model", "model", ("pod", "data"))
+    assert FULL_WIDTH_PINS["repro-100m__decode_32k__multi"] == \
+        _hand_collectives(cfg, "decode", seq_parallel=True, pods=True)
 
 
 @pytest.mark.parametrize("arch,kind", list(PINS))
@@ -286,6 +313,17 @@ def test_full_width_multipod_cell_is_ok_and_pinned(rows):
         assert r["memory_analysis"] == "unavailable: meta device"
 
 
+def test_rows_carry_a_ranks_cache_bytes(rows):
+    """repro-100m's 12 layers of bf16 K and V, 12 heads of 64: ``decode_32k``
+    on 2 x 16 x 16 holds 4 of 128 rows and 2048 of 32768 slots a rank,
+    ``prefill_32k`` on 16 x 16 2 of 32 rows and 2048 slots."""
+    per_slot = 12 * 2 * 12 * 64 * 2
+    assert rows["jnp"]["repro-100m__decode_32k__multi"]["cache_bytes_per_device"] == \
+        4 * 2048 * per_slot
+    assert rows["jnp"]["repro-100m__prefill_32k__single"]["cache_bytes_per_device"] == \
+        2 * 2048 * per_slot
+
+
 def test_skip_row_is_jaxs(rows):
     assert rows["jnp"]["repro-100m__long_500k__single"] == {
         "arch": "repro-100m", "shape": "long_500k", "mesh": "16x16",
@@ -328,7 +366,7 @@ def test_analytic_terms_are_the_roofline_models(rows):
         assert r["t_memory_ms"] == 1e3 * RM.analytic_memory_traffic(cfg, cell, mesh) / RM.HBM_BW
         assert r["peak_analytic_gb"] == RM.analytic_peak_memory(cfg, cell, mesh, 1) / 2**30
         assert r["active_params"] == RM.active_params(cfg)
-        assert r["t_compute_ms"] == 1e3 * r["raw_scan_once"]["flops"] / RM.PEAK_FLOPS
+        assert r["t_compute_ms"] == 1e3 * (r["raw_scan_once"]["flops"] / RM.PEAK_FLOPS)
 
 
 def test_report_renders_what_the_jax_report_renders(rows, capsys, monkeypatch):

@@ -26,6 +26,16 @@ JAX).
   and whisper-small (self- and cross-attention K/V) against the
   single-process calls, the fused decode taking plain tensors of a rank's
   batch rows and KV heads.
+* Dense caches sharded over their sequence (JAX's ``cache_seq``): reduced
+  gemma3-1b under the sequence-parallel rules (its one KV head: the
+  sequence over "model", 2 ways) and gemma3-1b and repro-100m under the
+  context-parallel rules of a B = 1 decode cell (("data", "model"), 4
+  ways), a 12-token prefill and 8 decode steps that wrap the 16-slot rings:
+  logits within 1e-4 of single-process torch, the same tokens, each rank's
+  block T / extent slots, after every write bitwise the slice that the
+  single-process write of the same k / v leaves (the mesh's k / v differ
+  from one process's in rounding past the first layer), the fused decode
+  falling back once with JAX's warning.
 """
 import pytest
 
@@ -159,3 +169,34 @@ def test_dense_decode_runs_fused_on_local_tensors(dense):
         assert all(plain for _, plain, _ in calls)
         decode = [c for c in calls if c[0] == "fused_pwl_softmax" and c[2][0] == (2, 2, 1, 40)]
         assert len(decode) == 3 * 2  # three decode steps, two layers
+
+
+# sequence-sharded cases of the dense spawn: (cache_seq, extent)
+SEQ_CASES = {"gemma3-1b wrap": ("model", 2), "gemma3-1b cp": (("data", "model"), 4),
+             "repro-100m cp": (("data", "model"), 4)}
+
+
+@pytest.mark.parametrize("rank", range(4))
+@pytest.mark.parametrize("case", list(SEQ_CASES))
+def test_seq_sharded_cache_matches_single_process(dense, case, rank):
+    r = dense[rank][case]
+    seq, extent = SEQ_CASES[case]
+    assert r["cache_seq"] == seq
+    assert r["err"] <= 1e-4 and r["plain"] and r["placed"]
+    assert r["tokens"] == r["ref_tokens"]
+    # every layer call of the prefill and the 8 decode steps wrote its block
+    # bitwise as the single-process write of the same k / v writes that slice
+    n_layers = 6 if case.startswith("gemma") else 2
+    assert r["block_writes"] == 9 * n_layers and r["block_mismatches"] == 0
+    # gemma3-1b: five 16-slot rings and one 40-slot global layer; repro-100m 40 slots
+    want_T = [16] * 10 + [40] * 2 if case.startswith("gemma") else [40, 40]
+    assert [s[2] for s in r["local_shapes"]] == [t // extent for t in want_T]
+
+
+@pytest.mark.parametrize("case", list(SEQ_CASES))
+def test_seq_sharded_decode_falls_back_once_with_jaxs_words(dense, case):
+    for r in dense:
+        assert len(r[case]["fallbacks"]) == 1
+        assert "decode KV cache is sharded over the sequence axis" in r[case]["fallbacks"][0]
+        # the prefill's row softmax runs fused on plain local tensors
+        assert any(n == "fused_pwl_softmax" and plain for n, plain, _ in r[case]["calls"])

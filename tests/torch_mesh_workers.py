@@ -3,7 +3,9 @@ runs them, one process per rank, on a gloo process group).  Each builds
 the (data=2, model=2) mesh on the CPU and returns plain values that the
 tests assert on; the single-process references are computed in the same
 process, with no rules active."""
+import contextlib
 import dataclasses
+import functools
 import json
 import warnings
 
@@ -388,55 +390,189 @@ def _record_pwl_kernel():
     ops.pwl_activation = call
 
 
+# sequence-sharded dense caches: name -> (arch, config overrides, B, S, decode
+# steps, the rules: "model" (sequence-parallel rules, 2 ways) or "cp" (the
+# context-parallel cell rules of a B = 1 decode cell, ("data", "model"), 4 ways)).
+# Twelve prompt tokens, then eight decode steps wrap gemma3-1b's 16-slot rings.
+SEQ_CASES = {
+    "gemma3-1b wrap": ("gemma3-1b", {"act_impl": "fused", "pwl_softmax": True}, 4, 12, 8,
+                       "model"),
+    "gemma3-1b cp": ("gemma3-1b", {"act_impl": "fused", "pwl_softmax": True}, 1, 12, 8, "cp"),
+    "repro-100m cp": ("repro-100m", {"act_impl": "fused", "pwl_softmax": True,
+                                     "force_dp_only": False}, 1, 12, 8, "cp"),
+}
+SEQ_T = 40  # the global layers' slots
+
+
+WRITES: dict = {}  # a block's storage -> its shadow whole cache (k, v); and "mismatches"
+
+
+def _shadow_block_writes():
+    """Wrap ``layers._dense_cache_attend`` once: each call on a block of a
+    cache sharded over its sequence (``reduce`` given) also applies the
+    single-process write of the same k / v to a whole T-slot shadow of that
+    layer's cache, kept by the block's storage, and counts in
+    ``WRITES["mismatches"]`` a block that is not then bitwise the shadow's
+    slice ``[lo, lo + Tb)``."""
+    from repro_torch.models import layers
+
+    if getattr(layers, "_shadowed", False):
+        return
+    layers._shadowed = True
+    fn = layers._dense_cache_attend
+
+    def call(q, k, v, k_blk, v_blk, pos0, window, exp_fn, table, *, T=None, lo=0,
+             reduce=None):
+        y = fn(q, k, v, k_blk, v_blk, pos0, window, exp_fn, table, T=T, lo=lo, reduce=reduce)
+        if reduce is None:
+            return y
+        shadow = WRITES.setdefault(k_blk.data_ptr(), tuple(
+            torch.zeros((b.shape[0], T) + tuple(b.shape[2:]), dtype=b.dtype)
+            for b in (k_blk, v_blk)))
+        fn(q, k, v, *shadow, pos0, window, exp_fn, table)
+        Tb = k_blk.shape[1]
+        WRITES["blocks"] = WRITES.get("blocks", 0) + 1
+        if not all(torch.equal(b, w[:, lo:lo + Tb]) for b, w in zip((k_blk, v_blk), shadow)):
+            WRITES["mismatches"] = WRITES.get("mismatches", 0) + 1
+        return y
+    layers._dense_cache_attend = call
+
+
+def _dense_case(mesh, cfg, B, S, n_decode, T, make):
+    """Prefill and ``n_decode`` steps of ``cfg`` on a dense cache under the
+    rules ``make(cfg)`` against the single-process calls: logits, greedy
+    tokens, the placements, the per-shard block writes against the
+    single-process write of the same k / v (``_shadow_block_writes``), the
+    fused calls and fallbacks."""
+    model = Model(cfg, device="cpu")
+    params = model.init(seed=0)
+    rng = np.random.default_rng(7)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int64))
+    steps_ = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int64))
+              for _ in range(n_decode)]
+    extras = {}
+    if cfg.is_encoder_decoder:
+        extras["frames"] = torch.from_numpy(
+            rng.standard_normal((B, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+
+    def run(rules):
+        p = params if rules is None else steps.shard_params(cfg, params, rules)
+        CALLS.clear()
+        with sh.use_rules(rules), warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            cache = model.make_cache(B, T)
+            logits = [model.prefill(p, tokens, cache, **extras)]
+            for i, t in enumerate(steps_):
+                logits.append(model.decode_step(p, t, cache, S + i))
+        falls = [str(w.message) for w in rec if "falling back" in str(w.message)]
+        return logits, cache, falls
+
+    ref, _, _ = run(None)
+    rules = make(cfg)
+    WRITES.clear()
+    got, cache, falls = run(rules)
+    calls = list(CALLS)
+    specs = steps._spec_leaves(model.cache_specs(rules, B, T))
+    return {"err": max(float((a - b).abs().max()) for a, b in zip(got, ref)),
+            "tokens": [l.argmax(-1).tolist() for l in got],
+            "ref_tokens": [l.argmax(-1).tolist() for l in ref],
+            "plain": all(type(t) is torch.Tensor for t in got),
+            "placed": all(list(t.placements) == sh.placements(mesh, s)
+                          for t, s in zip(tree.leaves(cache), specs, strict=True)),
+            "local_shapes": [tuple(t.to_local().shape) for t in tree.leaves(cache)],
+            "block_writes": WRITES.get("blocks", 0),
+            "block_mismatches": WRITES.get("mismatches", 0),
+            "cache_seq": rules.table["cache_seq"],
+            "fallbacks": falls, "calls": calls}
+
+
 def dense_cache_parity(rank, world):
-    """Dense-cache prefill and three decode steps on the 2x2 mesh (the cache
+    """Dense-cache prefill and decode steps on the 2x2 mesh (the cache
     written and read per shard; gemma3-1b's local layers as rings, mamba2's
     and jamba's SSM states and conv tails, whisper's self- and cross-
     attention K/V) against the single-process calls' logits and greedy
-    tokens; the cache placements; the fused calls' operands."""
+    tokens; the cache placements; the fused calls' operands.  Then
+    ``SEQ_CASES``: caches sharded over their sequence, rings wrapped in
+    the decode, each block write against the single-process write."""
     mesh = _mesh()
     out = {}
     _record_fused()
     _record_pwl_kernel()
+    _shadow_block_writes()
     for arch, (over, softplus_kernel) in DENSE_CASES.items():
         cfg = get_reduced_config(arch, dtype=torch.float32, **over)
         if softplus_kernel:
             cfg = _softplus_kernel_plan(cfg)
-        model = Model(cfg, device="cpu")
-        params = model.init(seed=0)
-        rng = np.random.default_rng(7)
-        B, S, T = 4, 24, 40
-        tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int64))
-        steps_ = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int64))
-                  for _ in range(3)]
-        extras = {}
-        if cfg.is_encoder_decoder:
-            extras["frames"] = torch.from_numpy(
-                rng.standard_normal((B, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+        out[arch] = _dense_case(mesh, cfg, 4, 24, 3, 40, lambda c: sh.make_rules(c, mesh))
+    for name, (arch, over, B, S, n_decode, kind) in SEQ_CASES.items():
+        cfg = get_reduced_config(arch, dtype=torch.float32, **over)
+        if kind == "cp":
+            cell = ShapeCell("cp", SEQ_T, B, "decode")
+            make = lambda c: steps.make_cell_rules(c, mesh, cell)  # noqa: E731
+        else:
+            make = lambda c: sh.make_rules(c, mesh)  # noqa: E731
+        sfu.reset_fused_fallback_warnings()  # each case reports its own
+        out[name] = _dense_case(mesh, cfg, B, S, n_decode, SEQ_T, make)
+    return out
 
-        def run(rules):
-            p = params if rules is None else steps.shard_params(cfg, params, rules)
-            CALLS.clear()
-            with sh.use_rules(rules), warnings.catch_warnings(record=True) as rec:
-                warnings.simplefilter("always")
-                cache = model.make_cache(B, T)
-                logits = [model.prefill(p, tokens, cache, **extras)]
-                for i, t in enumerate(steps_):
-                    logits.append(model.decode_step(p, t, cache, S + i))
-            falls = [str(w.message) for w in rec if "falling back" in str(w.message)]
-            return logits, cache, falls
 
-        ref, _, _ = run(None)
-        rules = sh.make_rules(cfg, mesh)
-        got, cache, falls = run(rules)
-        calls = list(CALLS)
-        specs = steps._spec_leaves(model.cache_specs(rules, B))
-        out[arch] = {"err": max(float((a - b).abs().max()) for a, b in zip(got, ref)),
-                     "tokens": [l.argmax(-1).tolist() for l in got],
-                     "ref_tokens": [l.argmax(-1).tolist() for l in ref],
-                     "plain": all(type(t) is torch.Tensor for t in got),
-                     "placed": all(list(t.placements) == sh.placements(mesh, s)
-                                   for t, s in zip(tree.leaves(cache), specs, strict=True)),
-                     "local_shapes": [tuple(t.to_local().shape) for t in tree.leaves(cache)],
-                     "fallbacks": falls, "calls": calls}
+@contextlib.contextmanager
+def planted_fault(kind: str):
+    """A training fault that the bf16 bound of ``tests/test_torch_examples.py``
+    must catch, planted while the block runs: "skip1" / "skip2" (that AdamW
+    update computed and dropped), "stale" (the weights the model computes
+    with left at their first cast, the gradient still flowing), or "" (none).
+    ``tests/bf16_bound_readings.py`` reads the losses' gap under each."""
+    from repro_torch.models import transformer
+
+    apply_updates, compute_params = adamw.apply_updates, transformer.compute_params
+    calls, first = [], []
+
+    def skipping(state, grads, cfg, in_place=False):
+        calls.append(1)
+        new, metrics = apply_updates(state, grads, cfg, in_place=in_place)
+        return (state if f"skip{len(calls)}" == kind else new), metrics
+
+    def stale(defs, params, dtype):
+        out = compute_params(defs, params, dtype)
+        leaves = tree.leaves(out)
+        first[:] = first or [x.detach().clone() for x in leaves]
+        return tree.unflatten(out, [f + (x - x.detach()) for f, x in zip(first, leaves)])
+
+    if kind.startswith("skip"):
+        adamw.apply_updates = skipping
+    elif kind == "stale":
+        transformer.compute_params = stale
+    try:
+        yield
+    finally:
+        adamw.apply_updates, transformer.compute_params = apply_updates, compute_params
+
+
+def train_compressed_example(rank, world, init_f32, init_bf16, fault=""):
+    """``examples_torch/train_compressed.py``'s ``main`` on this rank of the
+    gloo group, 3 steps in f32 and in bf16 (its config module's
+    ``get_reduced_config`` given that dtype), each from the JAX init
+    pickled for it, under :func:`planted_fault` ``fault``; returns the
+    losses by dtype."""
+    import importlib.util
+    import pathlib
+    import pickle
+
+    from repro_torch.models import params_from_numpy
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "examples_torch" / "train_compressed.py"
+    spec = importlib.util.spec_from_file_location("train_compressed_port", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = {}
+    for dtype, init_path in (("float32", init_f32), ("bfloat16", init_bf16)):
+        mod.get_reduced_config = functools.partial(get_reduced_config,
+                                                   dtype=getattr(torch, dtype))
+        with open(init_path, "rb") as f:
+            jparams = pickle.load(f)
+        cfg = mod.get_reduced_config("repro-100m", act_impl="jnp")
+        params = params_from_numpy(jparams, cfg, "cpu", master=True)
+        with planted_fault(fault):
+            out[dtype] = mod.main(["--steps", "3", "--device", "cpu"], params=params)
     return out

@@ -215,7 +215,16 @@
    card (``readme_plan.py``, ``quickstart.py`` and
    ``ablation_pwl_vs_exact.py --steps 60`` in this process, ``serve_lm.py``
    and ``train_lm.py --steps 20`` as subprocesses, ``train_compressed.py``
-   under ``torchrun`` on one NCCL rank).  No mesh runs on one card.
+   under ``torchrun`` on one NCCL rank).  No mesh runs on one card;
+23. slice 23, the paper's fixed-point datapath (no kernel: PyTorch ops,
+   as the reference is ``jnp``): ``fixed_point_phase`` runs
+   ``quantize_table`` / ``eval_fixed_point`` at 8, 16 and 32 bits on the
+   card at repro-100m's GLU hidden (4096 x 3072, a band of saturating
+   inputs) for four 32-breakpoint tables in f32 and bf16, and for every
+   shipped table at 256 x 3072, each bitwise the CPU's result, the f32
+   cases within the JAX suite's error bounds; ``wide_table_phase`` also
+   times every backward at 32 and 128 breakpoints beside its bound and
+   yardstick.
 
 Every failed check exits non-zero.  The last two lines of standard output
 are the kernels' JSON line and ``{"ok": true, "device": {...}}``; the card's
@@ -5069,10 +5078,15 @@ def _wide_families(torch) -> list[dict]:
     times the forward kernel; ``bound`` is the forward's least time (the
     bytes it must move against its products' or decodes' operations);
     ``on_path`` marks the family and shape a served model's 129-segment
-    session runs.
+    session runs.  A family with a backward kernel has ``n_fwd`` (its
+    forward outputs, first in ``run``'s), ``bwd(table)`` (the backward
+    kernel's call and its plain version's, operands bound), its bound and
+    the PyTorch yardstick its narrow row names (``bwd_library``).
     Integer-grid inputs (``_igrid``) wherever a product feeds the decode, so
     every pre-activation is an exact f32 sum in any order and the kernel
     decodes the plain version's segment."""
+    import torch.nn.functional as F
+
     from repro_torch.kernels import ops
     from repro_torch.kernels import pwl_act as P
     from repro_torch.kernels.fused import (
@@ -5106,21 +5120,32 @@ def _wide_families(torch) -> list[dict]:
         x, g = grid(M, K_DIM, dtype=dtype), grid(M, N_DIM, dtype=dtype)
         wg, wu = grid(K_DIM, N_DIM, dtype=dtype), grid(K_DIM, N_DIM, dtype=dtype)
 
+        def bwd(table):
+            plan, tabs = ops_of(table)
+            return (lambda: G.fused_glu_bwd(x, wg, wu, g, plan, tabs),
+                    lambda: G.fused_glu_bwd_plain(x, wg, wu, g, plan, tabs))
+
         def run(table, plain):
             plan, tabs = ops_of(table)
+            kernel, ref = bwd(table)
             if plain:
-                return (G.fused_glu_plain(x, wg, wu, plan, tabs),
-                        *G.fused_glu_bwd_plain(x, wg, wu, g, plan, tabs))
-            return (fused_glu(x, wg, wu, table=table), *G.fused_glu_bwd(x, wg, wu, g, plan, tabs))
+                return (G.fused_glu_plain(x, wg, wu, plan, tabs), *ref())
+            return (fused_glu(x, wg, wu, table=table), *kernel())
 
         esize, bf16 = x.element_size(), dtype == torch.bfloat16
+        wcat = torch.cat([wg, wu], dim=1)
+        bound = _bound if bf16 else _f32_bound
         return {"name": "fused_glu", "lib": "glu", "fn": "gelu_tanh", "run": run,
                 "shape": f"M={M} K={K_DIM} N={N_DIM} {str(dtype).split('.')[-1]}",
                 "fwd": lambda table: fused_glu(x, wg, wu, table=table),
                 "plain": lambda table: G.fused_glu_plain(x, wg, wu, *ops_of(table)),
-                "bound": (_bound if bf16 else _f32_bound)(
-                    (M * K_DIM + 2 * K_DIM * N_DIM + M * N_DIM) * esize, 4.0 * M * K_DIM * N_DIM),
-                "on_path": bf16, "tol": 1e-2 if bf16 else 1e-4, "replaces": "glu.py:30"}
+                "bound": bound((M * K_DIM + 2 * K_DIM * N_DIM + M * N_DIM) * esize,
+                               4.0 * M * K_DIM * N_DIM),
+                "on_path": bf16, "tol": 1e-2 if bf16 else 1e-4, "replaces": "glu.py:30",
+                "n_fwd": 1, "bwd": bwd, "bwd_replaces": "glu.py:97",
+                "bwd_bound": bound((M * K_DIM + 2 * K_DIM * N_DIM + M * N_DIM) * esize
+                                   + 2 * M * N_DIM * 4, 4.0 * M * K_DIM * N_DIM),
+                "bwd_library": ("torch.matmul(x, [Wg|Wu])", lambda: torch.matmul(x, wcat))}
 
     fams.append(glu_family(torch.bfloat16, 512))
     fams.append(glu_family(torch.float32, 32))
@@ -5129,41 +5154,65 @@ def _wide_families(torch) -> list[dict]:
     xb, gb = grid(MOE_E, C, MOE_K), grid(MOE_E, C, MOE_N)
     wgm, wum = grid(MOE_E, MOE_K, MOE_N), grid(MOE_E, MOE_K, MOE_N)
 
+    def moe_bwd(table):
+        plan, tabs = ops_of(table)
+        return (lambda: G.fused_glu_bwd(xb, wgm, wum, gb, plan, tabs, fused_moe_glu),
+                lambda: G.fused_glu_bwd_plain(xb, wgm, wum, gb, plan, tabs))
+
     def moe_run(table, plain):
         plan, tabs = ops_of(table)
+        kernel, ref = moe_bwd(table)
         if plain:
-            return (G.fused_glu_plain(xb, wgm, wum, plan, tabs),
-                    *G.fused_glu_bwd_plain(xb, wgm, wum, gb, plan, tabs))
-        return (fused_moe_glu(xb, wgm, wum, table=table),
-                *G.fused_glu_bwd(xb, wgm, wum, gb, plan, tabs, fused_moe_glu))
+            return (G.fused_glu_plain(xb, wgm, wum, plan, tabs), *ref())
+        return (fused_moe_glu(xb, wgm, wum, table=table), *kernel())
 
+    xbr = xb.clone().requires_grad_(True)
+    wcatm = torch.cat([wgm, wum], dim=2).requires_grad_(True)
+    gcatm = torch.cat([gb, gb], dim=2)
     fams.append({"name": "fused_moe_glu", "lib": "glu", "fn": "silu", "run": moe_run,
                  "shape": f"E={MOE_E} C={C} K={MOE_K} N={MOE_N} bf16",
                  "fwd": lambda table: fused_moe_glu(xb, wgm, wum, table=table),
                  "plain": lambda table: G.fused_glu_plain(xb, wgm, wum, *ops_of(table)),
                  "bound": _bound((MOE_E * C * (MOE_K + MOE_N) + 2 * MOE_E * MOE_K * MOE_N) * 2,
                                  4.0 * MOE_E * C * MOE_K * MOE_N),
-                 "tol": 1e-2, "replaces": "moe.py:41"})
+                 "tol": 1e-2, "replaces": "moe.py:41",
+                 "n_fwd": 1, "bwd": moe_bwd, "bwd_replaces": "moe.py:107",
+                 "bwd_bound": _bound(_moe_bytes(MOE_E, C, MOE_K, MOE_N, 2, f32_outputs=2),
+                                     4.0 * MOE_E * C * MOE_K * MOE_N),
+                 "bwd_library": ("autograd of torch.bmm(x, [Wg|Wu]) (fwd+bwd)",
+                                 lambda: torch.autograd.grad(torch.bmm(xbr, wcatm),
+                                                             (xbr, wcatm), gcatm))})
 
     def linear_family(dtype, M):
         x, g = grid(M, K_DIM, dtype=dtype), grid(M, N_DIM, dtype=dtype)
         w, b = grid(K_DIM, N_DIM, dtype=dtype), grid(N_DIM, dtype=dtype)
 
+        def bwd(table):
+            plan, tabs = ops_of(table)
+            return (lambda: L.fused_linear_bwd(x, w, b, g, plan, tabs),
+                    lambda: L.fused_linear_bwd_plain(x, w, b, g, plan, tabs))
+
         def run(table, plain):
             plan, tabs = ops_of(table)
+            kernel, ref = bwd(table)
             if plain:
-                return (L.fused_linear_plain(x, w, b, plan, tabs),
-                        L.fused_linear_bwd_plain(x, w, b, g, plan, tabs))
-            return fused_linear(x, w, b, table=table), L.fused_linear_bwd(x, w, b, g, plan, tabs)
+                return L.fused_linear_plain(x, w, b, plan, tabs), ref()
+            return fused_linear(x, w, b, table=table), kernel()
 
+        xr, wr, br = (t.detach().requires_grad_(True) for t in (x, w, b))
+        bound = _bound if dtype == torch.bfloat16 else _f32_bound
         return {"name": "fused_linear", "lib": "glu", "fn": "gelu", "run": run,
                 "shape": f"M={M} K={K_DIM} N={N_DIM} {str(dtype).split('.')[-1]}, bias",
                 "fwd": lambda table: fused_linear(x, w, b, table=table),
                 "plain": lambda table: L.fused_linear_plain(x, w, b, *ops_of(table)),
-                "bound": (_bound if dtype == torch.bfloat16 else _f32_bound)(
-                    (M * K_DIM + K_DIM * N_DIM + N_DIM + M * N_DIM) * x.element_size(),
-                    2.0 * M * K_DIM * N_DIM),
-                "tol": 1e-2 if dtype == torch.bfloat16 else 1e-4, "replaces": "linear.py:54"}
+                "bound": bound((M * K_DIM + K_DIM * N_DIM + N_DIM + M * N_DIM) * x.element_size(),
+                               2.0 * M * K_DIM * N_DIM),
+                "tol": 1e-2 if dtype == torch.bfloat16 else 1e-4, "replaces": "linear.py:54",
+                "n_fwd": 1, "bwd": bwd, "bwd_replaces": "linear.py:137",
+                "bwd_bound": bound((M * K_DIM + K_DIM * N_DIM + N_DIM + M * N_DIM)
+                                   * x.element_size() + M * N_DIM * 4, 2.0 * M * K_DIM * N_DIM),
+                "bwd_library": ("addmm forward + backward", lambda: torch.autograd.grad(
+                    torch.addmm(br, xr, wr), (xr, wr, br), g))}
 
     fams.append(linear_family(torch.bfloat16, 512))
     fams.append(linear_family(torch.float32, 32))
@@ -5174,20 +5223,31 @@ def _wide_families(torch) -> list[dict]:
         x2, g2 = x.reshape(-1, T), g.reshape(-1, T)
         mask = S.static_mask(x2.shape[0], T, Sq, causal, None, device="cuda") if causal else None
 
+        def bwd(table):
+            plan, tabs = ops_of(table)
+            return (lambda: S.fused_pwl_softmax_bwd(x2, None, g2, plan, tabs, Sq, causal),
+                    lambda: S.fused_pwl_softmax_bwd_plain(x2, mask, g2, plan, tabs))
+
         def run(table, plain):
             plan, tabs = ops_of(table)
+            kernel, ref = bwd(table)
             if plain:
-                return (S.fused_pwl_softmax_plain(x2, mask, plan, tabs),
-                        S.fused_pwl_softmax_bwd_plain(x2, mask, g2, plan, tabs))
-            return (fused_pwl_softmax(x, table=table, causal=causal).reshape(-1, T),
-                    S.fused_pwl_softmax_bwd(x2, None, g2, plan, tabs, Sq, causal))
+                return S.fused_pwl_softmax_plain(x2, mask, plan, tabs), ref()
+            return fused_pwl_softmax(x, table=table, causal=causal).reshape(-1, T), kernel()
 
+        xr = x.clone().requires_grad_(True)
+        n_live = x.numel() if mask is None else int((mask > 0).sum())
         return {"name": "fused_pwl_softmax", "lib": "softmax", "fn": "exp", "run": run,
                 "shape": f"{B * H}x{Sq} rows x {T}{' causal' if causal else ''} f32",
                 "fwd": lambda table: fused_pwl_softmax(x, table=table, causal=causal),
                 "plain": lambda table: S.fused_pwl_softmax_plain(x2, mask, *ops_of(table)),
                 "bound": _elementwise_bound(x.numel(), 4, SEARCH_OPS), "on_path": causal,
-                "tol": 1e-4, "replaces": "softmax.py:69"}
+                "tol": 1e-4, "replaces": "softmax.py:69",
+                "n_fwd": 1, "bwd": bwd, "bwd_replaces": "softmax.py:213",
+                "bwd_bound": _bound(_softmax_bytes(x.numel(), n_live, n_live_inputs=2,
+                                                   explicit_mask=False), 0.0),
+                "bwd_library": ("autograd of torch.softmax", lambda: torch.autograd.grad(
+                    torch.softmax(xr, dim=-1), xr, g))}
 
     fams.append(softmax_family(1, HKV, 32, 32, True))
     fams.append(softmax_family(4, HKV, 1, WHISPER_FRAMES, False))
@@ -5235,14 +5295,31 @@ def _wide_families(torch) -> list[dict]:
             m = A._launch(q, k, v, plan, tabs, True, None, 0, None, True)[1]  # the saved row max
             return (out, m, *A.fused_flash_attention_bwd(q, k, v, dout, m, plan, tabs, **kw))
 
+        def bwd(table):
+            plan, tabs = ops_of(table)
+            m = A._launch(q, k, v, plan, tabs, True, None, 0, None, True)[1]
+            return (lambda: A.fused_flash_attention_bwd(q, k, v, dout, m, plan, tabs, **kw),
+                    lambda: A.fused_flash_attention_bwd_plain(q, k, v, dout, m, plan, tabs,
+                                                              **kw))
+
+        qh, kh, vh = (t.permute(0, 2, 1, 3).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        doh = dout.permute(0, 2, 1, 3).contiguous()
+        pairs = HKV * Sq * (Sq + 1) / 2
+        bound = _bound if dtype == torch.bfloat16 else _f32_bound
         return {"name": "fused_flash_attention", "lib": "attention", "fn": "exp", "run": run,
                 "shape": f"S=T={Sq} causal H={HKV} dh={DH} {str(dtype).split('.')[-1]}",
                 "fwd": lambda table: fused_flash_attention(q, k, v, table=table, causal=True),
                 "plain": lambda table: A.fused_flash_attention_plain(q, k, v, *ops_of(table),
                                                                      **kw)[0],
-                "bound": (_bound if dtype == torch.bfloat16 else _f32_bound)(
-                    4 * q.numel() * q.element_size(), 2.0 * HKV * Sq * Sq * DH),
-                "tol": 1e-2 if dtype == torch.bfloat16 else 1e-4, "replaces": "attention.py:100"}
+                "bound": bound(4 * q.numel() * q.element_size(), 2.0 * HKV * Sq * Sq * DH),
+                "tol": 1e-2 if dtype == torch.bfloat16 else 1e-4, "replaces": "attention.py:100",
+                "n_fwd": 2, "bwd": bwd, "bwd_replaces": "attention.py:334/396/445/498",
+                "bwd_bound": bound(7 * q.numel() * q.element_size() + HKV * Sq * 4,
+                                   10.0 * pairs * DH),
+                "bwd_library": ("autograd of SDPA (fwd+bwd)", lambda: torch.autograd.grad(
+                    F.scaled_dot_product_attention(qh, kh, vh, is_causal=True), (qh, kh, vh),
+                    doh))}
 
     fams.append(flash_family(torch.bfloat16, 1024))
     fams.append(flash_family(torch.float32, 256))
@@ -5251,20 +5328,30 @@ def _wide_families(torch) -> list[dict]:
     sn = torch.randn(K_DIM, generator=gen, device="cuda") * 0.1
     gn = torch.randn(TRAIN_TOKENS, K_DIM, generator=gen, device="cuda").to(torch.bfloat16)
 
+    def norm_bwd(table):
+        plan, tabs = ops_of(table)
+        return (lambda: N.fused_rmsnorm_bwd(xn, sn, gn, plan, tabs, NORM_EPS),
+                lambda: N.fused_rmsnorm_bwd_plain(xn, sn, gn, plan, tabs, NORM_EPS))
+
     def norm_run(table, plain):
         plan, tabs = ops_of(table)
+        kernel, ref = norm_bwd(table)
         if plain:
-            return (N.fused_rmsnorm_plain(xn, sn, plan, tabs, NORM_EPS),
-                    *N.fused_rmsnorm_bwd_plain(xn, sn, gn, plan, tabs, NORM_EPS))
-        return (fused_rmsnorm(xn, sn, table=table),
-                *N.fused_rmsnorm_bwd(xn, sn, gn, plan, tabs, NORM_EPS))
+            return (N.fused_rmsnorm_plain(xn, sn, plan, tabs, NORM_EPS), *ref())
+        return (fused_rmsnorm(xn, sn, table=table), *kernel())
 
+    xl = xn.detach().requires_grad_(True)
+    wl = (1.0 + sn).to(torch.bfloat16).requires_grad_(True)
     fams.append({"name": "fused_rmsnorm", "lib": "norm", "fn": "gelu", "run": norm_run,
                  "shape": f"M={TRAIN_TOKENS} D={K_DIM} bf16", "norm": (xn, sn, gn),
                  "fwd": lambda table: fused_rmsnorm(xn, sn, table=table),
                  "plain": lambda table: N.fused_rmsnorm_plain(xn, sn, *ops_of(table), NORM_EPS),
                  "bound": _norm_bound(TRAIN_TOKENS, K_DIM, 2, 128, False), "tol": 1e-2,
-                 "replaces": "norm.py:31"})
+                 "replaces": "norm.py:31",
+                 "n_fwd": 1, "bwd": norm_bwd, "bwd_replaces": "norm.py:102",
+                 "bwd_bound": _norm_bound(TRAIN_TOKENS, K_DIM, 2, 128, True),
+                 "bwd_library": ("autograd of F.rms_norm (fwd+bwd)", lambda: torch.autograd.grad(
+                     F.rms_norm(xl, (K_DIM,), weight=wl, eps=NORM_EPS), (xl, wl), gn))})
 
     xa = torch.randn(TRAIN_TOKENS, N_DIM, generator=gen, device="cuda").to(torch.bfloat16) * 3
 
@@ -5327,9 +5414,14 @@ def wide_table_phase(torch) -> dict:
         than 64 breakpoints, so a launch that runs took the wide one);
     (c) the GLU's recorded digests (``GLU_DIGESTS``) once more, and every
         forward timed at 32 (shared memory) and 128 breakpoints (wide),
-        with the plain version at 128.
+        with the plain version at 128;
+    (d) every backward (the GLU, the MoE GLU, the linear layer, the row
+        softmax, the flash attention's three kernels, the RMSNorm) timed
+        the same way, beside its bound and the yardstick its narrow row
+        names.
 
-    Returns the 128-breakpoint row of each family for the kernels line."""
+    Returns the 128-breakpoint rows of each family (``<name>_bwd`` for the
+    backwards) for the kernels line."""
     t0 = time.perf_counter()
     fams = _wide_families(torch)
     rows = {}
@@ -5342,7 +5434,7 @@ def wide_table_phase(torch) -> dict:
         torch.cuda.synchronize()
         for i, (a, b) in enumerate(zip(narrow, wide)):
             _bitwise(torch, b, a, f"{what} output {i}: wide vs shared-memory instantiation")
-        errs = {}
+        errs, berrs = {}, {}
         for n_bp in WIDE_BPS:
             table = _wide_table(fam["fn"], n_bp)
             before = read_counters()
@@ -5351,9 +5443,10 @@ def wide_table_phase(torch) -> dict:
             want = fam["run"](table, True)
             torch.cuda.synchronize()
             check(launched, f"{what} at {n_bp}: no launch counted")
-            err = 0.0
+            err = berr = 0.0
             for i, (a, b) in enumerate(zip(got, want)):
                 tag = f"{what} at {n_bp} breakpoints, output {i}"
+                e = 0.0
                 if fam.get("bitwise"):
                     _bitwise(torch, a, b, tag)
                 elif "norm" in fam and i == 1:  # dx: a slope may flip in the rounding band
@@ -5361,11 +5454,12 @@ def wide_table_phase(torch) -> dict:
                     plan, tabs = _epilogue_operands(torch, {"table": table})[1]
                     e, line = _norm_band(torch, xn, sn, gn, a, b, plan, tabs, fam["tol"], tag)
                     print(f"[smoke]   {tag}: {line}")
-                    err = max(err, e)
-                    continue
                 else:
-                    err = max(err, _compare_scaled(torch, a, b, fam["tol"], tag))
-            errs[n_bp] = err
+                    e = _compare_scaled(torch, a, b, fam["tol"], tag)
+                err = max(err, e)
+                if i >= fam.get("n_fwd", len(got)):
+                    berr = max(berr, e)
+            errs[n_bp], berrs[n_bp] = err, berr
         ms32 = time_ms(torch, lambda i: fam["fwd"](t32))
         table = _wide_table(fam["fn"], 128)
         ms128 = time_ms(torch, lambda i: fam["fwd"](table))
@@ -5381,11 +5475,119 @@ def wide_table_phase(torch) -> dict:
             "shape": fam["shape"], "replaces": fam["replaces"], "max_abs_err": errs[128],
             "ms": ms128, "ms32": ms32, "plain_ms": plain_ms, **bound, "library_ms": None,
             "on_path": fam.get("on_path", False)})
+        if "bwd" in fam:
+            k32 = fam["bwd"](t32)[0]
+            k128, p128 = fam["bwd"](table)
+            bms32 = time_ms(torch, lambda i: k32(), reps=5, iters=4)
+            bms128 = time_ms(torch, lambda i: k128(), reps=5, iters=4)
+            bplain = time_ms(torch, lambda i: p128(), reps=2, iters=2)
+            lib_name, lib = fam["bwd_library"]
+            lib_ms = time_ms(torch, lambda i: lib(), reps=5, iters=4)
+            bb = fam["bwd_bound"]
+            print(f"[smoke] {what} backward: max_abs_err {berrs[65]:.3g} (65), "
+                  f"{berrs[128]:.3g} (128) against the plain version; backward "
+                  f"{bms32 * 1e3:.2f} us at 32 (shared memory), {bms128 * 1e3:.2f} us at 128 "
+                  f"(wide), plain {bplain * 1e3:.2f} us, {lib_name} {lib_ms * 1e3:.2f} us, "
+                  f"bound {bb['bound_ms'] * 1e3:.2f} us ({bb['bound_by']})")
+            rows.setdefault(fam["name"] + "_bwd", []).append({
+                "shape": fam["shape"], "replaces": fam["bwd_replaces"],
+                "max_abs_err": berrs[128], "ms": bms128, "ms32": bms32, "plain_ms": bplain,
+                **bb, "library_ms": lib_ms, "on_path": False})
     digests = glu_digests(torch)
     check(digests == GLU_DIGESTS, f"GLU digests changed: {digests}")
     secs = time.perf_counter() - t0
     print(f"[smoke] wide_table_phase: {len(fams)} families at {WIDE_BPS} breakpoints, GLU "
-          f"digests unchanged, {secs:.1f}s")
+          f"digests unchanged, forwards and backwards timed on {card_line()}, {secs:.1f}s")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# slice 23: the paper's fixed-point datapath (PyTorch ops on the card, no kernel)
+
+# TestQuantize's bounds on |eval_fixed_point - eval_coeff| (tests/test_pwl_core.py),
+# f32 inputs on [-8, 8]: held on the f32 cases; the bf16 cases' outputs round
+# to bf16 (an ulp of 2^-5 at |y| in [4, 8)), past the 16- and 32-bit bounds
+FIXED_POINT_BOUNDS = {8: 0.15, 16: 1e-3, 32: 1e-5}
+FIXED_POINT_FNS = ("gelu_tanh", "silu", "gelu", "exp")
+FIXED_POINT_RANGE = (-8.0, 8.0)
+FIXED_POINT_SMALL_ROWS = 256
+
+
+def _fixed_point_inputs(torch, rows: int, seed: int):
+    """(rows, N_DIM) f32 on the host, uniform on [-8, 8], its last
+    ``rows // 64`` rows a band of saturating inputs: |x| uniform on
+    [8, 1e3], either sign."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand(rows, N_DIM, generator=gen) * 16 - 8
+    band = rows // 64
+    sign = torch.where(torch.rand(band, N_DIM, generator=gen) < 0.5, -1.0, 1.0)
+    x[rows - band:] = sign * (8 + torch.rand(band, N_DIM, generator=gen) * 992)
+    return x
+
+
+def fixed_point_phase(torch) -> dict:
+    """The fixed-point datapath (``core/quantize.py``: ``quantize_table``,
+    ``eval_fixed_point`` at 8, 16 and 32 bits) on ``cuda`` tensors, each
+    result bitwise the CPU's on the same tensor:
+
+    - full width: repro-100m's GLU hidden at 8 x 512 tokens (4096 x 3072),
+      the 32-breakpoint gelu_tanh, silu, gelu and exp tables, f32 and bf16;
+      each case's max |y - eval_coeff| on the inputs in [-8, 8] (held to
+      ``FIXED_POINT_BOUNDS`` in f32) and its eager ms a call;
+    - every shipped table (``sfu.TABLE_DIR``) x 3 widths x 2 dtypes at
+      256 x 3072.
+
+    The datapath launches no kernel of its own (it is PyTorch ops, as the
+    reference is ``jnp``), so no launch is counted."""
+    from repro_torch import sfu
+    from repro_torch.core import pwl
+    from repro_torch.core.quantize import eval_fixed_point, quantize_table
+
+    t0 = time.perf_counter()
+    store = sfu.get_store()
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    x_host = _fixed_point_inputs(torch, TRAIN_TOKENS, 33)
+    x_card = x_host.cuda()
+    rows = {}
+    for fn in FIXED_POINT_FNS:
+        table = store.get(fn=fn, n_breakpoints=32)
+        for bits, bound in FIXED_POINT_BOUNDS.items():
+            qt = quantize_table(table, bits, FIXED_POINT_RANGE)
+            for dname, dtype in dtypes.items():
+                what = f"fixed point {fn} 32 bp at {bits} bits, {TRAIN_TOKENS} x {N_DIM} {dname}"
+                xc = x_card.to(dtype)
+                got = eval_fixed_point(xc, qt)
+                check(got.device == xc.device, f"{what}: result on {got.device}")
+                _bitwise(torch, got.cpu(), eval_fixed_point(x_host.to(dtype), qt),
+                         f"{what}: cuda vs cpu")
+                inside = xc.abs() <= FIXED_POINT_RANGE[1]
+                err = (got.float() - pwl.eval_coeff(xc, table).float())[inside].abs().max().item()
+                ms = _eager_ms(torch, lambda: eval_fixed_point(xc, qt), iters=10)
+                if dtype == torch.float32:
+                    check(err < bound, f"{what}: max |y - eval_coeff| {err:.3g} on [-8, 8], "
+                          f"not below {bound}")
+                held = "held" if dtype == torch.float32 else "printed"
+                print(f"[smoke] {what}: bitwise the CPU's; max |y - eval_coeff| {err:.3g} on "
+                      f"[-8, 8] (bound {bound}, {held}); {ms:.3f} ms a call (eager)")
+                rows[(fn, bits, dname)] = {"max_abs_err": err, "ms": ms}
+    small_host = _fixed_point_inputs(torch, FIXED_POINT_SMALL_ROWS, 34)
+    small_card = small_host.cuda()
+    shipped = sorted(sfu.TABLE_DIR.glob("*.npz"))
+    check(len(shipped) == 32, f"{len(shipped)} shipped tables, not 32")
+    for path in shipped:
+        fn, n_bp = path.stem.rsplit("_", 1)
+        table = store.get(fn=fn, n_breakpoints=int(n_bp.removesuffix("bp")))
+        for bits in FIXED_POINT_BOUNDS:
+            qt = quantize_table(table, bits, FIXED_POINT_RANGE)
+            for dname, dtype in dtypes.items():
+                _bitwise(torch, eval_fixed_point(small_card.to(dtype), qt).cpu(),
+                         eval_fixed_point(small_host.to(dtype), qt),
+                         f"fixed point {path.stem} at {bits} bits, {dname}: cuda vs cpu")
+    secs = time.perf_counter() - t0
+    print(f"[smoke] fixed_point_phase: {len(rows)} full-width cases and {len(shipped)} tables "
+          f"x {len(FIXED_POINT_BOUNDS)} widths x {len(dtypes)} dtypes at "
+          f"{FIXED_POINT_SMALL_ROWS} x {N_DIM}, each bitwise the CPU's; {secs:.1f}s on "
+          f"{card_line()}")
     return rows
 
 
@@ -6837,6 +7039,8 @@ def main() -> int:
         bf16_table_phase(torch)
         wide = wide_table_phase(torch)
         mark("forward kernel phases")
+        fixed_point_phase(torch)
+        mark("slice 23 fixed_point_phase (the fixed-point datapath on the card)")
         glu_bwd = glu_bwd_phase(torch)
         moe_bwd = moe_bwd_phase(torch)
         sm_bwd = softmax_bwd_phase(torch)
@@ -7258,11 +7462,14 @@ def main() -> int:
     src_of = {"fused_glu": "glu.cu", "fused_moe_glu": "glu.cu", "fused_linear": "glu.cu",
               "fused_pwl_softmax": "softmax.cu", "paged_flash_decode": "decoding.cu",
               "fused_flash_attention": "attention.cu", "fused_rmsnorm": "norm.cu",
-              "pwl_activation": "pwl_act.cu", "pwl_activation_uniform": "pwl_act.cu"}
+              "pwl_activation": "pwl_act.cu", "pwl_activation_uniform": "pwl_act.cu",
+              "fused_glu_bwd": "glu.cu", "fused_moe_glu_bwd": "glu.cu",
+              "fused_linear_bwd": "glu.cu", "fused_pwl_softmax_bwd": "softmax.cu",
+              "fused_flash_attention_bwd": "attention_bwd.cu", "fused_rmsnorm_bwd": "norm.cu"}
     for name, rows in wide.items():
         for r in rows:
             kernels.append({
-                "name": f"{name}[128 breakpoints, wide, {r['shape']}]", "route": "cuda",
+                **r, "name": f"{name}[128 breakpoints, wide, {r['shape']}]", "route": "cuda",
                 "source": f"src/repro_torch/csrc/{src_of[name]}",
                 "replaces": f"{fused_src}/{r['replaces']}".replace(
                     "fused/pwl_act.py", "pwl_act.py"),
@@ -7270,7 +7477,7 @@ def main() -> int:
                          "instantiation); "
                          + ("launches: the 129-segment session's" if r["on_path"]
                             else "on no model path at this shape"),
-                "launches": wide_counts[name] if r["on_path"] else 0, **r})
+                "launches": wide_counts[name] if r["on_path"] else 0})
     # slice 20: every fused kernel at the local shapes of a (data=2, model=2)
     # mesh rank; one card runs no mesh, so none is on a path here
     kernels.extend(shard_rows)

@@ -190,3 +190,14 @@ def mae(table_or_fn, spec: F.FunctionSpec, lo: float, hi: float, n_grid: int = 8
     """Max absolute error on an f32 grid of ``n_grid`` points."""
     x = linspace_f32(lo, hi, n_grid)
     return float((_on_grid(table_or_fn, x) - spec.fn(x)).abs().max())
+
+
+def table_to_numpy(table: PWLTable) -> dict:
+    """The table's arrays on the host as numpy (``bp``, ``m``, ``q``) and its
+    ``name``.  numpy has no bfloat16: a bf16 table's arrays come back as
+    float32, which holds every bf16 value exactly."""
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return {"bp": host(table.bp), "m": host(table.m), "q": host(table.q), "name": table.name}

@@ -41,6 +41,7 @@ from typing import Callable
 import torch
 
 from repro_torch import sfu
+from repro_torch.core import pwl
 from repro_torch.distributed import shard_fused as shf
 from repro_torch.distributed.sharding import (
     active_mesh_rules,
@@ -142,6 +143,14 @@ def _softmax_safe_exp(raw: Callable) -> Callable:
         return torch.clamp(raw(torch.clamp(x, min=-30.0)), min=0.0)
 
     return pwl_exp
+
+
+def pwl_exp_fn(table) -> Callable:
+    """Softmax-safe elementwise PWL exp over a fitted table: the closure
+    :func:`resolve_exp` builds for a non-exact spec at ``impl="jnp"``.
+    Public so benchmarks and tests exercise the production exp, not a copy
+    of its clamps."""
+    return _softmax_safe_exp(lambda x: pwl.eval_coeff(x, table))
 
 
 def resolve_exp(cfg: ModelConfig, plan=None) -> Callable:

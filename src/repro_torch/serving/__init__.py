@@ -13,6 +13,7 @@ from .kv_cache import (
     PageAllocator,
     append_kv_,
     gather_pages,
+    make_page_pool,
     write_prompt_pages_,
 )
 from .resilience import (
@@ -38,6 +39,7 @@ __all__ = [
     "GenResult",
     "append_kv_",
     "gather_pages",
+    "make_page_pool",
     "write_prompt_pages_",
     "FINISH_REASONS",
     "POLICIES",

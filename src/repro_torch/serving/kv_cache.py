@@ -64,6 +64,15 @@ from .resilience import PagePoolExhausted
 
 SENTINEL_PAGE = 0
 
+
+def make_page_pool(num_pages: int, page_size: int, n_kv_heads: int, head_dim: int, dtype,
+                   *, device) -> torch.Tensor:
+    """One layer's K (or V) pool of zeros: (Hkv, num_pages, page_size, head_dim)."""
+    if num_pages < 2:
+        raise ValueError("num_pages must be >= 2 (page 0 is the sentinel)")
+    return torch.zeros((n_kv_heads, num_pages, page_size, head_dim), dtype=dtype, device=device)
+
+
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "kv_write_prompt": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
